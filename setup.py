@@ -40,14 +40,25 @@ if __name__ == "__main__":
         long_description=Path("README.md").read_text(),
         long_description_content_type="text/markdown",
         license="BSD-3-Clause",
-        packages=find_packages(include=["torcheval_tpu", "torcheval_tpu.*"]),
+        packages=find_packages(
+            include=[
+                "torcheval_tpu",
+                "torcheval_tpu.*",
+                "torcheval_tpu_torch",
+                "torcheval_tpu_torch.*",
+            ]
+        ),
+        # The PyTorch port builds its CUDA kernels from these sources with
+        # nvcc at first use, so they ship as files on disk.
+        package_data={"torcheval_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh"]},
         python_requires=">=3.10",
         install_requires=["jax", "numpy"],
         extras_require={
             "tools": ["flax"],
+            "torch": ["torch"],
             "dev": ["pytest", "scikit-learn", "flax", "optax"],
         },
-        zip_safe=True,
+        zip_safe=False,
         classifiers=[
             "Development Status :: 3 - Alpha",
             "Intended Audience :: Developers",
