@@ -26,8 +26,21 @@ times kernels and lifecycle with CUDA events.  Phases:
    timings of each lifecycle, each line tagged with the card and power
    limit;
 6. with ``--profile`` only: ``torch.profiler`` over 3 lifecycles of each
-   route, printing device time by kernel, the device's busy share of the
-   host wall time, and the peak device memory.
+   route (and of the lifecycles of phases 8 and 9), printing device time
+   by kernel, the device's busy share of the host wall time, and the peak
+   device memory;
+7. the confusion-slab kernel against its plain version (bit-equal) at the
+   lifecycle's shape (2^17 labels in [0, 1000] with the sentinel), at
+   C = 130, with every sample in one cell, at N = 100 003 and at N = 0;
+8. the 1000-class confusion-matrix + F1 lifecycle of the repository's
+   confusion workload (numpy seed 3, 2^20 int32 label pairs, 8 updates of
+   2^17, one compute of each): 16 slab launches, the matrix bit-equal to
+   an ``np.add.at`` oracle, macro F1 within 1e-6 of a float64 oracle;
+9. the flagship eval step (``torcheval_tpu_torch.flagship``) with numpy
+   weights, TF32 off: logits within 1e-5 of a float64 forward, accuracy
+   and matrix exact against numpy counts, AUROC within 1e-6 of the
+   oracle, one AUC-scan launch;
+10. times of phases 7-9, tagged with the card and power limit.
 
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
@@ -53,6 +66,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 ORACLE_CLASSES = 32
 TOL = 1e-6
+CM_CLASSES = 1000
+CM_SAMPLES = 2**20  # the confusion workload's total, 8 updates of 2^17
+LOGITS_TOL = 1e-5
 
 
 def fail(message: str) -> None:
@@ -88,8 +104,45 @@ def headline_data():
     return scores, target
 
 
-def profile_lifecycle(torch, card, label, lifecycle, repeats=3):
-    """Device time by kernel, busy share and peak memory of ``lifecycle``."""
+def device_us(evt):
+    """An event's own device time in microseconds (the attribute's name
+    differs between torch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def device_events(torch, prof):
+    """Device-side rows of a profile: an aten op's own row repeats the
+    time of the kernels it launched."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("Activity Buffer") and device_us(e) > 0]
+
+
+def device_ms(torch, fn, reps=20):
+    """Device time per call of ``fn``: the time of every kernel, copy and
+    fill it ran, under ``torch.profiler`` over ``reps`` calls.  For calls of
+    a few microseconds, where CUDA events around one call time the host's
+    launch path instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(device_us(e) for e in device_events(torch, prof))
+    if total_us == 0:
+        fail("the profiler recorded no device time")
+    return total_us / 1e3 / reps
+
+
+def profile_lifecycle(torch, card, label, lifecycle, repeats=3, host_ops=False):
+    """Device time by kernel, busy share and peak memory of ``lifecycle``;
+    with ``host_ops``, also the host's own time by operator."""
     from torch.profiler import ProfilerActivity, profile
 
     lifecycle()
@@ -102,30 +155,30 @@ def profile_lifecycle(torch, card, label, lifecycle, repeats=3):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / repeats
     peak = torch.cuda.max_memory_allocated()
-
-    def device_us(evt):
-        for name in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(evt, name):
-                return float(getattr(evt, name))
-        return 0.0
-
-    # Device-side events only: an aten op's own row repeats the time of the
-    # kernels it launched.
     rows = sorted(
         ((e.key, device_us(e) / 1e3 / repeats, e.count // repeats)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and not e.key.startswith("Activity Buffer") and device_us(e) > 0),
+         for e in device_events(torch, prof)),
         key=lambda r: -r[1],
     )
     busy_ms = sum(r[1] for r in rows)
-    print(f"profile {card}: headline lifecycle, {label}: wall {wall_ms:.3f} ms under the "
+    print(f"profile {card}: {label}: wall {wall_ms:.3f} ms under the "
           f"profiler, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f} %), "
           f"peak memory {peak / 2**30:.2f} GiB", flush=True)
     if not rows:
         print("   device time: not measured (the profiler recorded no device time)")
     for key, ms, count in rows[:12]:
         print(f"   {ms:9.4f} ms  x{count:<4d} {key[:100]}", flush=True)
+    if host_ops:
+        host = sorted(
+            ((e.key, e.self_cpu_time_total / 1e3 / repeats, e.count // repeats)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CPU),
+            key=lambda r: -r[1],
+        )
+        print(f"   host time by operator (self), {sum(r[1] for r in host):.3f} ms in all:",
+              flush=True)
+        for key, ms, count in host[:10]:
+            print(f"   {ms:9.4f} ms  x{count:<4d} {key[:100]}", flush=True)
 
 
 def main(argv) -> int:
@@ -260,16 +313,16 @@ def main(argv) -> int:
             metric.update(s, t)
         return metric.compute()
 
-    def counted(label, lifecycle, metric, kernel):
+    def counted(label, lifecycle, metric, kernel, times=1):
         """Run one lifecycle with the counters zeroed just before it; fail
-        unless it launched ``kernel`` once and nothing else."""
+        unless it launched ``kernel`` ``times`` times and nothing else."""
         _build.reset_counts()
         out = lifecycle(metric)
         torch.cuda.synchronize()
         launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
         print(f"{label}: launches {launches}, plain calls {plain}", flush=True)
-        check(launches == {kernel: 1} and not plain,
-              f"{label} launched {kernel} once, no other kernel, no plain version")
+        check(launches == {kernel: times} and not plain,
+              f"{label} launched {kernel} {times} time(s), no other kernel, no plain version")
         return out, launches[kernel]
 
     # average=None: the lifecycle's own per-class output is checked below.
@@ -373,14 +426,150 @@ def main(argv) -> int:
 
     # --------------------------------------------------- 6. profile (opt-in)
     if profile_phase:
-        profile_lifecycle(torch, card, "rank-sum route", lambda: headline_lifecycle(headline))
+        profile_lifecycle(torch, card, "headline lifecycle, rank-sum route",
+                          lambda: headline_lifecycle(headline))
         os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
         try:
-            profile_lifecycle(torch, card, "sort route", lambda: headline_lifecycle(sorted_mc))
+            profile_lifecycle(torch, card, "headline lifecycle, sort route",
+                              lambda: headline_lifecycle(sorted_mc))
         finally:
             del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
 
-    # ------------------------------------------------------------ 7. kernels
+    # ------------------------------------ 7. confusion slab vs plain version
+    from torcheval_tpu_torch.convert import params_from_jax
+    from torcheval_tpu_torch.flagship import FlagshipMLP, eval_step
+    from torcheval_tpu_torch.metrics import MulticlassConfusionMatrix, MulticlassF1Score
+    from torcheval_tpu_torch.ops.cm import _confusion_slab_plain, _slab
+
+    m = CM_SAMPLES // NUM_UPDATES
+    cm_t = torch.randint(0, CM_CLASSES + 1, (m,), device=dev, generator=gen, dtype=torch.int32)
+    cm_p = torch.randint(0, CM_CLASSES + 1, (m,), device=dev, generator=gen, dtype=torch.int32)
+    one_t = torch.zeros(m, dtype=torch.int32, device=dev)
+    one_p = torch.full((m,), 7, dtype=torch.int32, device=dev)
+    slab_err = None
+    for label, st, sp, sc in [
+        (f"lifecycle shape ({m},), C={CM_CLASSES}, labels in [0, C]", cm_t, cm_p, CM_CLASSES),
+        ("C=130", cm_t % 131, cm_p % 131, 130),
+        ("every sample in cell (0, 7)", one_t, one_p, CM_CLASSES),
+        ("N=100003, not a multiple of the block", cm_t[:100_003], cm_p[:100_003], CM_CLASSES),
+        ("N=0", cm_t[:0], cm_p[:0], CM_CLASSES),
+    ]:
+        got = _slab(st, sp, sc)
+        torch.cuda.synchronize()
+        want = _confusion_slab_plain(st, sp, sc)
+        if slab_err is None:
+            slab_err = int((got - want).abs().max())
+        check(torch.equal(got, want) and int(got.sum()) == st.numel(),
+              f"confusion_slab bit-equal to plain: {label}")
+
+    # --------------------------------- 8. the 1000-class CM + F1 lifecycle
+    cm_rng = np.random.default_rng(3)  # benchmarks/workloads.py's bench_confusion_f1
+    pred_np = cm_rng.integers(0, CM_CLASSES, CM_SAMPLES).astype(np.int32)
+    target_np = cm_rng.integers(0, CM_CLASSES, CM_SAMPLES).astype(np.int32)
+    p_chunks = [torch.from_numpy(c).to(dev) for c in np.split(pred_np, NUM_UPDATES)]
+    y_chunks = [torch.from_numpy(c).to(dev) for c in np.split(target_np, NUM_UPDATES)]
+
+    def cm_f1_lifecycle(pair):
+        cm_metric, f1_metric = pair
+        cm_metric.reset()
+        f1_metric.reset()
+        for p, t in zip(p_chunks, y_chunks):
+            cm_metric.update(p, t)
+            f1_metric.update(p, t)
+        return cm_metric.compute(), f1_metric.compute()
+
+    cm_pair = (MulticlassConfusionMatrix(num_classes=CM_CLASSES),
+               MulticlassF1Score(num_classes=CM_CLASSES, average="macro"))
+    (cm_out, f1_out), cm_launches = counted(
+        "1000-class CM + F1 lifecycle", cm_f1_lifecycle, cm_pair, "confusion_slab",
+        times=2 * NUM_UPDATES)
+    cm_oracle = np.zeros((CM_CLASSES, CM_CLASSES), np.int64)
+    np.add.at(cm_oracle, (target_np, pred_np), 1)
+    check(np.array_equal(cm_out.cpu().numpy(), cm_oracle),
+          "1000-class confusion matrix bit-equal to the np.add.at oracle")
+    tp = np.diag(cm_oracle).astype(np.float64)
+    n_label, n_pred = cm_oracle.sum(1), cm_oracle.sum(0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        f1_c = np.nan_to_num(2 * tp / (n_label + n_pred))
+    f1_oracle = f1_c[(n_label != 0) | (n_pred != 0)].mean()
+    f1_err = abs(float(f1_out) - f1_oracle)
+    check(f1_err <= TOL, f"macro F1 {float(f1_out)!r} vs float64 oracle: err {f1_err:.3e}")
+
+    # ------------------------------------------------ 9. the flagship step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}",
+          flush=True)
+    fl_rng = np.random.default_rng(4)
+    features, hidden, classes = 32, 64, 8
+    params = {  # as __graft_entry__._init_params: normal / sqrt(fan_in), zero biases
+        "w1": (fl_rng.standard_normal((features, hidden)) / np.sqrt(features)).astype(np.float32),
+        "b1": np.zeros(hidden, np.float32),
+        "w2": (fl_rng.standard_normal((hidden, classes)) / np.sqrt(hidden)).astype(np.float32),
+        "b2": np.zeros(classes, np.float32),
+    }
+    fl_x = fl_rng.standard_normal((1024, features)).astype(np.float32)
+    fl_y = fl_rng.integers(0, classes, 1024).astype(np.int32)
+    model = FlagshipMLP()
+    model.load_state_dict(params_from_jax(params))
+    fl_x_dev, fl_y_dev = torch.from_numpy(fl_x).to(dev), torch.from_numpy(fl_y).to(dev)
+    fl_out, _ = counted("flagship eval step", lambda mdl: eval_step(mdl, fl_x_dev, fl_y_dev),
+                        model, "auc_from_sorted")
+    f64 = {k: v.astype(np.float64) for k, v in params.items()}
+    logits_ref = np.maximum(fl_x.astype(np.float64) @ f64["w1"] + f64["b1"], 0) @ f64["w2"] + f64["b2"]
+    logits_err = float(np.abs(fl_out["logits"].cpu().numpy() - logits_ref).max())
+    check(logits_err <= LOGITS_TOL, f"flagship logits vs float64 forward: max err {logits_err:.3e}")
+    fl_scores = torch.softmax(fl_out["logits"], dim=-1)
+    fl_pred = fl_scores.argmax(-1).cpu().numpy()
+    fl_acc = np.float32((fl_pred == fl_y).sum()) / np.float32(fl_y.size)
+    check(float(fl_out["accuracy"]) == float(fl_acc),
+          f"flagship accuracy {float(fl_out['accuracy'])!r} equals the numpy count")
+    fl_cm = np.zeros((classes, classes), np.int64)
+    np.add.at(fl_cm, (fl_y, fl_pred), 1)
+    check(np.array_equal(fl_out["confusion_matrix"].cpu().numpy(), fl_cm),
+          "flagship confusion matrix equals the numpy count")
+    scores_np = fl_scores.cpu().numpy()
+    fl_auc = np.mean([oracle_auc(scores_np[:, k], fl_y == k) for k in range(classes)])
+    fl_auc_err = abs(float(fl_out["auroc"]) - fl_auc)
+    check(fl_auc_err <= TOL, f"flagship macro AUROC {float(fl_out['auroc'])!r} vs oracle: "
+          f"err {fl_auc_err:.3e}")
+
+    # ----------------------------------------------- 10. times of phases 7-9
+    # Device time (the slab call is a few microseconds of work), and the
+    # CUDA-event time of one call beside it, which is mostly launch path.
+    flat = cm_t.to(torch.int64) * (CM_CLASSES + 1) + cm_p
+    slab_calls = {
+        "kernel": lambda: _slab(cm_t, cm_p, CM_CLASSES),
+        "plain": lambda: _confusion_slab_plain(cm_t, cm_p, CM_CLASSES),
+        "library": lambda: torch.bincount(flat, minlength=(CM_CLASSES + 1) ** 2),
+        "one cell": lambda: _slab(one_t, one_p, CM_CLASSES),
+    }
+    slab_dev = {k: device_ms(torch, fn) for k, fn in slab_calls.items()}
+    slab_wall = {k: median_ms(fn) for k, fn in slab_calls.items()}
+    slab_ms, slab_plain_ms, slab_lib_ms = (slab_dev[k] for k in ("kernel", "plain", "library"))
+    slab_bound, slab_by = bound(m * 8 + (CM_CLASSES + 1) ** 2 * 4, m)
+    print(f"time {card}: confusion_slab ({m},) C={CM_CLASSES}, device time per call: "
+          f"kernel {slab_ms:.4f} ms, plain {slab_plain_ms:.4f} ms, library {slab_lib_ms:.4f} ms "
+          f"(torch.bincount), bound {slab_bound:.4f} ms ({slab_by}); every sample in one "
+          f"cell {slab_dev['one cell']:.4f} ms", flush=True)
+    print(f"time {card}: confusion_slab ({m},) C={CM_CLASSES}, CUDA events around one call: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in slab_wall.items()), flush=True)
+    cm_life_ms = host_median_ms(lambda: cm_f1_lifecycle(cm_pair))
+    os.environ["TORCHEVAL_TPU_TORCH_SKIP_VALUE_CHECKS"] = "1"
+    try:
+        cm_life_skip_ms = host_median_ms(lambda: cm_f1_lifecycle(cm_pair))
+    finally:
+        del os.environ["TORCHEVAL_TPU_TORCH_SKIP_VALUE_CHECKS"]
+    print(f"time {card}: 1000-class CM + F1 lifecycle (8 updates + 2 computes): "
+          f"{cm_life_ms:.3f} ms; with value checks skipped {cm_life_skip_ms:.3f} ms", flush=True)
+    fl_ms = host_median_ms(lambda: eval_step(model, fl_x_dev, fl_y_dev))
+    print(f"time {card}: flagship eval step (1024 x 32 -> 8): {fl_ms:.3f} ms", flush=True)
+    if profile_phase:
+        profile_lifecycle(torch, card, "1000-class CM + F1 lifecycle",
+                          lambda: cm_f1_lifecycle(cm_pair), host_ops=True)
+        profile_lifecycle(torch, card, "flagship eval step",
+                          lambda: eval_step(model, fl_x_dev, fl_y_dev), host_ops=True)
+
+    # ----------------------------------------------------------- 11. kernels
     kernels = [
         {
             "name": "rank_sum_counts",
@@ -408,6 +597,20 @@ def main(argv) -> int:
             "bound_ms": auc_bound,
             "bound_by": auc_by,
             "library_ms": None,
+            "verdict": "bit-equal",
+        },
+        {
+            "name": "confusion_slab",
+            "route": "cuda",
+            "source": "torcheval_tpu_torch/ops/csrc/cm_slab.cu",
+            "replaces": "torcheval_tpu/ops/pallas_cm.py:85",
+            "launches": cm_launches,
+            "max_abs_err": slab_err,
+            "ms": slab_ms,
+            "plain_ms": slab_plain_ms,
+            "bound_ms": slab_bound,
+            "bound_by": slab_by,
+            "library_ms": slab_lib_ms,
             "verdict": "bit-equal",
         },
     ]

@@ -54,7 +54,7 @@ def test_binary_auroc_fused_matches_jax():
     rng = np.random.default_rng(4)
     s = rng.random(400).astype(np.float32)
     y = (rng.random(400) < 0.5).astype(np.int32)
-    got = binary_auroc(s, y, use_fused=True)
+    got = binary_auroc(torch.from_numpy(s), torch.from_numpy(y), use_fused=True)
     _close(got, jax_binary_auroc(jnp.asarray(s), jnp.asarray(y), use_fused=True))
 
 
@@ -94,7 +94,7 @@ def test_pinned_cap_matches_the_decided_route(monkeypatch):
 def test_pinned_cap_checks(cap, match):
     s, y = _multiclass_data(2, 2**14, 200)
     with pytest.raises(ValueError, match=match):
-        multiclass_auroc(s, y, num_classes=200, ustat_cap=cap)
+        multiclass_auroc(torch.from_numpy(s), torch.from_numpy(y), num_classes=200, ustat_cap=cap)
 
 
 def test_pinned_cap_checks_scores_and_targets():
@@ -102,28 +102,41 @@ def test_pinned_cap_checks_scores_and_targets():
     bad = s.copy()
     bad[0, 0] = np.inf
     with pytest.raises(ValueError, match="3e38"):
-        multiclass_auroc(bad, y, num_classes=8, ustat_cap=512)
+        multiclass_auroc(torch.from_numpy(bad), torch.from_numpy(y), num_classes=8, ustat_cap=512)
     y_bad = y.copy()
     y_bad[0] = 8
     with pytest.raises(ValueError, match=r"\[0, 8\)"):
-        multiclass_auroc(s, y_bad, num_classes=8, ustat_cap=512)
+        multiclass_auroc(torch.from_numpy(s), torch.from_numpy(y_bad), num_classes=8, ustat_cap=512)
     with skip_value_checks():  # the caller's contract: no read back
-        multiclass_auroc(s, y, num_classes=8, ustat_cap=512)
+        multiclass_auroc(torch.from_numpy(s), torch.from_numpy(y), num_classes=8, ustat_cap=512)
 
 
 def test_out_of_range_targets_take_the_sort_path_like_jax():
     s, y = _multiclass_data(5, 2**15, 200)
     y[:10] = 250
     _build.reset_counts()
-    got = multiclass_auroc(s, y, num_classes=200, average=None)
+    got = multiclass_auroc(torch.from_numpy(s), torch.from_numpy(y), num_classes=200, average=None)
     assert dict(_build.PLAIN_CALLS) == {"auc_from_sorted": 1}
     _close(got, jax_multiclass_auroc(jnp.asarray(s), jnp.asarray(y), num_classes=200, average=None))
 
 
 def test_no_samples_is_half():
-    assert float(binary_auroc(np.zeros(0, np.float32), np.zeros(0, np.int32))) == 0.5
-    got = multiclass_auroc(np.zeros((0, 3), np.float32), np.zeros(0, np.int32), num_classes=3, average=None)
+    assert float(binary_auroc(torch.zeros(0), torch.zeros(0, dtype=torch.int32))) == 0.5
+    got = multiclass_auroc(torch.zeros(0, 3), torch.zeros(0, dtype=torch.int32), num_classes=3, average=None)
     assert got.tolist() == [0.5, 0.5, 0.5]
+
+
+def test_numpy_input_without_a_gpu_raises(monkeypatch):
+    # Non-tensor input goes to the GPU, as a metric built without device=
+    # does; CPU tensors are how a caller asks for the CPU.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    s, y = _multiclass_data(6, 64, 4)
+    with pytest.raises(RuntimeError, match="pass CPU tensors"):
+        multiclass_auroc(s, y, num_classes=4)
+    with pytest.raises(RuntimeError, match="pass CPU tensors"):
+        binary_auroc(s[:, 0].tolist(), (y == 1).tolist())
+    got = binary_auroc(torch.from_numpy(s[:, 0]), (y == 1).tolist())  # lists follow a tensor
+    assert got.device.type == "cpu"
 
 
 def _messages(fn_jax, fn_port, *args, **kwargs):

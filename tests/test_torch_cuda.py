@@ -10,9 +10,17 @@ import numpy as np
 import pytest
 import torch
 
-from torcheval_tpu_torch.metrics import BinaryAUROC, MulticlassAUROC
+from torcheval_tpu_torch.flagship import FlagshipMLP, eval_step
+from torcheval_tpu_torch.metrics import (
+    BinaryAUROC,
+    MulticlassAccuracy,
+    MulticlassAUROC,
+    MulticlassConfusionMatrix,
+    MulticlassF1Score,
+)
 from torcheval_tpu_torch.ops import _build, ustat
 from torcheval_tpu_torch.ops.auc import _auc_from_sorted_plain, auc_from_sorted
+from torcheval_tpu_torch.ops.cm import _confusion_slab_plain, confusion_slab
 
 pytestmark = pytest.mark.cuda
 
@@ -96,3 +104,72 @@ def test_binary_metric_on_the_card_equals_the_cpu():
     on_card = BinaryAUROC(num_tasks=2, device=dev).update(s, y)
     on_cpu = BinaryAUROC(num_tasks=2, device="cpu").update(s, y)
     assert torch.equal(on_card.compute().cpu(), on_cpu.compute())
+
+
+@pytest.mark.parametrize(
+    "n,c,one_cell",
+    [(2**17, 1000, False), (100_003, 130, False), (2**17, 1000, True), (0, 1000, False), (5, 3, False)],
+    ids=["lifecycle-shape", "c130-ragged", "one-cell", "empty", "tiny"],
+)
+def test_slab_kernel_bitwise_equals_plain(n, c, one_cell):
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(n + c)
+    if one_cell:
+        t = torch.full((n,), c, dtype=torch.int32, device=dev)  # the sentinel row
+        p = torch.full((n,), 7, dtype=torch.int32, device=dev)
+    else:
+        t = torch.randint(0, c + 1, (n,), device=dev, generator=gen, dtype=torch.int32)
+        p = torch.randint(0, c + 1, (n,), device=dev, generator=gen, dtype=torch.int32)
+    _build.reset_counts()
+    got = confusion_slab(t, p, num_classes=c)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["confusion_slab"] == (1 if n else 0)
+    assert torch.equal(got, _confusion_slab_plain(t, p, c))
+    assert int(got.sum()) == n
+
+
+def test_counting_metrics_on_the_card_equal_the_cpu():
+    _cuda()
+    rng = np.random.default_rng(3)
+    pred = rng.integers(0, 1000, 2**15).astype(np.int32)
+    target = rng.integers(0, 1000, 2**15).astype(np.int32)
+
+    def metrics(device):
+        return (
+            MulticlassConfusionMatrix(1000, device=device),
+            MulticlassF1Score(num_classes=1000, average="macro", device=device),
+            MulticlassAccuracy(average="macro", num_classes=1000, device=device),
+        )
+
+    on_card, on_cpu = metrics(None), metrics("cpu")
+    assert all(m.device.type == "cuda" for m in on_card)
+    _build.reset_counts()
+    for p, t in zip(np.split(pred, 4), np.split(target, 4)):
+        for m in on_card + on_cpu:
+            m.update(p, t)
+    assert _build.LAUNCHES == {"confusion_slab": 8}
+    assert torch.equal(on_card[0].compute().cpu(), on_cpu[0].compute())
+    for card, cpu in zip(on_card[1:], on_cpu[1:]):
+        # Counts are equal; the macro means are f32 sums in another order.
+        for name in card._state_name_to_default:
+            assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+        torch.testing.assert_close(card.compute().cpu(), cpu.compute(), rtol=1e-6, atol=0)
+
+
+def test_flagship_on_the_card_equals_the_cpu():
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((1024, 32)).astype(np.float32)
+    y = rng.integers(0, 8, 1024).astype(np.int32)
+    cpu_model = FlagshipMLP(device="cpu")
+    card_model = FlagshipMLP(device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    _build.reset_counts()
+    got = eval_step(card_model, x, y)
+    assert dict(_build.LAUNCHES) == {"auc_from_sorted": 1} and not _build.PLAIN_CALLS
+    want = eval_step(cpu_model, x, y)
+    torch.testing.assert_close(got["logits"].cpu(), want["logits"], rtol=0, atol=1e-5)
+    assert torch.equal(got["confusion_matrix"].cpu(), want["confusion_matrix"])
+    assert float(got["accuracy"]) == float(want["accuracy"])
+    assert abs(float(got["auroc"]) - float(want["auroc"])) <= 1e-6

@@ -19,10 +19,11 @@ from torcheval_tpu_torch.ops import _build, ustat
 ROOT = Path(__file__).resolve().parents[1]
 PORT = Path(torcheval_tpu_torch.__file__).resolve().parent
 
-# `import jax`, `from jax...`, and any import of torcheval_tpu that is not
-# torcheval_tpu_torch.
+# `import jax`, `from jax...`, any import of torcheval_tpu that is not
+# torcheval_tpu_torch, and the JAX flagship's module.
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|torcheval_tpu(?!_torch)\b)", re.M
+    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|torcheval_tpu(?!_torch)\b|__graft_entry__\b)",
+    re.M,
 )
 
 
@@ -37,6 +38,9 @@ def test_sources_import_no_jax():
         for m in _FORBIDDEN.finditer(path.read_text())
     ]
     assert offenders == []
+    scanned = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    assert {"torcheval_tpu_torch/flagship.py", "torcheval_tpu_torch/ops/cm.py"} <= scanned
+    assert _FORBIDDEN.search("from __graft_entry__ import entry")
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("from torcheval_tpu.ops import x")
     assert not _FORBIDDEN.search("from torcheval_tpu_torch.ops import x")
@@ -47,7 +51,7 @@ import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         root = name.split(".")[0]
-        if root in ("jax", "jaxlib", "torcheval_tpu"):
+        if root in ("jax", "jaxlib", "torcheval_tpu", "__graft_entry__"):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import numpy as np, torch
@@ -60,7 +64,12 @@ rng = np.random.default_rng(0)
 m = MulticlassAUROC(num_classes=4, device="cpu")
 m.update(rng.random((64, 4)).astype(np.float32), rng.integers(0, 4, 64))
 print(float(m.compute()))
-assert not any(k.split(".")[0] in ("jax", "torcheval_tpu") for k in sys.modules)
+from torcheval_tpu_torch.flagship import FlagshipMLP, eval_step
+out = eval_step(FlagshipMLP(device="cpu"), rng.random((64, 32)), rng.integers(0, 8, 64))
+assert int(out["confusion_matrix"].sum()) == 64
+assert not any(
+    k.split(".")[0] in ("jax", "torcheval_tpu", "__graft_entry__") for k in sys.modules
+)
 """
 
 
@@ -103,7 +112,11 @@ def test_library_name_is_keyed_by_the_sources():
     path = _build._library_path()
     assert path.parent == _build.BUILD_DIR
     assert re.fullmatch(r"libtorcheval_tpu_torch_[0-9a-f]{16}\.so", path.name)
-    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"auc_scan.cu", "rank_sum.cu"}
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {
+        "auc_scan.cu",
+        "cm_slab.cu",
+        "rank_sum.cu",
+    }
 
 
 def test_a_refused_launch_raises():
@@ -116,6 +129,26 @@ def test_non_cuda_devices_are_refused():
     q = torch.zeros(2, 8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         ustat.rank_sum_counts(q, torch.zeros(2, 16, device="meta"))
+
+
+def test_every_csrc_entry_has_a_signature():
+    entries = {
+        m.group(1)
+        for src in _build.CSRC.glob("*.cu")
+        for m in re.finditer(r'extern "C" int (\w+)\(', src.read_text())
+    }
+    assert entries == set(_build._SIGNATURES)
+
+
+def test_integer_flags(monkeypatch):
+    assert _flags.get_int("CM_ROW_CHUNK") == 4096
+    monkeypatch.setenv("TORCHEVAL_TPU_TORCH_CM_ROW_CHUNK", "256")
+    assert _flags.get_int("CM_ROW_CHUNK") == 256
+    for invalid in ("300", "-4", "0", "many"):
+        monkeypatch.setenv("TORCHEVAL_TPU_TORCH_CM_ROW_CHUNK", invalid)
+        assert _flags.get_int("CM_ROW_CHUNK") == 4096
+    with pytest.raises(KeyError):
+        _flags.get_int("DISABLE_USTAT")
 
 
 def test_flags(monkeypatch):

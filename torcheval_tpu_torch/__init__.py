@@ -8,7 +8,9 @@ package wrote in Pallas for the TPU are CUDA C++ for Hopper
 plain PyTorch version beside it, taken only for tensors on the CPU.
 
 Metrics live on the GPU unless the caller asks for the CPU
-(``device="cpu"``); functional metrics run where their inputs live.
+(``device="cpu"``); functional metrics run where their input tensors
+live and place numpy arrays and lists on the GPU.  ``flagship`` holds the
+torch twin of the JAX package's flagship eval step.
 """
 
 from torcheval_tpu_torch import metrics

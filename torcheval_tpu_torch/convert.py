@@ -9,6 +9,8 @@ the JAX metric left them.
     numpy_state = {k: [np.asarray(a) for a in v] if isinstance(v, list)
                    else np.asarray(v) for k, v in jax_metric.state_dict().items()}
     port_metric.load_state_dict(state_from_jax(numpy_state))
+
+``params_from_jax`` does the same for the flagship model's weights.
 """
 
 from __future__ import annotations
@@ -45,3 +47,18 @@ def state_from_jax(numpy_state: Dict[str, Any]) -> Dict[str, State]:
         else:
             out[name] = _tensor(value)
     return out
+
+
+def params_from_jax(numpy_params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Map the JAX flagship's parameter dict (``w1``, ``b1``, ``w2``,
+    ``b2``, each passed through ``np.asarray``) to the ``state_dict`` of
+    :class:`torcheval_tpu_torch.flagship.FlagshipMLP`.  The JAX code
+    multiplies ``x @ w`` with ``w`` as ``(in, out)``; ``nn.Linear`` keeps
+    ``(out, in)``, so the weights are transposed."""
+    p = {name: _tensor(value) for name, value in numpy_params.items()}
+    return {
+        "fc1.weight": p["w1"].T.contiguous(),
+        "fc1.bias": p["b1"],
+        "fc2.weight": p["w2"].T.contiguous(),
+        "fc2.bias": p["b2"],
+    }

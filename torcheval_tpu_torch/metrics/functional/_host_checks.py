@@ -1,12 +1,19 @@
-"""Switches for the data-dependent (value) validation of inputs.
+"""Where functional inputs live, and the data-dependent (value) checks of
+update inputs.
 
 The port's slice of ``torcheval_tpu/metrics/functional/_host_checks.py``.
 A value check reads numbers back from the device, which waits for it; the
-switches let a throughput-critical loop on pre-validated data skip that.
+helpers fuse all of a validation's reductions into ONE read back, and the
+switches let a throughput-critical loop on pre-validated data skip it.
 """
 
 from contextlib import contextmanager
 from contextvars import ContextVar
+from functools import reduce
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from torcheval_tpu_torch import _flags
 
@@ -40,3 +47,56 @@ def all_concrete(*tensors) -> bool:
     read.  Kept so code ported from the JAX package, where this is False
     under tracing, reads the same."""
     return True
+
+
+def place_inputs(*values) -> Tuple[torch.Tensor, ...]:
+    """The tensors a functional metric computes on.  A ``torch.Tensor``
+    stays on its own device: the caller chose it.  Anything else (a numpy
+    array, a list, a number) goes where the call's first tensor lies, or
+    to the GPU when no argument is a tensor, as a metric built without
+    ``device=`` does; with no GPU that raises, naming CPU tensors as the
+    way to run on the CPU.  The port never picks the CPU on its own."""
+    device = next((v.device for v in values if isinstance(v, torch.Tensor)), None)
+    if device is None and not all(isinstance(v, torch.Tensor) for v in values):
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "torcheval_tpu_torch functional metrics place numpy arrays and "
+                "lists on the GPU, but no CUDA device is available; pass CPU "
+                "tensors (torch.as_tensor(x)) to run on the CPU."
+            )
+        device = torch.device("cuda")
+    return tuple(
+        v if isinstance(v, torch.Tensor) else torch.as_tensor(v, device=device)
+        for v in values
+    )
+
+
+def bounds(*tensors: torch.Tensor) -> np.ndarray:
+    """``[min0, max0, min1, max1, ...]`` of the tensors with ONE read back,
+    in their promoted dtype (float32 at least, float64 when an input is).
+    Exact for integer class indices below 2^24.  Callers skip empty
+    tensors themselves (their min does not exist)."""
+    dtype = reduce(torch.promote_types, (t.dtype for t in tensors), torch.float32)
+    stacked = torch.stack([m.to(dtype) for t in tensors for m in torch.aminmax(t)])
+    return stacked.cpu().numpy()
+
+
+def check_index_ranges(
+    pairs: Sequence[Tuple[torch.Tensor, str]], upper: Optional[int]
+) -> None:
+    """Range-check several class-index tensors with one read back for all
+    of them; raises for the first one outside ``[0, upper)``, in order
+    (the JAX scatters drop such indices where torch's raise)."""
+    if upper is None or not value_checks_enabled():
+        return
+    pairs = [(v, n) for v, n in pairs if v.numel()]
+    if not pairs:
+        return
+    vals = bounds(*(v for v, _ in pairs))
+    for i, (_, name) in enumerate(pairs):
+        lo, hi = vals[2 * i], vals[2 * i + 1]
+        if lo < 0 or hi >= upper:
+            raise ValueError(
+                f"{name} values should be in [0, {upper}), got min "
+                f"{int(lo)} max {int(hi)}."
+            )

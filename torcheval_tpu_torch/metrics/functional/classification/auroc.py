@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from torcheval_tpu_torch.metrics.functional._host_checks import place_inputs
 from torcheval_tpu_torch.metrics.functional.classification._sort_scan import (
     class_hits,
 )
@@ -45,8 +46,8 @@ def binary_auroc(
 ) -> torch.Tensor:
     """Area under the ROC curve for binary classification, multi-task via a
     leading dim (reference ``auroc.py:17-62``).  Runs where ``input``
-    lives."""
-    input, target = torch.as_tensor(input), torch.as_tensor(target)
+    lives; numpy input goes to the GPU."""
+    input, target = place_inputs(input, target)
     _binary_auroc_update_input_check(input, target, num_tasks)
     return _binary_auroc_compute(input, target, use_fused)
 
@@ -69,7 +70,7 @@ def multiclass_auroc(
     case targets in ``[0, C)``, |score| < 3e38 and the capacity are the
     caller's contract."""
     _multiclass_auroc_param_check(num_classes, average)
-    input, target = torch.as_tensor(input), torch.as_tensor(target)
+    input, target = place_inputs(input, target)
     _multiclass_auroc_update_input_check(input, target, num_classes)
     if ustat_cap is not None:
         _ustat_cap_check(input, target, num_classes, ustat_cap)

@@ -53,6 +53,8 @@ _SIGNATURES: Dict[str, tuple] = {
     "rank_sum_counts_launch": (_P, _LL, _LL, _I, _I, _P, _I, _I, _P, _P),
     # thresholds, hits, rows, n, out, stream
     "auc_scan_launch": (_P, _P, _I, _LL, _P, _P),
+    # target, pred, n, w, slab, stream
+    "cm_slab_launch": (_P, _P, _LL, _I, _P, _P),
 }
 
 

@@ -9,3 +9,11 @@ def ustat_disabled() -> bool:
     rank-sum (ustat) AUROC route is skipped and those rows take the sort
     path.  Read at call time, so harnesses may toggle it after import."""
     return _flags.get("DISABLE_USTAT")
+
+
+def cm_row_chunk() -> int:
+    """Call-time read of ``TORCHEVAL_TPU_TORCH_CM_ROW_CHUNK``: the row-tile
+    height of the one-hot matmul confusion-matrix route (a power of two,
+    default 4096).  Chunking never changes the counts, only the size of
+    the one-hots that are live at once."""
+    return _flags.get_int("CM_ROW_CHUNK")
