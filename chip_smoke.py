@@ -40,7 +40,26 @@ times kernels and lifecycle with CUDA events.  Phases:
    weights, TF32 off: logits within 1e-5 of a float64 forward, accuracy
    and matrix exact against numpy counts, AUROC within 1e-6 of the
    oracle, one AUC-scan launch;
-10. times of phases 7-9, tagged with the card and power limit.
+10. times of phases 7-9, tagged with the card and power limit;
+11. the rank-histogram kernel against its plain version (bit-equal) at
+    the headline's strided (1000, 131072) view with cap 256, on ties on a
+    1/8 grid with half-pad tables, at N = 100 003, on 37 contiguous rows
+    and at a pinned cap of 4096 (tables and counts in global memory);
+12. the binned-count kernel against its plain version (bit-equal) at the
+    binned lifecycle's update (1, 2^19) x 10 000 thresholds, at the
+    strided (1000, 16384) multiclass layout x 200, with scores equal to
+    thresholds, outside [0, 1], +-inf and NaN, all in one bin, at T = 1
+    and at N = 0;
+13. the 1000-class AUPRC lifecycle: ``MulticlassAUPRC(num_classes=1000)``
+    on the headline batches takes the rank-histogram route (one launch),
+    every class's AP within 1e-6 of a float64 step-sum oracle, the macro
+    mean within 1e-6 of the sort route (no kernel);
+14. the binned lifecycle of the repository's binned workload (numpy seed
+    5, ``BinaryBinnedAUROC(threshold=10_000)`` over 2^22 samples in 8
+    updates): 8 launches, counts bit-equal to a numpy ``searchsorted``
+    count over the same grid, AUROC within 1e-6 of a float64 trapezoid;
+15. times of phases 11-14, tagged with the card and power limit (with
+    ``--profile``, both lifecycles profiled).
 
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
@@ -69,6 +88,9 @@ TOL = 1e-6
 CM_CLASSES = 1000
 CM_SAMPLES = 2**20  # the confusion workload's total, 8 updates of 2^17
 LOGITS_TOL = 1e-5
+BINNED_SAMPLES = 2**22  # the binned workload's total, 8 updates of 2^19
+BINNED_THRESHOLDS = 10_000
+BIG = 3.0e38  # the tables' pad value
 
 
 def fail(message: str) -> None:
@@ -94,6 +116,26 @@ def oracle_auc(scores: np.ndarray, hits: np.ndarray) -> float:
     if p == 0 or q == 0:
         return 0.5
     return (ranks[hits].sum() - p * (p + 1) / 2.0) / (p * q)
+
+
+def oracle_ap(scores: np.ndarray, target: np.ndarray, num_classes: int) -> np.ndarray:
+    """One-vs-rest step-sum average precision in float64, per class:
+    AP = (1/P) sum over distinct positive scores v of
+    #{positives = v} * #{positives >= v} / #{scores >= v}; 0 without
+    positives."""
+    n = scores.shape[0]
+    order = np.argsort(target, kind="stable")
+    edges = np.searchsorted(target[order], np.arange(num_classes + 1))
+    out = np.zeros(num_classes)
+    for k in range(num_classes):
+        own = scores[order[edges[k]:edges[k + 1]], k]
+        if own.size == 0:
+            continue
+        vals, cnt = np.unique(own, return_counts=True)
+        pos_ge = own.size - (np.cumsum(cnt) - cnt)
+        all_ge = n - np.searchsorted(np.sort(scores[:, k]), vals, side="left")
+        out[k] = float(np.sum(cnt * pos_ge / all_ge)) / own.size
+    return out
 
 
 def headline_data():
@@ -569,7 +611,181 @@ def main(argv) -> int:
         profile_lifecycle(torch, card, "flagship eval step",
                           lambda: eval_step(model, fl_x_dev, fl_y_dev), host_ops=True)
 
-    # ----------------------------------------------------------- 11. kernels
+    # ------------------------------- 11. rank histogram vs plain version
+    from torcheval_tpu_torch.metrics import BinaryBinnedAUROC, MulticlassAUPRC
+    from torcheval_tpu_torch.metrics.functional.classification.binned_precision_recall_curve import (
+        _create_threshold_tensor,
+    )
+    from torcheval_tpu_torch.ops.binned import _binned_counts_plain, binned_counts
+    from torcheval_tpu_torch.ops.ustat import _rank_hist_counts_plain, rank_hist_counts
+
+    # `table` is phase 2's: the headline's packed positive tables, cap 256.
+    hist_kernel = rank_hist_counts(s_all.T, table)
+    torch.cuda.synchronize()
+    hist_plain = _rank_hist_counts_plain(s_all.T, table)
+    hist_err = int((hist_kernel - hist_plain).abs().max())
+    check(torch.equal(hist_kernel, hist_plain),
+          f"rank_hist_counts bit-equal to plain at the headline ({c}, {n}) strided view, cap 256")
+    del hist_plain
+
+    def rand_tables(rows, cap, pads):
+        t = torch.sort(torch.floor(torch.rand(rows, cap, device=dev, generator=gen) * 8) / 8,
+                       dim=1).values
+        t[:, cap - pads:] = BIG
+        t[0] = BIG  # a class without positives: no bin
+        return t
+
+    def grid8(shape):
+        return torch.floor(torch.rand(*shape, device=dev, generator=gen) * 8) / 8
+
+    for label, q, tab in [
+        ("ties on a 1/8 grid, half-pad tables, (64, 2^16) strided, cap 256",
+         grid8((2**16, 64)).T, rand_tables(64, 256, 128)),
+        ("N = 100003 (not a multiple of the 4096 chunk), (250, N) strided, cap 512",
+         grid8((100_003, 250)).T, rand_tables(250, 512, 200)),
+        ("37 contiguous rows, (37, 50000), cap 64", grid8((37, 50_000)),
+         rand_tables(37, 64, 10)),
+        ("pinned cap 4096 (tables and counts in global memory), (64, 50000) strided",
+         grid8((50_000, 64)).T, rand_tables(64, 4096, 1000)),
+    ]:
+        got = rank_hist_counts(q, tab)
+        torch.cuda.synchronize()
+        check(torch.equal(got, _rank_hist_counts_plain(q, tab)) and int(got[0].sum()) == 0,
+              f"rank_hist_counts bit-equal to plain: {label}")
+
+    # --------------------------------- 12. binned counts vs plain version
+    bin_rng = np.random.default_rng(5)  # benchmarks/workloads.py's bench_binned_auroc
+    b_scores = bin_rng.random(BINNED_SAMPLES, dtype=np.float32)
+    b_target = (bin_rng.random(BINNED_SAMPLES) > 0.5).astype(np.float32)
+    b_s_chunks = [torch.from_numpy(x).to(dev) for x in np.split(b_scores, NUM_UPDATES)]
+    b_t_chunks = [torch.from_numpy(x).to(dev) for x in np.split(b_target, NUM_UPDATES)]
+    grid10k = _create_threshold_tensor(BINNED_THRESHOLDS, dev)
+    upd_s, upd_h = b_s_chunks[0][None], (b_t_chunks[0] == 1)[None]
+    grid200 = _create_threshold_tensor(200, dev)
+    special = torch.rand(2, 100_003, device=dev, generator=gen) * 3 - 1
+    special[0, :8] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 1.0,
+                                   2.0, -1.0, float("nan")])
+    on_grid = grid200[torch.randint(0, 200, (2, 100_003), device=dev, generator=gen)]
+    hits2 = torch.rand(2, 100_003, device=dev, generator=gen) < 0.4
+    bin_err = None  # max |kernel - plain| over the four counts at the lifecycle's shape
+    for label, bs, bh, bt in [
+        (f"lifecycle update shape (1, {BINNED_SAMPLES // NUM_UPDATES}) x {BINNED_THRESHOLDS}",
+         upd_s, upd_h, grid10k),
+        (f"({NUM_CLASSES}, {n // NUM_UPDATES}) strided multiclass layout, class hits, x 200",
+         s_chunks[0].T, class_hits(t_chunks[0], NUM_CLASSES), grid200),
+        ("scores equal to thresholds, (2, 100003) x 200", on_grid, hits2, grid200),
+        ("scores outside [0, 1], +-inf and NaN, (2, 100003) x 200", special, hits2, grid200),
+        ("every score in one bin, (1, 2^19) x 10000", torch.full_like(upd_s, 0.37), upd_h,
+         grid10k),
+        ("T = 1", special, hits2, _create_threshold_tensor(1, dev)),
+        ("N = 0", special[:, :0], hits2[:, :0], grid200),
+    ]:
+        got = binned_counts(bs, bh, bt)
+        torch.cuda.synchronize()
+        want = _binned_counts_plain(bs, bh, bt)
+        if bin_err is None:
+            bin_err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        check(all(g.dtype == torch.int32 and torch.equal(g, w) for g, w in zip(got, want)),
+              f"binned_counts bit-equal to plain: {label}")
+    del special, on_grid, hits2
+
+    # ---------------------------------- 13. the 1000-class AUPRC lifecycle
+    auprc = MulticlassAUPRC(num_classes=NUM_CLASSES, average=None)
+    ap, hist_launches = counted("headline MulticlassAUPRC", headline_lifecycle, auprc,
+                                "rank_hist_counts")
+    t0 = time.perf_counter()
+    ap_oracle = oracle_ap(scores, target, NUM_CLASSES)
+    ap_err = float(np.abs(ap.cpu().numpy().astype(np.float64) - ap_oracle).max())
+    check(ap_err <= TOL, f"per-class AP vs float64 step-sum oracle, all {NUM_CLASSES} classes: "
+          f"max err {ap_err:.3e} (oracle {time.perf_counter() - t0:.1f} s)")
+    print(f"headline macro AUPRC {float(ap.mean())!r}", flush=True)
+    sorted_auprc = MulticlassAUPRC(num_classes=NUM_CLASSES)
+    os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
+    try:
+        _build.reset_counts()
+        macro_sorted = headline_lifecycle(sorted_auprc)
+        torch.cuda.synchronize()
+        sort_counts = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    finally:
+        del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
+    print(f"headline MulticlassAUPRC, sort route: launches {sort_counts[0]}, plain calls "
+          f"{sort_counts[1]}", flush=True)
+    macro_gap = abs(float(ap.mean()) - float(macro_sorted))
+    check(sort_counts == ({}, {}) and macro_gap <= TOL,
+          f"sort route (no kernel) macro AUPRC {float(macro_sorted)!r}: gap {macro_gap:.3e}")
+
+    # ------------------------------------------ 14. the binned lifecycle
+    def binned_lifecycle(metric):
+        metric.reset()
+        for bs, bt in zip(b_s_chunks, b_t_chunks):
+            metric.update(bs, bt)
+        return metric.compute()
+
+    binned = BinaryBinnedAUROC(threshold=BINNED_THRESHOLDS)
+    (b_auroc, b_grid), binned_launches = counted(
+        f"BinaryBinnedAUROC 2^22, {BINNED_THRESHOLDS} thresholds", binned_lifecycle, binned,
+        "binned_counts", times=NUM_UPDATES)
+    grid_np = b_grid.cpu().numpy()
+    t_1 = BINNED_THRESHOLDS - 1
+    # jnp.linspace(0, 1, T): XLA's f32 iota times the f32 reciprocal, then 1.0
+    grid_want = np.append(np.arange(t_1, dtype=np.float32) * (np.float32(1) / np.float32(t_1)),
+                          np.float32(1.0))
+    check(np.array_equal(grid_np.view(np.int32), grid_want.view(np.int32)),
+          "the 10000-threshold grid bit-equal to its numpy rebuild")
+    pos_sorted = np.sort(b_scores[b_target == 1])
+    num_ge = BINNED_SAMPLES - np.searchsorted(np.sort(b_scores), grid_np, side="left")
+    tp_o = pos_sorted.size - np.searchsorted(pos_sorted, grid_np, side="left")
+    fp_o = num_ge - tp_o
+    check(np.array_equal(binned.num_tp[0].cpu().numpy(), tp_o)
+          and np.array_equal(binned.num_fp[0].cpu().numpy(), fp_o)
+          and int(binned.num_total[0]) == BINNED_SAMPLES,
+          "binned num_tp / num_fp bit-equal to the numpy searchsorted count")
+    tpr = np.append(tp_o / pos_sorted.size, 0.0)[::-1]
+    fpr = np.append(fp_o / (BINNED_SAMPLES - pos_sorted.size), 0.0)[::-1]
+    b_oracle = 0.5 * float(np.sum(np.diff(fpr) * (tpr[1:] + tpr[:-1])))
+    b_auc_err = abs(float(b_auroc) - b_oracle)
+    check(b_auc_err <= TOL, f"binned AUROC {float(b_auroc)!r} vs float64 trapezoid: "
+          f"err {b_auc_err:.3e}")
+
+    # ------------------------------------------ 15. times of phases 11-14
+    hist_ms = median_ms(lambda: rank_hist_counts(s_all.T, table))
+    hist_plain_ms = median_ms(lambda: _rank_hist_counts_plain(s_all.T, table))
+    hist_bound, hist_by = bound(n * c * 4 + 2 * table.numel() * 4, n * c * 8)
+    print(f"time {card}: rank_hist_counts ({c}, {n}) cap 256: kernel {hist_ms:.4f} ms, "
+          f"plain {hist_plain_ms:.4f} ms, library none, bound {hist_bound:.4f} ms ({hist_by})",
+          flush=True)
+    m_bin = BINNED_SAMPLES // NUM_UPDATES
+    one_bin = torch.full_like(upd_s, 0.37)
+    bin_calls = {
+        "kernel": lambda: binned_counts(upd_s, upd_h, grid10k),
+        "plain": lambda: _binned_counts_plain(upd_s, upd_h, grid10k),
+        "one bin": lambda: binned_counts(one_bin, upd_h, grid10k),
+    }
+    bin_dev = {k: device_ms(torch, fn) for k, fn in bin_calls.items()}
+    bin_wall = {k: median_ms(fn) for k, fn in bin_calls.items()}
+    bin_ms, bin_plain_ms = bin_dev["kernel"], bin_dev["plain"]
+    bin_bound, bin_by = bound(
+        m_bin * 5 + BINNED_THRESHOLDS * 4 + 2 * BINNED_THRESHOLDS * 4 + 8,
+        m_bin * int(np.ceil(np.log2(BINNED_THRESHOLDS + 1))),
+    )
+    print(f"time {card}: binned_counts (1, {m_bin}) x {BINNED_THRESHOLDS}, device time per "
+          f"call: kernel {bin_ms:.4f} ms, plain {bin_plain_ms:.4f} ms, library none, bound "
+          f"{bin_bound:.4f} ms ({bin_by}); every score in one bin {bin_dev['one bin']:.4f} ms; "
+          "CUDA events around one call: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in bin_wall.items()), flush=True)
+    ap_life_ms = host_median_ms(lambda: headline_lifecycle(auprc))
+    print(f"time {card}: headline MulticlassAUPRC lifecycle (8 updates + compute, "
+          f"rank-histogram route): {ap_life_ms:.3f} ms", flush=True)
+    binned_life_ms = host_median_ms(lambda: binned_lifecycle(binned))
+    print(f"time {card}: BinaryBinnedAUROC 2^22 lifecycle (8 updates + compute, "
+          f"{BINNED_THRESHOLDS} thresholds): {binned_life_ms:.3f} ms", flush=True)
+    if profile_phase:
+        profile_lifecycle(torch, card, "headline MulticlassAUPRC lifecycle",
+                          lambda: headline_lifecycle(auprc), host_ops=True)
+        profile_lifecycle(torch, card, "BinaryBinnedAUROC 2^22 lifecycle",
+                          lambda: binned_lifecycle(binned), host_ops=True)
+
+    # ----------------------------------------------------------- 16. kernels
     kernels = [
         {
             "name": "rank_sum_counts",
@@ -611,6 +827,34 @@ def main(argv) -> int:
             "bound_ms": slab_bound,
             "bound_by": slab_by,
             "library_ms": slab_lib_ms,
+            "verdict": "bit-equal",
+        },
+        {
+            "name": "rank_hist_counts",
+            "route": "cuda",
+            "source": "torcheval_tpu_torch/ops/csrc/rank_hist.cu",
+            "replaces": "torcheval_tpu/ops/pallas_ustat.py:331",
+            "launches": hist_launches,
+            "max_abs_err": hist_err,
+            "ms": hist_ms,
+            "plain_ms": hist_plain_ms,
+            "bound_ms": hist_bound,
+            "bound_by": hist_by,
+            "library_ms": None,
+            "verdict": "bit-equal",
+        },
+        {
+            "name": "binned_counts",
+            "route": "cuda",
+            "source": "torcheval_tpu_torch/ops/csrc/binned_count.cu",
+            "replaces": "torcheval_tpu/ops/pallas_binned.py:191",
+            "launches": binned_launches,
+            "max_abs_err": bin_err,
+            "ms": bin_ms,
+            "plain_ms": bin_plain_ms,
+            "bound_ms": bin_bound,
+            "bound_by": bin_by,
+            "library_ms": None,
             "verdict": "bit-equal",
         },
     ]

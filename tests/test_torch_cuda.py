@@ -13,13 +13,20 @@ import torch
 from torcheval_tpu_torch.flagship import FlagshipMLP, eval_step
 from torcheval_tpu_torch.metrics import (
     BinaryAUROC,
+    BinaryBinnedAUROC,
+    BinaryPrecisionRecallCurve,
     MulticlassAccuracy,
+    MulticlassAUPRC,
     MulticlassAUROC,
+    MulticlassBinnedAUPRC,
     MulticlassConfusionMatrix,
     MulticlassF1Score,
+    MulticlassPrecisionRecallCurve,
+    MultilabelRecallAtFixedPrecision,
 )
 from torcheval_tpu_torch.ops import _build, ustat
 from torcheval_tpu_torch.ops.auc import _auc_from_sorted_plain, auc_from_sorted
+from torcheval_tpu_torch.ops.binned import _binned_counts_plain, binned_counts
 from torcheval_tpu_torch.ops.cm import _confusion_slab_plain, confusion_slab
 
 pytestmark = pytest.mark.cuda
@@ -173,3 +180,115 @@ def test_flagship_on_the_card_equals_the_cpu():
     assert torch.equal(got["confusion_matrix"].cpu(), want["confusion_matrix"])
     assert float(got["accuracy"]) == float(want["accuracy"])
     assert abs(float(got["auroc"]) - float(want["auroc"])) <= 1e-6
+
+
+@pytest.mark.parametrize(
+    "layout,rows,n,cap",
+    [
+        ("columns", 37, 4096 * 2 + 5, 256),  # 32-row groups, shared-memory histograms
+        ("rows", 3, 70_000, 512),  # one row per block
+        ("columns", 33, 50_000, 4096),  # tables and counts in global memory
+    ],
+)
+def test_rank_hist_kernel_bitwise_equals_plain(layout, rows, n, cap):
+    dev = _cuda()
+    rng = np.random.default_rng(rows + cap)
+    t = _tables(rng, rows, cap, 0, cap // 2)
+    t[1] = _BIG  # a row without positives: no bin
+    q = torch.from_numpy((rng.integers(-9, 9, (n, rows)) / 4).astype(np.float32)).to(dev)
+    q = q.T if layout == "columns" else q.T.contiguous()
+    t = torch.from_numpy(t).to(dev)
+    _build.reset_counts()
+    got = ustat.rank_hist_counts(q, t)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["rank_hist_counts"] == 1
+    assert torch.equal(got, ustat._rank_hist_counts_plain(q, t))
+    assert int(got[1].sum()) == 0
+
+
+@pytest.mark.parametrize(
+    "case", ["strided-classes", "one-row", "one-bin", "specials", "t1", "empty", "wide-grid"]
+)
+def test_binned_kernel_bitwise_equals_plain(case):
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    t_count = {"t1": 1, "wide-grid": 70_000}.get(case, 200)
+    th = torch.arange(t_count, dtype=torch.float32, device=dev) / max(t_count - 1, 1)
+    if case == "strided-classes":
+        s = torch.rand(4096 + 7, 100, device=dev, generator=gen).T
+        y = torch.randint(0, 100, (4096 + 7,), device=dev, generator=gen)
+        h = y[None, :] == torch.arange(100, device=dev)[:, None]
+    else:
+        n = 0 if case == "empty" else 100_003
+        s = torch.rand(2, n, device=dev, generator=gen)
+        h = torch.rand(2, n, device=dev, generator=gen) < 0.4
+        if case == "one-bin":
+            s.fill_(0.37)
+        if case == "specials":
+            s[0, :6] = torch.tensor([float("nan"), float("inf"), -float("inf"), -1.0, 2.0, 0.5])
+            s[1, : th.numel()] = th  # scores equal to thresholds
+    _build.reset_counts()
+    got = binned_counts(s, h, th)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["binned_counts"] == (0 if case == "empty" else 1)
+    for g, w in zip(got, _binned_counts_plain(s, h, th)):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+def test_auprc_and_binned_metrics_on_the_card_equal_the_cpu():
+    _cuda()
+    rng = np.random.default_rng(5)
+    s = rng.random((2**15, 200)).astype(np.float32)
+    y = rng.integers(0, 200, 2**15).astype(np.int32)
+    on_card = MulticlassAUPRC(num_classes=200, average=None)
+    on_cpu = MulticlassAUPRC(num_classes=200, average=None, device="cpu")
+    for cs, cy in zip(np.split(s, 8), np.split(y, 8)):
+        on_card.update(cs, cy)
+        on_cpu.update(cs, cy)
+    _build.reset_counts()
+    got = on_card.compute()
+    assert dict(_build.LAUNCHES) == {"rank_hist_counts": 1} and not _build.PLAIN_CALLS
+    torch.testing.assert_close(got.cpu(), on_cpu.compute(), rtol=0, atol=1e-6)
+
+    binned = [BinaryBinnedAUROC(threshold=10_000), MulticlassBinnedAUPRC(num_classes=200)]
+    binned_cpu = [BinaryBinnedAUROC(threshold=10_000, device="cpu"),
+                  MulticlassBinnedAUPRC(num_classes=200, device="cpu")]
+    _build.reset_counts()
+    for cs, cy in zip(np.split(s, 4), np.split(y, 4)):
+        binned[0].update(cs[:, 0], cy % 2)
+        binned[1].update(cs, cy, mask=(cy % 3 != 0).astype(np.int32))
+    assert dict(_build.LAUNCHES) == {"binned_counts": 8} and not _build.PLAIN_CALLS
+    for cs, cy in zip(np.split(s, 4), np.split(y, 4)):
+        binned_cpu[0].update(cs[:, 0], cy % 2)
+        binned_cpu[1].update(cs, cy, mask=(cy % 3 != 0).astype(np.int32))
+    for card, cpu in zip(binned, binned_cpu):
+        for name in ("threshold", "num_tp", "num_fp", "num_pos", "num_total"):
+            assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+        torch.testing.assert_close(card.compute()[0].cpu(), cpu.compute()[0], rtol=0, atol=1e-6)
+
+
+def test_curves_on_the_card_equal_the_cpu():
+    # The ragged curves are cut on the host after one read back.
+    dev = _cuda()
+    rng = np.random.default_rng(6)
+    s = (np.floor(rng.random((5000, 4)) * 200) / 200).astype(np.float32)
+    y = rng.integers(0, 4, 5000).astype(np.int32)
+    multilabel = (rng.random((5000, 4)) < 0.3).astype(np.int32)
+
+    def metrics(device):
+        return (
+            BinaryPrecisionRecallCurve(device=device).update(s[:, 0], y % 2),
+            MulticlassPrecisionRecallCurve(num_classes=4, device=device).update(s, y),
+            MultilabelRecallAtFixedPrecision(
+                num_labels=4, min_precision=0.3, device=device
+            ).update(s, multilabel),
+        )
+
+    for card, cpu in zip(metrics(dev), metrics("cpu")):
+        got, want = card.compute(), cpu.compute()
+        flat_got = [t for part in got for t in (part if isinstance(part, list) else [part])]
+        flat_want = [t for part in want for t in (part if isinstance(part, list) else [part])]
+        assert len(flat_got) == len(flat_want)
+        for g, w in zip(flat_got, flat_want):
+            assert g.device.type == "cuda" and g.shape == w.shape
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-6)

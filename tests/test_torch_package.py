@@ -39,7 +39,21 @@ def test_sources_import_no_jax():
     ]
     assert offenders == []
     scanned = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
-    assert {"torcheval_tpu_torch/flagship.py", "torcheval_tpu_torch/ops/cm.py"} <= scanned
+    assert {
+        "torcheval_tpu_torch/flagship.py",
+        "torcheval_tpu_torch/ops/cm.py",
+        "torcheval_tpu_torch/ops/binned.py",
+        "torcheval_tpu_torch/metrics/classification/auprc.py",
+        "torcheval_tpu_torch/metrics/classification/binned_auc.py",
+        "torcheval_tpu_torch/metrics/classification/binned_precision_recall_curve.py",
+        "torcheval_tpu_torch/metrics/classification/precision_recall_curve.py",
+        "torcheval_tpu_torch/metrics/classification/recall_at_fixed_precision.py",
+        "torcheval_tpu_torch/metrics/functional/classification/auprc.py",
+        "torcheval_tpu_torch/metrics/functional/classification/binned_auc.py",
+        "torcheval_tpu_torch/metrics/functional/classification/binned_precision_recall_curve.py",
+        "torcheval_tpu_torch/metrics/functional/classification/precision_recall_curve.py",
+        "torcheval_tpu_torch/metrics/functional/classification/recall_at_fixed_precision.py",
+    } <= scanned
     assert _FORBIDDEN.search("from __graft_entry__ import entry")
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("from torcheval_tpu.ops import x")
@@ -67,6 +81,13 @@ print(float(m.compute()))
 from torcheval_tpu_torch.flagship import FlagshipMLP, eval_step
 out = eval_step(FlagshipMLP(device="cpu"), rng.random((64, 32)), rng.integers(0, 8, 64))
 assert int(out["confusion_matrix"].sum()) == 64
+from torcheval_tpu_torch.metrics import BinaryBinnedAUROC, MulticlassAUPRC
+ap = MulticlassAUPRC(num_classes=4, device="cpu")
+ap.update(rng.random((64, 4)).astype(np.float32), rng.integers(0, 4, 64))
+assert 0.0 <= float(ap.compute()) <= 1.0
+auc, grid = BinaryBinnedAUROC(threshold=50, device="cpu").update(
+    rng.random(64), rng.integers(0, 2, 64)).compute()
+assert 0.0 <= float(auc) <= 1.0 and grid.shape == (50,)
 assert not any(
     k.split(".")[0] in ("jax", "torcheval_tpu", "__graft_entry__") for k in sys.modules
 )
@@ -114,7 +135,9 @@ def test_library_name_is_keyed_by_the_sources():
     assert re.fullmatch(r"libtorcheval_tpu_torch_[0-9a-f]{16}\.so", path.name)
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "auc_scan.cu",
+        "binned_count.cu",
         "cm_slab.cu",
+        "rank_hist.cu",
         "rank_sum.cu",
     }
 

@@ -71,6 +71,17 @@ def place_inputs(*values) -> Tuple[torch.Tensor, ...]:
     )
 
 
+def to_host(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
+    """numpy copies of ``tensors`` with ONE wait for the device: every copy
+    is queued before the stream is synchronized once."""
+    if all(t.device.type == "cpu" for t in tensors):
+        return tuple(t.numpy() for t in tensors)
+    host = [t.to("cpu", non_blocking=True) for t in tensors]
+    for device in {t.device for t in tensors if t.device.type == "cuda"}:
+        torch.cuda.current_stream(device).synchronize()
+    return tuple(h.numpy() for h in host)
+
+
 def bounds(*tensors: torch.Tensor) -> np.ndarray:
     """``[min0, max0, min1, max1, ...]`` of the tensors with ONE read back,
     in their promoted dtype (float32 at least, float64 when an input is).

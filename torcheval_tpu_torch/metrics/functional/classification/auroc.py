@@ -182,6 +182,16 @@ def _multiclass_auroc_sorted(
     return aurocs.mean() if average == "macro" else aurocs
 
 
+def _group_end_values(values: torch.Tensor, is_last: torch.Tensor) -> torch.Tensor:
+    """Replace each position by ``values`` at the end of its tie group.
+    ``values`` must be nondecreasing along the last axis; ``is_last`` flags
+    the last element of each tie group (a reverse running minimum over a
+    sentinel-masked copy)."""
+    sentinel = values.shape[-1] + 1
+    masked = torch.where(is_last, values, torch.full_like(values, sentinel))
+    return torch.cummin(masked.flip(-1), dim=-1).values.flip(-1)
+
+
 def _binary_auroc_update_input_check(
     input: torch.Tensor,
     target: torch.Tensor,

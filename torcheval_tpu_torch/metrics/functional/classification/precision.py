@@ -182,6 +182,12 @@ def _precision_update_input_check(
         )
 
 
+def _check_index_range(values: torch.Tensor, upper: Optional[int], name: str) -> None:
+    """Out-of-range class indices must raise (the JAX scatters drop them
+    where torch's ``scatter_`` raises)."""
+    _check_index_ranges([(values, name)], upper)
+
+
 def _binary_precision_update(
     input: torch.Tensor, target: torch.Tensor, threshold: float = 0.5
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

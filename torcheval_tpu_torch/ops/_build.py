@@ -55,6 +55,10 @@ _SIGNATURES: Dict[str, tuple] = {
     "auc_scan_launch": (_P, _P, _I, _LL, _P, _P),
     # target, pred, n, w, slab, stream
     "cm_slab_launch": (_P, _P, _LL, _I, _P, _P),
+    # queries, stride_row, stride_col, rq, n, tables, cap, hist, stream
+    "rank_hist_counts_launch": (_P, _LL, _LL, _I, _I, _P, _I, _P, _P),
+    # scores, s_row, s_col, hits, h_row, h_col, rows, n, thresholds, t, hist, stream
+    "binned_count_launch": (_P, _LL, _LL, _P, _LL, _LL, _I, _I, _P, _I, _P, _P),
 }
 
 

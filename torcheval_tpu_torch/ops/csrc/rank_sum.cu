@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "count_le.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -44,28 +46,6 @@ constexpr int kChunk = 4096;  // queries per block
 constexpr int kDefaultSmem = 48 * 1024;
 // H100 per-block opt-in limit, less the kernel's static reduction buffer.
 constexpr int kMaxSmem = 232448 - 2 * kThreads * (int)sizeof(int);
-
-template <int G, bool SMEM>
-__device__ __forceinline__ float table_at(const float* smem, const float* gtab,
-                                          int cap, int g, int k) {
-  if (SMEM) return smem[k * G + g];
-  return gtab[(long long)g * cap + k];
-}
-
-// #{table[k] <= x} for an ascending table of `cap` entries: a branchless
-// upper_bound over power-of-two steps.
-template <int G, bool SMEM>
-__device__ __forceinline__ int count_le(const float* smem, const float* gtab,
-                                        int cap, int top, int g, float x) {
-  int lo = 0;
-  for (int step = top; step > 0; step >>= 1) {
-    int probe = lo + step;
-    if (probe <= cap && table_at<G, SMEM>(smem, gtab, cap, g, probe - 1) <= x) {
-      lo = probe;
-    }
-  }
-  return lo;
-}
 
 template <int G, bool SMEM>
 __global__ void __launch_bounds__(kThreads)
@@ -105,8 +85,13 @@ rank_sum_kernel(const float* __restrict__ queries, long long stride_row,
     const int q_end = min(n, ((int)blockIdx.y + 1) * kChunk);
     for (int q = (int)blockIdx.y * kChunk + slot; q < q_end; q += kSlots) {
       float x = qrow[(long long)q * stride_col];
-      acc_a += count_le<G, SMEM>(stab_a, gtab_a, cap, top, g, x);
-      if (negate) acc_b += count_le<G, SMEM>(stab_b, gtab_b, cap, top, g, -x);
+      if (SMEM) {
+        acc_a += count_le<G>(stab_a + g, cap, top, x);
+        if (negate) acc_b += count_le<G>(stab_b + g, cap, top, -x);
+      } else {
+        acc_a += count_le<1>(gtab_a + (long long)g * cap, cap, top, x);
+        if (negate) acc_b += count_le<1>(gtab_b + (long long)g * cap, cap, top, -x);
+      }
     }
   }
 
@@ -149,8 +134,7 @@ template <int G>
 cudaError_t launch(const float* queries, long long stride_row,
                    long long stride_col, int rq, int n, const float* tables,
                    int cap, int negate, int* out, cudaStream_t stream) {
-  int top = 1;
-  while (top * 2 <= cap) top *= 2;
+  const int top = top_step(cap);
   dim3 grid((rq + G - 1) / G, (n + kChunk - 1) / kChunk);
   long long smem = (long long)G * cap * (negate ? 2 : 1) * sizeof(float);
   if (smem <= kMaxSmem) {

@@ -1,6 +1,6 @@
-"""Exact AUROC as a rank-sum (Mann-Whitney U) count: the sort-free route
-for the one-vs-rest and rare-class regimes (the port of
-``torcheval_tpu/ops/pallas_ustat.py``, AUROC half).
+"""Exact AUROC as a rank-sum (Mann-Whitney U) count, and exact average
+precision from a rank histogram: the sort-free routes for the one-vs-rest
+and rare-class regimes (the port of ``torcheval_tpu/ops/pallas_ustat.py``).
 
 One-vs-rest positives are sparse: class ``c`` owns ``n_c ≈ N/C`` samples,
 and its exact AUROC is a pair count against the tiny packed table ``P_c``
@@ -17,6 +17,12 @@ where ``K_A = Σ_q #{table ≤ q}`` over ``P_c`` padded with +BIG, and
 CUDA kernel ``csrc/rank_sum.cu`` for tensors on the GPU, the plain
 PyTorch :func:`_rank_sum_counts_plain` for tensors on the CPU.
 
+Step-sum AP is ``(1/n_c) Σ_{table entries v} TP(≥ t_v) / #{q ≥ t_v}``:
+the ascending table gives ``TP`` by position, and ONE histogram of each
+query's table bin (:func:`rank_hist_counts`: ``csrc/rank_hist.cu`` on the
+GPU, :func:`_rank_hist_counts_plain` on the CPU) gives the denominators
+by suffix sums (:func:`_ap_from_hist`).
+
 Dropped from the JAX module, because they exist only for the TPU's MXU
 gather and the Mosaic compiler: the exact bf16 three-way split
 (``_split3_bf16``, ``_trunc_bf16_f32``, ``_gather_split3``), its
@@ -26,6 +32,9 @@ bound (``_MOSAIC_OPERAND_BOUND``, ``_MAX_CAP``, ``_mosaic_tile``).  The
 int32 exactness bound ``cap·N < 2^29`` and the route's win region
 (:func:`_win_cap`) are kept exactly.  The route is decided from the data
 and ``TORCHEVAL_TPU_TORCH_DISABLE_USTAT`` alone, never from the device.
+The JAX histogram's ``N < 2^24`` (its f32 per-bin sums) is dropped: the
+port counts in int32 (``N < 2^31``), and the route's ``cap·N < 2^29``
+binds first.
 """
 
 from __future__ import annotations
@@ -123,6 +132,80 @@ def _rank_sum_counts_plain(
     is_table = torch.sort(joint, dim=1, stable=True).indices < cap
     before = torch.cumsum(is_table, dim=1, dtype=torch.int64)
     return torch.where(is_table, 0, before).sum(dim=1).to(torch.int32)
+
+
+def rank_hist_counts(queries: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """``hist[r, v] = #{q in row r : bin(q) = v}`` as exact int32, where
+    ``bin(q)`` is the largest table index with ``t ≤ q``; queries below
+    every entry, and NaN queries, fall in no bin.  ``suffix_cumsum(hist)[v]``
+    is then the per-entry ``#{q ≥ t_v}``, the denominators of the step-sum
+    AP.  ``queries`` is ``(R, N)`` f32 with any strides (the (N, C) score
+    buffer's transpose is read in place); ``tables`` is ``(R, cap)`` f32,
+    ascending per row, ``cap`` a multiple of 16.  Requires ``N < 2^31``."""
+    r, n = _check_rank_hist_args(queries, tables)
+    if queries.device.type == "cpu":
+        return _rank_hist_counts_plain(queries, tables)
+    if queries.device.type != "cuda":
+        raise ValueError(f"rank_hist_counts runs on cuda or cpu, not {queries.device}.")
+    cap = tables.shape[1]
+    tables = tables.contiguous()
+    hist = torch.zeros((r, cap), dtype=torch.int32, device=queries.device)
+    if r == 0 or n == 0:
+        return hist
+    lib = _build.library()
+    with torch.cuda.device(queries.device):
+        err = lib.rank_hist_counts_launch(
+            queries.data_ptr(),
+            queries.stride(0),
+            queries.stride(1),
+            r,
+            n,
+            tables.data_ptr(),
+            cap,
+            hist.data_ptr(),
+            _build.stream_handle(queries.device),
+        )
+    _build.check_launch("rank_hist", err)
+    _build.LAUNCHES["rank_hist_counts"] += 1
+    return hist
+
+
+def _check_rank_hist_args(queries: torch.Tensor, tables: torch.Tensor) -> Tuple[int, int]:
+    if queries.dim() != 2 or tables.dim() != 2:
+        raise ValueError("queries and tables must be 2-D.")
+    if queries.dtype != torch.float32 or tables.dtype != torch.float32:
+        raise TypeError(
+            f"rank_hist_counts takes float32, got {queries.dtype} and {tables.dtype}."
+        )
+    if queries.device != tables.device:
+        raise ValueError("queries and tables must be on one device.")
+    r, n = queries.shape
+    if tables.shape[0] != r:
+        raise ValueError(f"tables has {tables.shape[0]} rows; expected {r}.")
+    cap = tables.shape[1]
+    if cap % _FW != 0 or cap == 0:
+        raise ValueError(f"table capacity {cap} must be a positive multiple of {_FW}")
+    if n >= 2**31:
+        raise ValueError(f"rank_hist_counts requires N < 2^31 (int32 counts), got {n}.")
+    return r, n
+
+
+def _rank_hist_counts_plain(queries: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """The kernel's histogram in plain PyTorch: ``searchsorted(right=True)
+    − 1`` gives each query's bin, and one int32 count of ``row·cap + bin``
+    over the in-range, non-NaN queries gives the histogram."""
+    _build.PLAIN_CALLS["rank_hist_counts"] += 1
+    r, cap = tables.shape
+    bins = torch.searchsorted(tables.contiguous(), queries.contiguous(), right=True) - 1
+    valid = (bins >= 0) & ~torch.isnan(queries)
+    rows = torch.arange(r, device=queries.device)[:, None]
+    flat = torch.where(valid, rows * cap + bins, r * cap)
+    return _index_counts(flat.reshape(-1), r * cap + 1)[: r * cap].view(r, cap)
+
+
+def _suffix_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """int32 ``Σ_{k ≥ j} x[..., k]`` along the last axis."""
+    return torch.cumsum(x.flip(-1), dim=-1, dtype=torch.int32).flip(-1)
 
 
 def _index_counts(index: torch.Tensor, length: int) -> torch.Tensor:
@@ -243,6 +326,68 @@ def binary_auroc_ustat(
     return u_frac if table_side == "pos" else 1.0 - u_frac
 
 
+def _ap_from_hist(
+    table: torch.Tensor, counts: torch.Tensor, hist: torch.Tensor
+) -> torch.Tensor:
+    """Step-sum AP rows from a per-entry rank histogram: ``num_ge`` by
+    suffix sums, ``TP`` by position in the ascending table (the first index
+    of each tie group handles ties), summed precisions divided by the
+    positive count (``auprc.py:_auprc_rows`` semantics; zero positives →
+    0)."""
+    r, cap = table.shape
+    num_ge = _suffix_cumsum(hist)
+    idx = torch.arange(cap, dtype=torch.int32, device=table.device)[None, :]
+    is_new = torch.cat(
+        [
+            torch.ones((r, 1), dtype=torch.bool, device=table.device),
+            table[:, 1:] != table[:, :-1],
+        ],
+        dim=1,
+    )
+    first_idx = torch.cummax(torch.where(is_new, idx, -1), dim=1).values
+    tp = counts[:, None] - first_idx
+    real = idx < counts[:, None]
+    precision = torch.where(
+        real,
+        tp.to(torch.float32) / torch.clamp(num_ge, min=1).to(torch.float32),
+        0.0,
+    )
+    ap = precision.sum(dim=1) / torch.clamp(counts, min=1).to(torch.float32)
+    return torch.where(counts == 0, 0.0, ap)
+
+
+def multiclass_auprc_ustat(
+    scores: torch.Tensor,
+    target: torch.Tensor,
+    *,
+    num_classes: int,
+    average: Optional[str],
+    cap: int,
+) -> torch.Tensor:
+    """Exact one-vs-rest average precision from ``(N, C)`` scores without
+    the big sort: the packed positive tables give ``TP`` by position and
+    ONE :func:`rank_hist_counts` launch gives the ``#{q ≥ t_v}``
+    denominators.  Same preconditions as :func:`multiclass_auroc_ustat`."""
+    s = scores.to(torch.float32)
+    counts, table = _pack_positive_tables(s, target, num_classes, cap)
+    hist = rank_hist_counts(s.T, table)
+    ap = _ap_from_hist(table, counts, hist)
+    return ap.mean() if average == "macro" else ap
+
+
+def binary_auprc_ustat(
+    scores: torch.Tensor, target: torch.Tensor, *, cap: int
+) -> torch.Tensor:
+    """Exact per-row step-sum average precision from ``(R, N)`` scores /
+    0-1 targets without the row sort (the rare-positive regime; AP is
+    anchored on the positives, so only they pack).  Same preconditions as
+    :func:`multiclass_auprc_ustat`."""
+    s = scores.to(torch.float32)
+    counts, table = _pack_row_tables(s, target == 1, cap)
+    hist = rank_hist_counts(s, table)
+    return _ap_from_hist(table, counts, hist)
+
+
 def _win_cap(most: float, n: int) -> Optional[int]:
     """Bucket a measured max class count to the static table capacity iff
     the (cap, N) point sits in the route's win region (kept exactly from
@@ -313,11 +458,12 @@ def _binary_route_stats(scores: torch.Tensor, target: torch.Tensor) -> List[floa
 
 
 def binary_ustat_route(
-    scores: torch.Tensor, target: torch.Tensor
+    scores: torch.Tensor, target: torch.Tensor, *, need_pos: bool = False
 ) -> Optional[Tuple[str, int]]:
     """Call-time route decision for the binary (R, N) rank-sum path:
     ``(table_side, cap)`` or None.  Shares :func:`_win_cap`'s win region
-    and additionally requires exactly-0/1 targets."""
+    and additionally requires exactly-0/1 targets; with ``need_pos`` (AP)
+    only the positive side packs."""
     if scores.dim() != 2:
         return None
     n = scores.shape[1]
@@ -327,6 +473,8 @@ def binary_ustat_route(
     if not (lo > -_BIG and hi < _BIG) or non01 != 0.0:
         return None
     for side, most in (("pos", max_pos), ("neg", max_neg)):
+        if need_pos and side != "pos":
+            continue
         cap = _win_cap(most, n)
         if cap is not None:
             return side, cap
@@ -335,8 +483,11 @@ def binary_ustat_route(
 
 __all__: Tuple[str, ...] = (
     "rank_sum_counts",
+    "rank_hist_counts",
     "multiclass_auroc_ustat",
+    "multiclass_auprc_ustat",
     "binary_auroc_ustat",
+    "binary_auprc_ustat",
     "binary_ustat_route",
     "ustat_route_cap",
 )
