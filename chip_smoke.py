@@ -59,7 +59,30 @@ times kernels and lifecycle with CUDA events.  Phases:
     updates): 8 launches, counts bit-equal to a numpy ``searchsorted``
     count over the same grid, AUROC within 1e-6 of a float64 trapezoid;
 15. times of phases 11-14, tagged with the card and power limit (with
-    ``--profile``, both lifecycles profiled).
+    ``--profile``, both lifecycles profiled);
+16. the one-pass collection kernel against its plain version (bit-equal)
+    at the main path's update (65536 x 100, five members), at the sliced
+    stream's shapes (C = 20, 16 slices, a mask), on the binary + binned
+    set (1-D scores, T = 512, NaN scores), at the plan bounds (F = C =
+    256), with labels out of range and negative, and at N = 0;
+17. the collection lifecycle of the repository's collection workload
+    (numpy seed 6, 2^19 x 100 f32 scores, five 100-class members,
+    ``fused_update`` x 8, one compute): 8 kernel launches and no other,
+    every state bit-equal to the same lifecycle with the kernel switched
+    off, the confusion matrix bit-equal to an ``np.add.at`` count of
+    numpy's argmax, the four macro figures within 1e-6 of float64 oracles;
+18. the sliced stream (numpy seed 23, 96 ragged batches, ``bucket=True``,
+    16 slices): one launch per batch, ``compute_slices()`` bit-equal to
+    the per-member path;
+19. the sync toolkit on the card: ``LocalWorld(4)``, each rank a quarter
+    of phase 17's batches, ``sync_and_compute`` bit-equal to phase 17's
+    result on every rank;
+20. times of phases 16-19, tagged with the card and power limit: the
+    kernel's device time per update beside its plain version, its bound
+    and the per-member route's update, the lifecycle on three routes, and
+    the sliced stream with its updates, ``compute_slices()`` and
+    ``reset()`` apart (with ``--profile``, the lifecycle by operator on two
+    routes, and the sliced stream's updates).
 
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
@@ -91,6 +114,9 @@ LOGITS_TOL = 1e-5
 BINNED_SAMPLES = 2**22  # the binned workload's total, 8 updates of 2^19
 BINNED_THRESHOLDS = 10_000
 BIG = 3.0e38  # the tables' pad value
+COL_CLASSES = 100
+COL_SAMPLES = 2**19  # the collection workload's total, 8 updates of 2^16
+SLICED_CLASSES, SLICES = 20, 16
 
 
 def fail(message: str) -> None:
@@ -785,7 +811,277 @@ def main(argv) -> int:
         profile_lifecycle(torch, card, "BinaryBinnedAUROC 2^22 lifecycle",
                           lambda: binned_lifecycle(binned), host_ops=True)
 
-    # ----------------------------------------------------------- 16. kernels
+    # --------------------- 16. the collection kernel vs its plain version
+    from torcheval_tpu_torch.distributed import LocalWorld
+    from torcheval_tpu_torch.metrics import (
+        BinaryAccuracy,
+        BinaryConfusionMatrix,
+        BinaryF1Score,
+        MetricCollection,
+        MulticlassAccuracy,
+        MulticlassPrecision,
+        MulticlassRecall,
+    )
+    from torcheval_tpu_torch.metrics.toolkit import sync_and_compute
+    from torcheval_tpu_torch.ops._mega_plan import plan_for
+    from torcheval_tpu_torch.ops.mega import _mega_counts_plain, mega_counts
+
+    def five(c):
+        """The collection workload's members (benchmarks/workloads.py's
+        bench_collection_fused)."""
+        return {
+            "acc": MulticlassAccuracy(num_classes=c, average="macro"),
+            "f1": MulticlassF1Score(num_classes=c, average="macro"),
+            "cm": MulticlassConfusionMatrix(num_classes=c),
+            "prec": MulticlassPrecision(num_classes=c, average="macro"),
+            "rec": MulticlassRecall(num_classes=c, average="macro"),
+        }
+
+    def binary_set():
+        return {
+            "bacc": BinaryAccuracy(threshold=0.4),
+            "bf1": BinaryF1Score(threshold=0.55),
+            "bcm": BinaryConfusionMatrix(threshold=0.6),
+            "auroc": BinaryBinnedAUROC(threshold=512),
+        }
+
+    col_rng = np.random.default_rng(6)  # benchmarks/workloads.py's bench_collection_fused
+    col_scores = col_rng.random((COL_SAMPLES, COL_CLASSES), dtype=np.float32)
+    col_target = col_rng.integers(0, COL_CLASSES, COL_SAMPLES).astype(np.int32)
+    col_x = [torch.from_numpy(a).to(dev) for a in np.split(col_scores, NUM_UPDATES)]
+    col_y = [torch.from_numpy(a).to(dev) for a in np.split(col_target, NUM_UPDATES)]
+
+    def mega_case(members, x, y, mask=None, sids=None, slices=None):
+        plan = plan_for(members, (x, y), {} if mask is None else {"mask": mask}, slices)
+        if plan is None or set(plan.member_names) != set(members):
+            fail("the collection kernel's plan must take every member")
+        thr = [members[mp.name].threshold for mp in plan.members if mp.kind == "binned"]
+        return plan, (x, y, mask, sids, thr)
+
+    def mega_equal(plan, operands):
+        got = mega_counts(plan, *operands)
+        torch.cuda.synchronize()
+        want = _mega_counts_plain(plan, *operands)
+        err = 0
+        for pair_got, pair_want in zip(got, want):
+            for g, w in zip(pair_got, pair_want):
+                if (g is None) != (w is None):
+                    return False, None
+                if g is not None:
+                    if g.dtype != torch.int32 or g.shape != w.shape:
+                        return False, None
+                    if g.numel():
+                        err = max(err, int((g - w).abs().max()))
+        return err == 0, err
+
+    os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"] = "1"  # plan single members too
+    try:
+        main_plan, main_ops = mega_case(five(COL_CLASSES), col_x[0], col_y[0])
+        ok, mega_err = mega_equal(main_plan, main_ops)
+        check(ok, f"mega_counts bit-equal to plain at the main path's update "
+                  f"({COL_SAMPLES // NUM_UPDATES}, {COL_CLASSES}), five members")
+        sl = torch.rand(313, SLICED_CLASSES, device=dev, generator=gen)
+        sl_y = torch.randint(0, SLICED_CLASSES, (313,), device=dev, generator=gen,
+                             dtype=torch.int32)
+        sl_ids = torch.randint(-1, SLICES + 1, (313,), device=dev, generator=gen,
+                               dtype=torch.int32)
+        sl_mask = (torch.rand(313, device=dev, generator=gen) < 0.8).to(torch.int32)
+        bx = torch.rand(100_003, device=dev, generator=gen)
+        bx[:64] = float("nan")
+        bx[64:128] = 0.55
+        by = torch.randint(0, 2, (100_003,), device=dev, generator=gen, dtype=torch.int32)
+        wide = torch.randn(70_001, 256, device=dev, generator=gen)
+        wide[:4, 9] = float("nan")  # torch.argmax's first NaN
+        wide[4:8] = 0.5  # whole rows tied
+        wide_y = torch.randint(-256, 512, (70_001,), device=dev, generator=gen,
+                               dtype=torch.int32)
+        for label, members, operands in [
+            ("sliced stream shapes: C=20, 16 slices (ids -1..16), a mask", five(SLICED_CLASSES),
+             (sl, sl_y, sl_mask, sl_ids, SLICES)),
+            ("binary + binned set, 1-D scores, T=512, NaN scores, 16 slices", binary_set(),
+             (bx, by, None, torch.randint(0, SLICES, (100_003,), device=dev, generator=gen,
+                                          dtype=torch.int32), SLICES)),
+            ("plan bounds F=C=256, labels in [-256, 512), NaN rows, 3 slices", five(256),
+             (wide, wide_y, None, wide_y % 3, 3)),
+            ("1-D labels in [-100, 200) as predictions", five(COL_CLASSES),
+             (col_y[1] * 3 - 100, col_y[0] * 3 - 100, None, None, None)),
+        ]:
+            x, y, mask, sids, slices = operands
+            plan, ops = mega_case(members, x, y, mask, sids, slices)
+            ok, _ = mega_equal(plan, ops)
+            check(ok, f"mega_counts bit-equal to plain: {label}")
+        _build.reset_counts()
+        empty = mega_counts(main_plan, col_x[0][:0], col_y[0][:0])
+        check(not _build.LAUNCHES and all(t is None or int(t.abs().sum()) == 0
+                                          for pair in empty for t in pair),
+              "mega_counts at N=0: zero counts, no launch")
+    finally:
+        del os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"]
+    del sl, bx, wide
+
+    # ------------------------------- 17. the collection workload's lifecycle
+    def fused_lifecycle(col):
+        col.reset()
+        for x, y in zip(col_x, col_y):
+            col.fused_update(x, y)
+        return col.compute()
+
+    def update_lifecycle(col):
+        col.reset()
+        for x, y in zip(col_x, col_y):
+            col.update(x, y)
+        return col.compute()
+
+    def off(fn, *args):
+        os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"] = "0"
+        try:
+            return fn(*args)
+        finally:
+            del os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"]
+
+    col = MetricCollection(five(COL_CLASSES))
+    col_out, col_launches = counted(
+        "collection lifecycle (fused_update x 8, kernel route)", fused_lifecycle, col,
+        "mega_counts", times=NUM_UPDATES)
+    col_off = MetricCollection(five(COL_CLASSES))
+    _build.reset_counts()
+    off_out = off(fused_lifecycle, col_off)
+    torch.cuda.synchronize()
+    print(f"collection lifecycle, kernel switched off: launches {dict(_build.LAUNCHES)}",
+          flush=True)
+    a_sd, b_sd = col.state_dict(), col_off.state_dict()
+    check(a_sd.keys() == b_sd.keys() and all(
+        a_sd[k].dtype == b_sd[k].dtype and torch.equal(a_sd[k], b_sd[k]) for k in a_sd),
+        "every state bit-equal to the lifecycle with the kernel switched off")
+    check(all(torch.equal(col_out[k], off_out[k]) for k in col_out),
+          "every computed figure bit-equal to the kernel-off lifecycle")
+    col_pred = col_scores.argmax(1)
+    col_cm = np.zeros((COL_CLASSES, COL_CLASSES), np.int64)
+    np.add.at(col_cm, (col_target, col_pred), 1)
+    check(np.array_equal(col_out["cm"].cpu().numpy(), col_cm),
+          "100-class confusion matrix bit-equal to the np.add.at count of numpy's argmax")
+    tp = np.diag(col_cm).astype(np.float64)
+    n_label, n_pred = col_cm.sum(1).astype(np.float64), col_cm.sum(0).astype(np.float64)
+    seen = (n_label != 0) | (n_pred != 0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        prec_c = np.nan_to_num(tp / n_pred)
+        rec_c = np.nan_to_num(tp / n_label)
+        f1_c = np.nan_to_num(2 * prec_c * rec_c / (prec_c + rec_c))
+    oracles = {
+        "acc": np.mean(tp[n_label != 0] / n_label[n_label != 0]),
+        "prec": prec_c[seen].mean(),
+        "rec": rec_c[seen].mean(),
+        "f1": f1_c[seen].mean(),
+    }
+    for name, want in oracles.items():
+        err = abs(float(col_out[name]) - want)
+        check(err <= TOL, f"macro {name} {float(col_out[name])!r} vs float64 oracle: "
+                          f"err {err:.3e}")
+
+    # ------------------------------------------------ 18. the sliced stream
+    sl_rng = np.random.default_rng(23)  # benchmarks/workloads.py's sliced stream
+    sizes = sorted([160, 96, 224, 130, 313, 200, 256, 77] * 12)
+    sliced_batches = [
+        (torch.from_numpy(sl_rng.random((b, SLICED_CLASSES), dtype=np.float32)).to(dev),
+         torch.from_numpy(sl_rng.integers(0, SLICED_CLASSES, b).astype(np.int32)).to(dev),
+         torch.from_numpy(sl_rng.integers(0, SLICES, b).astype(np.int32)).to(dev))
+        for b in sizes
+    ]
+
+    def sliced_lifecycle(col):
+        col.reset()
+        for x, y, ids in sliced_batches:
+            col.fused_update(x, y, slice_ids=ids)
+        return col.compute_slices()
+
+    sliced = MetricCollection(five(SLICED_CLASSES), bucket=True, slices=SLICES)
+    sl_out, sliced_launches = counted(
+        f"sliced stream ({len(sizes)} batches, bucket=True, {SLICES} slices)",
+        sliced_lifecycle, sliced, "mega_counts", times=len(sizes))
+    sliced_off = MetricCollection(five(SLICED_CLASSES), bucket=True, slices=SLICES)
+    sl_want = off(sliced_lifecycle, sliced_off)
+    check(all(torch.equal(sl_out[lab][k], sl_want[lab][k]) for lab in sl_want
+              for k in sl_want[lab])
+          and all(torch.equal(v, sliced_off.state_dict()[k])
+                  for k, v in sliced.state_dict().items()),
+          f"compute_slices() and all {len(sliced.state_dict())} states bit-equal to the "
+          "per-member path")
+
+    # ------------------------------------------- 19. the toolkit on the card
+    def rank_fn(group, rank):
+        mine = MetricCollection(five(COL_CLASSES))
+        per = NUM_UPDATES // 4
+        for x, y in zip(col_x[rank * per:(rank + 1) * per], col_y[rank * per:(rank + 1) * per]):
+            mine.fused_update(x, y)
+        return sync_and_compute(mine, group, "all")
+
+    synced = LocalWorld(4).run(rank_fn)
+    torch.cuda.synchronize()
+    check(all(out[k].device.type == "cuda" and torch.equal(out[k], col_out[k])
+              for out in synced for k in col_out),
+          "LocalWorld(4) sync_and_compute bit-equal to the single collection's compute(), "
+          "every rank")
+
+    # ----------------------------------------------- 20. times of phases 16-19
+    # Each call takes the next of the 8 updates (26 MB each, 210 MB in all),
+    # so the scores come from device memory, not the 50 MB L2, as in the
+    # lifecycle.
+    turn = [0]
+
+    def next_update(fn):
+        def call():
+            i = turn[0] = (turn[0] + 1) % NUM_UPDATES
+            return fn(col_x[i], col_y[i])
+        return call
+
+    mega_ms = device_ms(torch, next_update(lambda x, y: mega_counts(main_plan, x, y)))
+    mega_plain_ms = device_ms(
+        torch, next_update(lambda x, y: _mega_counts_plain(main_plan, x, y)), reps=5)
+    mega_wall = median_ms(next_update(lambda x, y: mega_counts(main_plan, x, y)))
+    m_upd = COL_SAMPLES // NUM_UPDATES
+    mega_bound, mega_by = bound(
+        m_upd * COL_CLASSES * 4 + m_upd * 4
+        + 4 * (4 * 3 * COL_CLASSES + COL_CLASSES * COL_CLASSES),
+        m_upd * COL_CLASSES,
+    )
+    upd_kernel = MetricCollection(five(COL_CLASSES))
+    upd_members = MetricCollection(five(COL_CLASSES))
+    upd_kernel_ms = device_ms(torch, next_update(upd_kernel.fused_update))
+    upd_members_ms = off(device_ms, torch, next_update(upd_members.fused_update))
+    print(f"time {card}: mega_counts ({m_upd}, {COL_CLASSES}) five members, device time per "
+          f"call, the scores read from device memory: kernel {mega_ms:.4f} ms, plain {mega_plain_ms:.4f} ms, library none, bound "
+          f"{mega_bound:.4f} ms ({mega_by}); CUDA events around one call {mega_wall:.4f} ms",
+          flush=True)
+    print(f"time {card}: one fused_update ({m_upd}, {COL_CLASSES}), device time: kernel route "
+          f"{upd_kernel_ms:.4f} ms, per-member route (kernel switched off) "
+          f"{upd_members_ms:.4f} ms", flush=True)
+    col_ms = host_median_ms(lambda: fused_lifecycle(col))
+    col_off_ms = off(host_median_ms, lambda: fused_lifecycle(col_off))
+    col_upd_ms = host_median_ms(lambda: update_lifecycle(col_off))
+    print(f"time {card}: collection lifecycle (2^19 x 100, 8 updates + compute): "
+          f"fused_update with the kernel {col_ms:.3f} ms, fused_update with the kernel "
+          f"switched off {col_off_ms:.3f} ms, plain update() {col_upd_ms:.3f} ms", flush=True)
+    def sliced_updates():
+        for x, y, ids in sliced_batches:
+            sliced.fused_update(x, y, slice_ids=ids)
+
+    sliced_ms = host_median_ms(lambda: sliced_lifecycle(sliced), reps=3)
+    sliced_upd_ms = host_median_ms(sliced_updates, reps=3)
+    sliced_cmp_ms = host_median_ms(sliced.compute_slices, reps=3)
+    sliced_reset_ms = host_median_ms(sliced.reset, reps=3)
+    print(f"time {card}: sliced stream ({len(sizes)} batches, {SLICES} slices), kernel route: "
+          f"{sliced_ms:.3f} ms; of it the {len(sizes)} fused_update {sliced_upd_ms:.3f} ms, "
+          f"compute_slices() {sliced_cmp_ms:.3f} ms, reset() {sliced_reset_ms:.3f} ms",
+          flush=True)
+    if profile_phase:
+        profile_lifecycle(torch, card, "collection lifecycle, kernel route",
+                          lambda: fused_lifecycle(col), host_ops=True)
+        off(profile_lifecycle, torch, card, "collection lifecycle, kernel switched off",
+            lambda: fused_lifecycle(col_off), 3, True)
+        profile_lifecycle(torch, card, f"sliced stream's {len(sizes)} fused_update, kernel route",
+                          sliced_updates, 1, True)
+
+    # ----------------------------------------------------------- 21. kernels
     kernels = [
         {
             "name": "rank_sum_counts",
@@ -854,6 +1150,20 @@ def main(argv) -> int:
             "plain_ms": bin_plain_ms,
             "bound_ms": bin_bound,
             "bound_by": bin_by,
+            "library_ms": None,
+            "verdict": "bit-equal",
+        },
+        {
+            "name": "mega_counts",
+            "route": "cuda",
+            "source": "torcheval_tpu_torch/ops/csrc/mega.cu",
+            "replaces": "torcheval_tpu/ops/pallas_mega.py:116",
+            "launches": col_launches,
+            "max_abs_err": mega_err,
+            "ms": mega_ms,
+            "plain_ms": mega_plain_ms,
+            "bound_ms": mega_bound,
+            "bound_by": mega_by,
             "library_ms": None,
             "verdict": "bit-equal",
         },

@@ -292,3 +292,95 @@ def test_curves_on_the_card_equal_the_cpu():
         for g, w in zip(flat_got, flat_want):
             assert g.device.type == "cuda" and g.shape == w.shape
             torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-6)
+
+
+def _mega_members(c, device, thresholds=512):
+    from torcheval_tpu_torch import metrics as M
+
+    if c == 0:  # the binary + binned set, 1-D scores
+        return {
+            "bacc": M.BinaryAccuracy(threshold=0.4, device=device),
+            "bf1": M.BinaryF1Score(threshold=0.55, device=device),
+            "bcm": M.BinaryConfusionMatrix(threshold=0.6, device=device),
+            "auroc": M.BinaryBinnedAUROC(threshold=thresholds, device=device),
+        }
+    return {
+        "acc": M.MulticlassAccuracy(num_classes=c, average="macro", device=device),
+        "micro": M.MulticlassAccuracy(device=device),
+        "f1": M.MulticlassF1Score(num_classes=c, average="macro", device=device),
+        "cm": M.MulticlassConfusionMatrix(num_classes=c, device=device),
+        "prec": M.MulticlassPrecision(num_classes=c, average="macro", device=device),
+        "rec": M.MulticlassRecall(num_classes=c, average="macro", device=device),
+    }
+
+
+@pytest.mark.parametrize(
+    "c,n,slices,masked",
+    [
+        (7, 1000, None, False),  # small shapes
+        (20, 313, 16, True),  # the sliced stream's shapes
+        (0, 50_003, 16, True),  # binary + binned, T = 512
+        (256, 20_001, 3, False),  # the plan bounds: F = C = 256
+    ],
+)
+def test_mega_kernel_bitwise_equals_plain(monkeypatch, c, n, slices, masked):
+    from torcheval_tpu_torch.ops._mega_plan import plan_for
+    from torcheval_tpu_torch.ops.mega import _mega_counts_plain, mega_counts
+
+    dev = _cuda()
+    monkeypatch.setenv("TORCHEVAL_TPU_TORCH_MEGAKERNEL", "1")
+    rng = np.random.default_rng(c + n)
+    members = _mega_members(c, dev)
+    if c:
+        x = rng.standard_normal((n, c)).astype(np.float32)
+        x[:3, 1] = np.nan  # torch.argmax's first NaN
+        y = rng.integers(-c, 2 * c, n).astype(np.int32)  # wrapped and dropped labels
+    else:
+        x = rng.random(n).astype(np.float32)
+        x[:7] = np.nan  # counted at every threshold
+        x[7:20] = 0.55
+        y = rng.integers(0, 2, n).astype(np.int32)
+    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    mask = torch.from_numpy((rng.random(n) < 0.8).astype(np.int32)).to(dev) if masked else None
+    sids = (torch.from_numpy(rng.integers(-1, (slices or 1) + 1, n).astype(np.int32)).to(dev)
+            if slices else None)
+    plan = plan_for(members, (x, y), {} if mask is None else {"mask": mask}, slices)
+    thr = [members[mp.name].threshold for mp in plan.members if mp.kind == "binned"]
+    _build.reset_counts()
+    got = mega_counts(plan, x, y, mask, sids, thr)
+    torch.cuda.synchronize()
+    want = _mega_counts_plain(plan, x, y, mask, sids, thr)
+    assert _build.LAUNCHES["mega_counts"] == 1
+    for (gm, gc), (wm, wc) in zip(got, want):
+        for g, w in ((gm, wm), (gc, wc)):
+            assert (g is None and w is None) or (g.dtype == torch.int32 and torch.equal(g, w))
+
+
+def test_fused_collection_on_the_card_equals_the_per_member_path(monkeypatch):
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    batches = [
+        (rng.random((b, 20), dtype=np.float32), rng.integers(0, 20, b).astype(np.int32),
+         rng.integers(0, 16, b).astype(np.int32))
+        for b in (77, 160, 313, 96)
+    ]
+
+    def run(flag):
+        monkeypatch.setenv("TORCHEVAL_TPU_TORCH_MEGAKERNEL", flag)
+        col = MetricCollection(_mega_members(20, dev), bucket=True, slices=16)
+        _build.reset_counts()
+        for x, y, s in batches:
+            col.fused_update(x, y, slice_ids=s)
+        torch.cuda.synchronize()
+        return col, dict(_build.LAUNCHES)
+
+    fused, launches = run("1")
+    assert launches == {"mega_counts": len(batches)}
+    per_member, launches = run("0")
+    assert "mega_counts" not in launches
+    a, b = fused.state_dict(), per_member.state_dict()
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].device.type == "cuda" and a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k

@@ -15,6 +15,7 @@ import torcheval_tpu_torch
 from torcheval_tpu_torch import _flags
 from torcheval_tpu_torch.metrics import MulticlassAUROC
 from torcheval_tpu_torch.ops import _build, ustat
+from torcheval_tpu_torch.ops import _flags as ops_flags
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = Path(torcheval_tpu_torch.__file__).resolve().parent
@@ -53,6 +54,14 @@ def test_sources_import_no_jax():
         "torcheval_tpu_torch/metrics/functional/classification/binned_precision_recall_curve.py",
         "torcheval_tpu_torch/metrics/functional/classification/precision_recall_curve.py",
         "torcheval_tpu_torch/metrics/functional/classification/recall_at_fixed_precision.py",
+        "torcheval_tpu_torch/distributed.py",
+        "torcheval_tpu_torch/metrics/_bucket.py",
+        "torcheval_tpu_torch/metrics/collection.py",
+        "torcheval_tpu_torch/metrics/toolkit.py",
+        "torcheval_tpu_torch/ops/_mega_plan.py",
+        "torcheval_tpu_torch/ops/mega.py",
+        "torcheval_tpu_torch/utils/test_utils/dummy_metric.py",
+        "torcheval_tpu_torch/utils/test_utils/metric_class_tester.py",
     } <= scanned
     assert _FORBIDDEN.search("from __graft_entry__ import entry")
     assert _FORBIDDEN.search("import jax.numpy as jnp")
@@ -88,6 +97,15 @@ assert 0.0 <= float(ap.compute()) <= 1.0
 auc, grid = BinaryBinnedAUROC(threshold=50, device="cpu").update(
     rng.random(64), rng.integers(0, 2, 64)).compute()
 assert 0.0 <= float(auc) <= 1.0 and grid.shape == (50,)
+import os
+os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"] = "1"
+from torcheval_tpu_torch.metrics import MetricCollection, MulticlassConfusionMatrix
+from torcheval_tpu_torch.metrics.toolkit import sync_and_compute
+from torcheval_tpu_torch.distributed import LocalWorld
+col = MetricCollection({"cm": MulticlassConfusionMatrix(4, device="cpu")}, bucket=True)
+col.fused_update(rng.random((64, 4)).astype(np.float32), rng.integers(0, 4, 64))
+synced = LocalWorld(2).run(lambda g, r: sync_and_compute(col, g, "all"))
+assert int(synced[0]["cm"].sum()) == 128
 assert not any(
     k.split(".")[0] in ("jax", "torcheval_tpu", "__graft_entry__") for k in sys.modules
 )
@@ -138,6 +156,7 @@ def test_library_name_is_keyed_by_the_sources():
         "binned_count.cu",
         "cm_slab.cu",
         "rank_hist.cu",
+        "mega.cu",
         "rank_sum.cu",
     }
 
@@ -184,3 +203,21 @@ def test_flags(monkeypatch):
     assert _flags.get("DISABLE_USTAT") is False
     with pytest.raises(KeyError):
         _flags.get("DISABLE_PALLAS")
+
+
+def test_megakernel_flag_is_tristate(monkeypatch):
+    monkeypatch.delenv("TORCHEVAL_TPU_TORCH_MEGAKERNEL", raising=False)
+    assert _flags.get_tristate("MEGAKERNEL") is None
+    for raw, want in (("1", True), ("On", True), ("0", False), ("off", False),
+                      ("auto", None), ("", None)):
+        monkeypatch.setenv("TORCHEVAL_TPU_TORCH_MEGAKERNEL", raw)
+        assert _flags.get_tristate("MEGAKERNEL") is want
+        assert ops_flags.megakernel_mode() is want
+    # The JAX package's switch does not reach the port.
+    monkeypatch.delenv("TORCHEVAL_TPU_TORCH_MEGAKERNEL")
+    monkeypatch.setenv("TORCHEVAL_TPU_MEGAKERNEL", "1")
+    assert _flags.get_tristate("MEGAKERNEL") is None
+    with pytest.raises(KeyError):
+        _flags.get_tristate("DISABLE_USTAT")
+    with pytest.raises(KeyError):
+        _flags.get("MEGAKERNEL")

@@ -6,17 +6,19 @@ a switch.  ``DISABLE_PALLAS`` has no counterpart here: in the port it
 would send CUDA tensors to the plain versions, a switch that hides the
 kernel.  Call-time flags re-read the environment on every :func:`get`;
 ``TELEMETRY`` is read once by ``telemetry/events.py`` at import.
-Integer flags are read through :func:`get_int`.
+Integer flags are read through :func:`get_int`, tri-state flags (forced
+on, forced off, or unset for auto) through :func:`get_tristate`.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 PREFIX = "TORCHEVAL_TPU_TORCH_"
 
 TRUTHY = ("1", "true", "yes", "on")
+FALSY = ("0", "false", "no", "off")
 
 # name -> one-line doc; every flag is a boolean, default off.
 FLAGS: Dict[str, str] = {
@@ -43,6 +45,19 @@ INT_FLAGS: Dict[str, Tuple[int, str]] = {
 }
 
 
+# name -> one-line doc; truthy forces on, falsy forces off, anything else
+# (unset included) reads as None: auto.
+TRISTATE_FLAGS: Dict[str, str] = {
+    "MEGAKERNEL": (
+        "Route switch of MetricCollection.fused_update: truthy sends every "
+        "supported member through the one-pass collection kernel on any "
+        "device, falsy keeps each member on its own path, unset takes the "
+        "kernel when the states live on a GPU and at least two members are "
+        "supported (read per call)."
+    ),
+}
+
+
 def get(name: str) -> bool:
     """Read ``TORCHEVAL_TPU_TORCH_<name>`` now: truthy strings are True."""
     if name not in FLAGS:
@@ -61,3 +76,18 @@ def get_int(name: str) -> int:
     except ValueError:
         return default
     return value if value > 0 and value & (value - 1) == 0 else default
+
+
+def get_tristate(name: str) -> Optional[bool]:
+    """Read the tri-state flag ``TORCHEVAL_TPU_TORCH_<name>`` now: True
+    when truthy, False when falsy, None (auto) otherwise."""
+    if name not in TRISTATE_FLAGS:
+        raise KeyError(
+            f"unknown tri-state flag {name!r}; known: {sorted(TRISTATE_FLAGS)}"
+        )
+    raw = os.environ.get(PREFIX + name, "").strip().lower()
+    if raw in TRUTHY:
+        return True
+    if raw in FALSY:
+        return False
+    return None

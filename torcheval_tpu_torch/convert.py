@@ -10,6 +10,13 @@ the JAX metric left them.
                    else np.asarray(v) for k, v in jax_metric.state_dict().items()}
     port_metric.load_state_dict(state_from_jax(numpy_state))
 
+A JAX ``MetricCollection.state_dict()`` is a flat mapping too, keyed
+``"name/state"`` and, for slice clones, ``"name@k/state"``; it loads into
+the port's collection the same way:
+
+    port_collection.load_state_dict(state_from_jax(
+        {k: np.asarray(v) for k, v in jax_collection.state_dict().items()}))
+
 ``params_from_jax`` does the same for the flagship model's weights.
 """
 

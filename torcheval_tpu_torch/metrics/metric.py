@@ -125,6 +125,10 @@ class Metric(Generic[TComputeReturn], ABC):
     """Base class for all metrics: a registry of tensor states plus the
     update/compute/merge lifecycle (reference ``Metric``, ``metric.py:23``)."""
 
+    # True on metrics whose update takes mask= (rows with mask 0 add
+    # nothing); MetricCollection's bucket= and slices= need it.
+    _supports_mask: bool = False
+
     def __init_subclass__(cls, **kwargs: Any) -> None:
         super().__init_subclass__(**kwargs)
         # Every concrete update/compute a subclass defines is wrapped ONCE

@@ -8,6 +8,9 @@ plain PyTorch version beside its wrapper.
 * :mod:`.binned` — per-threshold counts of the binned metrics
   (``csrc/binned_count.cu``).
 * :mod:`.cm` — the confusion-matrix count slab (``csrc/cm_slab.cu``).
+* :mod:`.mega` — the one-pass collection kernel (``csrc/mega.cu``) that
+  counts every supported member of a ``MetricCollection`` in one read of
+  the batch, planned by :mod:`._mega_plan`.
 * :mod:`.fused_auc` — the approximate fused AUC (plain PyTorch).
 * :mod:`._build` — builds the kernels with ``nvcc`` at first use and
   counts their launches.

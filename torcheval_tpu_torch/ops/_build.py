@@ -59,6 +59,8 @@ _SIGNATURES: Dict[str, tuple] = {
     "rank_hist_counts_launch": (_P, _LL, _LL, _I, _I, _P, _I, _P, _P),
     # scores, s_row, s_col, hits, h_row, h_col, rows, n, thresholds, t, hist, stream
     "binned_count_launch": (_P, _LL, _LL, _P, _LL, _LL, _I, _I, _P, _I, _P, _P),
+    # scores, pred, target, weight, sids, n, thresholds, plan, plan_bytes, out, stream
+    "mega_counts_launch": (_P, _P, _P, _P, _P, _LL, _P, _P, _I, _P, _P),
 }
 
 

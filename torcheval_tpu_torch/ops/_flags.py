@@ -1,6 +1,8 @@
 """Call-time accessors for the kernel-route flags (the port's counterpart
 of ``torcheval_tpu/ops/_flags.py``, holding only what the port reads)."""
 
+from typing import Optional
+
 from torcheval_tpu_torch import _flags
 
 
@@ -17,3 +19,12 @@ def cm_row_chunk() -> int:
     default 4096).  Chunking never changes the counts, only the size of
     the one-hots that are live at once."""
     return _flags.get_int("CM_ROW_CHUNK")
+
+
+def megakernel_mode() -> Optional[bool]:
+    """Call-time read of ``TORCHEVAL_TPU_TORCH_MEGAKERNEL`` (the
+    counterpart of the JAX package's ``megakernel_mode``): True forces the
+    collection kernel on wherever a member is supported, on any device (on
+    the CPU its plain version runs), False keeps every member on its own
+    path, None is auto (see ``ops/_mega_plan.plan_for``)."""
+    return _flags.get_tristate("MEGAKERNEL")

@@ -1,5 +1,6 @@
 """The span hook every metric phase runs under (the port's slice of
-``torcheval_tpu/telemetry/events.py``: ``ENABLED`` and ``timed_phase``).
+``torcheval_tpu/telemetry/events.py``: ``ENABLED``, ``timed_phase`` and
+``record_bucket_pad``).
 
 Off (the default) a wrapped ``update``/``compute`` costs one module-flag
 branch.  On (``TORCHEVAL_TPU_TORCH_TELEMETRY=1`` at import, or
@@ -28,6 +29,7 @@ _CAPACITY = 4096
 
 _lock = threading.Lock()
 _spans: "deque[Span]" = deque(maxlen=_CAPACITY)
+_pads: "deque[BucketPad]" = deque(maxlen=_CAPACITY)
 
 
 @dataclass(frozen=True)
@@ -36,6 +38,17 @@ class Span:
     metric: str
     seconds: float
     state_bytes: int
+
+
+@dataclass(frozen=True)
+class BucketPad:
+    """One batch padded up to its shape bucket (``metrics/_bucket.py``):
+    the bucket, the real rows and the pad rows, so a report can price the
+    padding a ragged stream pays."""
+
+    bucket: int
+    rows_valid: int
+    rows_padded: int
 
 
 def state_nbytes(metric: Any) -> int:
@@ -69,6 +82,19 @@ def timed_phase(obj: Any, phase: str, fn, args, kwargs):
     return out
 
 
+def record_bucket_pad(bucket: int, rows_valid: int, rows_padded: int) -> None:
+    """Record one :class:`BucketPad`.  Only called behind an ``ENABLED``
+    branch."""
+    with _lock:
+        _pads.append(BucketPad(int(bucket), int(rows_valid), int(rows_padded)))
+
+
+def bucket_pads() -> List[BucketPad]:
+    """The recorded pads, oldest first (at most the last 4096)."""
+    with _lock:
+        return list(_pads)
+
+
 def spans() -> List[Span]:
     """The recorded spans, oldest first (at most the last 4096)."""
     with _lock:
@@ -78,3 +104,4 @@ def spans() -> List[Span]:
 def clear() -> None:
     with _lock:
         _spans.clear()
+        _pads.clear()
