@@ -82,7 +82,36 @@ times kernels and lifecycle with CUDA events.  Phases:
     and the per-member route's update, the lifecycle on three routes, and
     the sliced stream with its updates, ``compute_slices()`` and
     ``reset()`` apart (with ``--profile``, the lifecycle by operator on two
-    routes, and the sliced stream's updates).
+    routes, and the sliced stream's updates);
+21. the edit-distance kernel against its plain version (bit-equal) and both
+    against the port's native host DP (which must be the compiled one): at
+    the corpus update's shape (8192 pairs, widths 256), on short pairs
+    (widths 32 and 16), on asymmetric widths (16 x 256 and the reverse),
+    on empty, identical and disjoint pairs, at a reference of width 0, with
+    changed pad values, with lengths past the widths, at n = 0 (no launch)
+    and n = 1, and at widths 2048, 4096 (shared memory past 48 KB) and
+    12 000 (the diagonals in a global scratch);
+22. the corpus WER lifecycle (numpy seed 31, 2^16 pairs in 8 updates of
+    8192, references of 1-200 ids, hypotheses with substitutions, deletions
+    and insertions, packed to (8192, 256) int32): ``WordErrorRate``,
+    ``WordInformationPreserved`` and ``WordInformationLost`` in one
+    ``MetricCollection``; 24 kernel launches (each member runs its own) and
+    no plain call, the three counters exactly equal to the native DP's sums,
+    the three figures within 1e-6 of float64;
+23. the repository's WER stream (numpy seed 31, 8 batches of 32-64 sentence
+    pairs of 1-20 words from 97, one ``WordInterner``): ``WordErrorRate`` on
+    the tokenized batches (8 launches) against ``WordErrorRate`` on the
+    strings (the host path), the three states exactly equal;
+24. the LM logits lifecycle of the repository's perplexity workload (numpy
+    seed 7, (16, 256, 8192) f32 logits, 8 updates of 2 sequences) through
+    one ``MetricCollection`` of ``Perplexity`` and ``WordErrorRate``:
+    perplexity within 1e-5 of a float64 oracle, the token error counters
+    exactly equal to the native DP over numpy's argmax, 8 launches;
+25. times of phases 21-24, tagged with the card and power limit: the kernel
+    at the corpus update's shape beside its plain version and its bound,
+    its device time at the stream's largest batch, the three lifecycles,
+    and the native host DP over the corpus pairs on the host's CPU (with
+    ``--profile``, phases 22 and 24 by operator).
 
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
@@ -117,6 +146,13 @@ BIG = 3.0e38  # the tables' pad value
 COL_CLASSES = 100
 COL_SAMPLES = 2**19  # the collection workload's total, 8 updates of 2^16
 SLICED_CLASSES, SLICES = 20, 16
+# 132 SMs x 64 int32 lanes x 1.98 GHz: half the 33.5 TOPS of the Hopper white
+# paper, which counts a multiply-add as two operations.
+INT32_OPS_PER_S = 16.7e12
+CELL_OPS = 5  # one DP cell: a compare, two adds, two mins
+WER_PAIRS = 2**16  # the corpus WER lifecycle, 8 updates of 8192
+WER_MAX_LEN, WER_VOCAB = 200, 10_000
+PPL_TOL = 1e-5
 
 
 def fail(message: str) -> None:
@@ -170,6 +206,31 @@ def headline_data():
     scores = rng.random((NUM_SAMPLES, NUM_CLASSES)).astype(np.float32)
     target = rng.integers(0, NUM_CLASSES, size=NUM_SAMPLES).astype(np.int32)
     return scores, target
+
+
+def wer_corpus(rng, n):
+    """``n`` (hypothesis, reference) id-list pairs at the scale of an ASR
+    test set: a reference of 1-200 ids, and the hypothesis the reference
+    with every token independently substituted (p = 0.08), deleted (0.04)
+    or followed by an inserted id (0.04)."""
+    lens = rng.integers(1, WER_MAX_LEN + 1, n)
+    live = np.arange(WER_MAX_LEN)[None, :] < lens[:, None]
+    ref = rng.integers(0, WER_VOCAB, (n, WER_MAX_LEN))
+    u = rng.random((n, WER_MAX_LEN))
+    tok = np.where(u < 0.08, rng.integers(0, WER_VOCAB, (n, WER_MAX_LEN)), ref)
+    ins = rng.integers(0, WER_VOCAB, (n, WER_MAX_LEN))
+    keep = live & ~((u >= 0.08) & (u < 0.12))
+    add = live & (u >= 0.12) & (u < 0.16)
+    count = keep.astype(np.int64) + add
+    start = np.cumsum(count, axis=1) - count
+    hyp_lens = count.sum(axis=1)
+    hyp = np.full((n, int(hyp_lens.max())), -1, np.int64)
+    r, c = np.nonzero(keep)
+    hyp[r, start[r, c]] = tok[r, c]
+    r, c = np.nonzero(add)
+    hyp[r, start[r, c] + keep[r, c]] = ins[r, c]
+    return ([hyp[i, :hyp_lens[i]].tolist() for i in range(n)],
+            [ref[i, :lens[i]].tolist() for i in range(n)])
 
 
 def device_us(evt):
@@ -1081,7 +1142,251 @@ def main(argv) -> int:
         profile_lifecycle(torch, card, f"sliced stream's {len(sizes)} fused_update, kernel route",
                           sliced_updates, 1, True)
 
-    # ----------------------------------------------------------- 21. kernels
+
+    # ------------------- 21. the edit-distance kernel vs its plain version
+    from torcheval_tpu_torch.metrics import (
+        Perplexity,
+        WordErrorRate,
+        WordInformationLost,
+        WordInformationPreserved,
+    )
+    from torcheval_tpu_torch.metrics.text._tokens import WordInterner, _pack, tokenize_pairs
+    from torcheval_tpu_torch.native import edit_distance as native_dp
+    from torcheval_tpu_torch.ops.wavefront import (
+        _edit_distance_kernel,
+        _edit_distance_native,
+        _edit_distance_plain,
+        edit_distance_tokens,
+        lens_from_ids,
+    )
+
+    print(f"native host edit distance: {native_dp.backend()}", flush=True)
+    check(native_dp.backend() == "c++",
+          "the native host DP is the compiled C++ one (this host has a compiler)")
+
+    t0 = time.perf_counter()
+    wer_hyp, wer_ref = wer_corpus(np.random.default_rng(31), WER_PAIRS)
+    per = WER_PAIRS // NUM_UPDATES
+    wer_batches_np = [(_pack(wer_hyp[i:i + per], 16), _pack(wer_ref[i:i + per], 16))
+                      for i in range(0, WER_PAIRS, per)]
+    check(all(h.shape == r.shape == (per, 256) and h.dtype == np.int32
+              for h, r in wer_batches_np),
+          f"the corpus packs to {NUM_UPDATES} updates of ({per}, 256) int32 "
+          f"({time.perf_counter() - t0:.1f} s)")
+    wer_batches = [(torch.from_numpy(h).to(dev), torch.from_numpy(r).to(dev))
+                   for h, r in wer_batches_np]
+
+    def wave_case(label, a, b, al=None, bl=None):
+        """Kernel against plain version on the card, both against the native
+        DP; returns max |kernel - plain|."""
+        ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        tal = None if al is None else torch.from_numpy(al).to(dev)
+        tbl = None if bl is None else torch.from_numpy(bl).to(dev)
+        _build.reset_counts()
+        got = edit_distance_tokens(ta, tb, tal, tbl)
+        torch.cuda.synchronize()
+        launches, plain_calls = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        la = torch.clamp(lens_from_ids(ta) if tal is None else tal, 0, a.shape[1])
+        lb = torch.clamp(lens_from_ids(tb) if tbl is None else tbl, 0, b.shape[1])
+        want = _edit_distance_plain(ta, tb, la, lb)
+        native = _edit_distance_native(a, b, la, lb)
+        n_pairs = a.shape[0]
+        check(launches == ({"edit_distance_tokens": 1} if n_pairs else {}) and not plain_calls
+              and got.dtype == torch.int32 and got.shape == (n_pairs,)
+              and torch.equal(got, want) and np.array_equal(got.cpu().numpy(), native),
+              f"edit_distance_tokens bit-equal to plain and to the native DP: {label}")
+        return int((got - want).abs().max()) if n_pairs else 0
+
+    def ragged(rng, n_pairs, width, lo, hi, vocab):
+        lens = rng.integers(lo, hi + 1, n_pairs)
+        ids = rng.integers(0, vocab, (n_pairs, width)).astype(np.int32)
+        ids[np.arange(width)[None, :] >= lens[:, None]] = -1
+        return ids
+
+    wave_err = wave_case(f"the corpus update's shape ({per}, 256) x ({per}, 256)",
+                         *wer_batches_np[0])
+    wrng = np.random.default_rng(32)
+    wave_case("(4096, 32) pairs of 1-20 tokens from 97",
+              ragged(wrng, 4096, 32, 1, 20, 97), ragged(wrng, 4096, 32, 1, 20, 97))
+    wave_case("(4096, 16) pairs of 0-16 tokens from 5",
+              ragged(wrng, 4096, 16, 0, 16, 5), ragged(wrng, 4096, 16, 0, 16, 5))
+    wave_case("asymmetric widths (2048, 16) x (2048, 256)",
+              ragged(wrng, 2048, 16, 0, 16, 50), ragged(wrng, 2048, 256, 0, 256, 50))
+    wave_case("asymmetric widths (2048, 256) x (2048, 16)",
+              ragged(wrng, 2048, 256, 0, 256, 50), ragged(wrng, 2048, 16, 0, 16, 50))
+    full = ragged(wrng, 500, 64, 1, 64, 1000)
+    none = np.full((100, 64), -1, np.int32)
+    deg_a = np.concatenate([none, full[:100], none, full[200:300], full[300:400]])
+    deg_b = np.concatenate([full[:100], none, none, full[200:300],
+                            np.where(full[400:500] >= 0, full[400:500] + 1000, -1)])
+    wave_case("empty hypothesis / empty reference / both empty / identical / disjoint "
+              "vocabularies, 100 pairs each", deg_a, deg_b)
+    wave_case("a reference of width 0: (300, 64) x (300, 0)", full[:300],
+              np.zeros((300, 0), np.int32))
+    wave_case("a hypothesis of width 0: (300, 0) x (300, 64)", np.zeros((300, 0), np.int32),
+              full[:300])
+    pads_a, pads_b = wer_batches_np[1][0][:512].copy(), wer_batches_np[1][1][:512].copy()
+    al_np, bl_np = (pads_a >= 0).sum(1).astype(np.int32), (pads_b >= 0).sum(1).astype(np.int32)
+    pads_a[pads_a < 0] = 7  # a real token's id where the pads were
+    pads_b[pads_b < 0] = -91
+    t_pa, t_pb = torch.from_numpy(pads_a).to(dev), torch.from_numpy(pads_b).to(dev)
+    same = edit_distance_tokens(t_pa, t_pb, torch.from_numpy(al_np).to(dev),
+                                torch.from_numpy(bl_np).to(dev))
+    check(torch.equal(same, edit_distance_tokens(wer_batches[1][0][:512], wer_batches[1][1][:512])),
+          "changed pad values (a real id, another negative) leave the distances unchanged")
+    wave_case("changed pad values, explicit lengths", pads_a, pads_b, al_np, bl_np)
+    wave_case("explicit lengths past the widths and negative (clipped)", full[:300], full[200:500],
+              wrng.integers(-5, 100, 300).astype(np.int32),
+              wrng.integers(-5, 100, 300).astype(np.int32))
+    wave_case("n = 0 (no launch)", full[:0], full[:0])
+    wave_case("n = 1", full[:1], full[1:2])
+    wave_case("(64, 2048) pairs of 0-2048 tokens", ragged(wrng, 64, 2048, 0, 2048, 30),
+              ragged(wrng, 64, 2048, 0, 2048, 30))
+    wave_case("(8, 4096) pairs, shared memory past 48 KB", ragged(wrng, 8, 4096, 3000, 4096, 30),
+              ragged(wrng, 8, 4096, 0, 4096, 30))
+    wave_case("(3, 12000) pairs, the diagonals in a global scratch",
+              ragged(wrng, 3, 12_000, 9000, 12_000, 30), ragged(wrng, 3, 12_000, 9000, 12_000, 30))
+
+    # ------------------------------------ 22. the corpus WER lifecycle
+    def wer_lifecycle(col):
+        col.reset()
+        for h, r in wer_batches:
+            col.update(h, r)
+        return col.compute()
+
+    wer_col = MetricCollection({
+        "wer": WordErrorRate(), "wip": WordInformationPreserved(), "wil": WordInformationLost(),
+    })
+    wer_out, wer_launches = counted(
+        f"corpus WER lifecycle (2^16 pairs, {NUM_UPDATES} updates, WER + WIP + WIL, each member "
+        "its own launch)", wer_lifecycle, wer_col, "edit_distance_tokens", times=3 * NUM_UPDATES)
+    t0 = time.perf_counter()
+    wer_native = native_dp.edit_distance_batch(wer_hyp, wer_ref)
+    native_s = time.perf_counter() - t0
+    n_err = int(wer_native.sum())
+    n_ref, n_hyp = sum(map(len, wer_ref)), sum(map(len, wer_hyp))
+    print(f"corpus: {n_err} errors, {n_ref} reference ids, {n_hyp} hypothesis ids", flush=True)
+    wer_sd = wer_col.state_dict()
+    check(all(wer_sd[f"{m}/errors"].item() == n_err and wer_sd[f"{m}/target_total"].item() == n_ref
+              and wer_sd[f"{m}/input_total"].item() == n_hyp for m in ("wer", "wip", "wil")),
+          "errors, target_total and input_total of all three members exactly equal to the "
+          "native DP's sums")
+    wip64 = (n_ref - n_err) / n_ref * ((n_ref - n_err) / n_hyp)
+    for name, want in (("wer", n_err / n_ref), ("wip", wip64), ("wil", 1.0 - wip64)):
+        err = abs(float(wer_out[name]) - want) / want
+        check(err <= TOL, f"corpus {name} {float(wer_out[name])!r} vs float64 {want!r}: "
+                          f"relative err {err:.3e}")
+
+    # --------------------------------- 23. the repository's WER stream
+    st_rng = np.random.default_rng(31)  # benchmarks/workloads.py's bench_wer_wavefront_stream
+    st_words = [f"w{k}" for k in range(97)]
+
+    def sentence():
+        return " ".join(st_rng.choice(st_words, st_rng.integers(1, 21)))
+
+    string_batches = [([sentence() for _ in range(b)], [sentence() for _ in range(b)])
+                      for b in [48, 64, 32, 64, 56, 40, 64, 48]]
+    interner = WordInterner()
+    token_batches = [tuple(torch.from_numpy(x).to(dev) for x in tokenize_pairs(h, r, interner=interner))
+                     for h, r in string_batches]
+
+    def stream_lifecycle(batches):
+        def run(metric):
+            metric.reset()
+            for h, r in batches:
+                metric.update(h, r)
+            return metric.compute()
+        return run
+
+    wave_wer, host_wer = WordErrorRate(), WordErrorRate()
+    st_out, stream_launches = counted(
+        "WER stream, tokenized batches", stream_lifecycle(token_batches), wave_wer,
+        "edit_distance_tokens", times=len(token_batches))
+    _build.reset_counts()
+    host_out = stream_lifecycle(string_batches)(host_wer)
+    check(not _build.LAUNCHES and not _build.PLAIN_CALLS
+          and all(torch.equal(getattr(wave_wer, s), getattr(host_wer, s))
+                  for s in ("errors", "target_total", "input_total"))
+          and torch.equal(st_out, host_out),
+          f"WER stream: the tokenized route's three states exactly equal the string (host) "
+          f"route's; WER {float(st_out)!r}")
+
+    # ------------------------------------- 24. the LM logits lifecycle
+    lm_rng = np.random.default_rng(7)  # benchmarks/workloads.py's bench_perplexity
+    lm_seqs, lm_tokens, lm_vocab = 16, 256, 8192
+    lm_logits = lm_rng.normal(size=(lm_seqs, lm_tokens, lm_vocab)).astype(np.float32)
+    lm_target = lm_rng.integers(0, lm_vocab, (lm_seqs, lm_tokens))
+    lm_batches = [(torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev))
+                  for x, t in zip(np.split(lm_logits, NUM_UPDATES), np.split(lm_target, NUM_UPDATES))]
+
+    def lm_lifecycle(col):
+        col.reset()
+        for x, t in lm_batches:
+            col.update(x, t)
+        return col.compute()
+
+    lm_col = MetricCollection({"ppl": Perplexity(), "wer": WordErrorRate()})
+    lm_out, lm_launches = counted(
+        f"LM logits lifecycle ({lm_seqs} x {lm_tokens} x {lm_vocab} f32, {NUM_UPDATES} updates, "
+        "Perplexity + WordErrorRate)", lm_lifecycle, lm_col, "edit_distance_tokens",
+        times=NUM_UPDATES)
+    nll = 0.0
+    for x, t in zip(lm_logits, lm_target):  # a sequence at a time: 16 MB of float64
+        x64 = x.astype(np.float64)
+        top = x64.max(-1)
+        lse = np.log(np.exp(x64 - top[:, None]).sum(-1)) + top
+        nll += float((lse - x64[np.arange(lm_tokens), t]).sum())
+    ppl64 = float(np.exp(nll / lm_target.size))
+    ppl_err = abs(float(lm_out["ppl"]) - ppl64) / ppl64
+    check(ppl_err <= PPL_TOL and lm_col["ppl"].num_total.item() == lm_target.size,
+          f"perplexity {float(lm_out['ppl'])!r} vs float64 oracle {ppl64!r}: relative err "
+          f"{ppl_err:.3e}")
+    lm_hyp = lm_logits.argmax(-1)
+    lm_native = int(native_dp.edit_distance_batch(lm_hyp.tolist(), lm_target.tolist()).sum())
+    lm_wer = lm_col["wer"]
+    check(lm_wer.errors.item() == lm_native and lm_wer.target_total.item() == lm_target.size
+          and lm_wer.input_total.item() == lm_target.size,
+          f"token error counters exactly equal to the native DP over numpy's argmax "
+          f"({lm_native} errors of {lm_target.size} tokens)")
+    del lm_logits
+
+    # ----------------------------------------- 25. times of phases 21-24
+    h0, r0 = wer_batches[0]
+    hl0, rl0 = lens_from_ids(h0), lens_from_ids(r0)
+    wave_ms = median_ms(lambda: _edit_distance_kernel(h0, r0, hl0, rl0))
+    wave_plain_ms = median_ms(lambda: _edit_distance_plain(h0, r0, hl0, rl0), reps=3)
+    cells = int((hl0.to(torch.int64) * rl0.to(torch.int64)).sum())
+    by_bytes = (h0.numel() + r0.numel() + 3 * per) * 4 / HBM_BYTES_PER_S
+    by_ops = cells * CELL_OPS / INT32_OPS_PER_S
+    wave_bound, wave_by = max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+    big_h, big_r = max(token_batches, key=lambda p: p[0].shape[0])
+    st_dev_ms = device_ms(torch, lambda: edit_distance_tokens(big_h, big_r))
+    print(f"time {card}: edit_distance_tokens ({per}, 256) x ({per}, 256), {cells} DP cells: "
+          f"kernel {wave_ms:.4f} ms, plain {wave_plain_ms:.4f} ms, library none, bound "
+          f"{wave_bound:.4f} ms ({wave_by}: {CELL_OPS} int32 operations a cell at "
+          f"{INT32_OPS_PER_S:.3g}/s; the bytes alone {by_bytes * 1e3:.4f} ms); at the WER "
+          f"stream's largest batch {tuple(big_h.shape)} x {tuple(big_r.shape)}, device time per "
+          f"call (lengths, kernel) {st_dev_ms:.4f} ms", flush=True)
+    wer_life_ms = host_median_ms(lambda: wer_lifecycle(wer_col))
+    one_wer = MetricCollection({"wer": WordErrorRate()})
+    wer_one_ms = host_median_ms(lambda: wer_lifecycle(one_wer))
+    print(f"time {card}: corpus WER lifecycle (2^16 pairs, 8 updates + compute): WER + WIP + "
+          f"WIL {wer_life_ms:.3f} ms, WER alone {wer_one_ms:.3f} ms; the native host DP over the "
+          f"same pairs, on this host's CPU (no device time): {native_s * 1e3:.1f} ms", flush=True)
+    st_ms = host_median_ms(lambda: stream_lifecycle(token_batches)(wave_wer))
+    st_host_ms = host_median_ms(lambda: stream_lifecycle(string_batches)(host_wer))
+    print(f"time {card}: WER stream (416 pairs, 8 updates + compute): tokenized route "
+          f"{st_ms:.3f} ms; string route on this host's CPU {st_host_ms:.3f} ms", flush=True)
+    lm_ms = host_median_ms(lambda: lm_lifecycle(lm_col))
+    print(f"time {card}: LM logits lifecycle (16 x 256 x 8192 f32, 8 updates + compute, "
+          f"Perplexity + WordErrorRate): {lm_ms:.3f} ms", flush=True)
+    if profile_phase:
+        profile_lifecycle(torch, card, "corpus WER lifecycle (WER + WIP + WIL)",
+                          lambda: wer_lifecycle(wer_col), host_ops=True)
+        profile_lifecycle(torch, card, "LM logits lifecycle (Perplexity + WordErrorRate)",
+                          lambda: lm_lifecycle(lm_col), host_ops=True)
+
+    # ------------------------------------------------------ the kernels line
     kernels = [
         {
             "name": "rank_sum_counts",
@@ -1164,6 +1469,20 @@ def main(argv) -> int:
             "plain_ms": mega_plain_ms,
             "bound_ms": mega_bound,
             "bound_by": mega_by,
+            "library_ms": None,
+            "verdict": "bit-equal",
+        },
+        {
+            "name": "edit_distance_tokens",
+            "route": "cuda",
+            "source": "torcheval_tpu_torch/ops/csrc/wavefront.cu",
+            "replaces": "torcheval_tpu/ops/pallas_wavefront.py:131",
+            "launches": wer_launches,
+            "max_abs_err": wave_err,
+            "ms": wave_ms,
+            "plain_ms": wave_plain_ms,
+            "bound_ms": wave_bound,
+            "bound_by": wave_by,
             "library_ms": None,
             "verdict": "bit-equal",
         },

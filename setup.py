@@ -48,9 +48,13 @@ if __name__ == "__main__":
                 "torcheval_tpu_torch.*",
             ]
         ),
-        # The PyTorch port builds its CUDA kernels from these sources with
-        # nvcc at first use, so they ship as files on disk.
-        package_data={"torcheval_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh"]},
+        # The PyTorch port builds its CUDA kernels with nvcc, and its host
+        # edit distance with the system C++ compiler, from these sources at
+        # first use, so they ship as files on disk.
+        package_data={
+            "torcheval_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh"],
+            "torcheval_tpu_torch.native": ["*.cpp"],
+        },
         python_requires=">=3.10",
         install_requires=["jax", "numpy"],
         extras_require={

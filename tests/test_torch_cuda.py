@@ -384,3 +384,116 @@ def test_fused_collection_on_the_card_equals_the_per_member_path(monkeypatch):
     assert a.keys() == b.keys()
     for k in a:
         assert a[k].device.type == "cuda" and a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+
+
+def _ragged_ids(rng, n, width, lo, hi, vocab):
+    lens = rng.integers(lo, hi + 1, n)
+    ids = rng.integers(0, vocab, (n, width)).astype(np.int32)
+    ids[np.arange(width)[None, :] >= lens[:, None]] = -1
+    return ids
+
+
+@pytest.mark.parametrize(
+    "n,wa,wb,lo,vocab",
+    [
+        (1024, 256, 256, 0, 10_000),  # the corpus update's widths
+        (512, 32, 32, 1, 97),  # short sentences
+        (257, 16, 256, 0, 5),  # asymmetric widths
+        (257, 256, 16, 0, 5),
+        (300, 64, 0, 0, 9),  # a reference of width 0
+        (300, 0, 64, 0, 9),
+        (1, 24, 24, 24, 3),
+        (0, 24, 24, 0, 3),  # no launch
+        (16, 2048, 2048, 1500, 30),
+        (4, 4096, 4096, 3000, 30),  # shared memory past 48 KB
+        (2, 12_000, 9000, 8000, 30),  # the diagonals in a global scratch
+    ],
+)
+def test_edit_distance_kernel_bitwise_equals_plain_and_native(n, wa, wb, lo, vocab):
+    from torcheval_tpu_torch.ops.wavefront import (
+        _edit_distance_native,
+        _edit_distance_plain,
+        edit_distance_tokens,
+        lens_from_ids,
+    )
+
+    dev = _cuda()
+    rng = np.random.default_rng(n + wa + wb)
+    a = _ragged_ids(rng, n, wa, min(lo, wa), wa, vocab)
+    b = _ragged_ids(rng, n, wb, min(lo, wb), wb, vocab)
+    if n > 8:
+        a[0], b[1] = -1, -1  # an empty hypothesis, an empty reference
+        a[2], b[2] = -1, -1  # both empty
+        b[3, : min(wa, wb)] = a[3, : min(wa, wb)]  # a shared prefix
+    ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    _build.reset_counts()
+    got = edit_distance_tokens(ta, tb)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["edit_distance_tokens"] == (1 if n else 0) and not _build.PLAIN_CALLS
+    la, lb = lens_from_ids(ta), lens_from_ids(tb)
+    assert got.dtype == torch.int32 and torch.equal(got, _edit_distance_plain(ta, tb, la, lb))
+    np.testing.assert_array_equal(got.cpu().numpy(), _edit_distance_native(a, b, la, lb))
+    # Pad values never leak: another garbage past the same lengths.
+    noisy_a, noisy_b = a.copy(), b.copy()
+    noisy_a[a < 0], noisy_b[b < 0] = 3, -17
+    again = edit_distance_tokens(
+        torch.from_numpy(noisy_a).to(dev), torch.from_numpy(noisy_b).to(dev), la, lb,
+        mask=torch.ones(n, device=dev),
+    )
+    assert torch.equal(again, got)
+
+
+def test_text_lifecycles_on_the_card_equal_the_cpu_and_the_host_path():
+    from torcheval_tpu_torch.metrics import (
+        MetricCollection,
+        Perplexity,
+        WordErrorRate,
+        WordInformationLost,
+        WordInformationPreserved,
+    )
+    from torcheval_tpu_torch.metrics.text._tokens import WordInterner, tokenize_pairs
+
+    dev = _cuda()
+    rng = np.random.default_rng(31)
+    words = [f"w{k}" for k in range(97)]
+
+    def sentence():
+        return " ".join(rng.choice(words, rng.integers(1, 21)))
+
+    strings = [([sentence() for _ in range(b)], [sentence() for _ in range(b)])
+               for b in (48, 64, 32)]
+    interner = WordInterner()
+    tokens = [tokenize_pairs(h, r, interner=interner) for h, r in strings]
+
+    def members(device):
+        return {"wer": WordErrorRate(device=device), "wip": WordInformationPreserved(device=device),
+                "wil": WordInformationLost(device=device)}
+
+    on_card, on_cpu, host = (MetricCollection(members(d)) for d in (dev, "cpu", "cpu"))
+    _build.reset_counts()
+    for (h, r), (hs, rs) in zip(tokens, strings):
+        on_card.update(h, r)
+        on_cpu.update(h, r)
+        host.update(hs, rs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["edit_distance_tokens"] == 3 * len(tokens)
+    for k, v in on_card.state_dict().items():
+        assert v.device.type == "cuda"
+        assert torch.equal(v.cpu(), on_cpu.state_dict()[k]) and torch.equal(v.cpu(), host.state_dict()[k])
+    for k, v in on_card.compute().items():
+        assert torch.equal(v.cpu(), on_cpu.compute()[k])
+
+    logits = rng.standard_normal((4, 64, 512)).astype(np.float32)
+    target = rng.integers(0, 512, (4, 64)).astype(np.int32)
+    target[:, 50:] = -1
+    lm = {d: MetricCollection({"ppl": Perplexity(ignore_index=-1, device=d),
+                               "wer": WordErrorRate(device=d)}) for d in (dev, "cpu")}
+    _build.reset_counts()
+    for d, col in lm.items():
+        for x, t in zip(np.split(logits, 2), np.split(target, 2)):
+            col.update(x, t)
+    assert _build.LAUNCHES["edit_distance_tokens"] == 2
+    card_out, cpu_out = lm[dev].compute(), lm["cpu"].compute()
+    assert torch.equal(card_out["wer"].cpu(), cpu_out["wer"])
+    assert torch.equal(lm[dev]["ppl"].num_total.cpu(), lm["cpu"]["ppl"].num_total)
+    np.testing.assert_allclose(float(card_out["ppl"]), float(cpu_out["ppl"]), rtol=1e-5)

@@ -62,6 +62,19 @@ def test_sources_import_no_jax():
         "torcheval_tpu_torch/ops/mega.py",
         "torcheval_tpu_torch/utils/test_utils/dummy_metric.py",
         "torcheval_tpu_torch/utils/test_utils/metric_class_tester.py",
+        "torcheval_tpu_torch/native/edit_distance.py",
+        "torcheval_tpu_torch/ops/wavefront.py",
+        "torcheval_tpu_torch/metrics/text/_tokens.py",
+        "torcheval_tpu_torch/metrics/text/bleu.py",
+        "torcheval_tpu_torch/metrics/text/perplexity.py",
+        "torcheval_tpu_torch/metrics/text/word_error_rate.py",
+        "torcheval_tpu_torch/metrics/functional/text/bleu.py",
+        "torcheval_tpu_torch/metrics/functional/text/perplexity.py",
+        "torcheval_tpu_torch/metrics/functional/text/word_error_rate.py",
+        "torcheval_tpu_torch/metrics/classification/binary_normalized_entropy.py",
+        "torcheval_tpu_torch/metrics/functional/classification/binary_normalized_entropy.py",
+        "torcheval_tpu_torch/metrics/aggregation/click_through_rate.py",
+        "torcheval_tpu_torch/metrics/functional/aggregation/mean.py",
     } <= scanned
     assert _FORBIDDEN.search("from __graft_entry__ import entry")
     assert _FORBIDDEN.search("import jax.numpy as jnp")
@@ -106,6 +119,15 @@ col = MetricCollection({"cm": MulticlassConfusionMatrix(4, device="cpu")}, bucke
 col.fused_update(rng.random((64, 4)).astype(np.float32), rng.integers(0, 4, 64))
 synced = LocalWorld(2).run(lambda g, r: sync_and_compute(col, g, "all"))
 assert int(synced[0]["cm"].sum()) == 128
+from torcheval_tpu_torch.metrics import BLEUScore, Mean, Perplexity, WordErrorRate
+from torcheval_tpu_torch.metrics.text._tokens import tokenize_pairs
+wer = WordErrorRate(device="cpu").update(*tokenize_pairs(["a b c"], ["a x c d"]))
+assert wer.update(["a b"], ["a b"]).errors.item() == 2.0
+text = MetricCollection({"ppl": Perplexity(device="cpu"), "wer": WordErrorRate(device="cpu")})
+text.update(rng.random((2, 5, 7)).astype(np.float32), rng.integers(0, 7, (2, 5)))
+assert float(text.compute()["ppl"]) > 1.0
+assert float(BLEUScore(n_gram=2, device="cpu").update("a b c", "a b c").compute()) == 1.0
+assert float(Mean(device="cpu").update(torch.ones(3), 2.0).compute()) == 1.0
 assert not any(
     k.split(".")[0] in ("jax", "torcheval_tpu", "__graft_entry__") for k in sys.modules
 )
@@ -158,6 +180,7 @@ def test_library_name_is_keyed_by_the_sources():
         "rank_hist.cu",
         "mega.cu",
         "rank_sum.cu",
+        "wavefront.cu",
     }
 
 
@@ -203,6 +226,9 @@ def test_flags(monkeypatch):
     assert _flags.get("DISABLE_USTAT") is False
     with pytest.raises(KeyError):
         _flags.get("DISABLE_PALLAS")
+    # No switch sends GPU tensors past the edit-distance kernel.
+    with pytest.raises(KeyError):
+        _flags.get_tristate("WAVEFRONT")
 
 
 def test_megakernel_flag_is_tristate(monkeypatch):

@@ -13,6 +13,9 @@ from torcheval_tpu_torch.metrics.classification.auroc import (
     BinaryAUROC,
     MulticlassAUROC,
 )
+from torcheval_tpu_torch.metrics.classification.binary_normalized_entropy import (
+    BinaryNormalizedEntropy,
+)
 from torcheval_tpu_torch.metrics.classification.binned_auc import (
     BinaryBinnedAUPRC,
     BinaryBinnedAUROC,
@@ -60,6 +63,7 @@ __all__ = [
     "BinaryBinnedPrecisionRecallCurve",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
+    "BinaryNormalizedEntropy",
     "BinaryPrecision",
     "BinaryPrecisionRecallCurve",
     "BinaryRecall",

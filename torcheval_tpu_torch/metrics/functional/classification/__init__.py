@@ -13,6 +13,9 @@ from torcheval_tpu_torch.metrics.functional.classification.auroc import (
     binary_auroc,
     multiclass_auroc,
 )
+from torcheval_tpu_torch.metrics.functional.classification.binary_normalized_entropy import (
+    binary_normalized_entropy,
+)
 from torcheval_tpu_torch.metrics.functional.classification.binned_auc import (
     binary_binned_auprc,
     binary_binned_auroc,
@@ -60,6 +63,7 @@ __all__ = [
     "binary_binned_precision_recall_curve",
     "binary_confusion_matrix",
     "binary_f1_score",
+    "binary_normalized_entropy",
     "binary_precision",
     "binary_precision_recall_curve",
     "binary_recall",

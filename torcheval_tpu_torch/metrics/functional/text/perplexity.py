@@ -1,0 +1,81 @@
+"""Perplexity from next-token logits (the port of
+``torcheval_tpu/metrics/functional/text/perplexity.py``).
+
+Sufficient statistics: the summed token negative log-likelihood and the
+token count, both mergeable by addition.  Plain PyTorch: the JAX package
+computes this outside any hand-written kernel too."""
+
+from typing import Optional, Tuple
+
+import torch
+
+from torcheval_tpu_torch.metrics.functional._host_checks import place_inputs
+
+
+def perplexity(
+    input,
+    target,
+    ignore_index: Optional[int] = None,
+) -> torch.Tensor:
+    """``exp(mean NLL)`` over ``(n, seq_len, vocab)`` logits and
+    ``(n, seq_len)`` target token ids; ``ignore_index`` tokens are
+    excluded from the mean."""
+    input, target = place_inputs(input, target)
+    _perplexity_input_check(input, target)
+    sum_nll, count = _perplexity_update_kernel(input, target, ignore_index)
+    return _perplexity_compute(sum_nll, count)
+
+
+def _perplexity_update_kernel(
+    input: torch.Tensor,
+    target: torch.Tensor,
+    ignore_index: Optional[int],
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    # Each token's log-prob is its gathered logit minus the vocab-axis
+    # logsumexp: the full (n, seq, vocab) log-prob tensor is never formed
+    # (a log_softmax-then-gather writes and re-reads the whole cube).
+    # Negative target ids (the tokenized-text pad convention) gather through
+    # a clamped index, and `valid` zeroes their term where they are the
+    # ignore_index.  An id past the vocabulary gives NaN, as the JAX
+    # gather's fill does, where torch.gather alone would fault.
+    logits = input.to(torch.float32)
+    vocab = logits.shape[-1]
+    index = target.to(torch.int64)
+    token_logit = torch.gather(
+        logits, -1, index.clamp(0, max(vocab - 1, 0))[..., None]
+    )[..., 0]
+    token_logit = torch.where(
+        index >= vocab, torch.full_like(token_logit, float("nan")), token_logit
+    )
+    token_ll = token_logit - torch.logsumexp(logits, dim=-1)
+    if ignore_index is None:
+        valid = torch.ones(target.shape, dtype=torch.float32, device=logits.device)
+    else:
+        valid = (target != ignore_index).to(torch.float32)
+    if mask is not None:
+        # Padded bucket rows contribute exact zeros to both counters.
+        valid = valid * mask.to(torch.float32)[:, None]
+    return -(token_ll * valid).sum(), valid.sum()
+
+
+def _perplexity_compute(sum_nll: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    return torch.exp(sum_nll / count)
+
+
+def _perplexity_input_check(input: torch.Tensor, target: torch.Tensor) -> None:
+    if input.dim() != 3:
+        raise ValueError(
+            "input should have shape (num_sequences, num_tokens, vocab_size), "
+            f"got {tuple(input.shape)}."
+        )
+    if target.dim() != 2:
+        raise ValueError(
+            "target should have shape (num_sequences, num_tokens), "
+            f"got {tuple(target.shape)}."
+        )
+    if input.shape[:2] != target.shape:
+        raise ValueError(
+            "The leading dimensions of input and target should match, got "
+            f"{tuple(input.shape)} and {tuple(target.shape)}."
+        )

@@ -11,7 +11,13 @@ plain PyTorch version beside its wrapper.
 * :mod:`.mega` — the one-pass collection kernel (``csrc/mega.cu``) that
   counts every supported member of a ``MetricCollection`` in one read of
   the batch, planned by :mod:`._mega_plan`.
+* :mod:`.wavefront` — batched token-level edit distance by an
+  anti-diagonal sweep (``csrc/wavefront.cu``), under the text metrics.
 * :mod:`.fused_auc` — the approximate fused AUC (plain PyTorch).
 * :mod:`._build` — builds the kernels with ``nvcc`` at first use and
   counts their launches.
 """
+
+from torcheval_tpu_torch.ops.wavefront import edit_distance_tokens
+
+__all__ = ["edit_distance_tokens"]

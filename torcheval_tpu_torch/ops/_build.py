@@ -61,6 +61,8 @@ _SIGNATURES: Dict[str, tuple] = {
     "binned_count_launch": (_P, _LL, _LL, _P, _LL, _LL, _I, _I, _P, _I, _P, _P),
     # scores, pred, target, weight, sids, n, thresholds, plan, plan_bytes, out, stream
     "mega_counts_launch": (_P, _P, _P, _P, _P, _LL, _P, _P, _I, _P, _P),
+    # a, b, a_lens, b_lens, n, wa, wb, scratch, scratch_blocks, out, stream
+    "wavefront_launch": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P),
 }
 
 
