@@ -111,7 +111,33 @@ times kernels and lifecycle with CUDA events.  Phases:
     at the corpus update's shape beside its plain version and its bound,
     its device time at the stream's largest batch, the three lifecycles,
     and the native host DP over the corpus pairs on the host's CPU (with
-    ``--profile``, phases 22 and 24 by operator).
+    ``--profile``, phases 22 and 24 by operator);
+26. the weighted binned kernel against its plain version at the shape of
+    the repository's weighted-histogram workload (numpy seed 15, (1000,
+    2^17) f32 scores, hits, weights in [0.5, 1.5), 2048 thresholds on the
+    ``jnp.linspace`` grid): within 1e-6 of the sum of |w| a cell, the same
+    bits on two launches, bit-equal to ``binned_counts`` under unit
+    weights; the same three checks on NaN / +-inf scores, mixed-sign and
+    zero weights, T = 1, T = 60 000 (the global-memory path), a strided
+    (C, N) class view, and N = 0 (no launch); its time beside its plain
+    version's and the unweighted kernel's;
+27. the north-star sharded multiclass histogram (numpy seed 6, (2^17, 1000)
+    f32 scores, int32 targets, 2048 bins) over ``LocalWorld(4)`` ranks on
+    the one card, each with its ``shard_batch`` block: 4 ``binned_counts``
+    launches unweighted, 4 ``binned_weighted_counts`` launches weighted,
+    no plain call; the merged counts bit-equal to ``LocalWorld(1)`` on the
+    whole array (weighted: within 1e-6 of the sum of |w|), unit weights
+    bit-equal to unweighted, every class's AUROC within 1e-6 of a float64
+    ``np.bincount`` oracle of the same binned curve;
+28. binary ``sharded_auroc_histogram`` / ``sharded_auprc_histogram`` at the
+    repository's sharded-sync shape (numpy seed 5, 2^22 samples, 16 384
+    bins), weighted and unweighted, over ``LocalWorld(4)``: 4 launches a
+    call, unit weights and ``LocalWorld(1)`` bit-equal, within 1e-6 of the
+    float64 oracles;
+29. ``make_synced_update`` over ``LocalWorld(4)`` on the per-class accuracy
+    counts of phase 27's batch, bit-equal to one rank's update on the
+    whole batch; then the wall clock of each sharded call (median of 5)
+    beside its all-reduce alone, whose tensors pickle through the CPU.
 
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
@@ -1386,6 +1412,334 @@ def main(argv) -> int:
         profile_lifecycle(torch, card, "LM logits lifecycle (Perplexity + WordErrorRate)",
                           lambda: lm_lifecycle(lm_col), host_ops=True)
 
+    # --------------------- 26. the weighted binned kernel vs its plain version
+    from torcheval_tpu_torch.metrics.functional.classification.accuracy import (
+        _multiclass_accuracy_update_kernel,
+    )
+    from torcheval_tpu_torch.ops.binned import (
+        _binned_weighted_counts_plain,
+        binned_weighted_counts,
+    )
+    from torcheval_tpu_torch.parallel import (
+        make_mesh,
+        make_synced_update,
+        mesh_merge_states,
+        shard_batch,
+        sharded_auprc_histogram,
+        sharded_auroc_histogram,
+        sharded_multiclass_auroc_histogram,
+    )
+    from torcheval_tpu_torch.parallel import sync as psync
+
+    def within(got, want, scale):
+        """|got - want| <= 1e-6 x (sum of |w| over each cell's samples), and
+        the largest |got - want|."""
+        ok = all(g.dtype == torch.float32 and g.shape == w.shape
+                 and bool(((g - w).abs() <= TOL * a).all())
+                 for g, w, a in zip(got, want, scale))
+        return ok, max(float((g - w).abs().max()) if g.numel() else 0.0
+                       for g, w in zip(got, want))
+
+    wh_rng = np.random.default_rng(15)  # benchmarks/workloads.py's bench_weighted_histogram
+    wh_r, wh_n, wh_t = 1000, 2**17, 2048
+    wh_s = torch.from_numpy(wh_rng.random((wh_r, wh_n)).astype(np.float32)).to(dev)
+    wh_h = torch.from_numpy(wh_rng.random((wh_r, wh_n)) > 0.4).to(dev)
+    wh_w = torch.from_numpy(wh_rng.random(wh_n).astype(np.float32) + 0.5).to(dev)
+    wh_th = _create_threshold_tensor(wh_t, dev)  # jnp.linspace(0, 1, 2048) bit for bit
+    _build.reset_counts()
+    wk = binned_weighted_counts(wh_s, wh_h, wh_w, wh_th)
+    torch.cuda.synchronize()
+    check(dict(_build.LAUNCHES) == {"binned_weighted_counts": 1} and not _build.PLAIN_CALLS,
+          "binned_weighted_counts at the bench shape: one launch, no plain call")
+    ok, wcount_err = within(wk, _binned_weighted_counts_plain(wh_s, wh_h, wh_w, wh_th),
+                            _binned_weighted_counts_plain(wh_s, wh_h, wh_w.abs(), wh_th))
+    check(ok, f"binned_weighted_counts within 1e-6 x sum|w| of plain at ({wh_r}, {wh_n}) x "
+          f"{wh_t}: max |kernel - plain| {wcount_err:.3e}")
+    again = binned_weighted_counts(wh_s, wh_h, wh_w, wh_th)
+    check(all(torch.equal(a, b) for a, b in zip(wk, again)),
+          "binned_weighted_counts: two launches on one input give identical bits")
+    ones_k = binned_weighted_counts(wh_s, wh_h, torch.ones_like(wh_w), wh_th)
+    check(all(torch.equal(a, b.to(torch.float32))
+              for a, b in zip(ones_k, binned_counts(wh_s, wh_h, wh_th))),
+          "binned_weighted_counts under unit weights bit-equal to binned_counts as f32")
+    del again, ones_k
+    wcount_ms = median_ms(lambda: binned_weighted_counts(wh_s, wh_h, wh_w, wh_th))
+    wcount_plain_ms = median_ms(lambda: _binned_weighted_counts_plain(wh_s, wh_h, wh_w, wh_th))
+    unweighted_ms = median_ms(lambda: binned_counts(wh_s, wh_h, wh_th))
+    wh_searches = wh_r * wh_n * (int(np.ceil(np.log2(wh_t + 1))) + 2)
+    wcount_bound, wcount_by = bound(
+        wh_r * wh_n * 5 + wh_n * 4 + wh_t * 4 + (2 * wh_r * wh_t + 2 * wh_r) * 4, wh_searches)
+    print(f"time {card}: binned_weighted_counts ({wh_r}, {wh_n}) x {wh_t}: kernel "
+          f"{wcount_ms:.4f} ms, plain {wcount_plain_ms:.4f} ms, library none, bound "
+          f"{wcount_bound:.4f} ms ({wcount_by}); binned_counts at the same shape "
+          f"{unweighted_ms:.4f} ms; weighted_over_unweighted {wcount_ms / unweighted_ms:.3f}",
+          flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            binned_weighted_counts(wh_s, wh_h, wh_w, wh_th)
+        torch.cuda.synchronize()
+    split = sorted(((e.key, device_us(e) / 3e3) for e in device_events(torch, prof)),
+                   key=lambda r: -r[1])
+    print(f"   device time a call by kernel: " + "; ".join(
+        f"{key[:48]} {ms:.4f} ms" for key, ms in split[:5]), flush=True)
+    edge_s = torch.rand(2, 100_003, device=dev, generator=gen)
+    edge_s[0, :6] = torch.tensor([float("nan"), float("inf"), -float("inf"), -1.0, 2.0, 0.5])
+    edge_h = torch.rand(2, 100_003, device=dev, generator=gen) < 0.4
+    edge_w = torch.rand(100_003, device=dev, generator=gen) + 0.5
+    mixed_w = (edge_w - 1.0) * 3.0
+    mixed_w[::7] = 0.0
+    view_s = torch.rand(4096 * 3 + 7, NUM_CLASSES // 10, device=dev, generator=gen)
+    view_y = torch.randint(0, NUM_CLASSES // 10, (4096 * 3 + 7,), device=dev, generator=gen)
+    view_w = torch.rand(4096 * 3 + 7, device=dev, generator=gen) + 0.5
+    long_s = torch.full((1, 2**26), 0.37, device=dev)
+    long_h = torch.ones(1, 2**26, dtype=torch.bool, device=dev)
+    long_w = torch.full((2**26,), 0.1, device=dev)
+    for label, es, eh, ew, et in [
+        ("NaN, +-inf and out-of-range scores, (2, 100003) x 200", edge_s, edge_h, edge_w,
+         _create_threshold_tensor(200, dev)),
+        ("mixed-sign and zero weights, (2, 100003) x 200", edge_s, edge_h, mixed_w,
+         _create_threshold_tensor(200, dev)),
+        ("T = 1", edge_s, edge_h, edge_w, _create_threshold_tensor(1, dev)),
+        ("T = 60000 (histograms and thresholds past shared memory)", edge_s, edge_h, edge_w,
+         _create_threshold_tensor(60_000, dev)),
+        ("(100, 12295) strided class view of an (N, C) buffer x 2048", view_s.T,
+         class_hits(view_y, NUM_CLASSES // 10), view_w, wh_th),
+        ("one row, 2^26 hits in one slot at a constant weight 0.1 (an f32 sum drifts), x 2048",
+         long_s, long_h, long_w, wh_th),
+        ("(2, 100003) x 10000 (the histograms only in shared memory, one warp)", edge_s,
+         edge_h, edge_w, _create_threshold_tensor(10_000, dev)),
+        ("N = 0", edge_s[:, :0], edge_h[:, :0], edge_w[:0], _create_threshold_tensor(200, dev)),
+    ]:
+        _build.reset_counts()
+        got = binned_weighted_counts(es, eh, ew, et)
+        torch.cuda.synchronize()
+        launched = _build.LAUNCHES["binned_weighted_counts"]
+        ok, err = within(got, _binned_weighted_counts_plain(es, eh, ew, et),
+                         _binned_weighted_counts_plain(es, eh, ew.abs(), et))
+        twice = all(torch.equal(a, b) for a, b in zip(got, binned_weighted_counts(es, eh, ew, et)))
+        unit = all(torch.equal(a, b.to(torch.float32)) for a, b in zip(
+            binned_weighted_counts(es, eh, torch.ones_like(ew), et), binned_counts(es, eh, et)))
+        check(ok and twice and unit and launched == (0 if es.shape[1] == 0 else 1),
+              f"binned_weighted_counts: {label}: within tolerance of plain (max err {err:.3e}), "
+              f"same bits twice, unit weights bit-equal to binned_counts, {launched} launch(es)")
+    del edge_s, edge_h, view_s, long_s, long_h, long_w
+    del wh_s, wh_h, wk
+
+    # ------------------- 27. the north-star sharded multiclass histogram
+    def world(size, fn):
+        """``fn(mesh)`` on every rank of ``LocalWorld(size)``; all ranks
+        must return the same bits."""
+        out = LocalWorld(size).run(lambda g, r: fn(make_mesh(group=g)))
+        torch.cuda.synchronize()
+        flat = [o if isinstance(o, (list, tuple)) else [o] for o in out]
+        check(all(all(torch.equal(a, b) for a, b in zip(flat[0], f)) for f in flat[1:]),
+              f"LocalWorld({size}): every rank holds the same bits")
+        return out[0]
+
+    def world_counted(label, size, fn, kernel):
+        _build.reset_counts()
+        out = world(size, fn)
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        check(launches == {kernel: size} and not plain,
+              f"{label}: launches {launches}, no plain call")
+        return out, launches[kernel]
+
+    def hold_shard(label, s, h, w, grid):
+        """Both binned kernels on one rank's block, as the sharded path
+        gives it them, against their plain versions on the same tensors:
+        counts bit-equal, weighted sums within 1e-6 x sum|w| a cell, the
+        same bits on a second launch and under unit weights the counts.
+        These launches are comparisons: the counters are reset before
+        each main-path run."""
+        counts = binned_counts(s, h, grid)
+        check(all(torch.equal(a, b) for a, b in zip(counts, _binned_counts_plain(s, h, grid))),
+              f"binned_counts on {label}: bit-equal to its plain version")
+        got = binned_weighted_counts(s, h, w, grid)
+        ok, err = within(got, _binned_weighted_counts_plain(s, h, w, grid),
+                         _binned_weighted_counts_plain(s, h, w.abs(), grid))
+        twice = all(torch.equal(a, b) for a, b in zip(got, binned_weighted_counts(s, h, w, grid)))
+        unit = all(torch.equal(a, b.to(torch.float32)) for a, b in zip(
+            binned_weighted_counts(s, h, torch.ones_like(w), grid), counts))
+        check(ok and twice and unit,
+              f"binned_weighted_counts on {label}: within 1e-6 x sum|w| of plain (max err "
+              f"{err:.3e}), same bits twice, unit weights bit-equal to binned_counts")
+        return err
+
+    def rank_block(rank, *arrays):
+        """Rank ``rank``'s ``shard_batch`` block of ``arrays`` in a
+        ``LocalWorld(4)``."""
+        return LocalWorld(4).run(lambda g, r: shard_batch(make_mesh(group=g), *arrays))[rank]
+
+    def binned_oracle(scores_np, hits_np, w_np, nb):
+        """float64 per-bin positive / total mass of the scatter rule
+        clip(int(f32(s) * nb)), by np.bincount; rows on the last axis."""
+        s2 = scores_np.reshape(scores_np.shape[0], -1)
+        h2 = hits_np.reshape(s2.shape)
+        idx = np.clip((s2 * np.float32(nb)).astype(np.int32), 0, nb - 1)
+        flat = (idx + nb * np.arange(s2.shape[1])[None, :]).ravel()
+        wt = np.broadcast_to(w_np[:, None], s2.shape).ravel().astype(np.float64)
+        pos = np.bincount(flat, weights=wt * h2.ravel(), minlength=nb * s2.shape[1])
+        tot = np.bincount(flat, weights=wt, minlength=nb * s2.shape[1])
+        return pos.reshape(-1, nb), tot.reshape(-1, nb)
+
+    def oracle_binned_roc(pos, tot):
+        cum_tp = np.concatenate([np.zeros((pos.shape[0], 1)), np.cumsum(pos[:, ::-1], 1)], 1)
+        cum_fp = np.concatenate([np.zeros((pos.shape[0], 1)),
+                                 np.cumsum((tot - pos)[:, ::-1], 1)], 1)
+        area = 0.5 * np.sum(np.diff(cum_fp, axis=1) * (cum_tp[:, 1:] + cum_tp[:, :-1]), 1)
+        factor = cum_tp[:, -1] * cum_fp[:, -1]
+        return np.where(factor == 0, 0.5, area / np.where(factor == 0, 1, factor))
+
+    def oracle_binned_ap(pos, tot):
+        delta = pos[0, ::-1]
+        cum_tp, cum_all = np.cumsum(delta), np.cumsum(tot[0, ::-1])
+        prec = np.where(cum_all > 0, cum_tp / np.where(cum_all > 0, cum_all, 1), 1.0)
+        return 0.0 if cum_tp[-1] == 0 else float(np.sum(delta * prec) / cum_tp[-1])
+
+    ns_rng = np.random.default_rng(6)  # benchmarks/workloads.py's bench_sharded_multiclass_auroc
+    ns_s_np = ns_rng.random((NUM_SAMPLES, NUM_CLASSES), dtype=np.float32)
+    ns_t_np = ns_rng.integers(0, NUM_CLASSES, NUM_SAMPLES).astype(np.int32)
+    ns_w_np = ns_rng.random(NUM_SAMPLES).astype(np.float32) + 0.5
+    ns_s, ns_t, ns_w = (torch.from_numpy(x).to(dev) for x in (ns_s_np, ns_t_np, ns_w_np))
+    ns_bins = 2048
+
+    def ns_call(weights=None):
+        def fn(mesh):
+            s, t, w = shard_batch(mesh, ns_s, ns_t, ns_w if weights is None else weights)
+            return sharded_multiclass_auroc_histogram(
+                s, t, mesh, num_bins=ns_bins, average=None,
+                weights=None if weights is None else w)
+        return fn
+
+    def ns_counts(weights=None):
+        def fn(mesh):
+            s, t, w = shard_batch(mesh, ns_s, ns_t, ns_w if weights is None else weights)
+            local = psync._counts_local(s.T, class_hits(t, NUM_CLASSES),
+                                        None if weights is None else w, ns_bins)
+            return list(mesh_merge_states(local, "dp", mesh=mesh))
+        return fn
+
+    sh_s, sh_t, sh_w = rank_block(1, ns_s, ns_t, ns_w)
+    shard_errs = [hold_shard(
+        f"rank 1's north-star block, the strided ({NUM_CLASSES}, {NUM_SAMPLES // 4}) class view "
+        f"x {ns_bins}", sh_s.T, class_hits(sh_t, NUM_CLASSES), sh_w,
+        torch.tensor(psync._grid_np(ns_bins), device=dev))]
+    del sh_s, sh_t, sh_w
+    ns_auroc, ns_launches = world_counted(
+        f"sharded_multiclass_auroc_histogram ({NUM_SAMPLES}, {NUM_CLASSES}) x {ns_bins}, "
+        "LocalWorld(4), unweighted", 4, ns_call(), "binned_counts")
+    ns_wauroc, ns_wlaunches = world_counted(
+        "the same, weighted", 4, ns_call(ns_w), "binned_weighted_counts")
+    merged4, merged1 = world(4, ns_counts()), world(1, ns_counts())
+    check(all(torch.equal(a, b) for a, b in zip(merged4, merged1)),
+          "merged per-class counts over LocalWorld(4) bit-equal to LocalWorld(1) on the whole")
+    wmerged4, wmerged1 = world(4, ns_counts(ns_w)), world(1, ns_counts(ns_w))
+    ok, ns_werr = within(wmerged4, wmerged1,
+                         world(1, ns_counts(ns_w.abs())))  # positive weights: the sums
+    check(ok, f"merged weighted sums over LocalWorld(4) within 1e-6 x sum|w| of LocalWorld(1): "
+          f"max diff {ns_werr:.3e}")
+    ns_ones = world(4, ns_call(torch.ones_like(ns_w)))
+    check(torch.equal(ns_ones, ns_auroc),
+          "weighted AUROC under unit weights bit-equal to the unweighted, every class")
+    ns_hits = ns_t_np[:, None] == np.arange(NUM_CLASSES)[None, :]
+    t0 = time.perf_counter()
+    for label, got, w_np in [("unweighted", ns_auroc, np.ones(NUM_SAMPLES, np.float32)),
+                             ("weighted", ns_wauroc, ns_w_np)]:
+        want = oracle_binned_roc(*binned_oracle(ns_s_np, ns_hits, w_np, ns_bins))
+        err = float(np.abs(got.cpu().numpy().astype(np.float64) - want).max())
+        check(err <= TOL, f"north-star {label} per-class AUROC vs float64 bincount oracle, all "
+              f"{NUM_CLASSES} classes: max err {err:.3e}")
+    print(f"north-star oracles: {time.perf_counter() - t0:.1f} s on the host", flush=True)
+    del ns_hits
+
+    # -------------------------------- 28. the binary sharded AUROC / AP sync
+    bs_rng = np.random.default_rng(5)  # benchmarks/workloads.py's bench_sharded_auroc_sync
+    bs_n, bs_bins = 2**22, 16_384
+    bs_s_np = bs_rng.random(bs_n, dtype=np.float32)
+    bs_t_np = (bs_rng.random(bs_n) > 0.5).astype(np.float32)
+    bs_w_np = bs_rng.random(bs_n).astype(np.float32) + 0.5
+    bs_s, bs_t, bs_w = (torch.from_numpy(x).to(dev) for x in (bs_s_np, bs_t_np, bs_w_np))
+
+    def bs_call(fn, weights=None):
+        def run(mesh):
+            s, t, w = shard_batch(mesh, bs_s, bs_t, bs_w if weights is None else weights)
+            return fn(s, t, mesh, num_bins=bs_bins, weights=None if weights is None else w)
+        return run
+
+    sh_s, sh_t, sh_w = rank_block(1, bs_s, bs_t, bs_w)
+    shard_errs.append(hold_shard(
+        f"rank 1's binary block, (1, {bs_n // 4}) x {bs_bins} (histograms in the global scratch)",
+        sh_s[None], (sh_t != 0)[None], sh_w, torch.tensor(psync._grid_np(bs_bins), device=dev)))
+    del sh_s, sh_t, sh_w
+    bs_out = {}
+    for fn in (sharded_auroc_histogram, sharded_auprc_histogram):
+        name = fn.__name__
+        bs_out[name] = world_counted(f"{name} 2^22 x {bs_bins}, LocalWorld(4), unweighted",
+                                     4, bs_call(fn), "binned_counts")[0]
+        bs_out[name + " weighted"] = world_counted(
+            f"{name}, weighted", 4, bs_call(fn, bs_w), "binned_weighted_counts")[0]
+        check(torch.equal(world(4, bs_call(fn, torch.ones_like(bs_w))), bs_out[name])
+              and torch.equal(world(1, bs_call(fn)), bs_out[name]),
+              f"{name}: unit weights bit-equal to unweighted; LocalWorld(1) bit-equal to (4)")
+    for w_label, w_np in [("", np.ones(bs_n, np.float32)), (" weighted", bs_w_np)]:
+        pos, tot = binned_oracle(bs_s_np[:, None], (bs_t_np == 1)[:, None], w_np, bs_bins)
+        for name, want in [("sharded_auroc_histogram", float(oracle_binned_roc(pos, tot)[0])),
+                           ("sharded_auprc_histogram", oracle_binned_ap(pos, tot))]:
+            got = float(bs_out[name + w_label])
+            check(abs(got - want) <= TOL, f"{name}{w_label} {got!r} vs float64 bincount oracle "
+                  f"{want!r}: err {abs(got - want):.3e}")
+
+    # --------------------------------------- 29. make_synced_update on a world
+    def synced_accuracy(mesh):
+        step = make_synced_update(
+            lambda s, t: _multiclass_accuracy_update_kernel(s, t, "macro", NUM_CLASSES, 1), mesh)
+        return list(step(*shard_batch(mesh, ns_s, ns_t)))
+
+    _build.reset_counts()
+    synced4 = world(4, synced_accuracy)
+    whole = _multiclass_accuracy_update_kernel(ns_s, ns_t, "macro", NUM_CLASSES, 1)
+    check(all(torch.equal(a, b) for a, b in zip(synced4, whole)),
+          f"make_synced_update over LocalWorld(4) (per-class accuracy counts, {NUM_SAMPLES} x "
+          f"{NUM_CLASSES}) bit-equal to one rank's update on the whole batch")
+
+    # -------------------------------------------- times of phases 27-29
+    def world_ms(size, fn):
+        return host_median_ms(lambda: LocalWorld(size).run(lambda g, r: fn(make_mesh(group=g))))
+
+    ns_tp = merged4[0]
+    reduce_only = {
+        "multiclass (2 x (1000, 2048) int32)": lambda m: m.all_reduce_many(
+            [ns_tp, ns_tp], ["sum", "sum"], "dp"),
+        "binary (2 x (16384,) int32)": lambda m: m.all_reduce_many(
+            [ns_tp[0, :1].expand(bs_bins).contiguous()] * 2, ["sum", "sum"], "dp"),
+    }
+    for label, fn, red in [
+        ("sharded_multiclass_auroc_histogram (2^17, 1000) x 2048, unweighted", ns_call(),
+         "multiclass (2 x (1000, 2048) int32)"),
+        ("sharded_multiclass_auroc_histogram, weighted", ns_call(ns_w),
+         "multiclass (2 x (1000, 2048) int32)"),
+        ("sharded_auroc_histogram 2^22 x 16384, unweighted", bs_call(sharded_auroc_histogram),
+         "binary (2 x (16384,) int32)"),
+        ("sharded_auroc_histogram, weighted", bs_call(sharded_auroc_histogram, bs_w),
+         "binary (2 x (16384,) int32)"),
+        ("sharded_auprc_histogram, unweighted", bs_call(sharded_auprc_histogram),
+         "binary (2 x (16384,) int32)"),
+        ("make_synced_update (per-class accuracy counts)", synced_accuracy, None),
+    ]:
+        call_ms = world_ms(4, fn)
+        share = ""
+        if red is not None:
+            red_ms = world_ms(4, reduce_only[red])
+            share = (f"; the all-reduce alone (pickles through the CPU, {red}) {red_ms:.3f} ms, "
+                     f"{100 * red_ms / call_ms:.0f} % of the call")
+        print(f"time {card}: {label}, LocalWorld(4) on one card, wall clock of the call: "
+              f"{call_ms:.3f} ms{share}", flush=True)
+    one_ms = world_ms(1, ns_call())
+    print(f"time {card}: sharded_multiclass_auroc_histogram unweighted, LocalWorld(1) on the whole "
+          f"array: {one_ms:.3f} ms", flush=True)
+
     # ------------------------------------------------------ the kernels line
     kernels = [
         {
@@ -1485,6 +1839,20 @@ def main(argv) -> int:
             "bound_by": wave_by,
             "library_ms": None,
             "verdict": "bit-equal",
+        },
+        {
+            "name": "binned_weighted_counts",
+            "route": "cuda",
+            "source": "torcheval_tpu_torch/ops/csrc/binned_wcount.cu",
+            "replaces": "torcheval_tpu/ops/pallas_binned.py:228",
+            "launches": ns_wlaunches,
+            "max_abs_err": max([wcount_err, *shard_errs]),
+            "ms": wcount_ms,
+            "plain_ms": wcount_plain_ms,
+            "bound_ms": wcount_bound,
+            "bound_by": wcount_by,
+            "library_ms": None,
+            "verdict": "within 1e-6 x sum|w|; bit-equal to binned_counts under unit weights",
         },
     ]
     print(smi, flush=True)

@@ -24,10 +24,18 @@ from torcheval_tpu_torch.metrics import (
     MulticlassPrecisionRecallCurve,
     MultilabelRecallAtFixedPrecision,
 )
+from torcheval_tpu_torch.metrics.functional._host_checks import skip_value_checks
 from torcheval_tpu_torch.ops import _build, ustat
 from torcheval_tpu_torch.ops.auc import _auc_from_sorted_plain, auc_from_sorted
-from torcheval_tpu_torch.ops.binned import _binned_counts_plain, binned_counts
+from torcheval_tpu_torch.ops.binned import (
+    _binned_counts_plain,
+    _binned_weighted_counts_plain,
+    binned_counts,
+    binned_weighted_counts,
+)
 from torcheval_tpu_torch.ops.cm import _confusion_slab_plain, confusion_slab
+from torcheval_tpu_torch.parallel import make_mesh, sharded_auroc_histogram
+from torcheval_tpu_torch.parallel.sync import _grid_np
 
 pytestmark = pytest.mark.cuda
 
@@ -497,3 +505,105 @@ def test_text_lifecycles_on_the_card_equal_the_cpu_and_the_host_path():
     assert torch.equal(card_out["wer"].cpu(), cpu_out["wer"])
     assert torch.equal(lm[dev]["ppl"].num_total.cpu(), lm["cpu"]["ppl"].num_total)
     np.testing.assert_allclose(float(card_out["ppl"]), float(cpu_out["ppl"]), rtol=1e-5)
+
+
+def _wcount_case(case, dev):
+    """(scores, hits, weights, thresholds) of one weighted-kernel case."""
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    t_count = {"t1": 1, "wide-smem": 5000, "hist-only": 10_000, "wide-grid": 60_000,
+               "one-slot-long": 2048}.get(case, 200)
+    th = torch.arange(t_count, dtype=torch.float32, device=dev) / max(t_count - 1, 1)
+    if case == "binary-shard":
+        # The binary sharded histogram's rank block: one row of 2^20 at the
+        # bisected 16 384-bin grid (histograms in the global scratch).
+        th = torch.tensor(_grid_np(16_384), device=dev)
+        s = torch.rand(1, 2**20, device=dev, generator=gen)
+        h = torch.rand(1, 2**20, device=dev, generator=gen) < 0.5
+    elif case == "one-slot-long":
+        # 2^26 hits of one row in one slot at a constant weight that f32
+        # cannot sum exactly: an f32 histogram would drift past 1e-6.
+        s = torch.full((1, 2**26), 0.37, device=dev)
+        h = torch.ones(1, 2**26, dtype=torch.bool, device=dev)
+    elif case == "strided-classes":
+        s = torch.rand(4096 * 3 + 7, 37, device=dev, generator=gen).T
+        y = torch.randint(0, 37, (4096 * 3 + 7,), device=dev, generator=gen)
+        h = y[None, :] == torch.arange(37, device=dev)[:, None]
+    else:
+        n = 0 if case == "empty" else 100_003
+        s = torch.rand(2, n, device=dev, generator=gen)
+        h = torch.rand(2, n, device=dev, generator=gen) < 0.4
+        if case == "one-bin":
+            s.fill_(0.37)
+        if case == "specials":
+            s[0, :6] = torch.tensor([float("nan"), float("inf"), -float("inf"), -1.0, 2.0, 0.5])
+            s[1, : th.numel()] = th
+    w = torch.rand(s.shape[1], device=dev, generator=gen) + 0.5
+    if case == "mixed-sign":
+        w = (w - 1.0) * 3.0
+        w[::7] = 0.0
+    if case == "one-slot-long":
+        w = torch.full_like(w, 0.1)
+    return s, h, w, th
+
+
+_WCASES = ["strided-classes", "one-row", "one-bin", "specials", "mixed-sign", "t1",
+           "empty", "wide-smem", "hist-only", "wide-grid", "binary-shard", "one-slot-long"]
+
+
+@pytest.mark.parametrize("case", _WCASES)
+def test_weighted_kernel_within_tolerance_of_plain(case):
+    dev = _cuda()
+    s, h, w, th = _wcount_case(case, dev)
+    _build.reset_counts()
+    got = binned_weighted_counts(s, h, w, th)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["binned_weighted_counts"] == (0 if case == "empty" else 1)
+    want = _binned_weighted_counts_plain(s, h, w, th)
+    # 1e-6 of the sum of |w| over the samples that reach each cell.
+    scale = _binned_weighted_counts_plain(s, h, w.abs(), th)
+    for g, x, a in zip(got, want, scale):
+        assert g.dtype == torch.float32 and g.shape == x.shape
+        assert bool(((g - x).abs() <= 1e-6 * a).all())
+
+
+@pytest.mark.parametrize("case", _WCASES)
+def test_weighted_kernel_under_unit_weights_equals_the_counts(case):
+    dev = _cuda()
+    s, h, w, th = _wcount_case(case, dev)
+    got = binned_weighted_counts(s, h, torch.ones_like(w), th)
+    for g, c in zip(got, binned_counts(s, h, th)):
+        assert torch.equal(g, c.to(torch.float32))
+
+
+@pytest.mark.parametrize("case", ["strided-classes", "one-row", "mixed-sign", "wide-grid"])
+def test_weighted_kernel_gives_the_same_bits_twice(case):
+    dev = _cuda()
+    s, h, w, th = _wcount_case(case, dev)
+    first = binned_weighted_counts(s, h, w, th)
+    second = binned_weighted_counts(s, h, w, th)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sharded_binary_route_under_skip_value_checks(weighted):
+    """0/1 targets: the kernel when the gate reads them; under
+    skip_value_checks the scatter (no launch) unless assume_01_targets=True."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    s = torch.rand(2**16, device=dev, generator=gen)
+    t = (torch.rand(2**16, device=dev, generator=gen) < 0.3).to(torch.float32)
+    w = torch.rand(2**16, device=dev, generator=gen) + 0.5 if weighted else None
+    kernel = "binned_weighted_counts" if weighted else "binned_counts"
+    mesh = make_mesh()
+    _build.reset_counts()
+    checked = sharded_auroc_histogram(s, t, mesh, num_bins=1024, weights=w)
+    assert dict(_build.LAUNCHES) == {kernel: 1} and not _build.PLAIN_CALLS
+    with skip_value_checks():
+        _build.reset_counts()
+        scattered = sharded_auroc_histogram(s, t, mesh, num_bins=1024, weights=w)
+        assert not _build.LAUNCHES and not _build.PLAIN_CALLS
+        pinned = sharded_auroc_histogram(s, t, mesh, num_bins=1024, weights=w,
+                                         assume_01_targets=True)
+        assert dict(_build.LAUNCHES) == {kernel: 1}
+    assert torch.equal(pinned, checked)
+    assert abs(float(scattered) - float(checked)) <= 1e-6

@@ -75,6 +75,24 @@ def test_sources_import_no_jax():
         "torcheval_tpu_torch/metrics/functional/classification/binary_normalized_entropy.py",
         "torcheval_tpu_torch/metrics/aggregation/click_through_rate.py",
         "torcheval_tpu_torch/metrics/functional/aggregation/mean.py",
+        "torcheval_tpu_torch/parallel/__init__.py",
+        "torcheval_tpu_torch/parallel/mesh.py",
+        "torcheval_tpu_torch/parallel/sync.py",
+        "torcheval_tpu_torch/metrics/functional/regression/mean_squared_error.py",
+        "torcheval_tpu_torch/metrics/functional/regression/r2_score.py",
+        "torcheval_tpu_torch/metrics/regression/mean_squared_error.py",
+        "torcheval_tpu_torch/metrics/regression/r2_score.py",
+        "torcheval_tpu_torch/metrics/functional/ranking/frequency.py",
+        "torcheval_tpu_torch/metrics/functional/ranking/hit_rate.py",
+        "torcheval_tpu_torch/metrics/functional/ranking/num_collisions.py",
+        "torcheval_tpu_torch/metrics/functional/ranking/reciprocal_rank.py",
+        "torcheval_tpu_torch/metrics/functional/ranking/retrieval.py",
+        "torcheval_tpu_torch/metrics/functional/ranking/weighted_calibration.py",
+        "torcheval_tpu_torch/metrics/ranking/_scores.py",
+        "torcheval_tpu_torch/metrics/ranking/hit_rate.py",
+        "torcheval_tpu_torch/metrics/ranking/reciprocal_rank.py",
+        "torcheval_tpu_torch/metrics/ranking/retrieval.py",
+        "torcheval_tpu_torch/metrics/ranking/weighted_calibration.py",
     } <= scanned
     assert _FORBIDDEN.search("from __graft_entry__ import entry")
     assert _FORBIDDEN.search("import jax.numpy as jnp")
@@ -176,6 +194,7 @@ def test_library_name_is_keyed_by_the_sources():
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "auc_scan.cu",
         "binned_count.cu",
+        "binned_wcount.cu",
         "cm_slab.cu",
         "rank_hist.cu",
         "mega.cu",
@@ -247,3 +266,54 @@ def test_megakernel_flag_is_tristate(monkeypatch):
         _flags.get_tristate("DISABLE_USTAT")
     with pytest.raises(KeyError):
         _flags.get("MEGAKERNEL")
+
+
+def test_counters_lose_no_increment_across_threads():
+    import threading
+
+    _build.reset_counts()
+
+    def count():
+        for _ in range(2000):
+            _build.count_launch("binned_weighted_counts")
+            _build.count_plain("binned_weighted_counts")
+
+    threads = [threading.Thread(target=count) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert _build.LAUNCHES["binned_weighted_counts"] == 16000
+    assert _build.PLAIN_CALLS["binned_weighted_counts"] == 16000
+    _build.reset_counts()
+
+
+def test_threads_that_reach_the_first_build_together_build_once(monkeypatch):
+    import threading
+    import time
+
+    builds = []
+
+    def fake_build():
+        builds.append(1)
+        time.sleep(0.05)  # long enough for the other threads to arrive
+        return "libfake.so"
+
+    class FakeLib:
+        def __getattr__(self, name):
+            return type("Fn", (), {})()
+
+    monkeypatch.setattr(_build, "build", fake_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLib())
+    _build._load.cache_clear()
+    try:
+        libs = []
+        threads = [threading.Thread(target=lambda: libs.append(_build.library()))
+                   for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert len(builds) == 1 and len(libs) == 8 and len({id(x) for x in libs}) == 1
+    finally:
+        _build._load.cache_clear()

@@ -3,8 +3,13 @@
 
 * :class:`CollectiveGroup`: the process-group abstraction the sync
   toolkit talks to (reference ``PGWrapper``): ``rank``, ``world_size``,
-  ``all_gather_object``, ``broadcast_object``, ``gather_object``, and an
-  optional point-to-point channel (``send_object`` / ``recv_object``).
+  ``all_gather_object``, ``broadcast_object``, ``gather_object``, an
+  optional point-to-point channel (``send_object`` / ``recv_object``),
+  and the tensor collective :meth:`~CollectiveGroup.all_reduce_many`
+  (one op a tensor, all in one gather; :meth:`~CollectiveGroup.all_reduce`
+  is its one-tensor case) under the sharded metrics of ``parallel/`` (the
+  counterpart of JAX's ``psum`` / ``pmax`` / ``pmin`` / ``pmean`` / tiled
+  ``all_gather``).
 * :class:`SingleProcessGroup` and :class:`NullGroup`: the world of one,
   and a group this process is not part of.
 * :class:`LocalWorld` / :class:`LocalGroup`: an N-rank world in one
@@ -20,8 +25,8 @@ must have.
 
 Not ported yet: ``JaxProcessGroup`` and ``initialize_multihost`` (their
 counterpart is a ``torch.distributed`` group, which comes with the
-distributed slice) and ``pack_frames`` / ``unpack_frames`` (with the
-fleet merge).  :func:`default_group` is therefore the single-process
+process-group slice, ROADMAP queue 1 item 6) and ``pack_frames`` /
+``unpack_frames`` (with the fleet merge).  :func:`default_group` is therefore the single-process
 group.
 """
 
@@ -31,9 +36,13 @@ import pickle
 import threading
 import time
 from abc import ABC, abstractmethod
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Sequence
+
+import torch
 
 from torcheval_tpu_torch.metrics.metric import _to_cpu_tree
+
+REDUCE_OPS = ("sum", "max", "min", "mean", "concat")
 
 
 def _dumps(obj: Any) -> bytes:
@@ -98,6 +107,33 @@ class CollectiveGroup(ABC):
         :class:`LocalGroup` overrides it with a true gather."""
         gathered = self.all_gather_object(obj)
         return gathered if self.rank == dst else None
+
+    def all_reduce(self, tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Every rank's ``tensor`` reduced with ``op``: ``"sum"``,
+        ``"max"``, ``"min"``, ``"mean"`` (the sum over the world size; an
+        integer tensor's mean is a float, as JAX's ``pmean``) or
+        ``"concat"`` (along dim 0, in rank order).  The one-tensor case of
+        :meth:`all_reduce_many`."""
+        return self.all_reduce_many([tensor], [op])[0]
+
+    def all_reduce_many(
+        self, tensors: Sequence[torch.Tensor], ops: Sequence[str]
+    ) -> List[torch.Tensor]:
+        """Each tensor reduced with its op (see :meth:`all_reduce`), all in
+        ONE collective: the tensors travel together through
+        :meth:`all_gather_object` (so through the CPU) and each is folded in
+        rank order, ``((t_0 op t_1) op t_2) ...``, on its caller's device.
+        Every rank holds the same bits, and they do not change from run to
+        run.  Integer tensors stay integer."""
+        if len(tensors) != len(ops):
+            raise ValueError(f"{len(tensors)} tensors but {len(ops)} reduction ops")
+        for op in ops:
+            check_reduce_op(op)
+        gathered = self.all_gather_object(list(tensors))
+        return [
+            reduce_gathered([g[i] for g in gathered], op, t.device)
+            for i, (t, op) in enumerate(zip(tensors, ops))
+        ]
 
 
 class SingleProcessGroup(CollectiveGroup):
@@ -279,6 +315,32 @@ class LocalGroup(CollectiveGroup):
         return pickle.loads(payload)
 
 
+def check_reduce_op(op: str) -> None:
+    """Raise unless ``op`` is one of :data:`REDUCE_OPS` (before a
+    collective, so that every rank raises and none waits)."""
+    if op not in REDUCE_OPS:
+        raise ValueError(f"Unknown reduction {op!r}; expected one of {sorted(REDUCE_OPS)}")
+
+
+def reduce_gathered(
+    parts: Sequence[torch.Tensor], op: str, device: torch.device
+) -> torch.Tensor:
+    """Fold the world's gathered tensors with ``op`` on ``device``, in
+    the order given (see :meth:`CollectiveGroup.all_reduce_many`)."""
+    parts = [p.to(device) for p in parts]
+    if op == "concat":
+        return torch.cat(parts, dim=0)
+    out = parts[0].clone()
+    for p in parts[1:]:
+        if op in ("sum", "mean"):
+            out = out + p
+        elif op == "max":
+            out = torch.maximum(out, p)
+        else:
+            out = torch.minimum(out, p)
+    return out / len(parts) if op == "mean" else out
+
+
 def default_group() -> CollectiveGroup:
     """The world group.  Until the port's ``torch.distributed`` group
     lands, that is the single-process group; pass a :class:`LocalGroup`
@@ -287,6 +349,7 @@ def default_group() -> CollectiveGroup:
 
 
 __all__ = (
+    "REDUCE_OPS",
     "CollectiveGroup",
     "LocalGroup",
     "LocalWorld",

@@ -18,19 +18,25 @@ def accumulate(
     states: Tuple[torch.Tensor, ...],
     *args,
     statics: tuple = (),
+    grow: bool = False,
     mask=None,
 ) -> Tuple[torch.Tensor, ...]:
     """Run ``kernel(*args, *statics)`` and return each state plus its
-    delta.  ``mask`` (a validity tensor, or ``None``) is passed to the
-    kernel as a trailing ``mask=`` keyword; only pass it to mask-aware
-    kernels."""
+    delta.  ``grow=True`` gives the per-output regression states'
+    semantics: a scalar state meeting a vector delta is replaced by it,
+    not broadcast into it (the first 2-D update).  ``mask`` (a validity
+    tensor, or ``None``) is passed to the kernel as a trailing ``mask=``
+    keyword; only pass it to mask-aware kernels."""
     if mask is None:
         deltas = kernel(*args, *statics)
     else:
         deltas = kernel(*args, *statics, mask=mask)
     if not isinstance(deltas, tuple):
         deltas = (deltas,)
-    return tuple(s + d for s, d in zip(states, deltas))
+    return tuple(
+        d if grow and s.dim() == 0 and d.dim() == 1 else s + d
+        for s, d in zip(states, deltas)
+    )
 
 
 def on_device(device: torch.device, *values):

@@ -10,6 +10,7 @@ import torch
 
 from torcheval_tpu_torch.metrics._buffer import merge_concat_buffers, prepare_concat_buffers
 from torcheval_tpu_torch.metrics._fuse import on_device
+from torcheval_tpu_torch.metrics.functional._host_checks import x64_off
 from torcheval_tpu_torch.metrics.metric import Metric
 
 
@@ -23,7 +24,7 @@ class Cat(Metric[torch.Tensor]):
         self._add_state("inputs", [])
 
     def update(self, input) -> "Cat":
-        (input,) = on_device(self.device, input)
+        (input,) = x64_off(*on_device(self.device, input))
         self.inputs.append(input)
         return self
 

@@ -7,6 +7,7 @@ from typing import Iterable
 import torch
 
 from torcheval_tpu_torch.metrics._fuse import on_device
+from torcheval_tpu_torch.metrics.functional._host_checks import x64_off
 from torcheval_tpu_torch.metrics.metric import Metric
 
 
@@ -16,7 +17,7 @@ class Max(Metric[torch.Tensor]):
         self._add_state("max", torch.tensor(float("-inf")))
 
     def update(self, input) -> "Max":
-        (input,) = on_device(self.device, input)
+        (input,) = x64_off(*on_device(self.device, input))
         self.max = torch.maximum(self.max, torch.max(input))
         return self
 

@@ -9,6 +9,7 @@ import torch
 
 from torcheval_tpu_torch.metrics._fuse import accumulate, on_device
 from torcheval_tpu_torch.metrics._merge import merge_add
+from torcheval_tpu_torch.metrics.functional._host_checks import x64_off
 from torcheval_tpu_torch.metrics.functional.aggregation.mean import _mean_select_kernel
 from torcheval_tpu_torch.metrics.metric import Metric
 
@@ -22,7 +23,7 @@ class Mean(Metric[torch.Tensor]):
         self._add_state("weights", torch.tensor(0.0))
 
     def update(self, input, weight: Union[float, int, torch.Tensor] = 1.0) -> "Mean":
-        (input,) = on_device(self.device, input)
+        (input,) = x64_off(*on_device(self.device, input))
         kernel, args = _mean_select_kernel(input, weight)
         self.weighted_sum, self.weights = accumulate(
             kernel, (self.weighted_sum, self.weights), *args

@@ -7,6 +7,7 @@ from typing import Iterable
 import torch
 
 from torcheval_tpu_torch.metrics._fuse import on_device
+from torcheval_tpu_torch.metrics.functional._host_checks import x64_off
 from torcheval_tpu_torch.metrics.metric import Metric
 
 
@@ -16,7 +17,7 @@ class Min(Metric[torch.Tensor]):
         self._add_state("min", torch.tensor(float("inf")))
 
     def update(self, input) -> "Min":
-        (input,) = on_device(self.device, input)
+        (input,) = x64_off(*on_device(self.device, input))
         self.min = torch.minimum(self.min, torch.min(input))
         return self
 

@@ -8,6 +8,7 @@ import torch
 
 from torcheval_tpu_torch.metrics._fuse import accumulate, on_device
 from torcheval_tpu_torch.metrics._merge import merge_add
+from torcheval_tpu_torch.metrics.functional._host_checks import x64_off
 from torcheval_tpu_torch.metrics.functional.aggregation.sum import (
     _sum_validate,
     _weighted_sum,
@@ -21,10 +22,10 @@ class Sum(Metric[torch.Tensor]):
         self._add_state("weighted_sum", torch.tensor(0.0))
 
     def update(self, input, weight: Union[float, int, torch.Tensor] = 1.0) -> "Sum":
-        (input,) = on_device(self.device, input)
+        (input,) = x64_off(*on_device(self.device, input))
         _sum_validate(input, weight)
         if not isinstance(weight, (float, int)):
-            (weight,) = on_device(self.device, weight)
+            (weight,) = x64_off(*on_device(self.device, weight))
         (self.weighted_sum,) = accumulate(
             _weighted_sum, (self.weighted_sum,), input, weight
         )

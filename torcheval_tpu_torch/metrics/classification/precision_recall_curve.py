@@ -14,6 +14,7 @@ from torcheval_tpu_torch.metrics._buffer import (
     merge_concat_buffers,
     prepare_concat_buffers,
 )
+from torcheval_tpu_torch.metrics.functional._host_checks import x64_off
 from torcheval_tpu_torch.metrics.functional.classification.precision_recall_curve import (
     _binary_precision_recall_curve_compute,
     _binary_precision_recall_curve_update_input_check,
@@ -38,8 +39,9 @@ class _CurveBuffers(Metric):
         self._add_state("targets", [])
 
     def _append(self, input: torch.Tensor, target: torch.Tensor) -> None:
-        self.inputs.append(input.to(self.device))
-        self.targets.append(target.to(self.device))
+        input, target = x64_off(input.to(self.device), target.to(self.device))
+        self.inputs.append(input)
+        self.targets.append(target)
 
     def merge_state(self, metrics: Iterable["_CurveBuffers"]):
         merge_concat_buffers(self, metrics, "inputs", "targets", dim=0)

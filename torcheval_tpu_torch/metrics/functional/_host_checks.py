@@ -71,6 +71,19 @@ def place_inputs(*values) -> Tuple[torch.Tensor, ...]:
     )
 
 
+def x64_off(*values):
+    """Each of ``values`` with a float64 tensor cast to float32 (anything
+    else, ``None`` included, as it is): the dtypes the JAX package holds
+    with x64 off, so the states and results of an f64-fed metric carry
+    across to an f32-fed one (``state_dict``, ``merge_state``)."""
+    return tuple(
+        v.to(torch.float32)
+        if isinstance(v, torch.Tensor) and v.dtype == torch.float64
+        else v
+        for v in values
+    )
+
+
 def to_host(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
     """numpy copies of ``tensors`` with ONE wait for the device: every copy
     is queued before the stream is synchronized once."""

@@ -7,12 +7,12 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
-from torcheval_tpu_torch.metrics.functional._host_checks import place_inputs
+from torcheval_tpu_torch.metrics.functional._host_checks import place_inputs, x64_off
 
 
 def mean(input, weight: Union[float, int, torch.Tensor] = 1.0) -> torch.Tensor:
     """``sum(weight * input) / sum(weight)`` (reference ``mean.py:44-58``)."""
-    (input,) = place_inputs(input)
+    (input,) = x64_off(*place_inputs(input))
     weighted_sum, weights = _mean_update(input, weight)
     return weighted_sum / weights
 
@@ -26,7 +26,7 @@ def _mean_select_kernel(input: torch.Tensor, weight):
     if isinstance(weight, (torch.Tensor, np.ndarray)) and tuple(input.shape) == tuple(
         np.shape(weight)
     ):
-        return _array_weighted, (input, torch.as_tensor(weight, device=input.device))
+        return _array_weighted, (input, *x64_off(torch.as_tensor(weight, device=input.device)))
     raise ValueError(
         "Weight must be either a float value or a tensor that matches the "
         f"input tensor size. Got {weight} instead."

@@ -7,13 +7,13 @@ from typing import Union
 import numpy as np
 import torch
 
-from torcheval_tpu_torch.metrics.functional._host_checks import place_inputs
+from torcheval_tpu_torch.metrics.functional._host_checks import place_inputs, x64_off
 
 
 def sum(input, weight: Union[float, int, torch.Tensor] = 1.0) -> torch.Tensor:  # noqa: A001
     """Weighted sum of ``input``; scalar or same-size tensor ``weight``
     (reference ``sum.py:43-56``)."""
-    (input,) = place_inputs(input)
+    (input,) = x64_off(*place_inputs(input))
     return _sum_update(input, weight)
 
 
@@ -37,4 +37,5 @@ def _sum_update(input: torch.Tensor, weight) -> torch.Tensor:
 def _weighted_sum(input: torch.Tensor, weight) -> torch.Tensor:
     if isinstance(weight, np.ndarray):
         weight = torch.as_tensor(weight, device=input.device)
+    (weight,) = x64_off(weight)
     return (input * weight).sum()

@@ -76,6 +76,9 @@ def _ne_update_kernel(
     from_logits: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     dtype = _accum_dtype()
+    # A bool or integer target takes the input's float dtype first, as
+    # JAX promotes it (torch refuses ``1 - target`` on a bool tensor).
+    target = target.to(input.dtype if input.is_floating_point() else dtype)
     if from_logits:
         # log-sum-exp-stable BCE-with-logits: max(x,0) - x*y + log1p(exp(-|x|))
         ce = (

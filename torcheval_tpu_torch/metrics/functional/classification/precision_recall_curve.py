@@ -13,7 +13,11 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from torcheval_tpu_torch.metrics.functional._host_checks import place_inputs, to_host
+from torcheval_tpu_torch.metrics.functional._host_checks import (
+    place_inputs,
+    to_host,
+    x64_off,
+)
 from torcheval_tpu_torch.metrics.functional.classification._sort_scan import (
     class_hits,
     sorted_tie_cumsums,
@@ -26,7 +30,7 @@ Curves = Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]
 def binary_precision_recall_curve(input, target) -> Curve:
     """(precision, recall, thresholds) over ascending score thresholds
     (reference ``precision_recall_curve.py:18-90``)."""
-    input, target = place_inputs(input, target)
+    input, target = x64_off(*place_inputs(input, target))
     _binary_precision_recall_curve_update_input_check(input, target)
     return _binary_precision_recall_curve_compute(input, target)
 
@@ -39,7 +43,7 @@ def multiclass_precision_recall_curve(
 ) -> Curves:
     """Per-class PR curves; classes missing from target get recall 1.0
     (reference ``precision_recall_curve.py:93-203``)."""
-    input, target = place_inputs(input, target)
+    input, target = x64_off(*place_inputs(input, target))
     if num_classes is None and input.dim() == 2:
         num_classes = input.shape[1]
     _multiclass_precision_recall_curve_update_input_check(input, target, num_classes)
@@ -82,7 +86,9 @@ def _materialize_curve(
     return (
         torch.from_numpy(precision.astype(np.float32)).to(device),
         torch.from_numpy(recall.astype(np.float32)).to(device),
-        torch.from_numpy(np.ascontiguousarray(thresholds_masked[::-1])).to(device),
+        # A copy: a reversed view keeps its negative stride, which
+        # torch.from_numpy refuses (np.ascontiguousarray keeps a one-element one).
+        torch.from_numpy(thresholds_masked[::-1].copy()).to(device),
     )
 
 
@@ -156,7 +162,7 @@ def multilabel_precision_recall_curve(
     """Per-label PR curves over a ``(n_samples, num_labels)`` 0/1 target
     matrix: each label column is an independent binary curve, through the
     same ``(R, N)`` sort + tie scan as the multiclass form."""
-    input, target = place_inputs(input, target)
+    input, target = x64_off(*place_inputs(input, target))
     if num_labels is None and input.dim() == 2:
         num_labels = input.shape[1]
     _multilabel_precision_recall_curve_update_input_check(input, target, num_labels)

@@ -18,7 +18,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from torcheval_tpu_torch.metrics.functional._host_checks import place_inputs, to_host
+from torcheval_tpu_torch.metrics.functional._host_checks import (
+    place_inputs,
+    to_host,
+    x64_off,
+)
 from torcheval_tpu_torch.metrics.functional.classification.precision_recall_curve import (
     _binary_precision_recall_curve_compute,
     _binary_precision_recall_curve_update_input_check,
@@ -37,7 +41,7 @@ def binary_recall_at_fixed_precision(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(max recall, threshold) such that precision >= ``min_precision``."""
     _recall_at_fixed_precision_param_check(min_precision)
-    input, target = place_inputs(input, target)
+    input, target = x64_off(*place_inputs(input, target))
     _binary_precision_recall_curve_update_input_check(input, target)
     return _binary_recall_at_fixed_precision_compute(input, target, min_precision)
 
@@ -52,7 +56,7 @@ def multilabel_recall_at_fixed_precision(
     """Per-label ``(max recalls, thresholds)`` lists such that each label's
     precision >= ``min_precision``."""
     _recall_at_fixed_precision_param_check(min_precision)
-    input, target = place_inputs(input, target)
+    input, target = x64_off(*place_inputs(input, target))
     if num_labels is None and input.dim() == 2:
         num_labels = input.shape[1]
     _multilabel_precision_recall_curve_update_input_check(input, target, num_labels)

@@ -19,8 +19,8 @@ iterable entry points (``reset_metrics``, ``to_device``,
 member names, so call its own ``reset()`` / ``to()`` instead.
 
 Not ported yet: ``topology="tree"`` / ``"ring"`` (the elastic
-hierarchical merge, with the distributed slice) and ``sketch=`` (the
-sketch tier).  Both raise ``NotImplementedError``; neither falls back to
+hierarchical merge, with the fleet-merge slice, ROADMAP queue 1 item 6)
+and ``sketch=`` (the sketch tier, item 7).  Both raise ``NotImplementedError``; neither falls back to
 the flat gather.
 """
 
@@ -53,12 +53,12 @@ def sync_and_compute(
     if topology != "flat":
         raise NotImplementedError(
             f"topology={topology!r} (the hierarchical merge) comes with the port's "
-            "distributed slice (ROADMAP queue 1, item 7); use topology='flat'."
+            "fleet-merge slice (ROADMAP queue 1, item 6); use topology='flat'."
         )
     if sketch is not None and sketch != "exact":
         raise NotImplementedError(
             f"sketch={sketch!r} comes with the port's sketch tier (ROADMAP queue 1, "
-            "item 8); the flat sync ships the exact states."
+            "item 7); the flat sync ships the exact states."
         )
     synced_metric = get_synced_metric(metric, process_group, recipient_rank)
     return synced_metric.compute() if synced_metric is not None else None

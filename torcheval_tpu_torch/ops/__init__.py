@@ -6,7 +6,8 @@ plain PyTorch version beside its wrapper.
   (``csrc/rank_sum.cu``) and rank histograms for the exact AUPRC route
   (``csrc/rank_hist.cu``).
 * :mod:`.binned` — per-threshold counts of the binned metrics
-  (``csrc/binned_count.cu``).
+  (``csrc/binned_count.cu``) and their weighted sums under the sharded
+  histograms (``csrc/binned_wcount.cu``).
 * :mod:`.cm` — the confusion-matrix count slab (``csrc/cm_slab.cu``).
 * :mod:`.mega` — the one-pass collection kernel (``csrc/mega.cu``) that
   counts every supported member of a ``MetricCollection`` in one read of

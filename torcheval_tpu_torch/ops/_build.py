@@ -12,8 +12,12 @@ build happens at the first launch, never at import.  A missing ``nvcc``
 or a failed build raises with the compiler's output; nothing falls back.
 
 Counters: each kernel wrapper adds one to ``LAUNCHES[name]`` where it
-launches its kernel, and each plain version adds one to
-``PLAIN_CALLS[name]``, so a run can show which path it took.
+launches its kernel (:func:`count_launch`), and each plain version adds
+one to ``PLAIN_CALLS[name]`` (:func:`count_plain`), so a run can show
+which path it took.  Both take a lock: the ranks of a ``LocalWorld`` are
+threads that launch at once, and no increment may be lost.  The first
+build is serialised the same way, so ranks that reach it together build
+the library once.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from collections import Counter
 from pathlib import Path
 from typing import Dict
@@ -42,6 +47,8 @@ NVCC_FLAGS = (
 
 LAUNCHES: Counter = Counter()
 PLAIN_CALLS: Counter = Counter()
+_COUNT_LOCK = threading.Lock()
+_BUILD_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,12 +70,32 @@ _SIGNATURES: Dict[str, tuple] = {
     "mega_counts_launch": (_P, _P, _P, _P, _P, _LL, _P, _P, _I, _P, _P),
     # a, b, a_lens, b_lens, n, wa, wb, scratch, scratch_blocks, out, stream
     "wavefront_launch": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P),
+    # scores, s_row, s_col, hits, h_row, h_col, weights, rows, n, thresholds,
+    # t, warps, row_warps, smem_hist, ranges, per_range, scratch, w_tp, w_fp,
+    # w_pos, stream
+    "binned_wcount_launch": (
+        _P, _LL, _LL, _P, _LL, _LL, _P, _I, _I, _P,
+        _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+    ),
 }
 
 
 def reset_counts() -> None:
-    LAUNCHES.clear()
-    PLAIN_CALLS.clear()
+    with _COUNT_LOCK:
+        LAUNCHES.clear()
+        PLAIN_CALLS.clear()
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
+def count_plain(name: str) -> None:
+    """One call of the plain version of kernel ``name``."""
+    with _COUNT_LOCK:
+        PLAIN_CALLS[name] += 1
 
 
 def _nvcc() -> str:
@@ -127,9 +154,15 @@ def build() -> Path:
     return target
 
 
-@functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on the first call)."""
+    """The loaded kernel library (built on the first call; callers that
+    arrive during the build wait for it)."""
+    with _BUILD_LOCK:
+        return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -61,13 +61,13 @@ def auc_from_sorted(thresholds: torch.Tensor, hits: torch.Tensor) -> torch.Tenso
             _build.stream_handle(thresholds.device),
         )
     _build.check_launch("auc_scan", err)
-    _build.LAUNCHES["auc_from_sorted"] += 1
+    _build.count_launch("auc_from_sorted")
     return out
 
 
 def _auc_from_sorted_plain(thresholds: torch.Tensor, hits: torch.Tensor) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch (int64 exact group sum)."""
-    _build.PLAIN_CALLS["auc_from_sorted"] += 1
+    _build.count_plain("auc_from_sorted")
     h = (hits != 0).to(torch.int64)
     cum_tp = torch.cumsum(h, dim=1)
     cum_fp = torch.cumsum(1 - h, dim=1)

@@ -110,7 +110,7 @@ def _slab(target: torch.Tensor, pred: torch.Tensor, num_classes: int) -> torch.T
             _build.stream_handle(target.device),
         )
     _build.check_launch("cm_slab", err)
-    _build.LAUNCHES["confusion_slab"] += 1
+    _build.count_launch("confusion_slab")
     return slab
 
 
@@ -120,7 +120,7 @@ def _confusion_slab_plain(
     """The kernel's counts in plain PyTorch: one ``bincount`` of the flat
     cell ``t·W + p``.  A label outside ``[0, C]`` goes to one extra cell
     that is dropped, as the kernel skips it."""
-    _build.PLAIN_CALLS["confusion_slab"] += 1
+    _build.count_plain("confusion_slab")
     w = class_window(num_classes)
     t, p = target.to(torch.int64), pred.to(torch.int64)
     valid = (t >= 0) & (t < w) & (p >= 0) & (p < w)

@@ -248,7 +248,7 @@ def _launch(scores, pred, target, weight, sids, n, grids, words, out) -> None:
             _build.stream_handle(target.device),
         )
     _build.check_launch("mega", err)
-    _build.LAUNCHES["mega_counts"] += 1
+    _build.count_launch("mega_counts")
 
 
 # The payloads of csrc/mega.cu, of (prediction, label, score >= threshold).
@@ -279,7 +279,7 @@ def _mega_counts_plain(
     scores, ``bucketize`` for the binned slots (NaN set to ``T``), and one
     ``index_add_`` per counter family into one buffer laid out as the
     kernel's, whose extra last slot takes the dropped samples."""
-    _build.PLAIN_CALLS["mega_counts"] += 1
+    _build.count_plain("mega_counts")
     scores, pred, tgt, weight, sid, grids, thr = _inputs(
         plan, inp, target, mask, sids, thresholds
     )

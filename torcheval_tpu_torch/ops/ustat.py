@@ -87,7 +87,7 @@ def rank_sum_counts(
             _build.stream_handle(queries.device),
         )
     _build.check_launch("rank_sum", err)
-    _build.LAUNCHES["rank_sum_counts"] += 1
+    _build.count_launch("rank_sum_counts")
     return out
 
 
@@ -124,7 +124,7 @@ def _rank_sum_counts_plain(
     keeps every table entry ahead of the queries equal to it, and a
     query's count is the number of table entries sorted before it.  Exact
     for NaN-free queries (the routes exclude NaN)."""
-    _build.PLAIN_CALLS["rank_sum_counts"] += 1
+    _build.count_plain("rank_sum_counts")
     if negate:
         queries = torch.cat([queries, -queries])
     cap = tables.shape[1]
@@ -166,7 +166,7 @@ def rank_hist_counts(queries: torch.Tensor, tables: torch.Tensor) -> torch.Tenso
             _build.stream_handle(queries.device),
         )
     _build.check_launch("rank_hist", err)
-    _build.LAUNCHES["rank_hist_counts"] += 1
+    _build.count_launch("rank_hist_counts")
     return hist
 
 
@@ -194,7 +194,7 @@ def _rank_hist_counts_plain(queries: torch.Tensor, tables: torch.Tensor) -> torc
     """The kernel's histogram in plain PyTorch: ``searchsorted(right=True)
     − 1`` gives each query's bin, and one int32 count of ``row·cap + bin``
     over the in-range, non-NaN queries gives the histogram."""
-    _build.PLAIN_CALLS["rank_hist_counts"] += 1
+    _build.count_plain("rank_hist_counts")
     r, cap = tables.shape
     bins = torch.searchsorted(tables.contiguous(), queries.contiguous(), right=True) - 1
     valid = (bins >= 0) & ~torch.isnan(queries)

@@ -139,7 +139,7 @@ def _edit_distance_kernel(
             _build.stream_handle(device),
         )
     _build.check_launch("wavefront", err)
-    _build.LAUNCHES["edit_distance_tokens"] += 1
+    _build.count_launch("edit_distance_tokens")
     return out
 
 
@@ -157,7 +157,7 @@ def _edit_distance_plain(
     of diagonal ``d`` is cell ``(i, d - i)``; the whole bucket advances one
     diagonal a step, to ``La + Lb``, and a one-hot capture takes cell
     ``(a_len, b_len)`` on the step its diagonal is computed."""
-    _build.PLAIN_CALLS["edit_distance_tokens"] += 1
+    _build.count_plain("edit_distance_tokens")
     n, len_a = a_ids.shape
     len_b = b_ids.shape[1]
     device = a_ids.device
