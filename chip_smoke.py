@@ -89,8 +89,12 @@ times kernels and lifecycle with CUDA events.  Phases:
     (widths 32 and 16), on asymmetric widths (16 x 256 and the reverse),
     on empty, identical and disjoint pairs, at a reference of width 0, with
     changed pad values, with lengths past the widths, at n = 0 (no launch)
-    and n = 1, and at widths 2048, 4096 (shared memory past 48 KB) and
-    12 000 (the diagonals in a global scratch);
+    and n = 1, at widths 2048, 4096 and 12 000 (bands of 256 rows with
+    carries in a global scratch), at exact lengths on each strip height's
+    edge (32 R rows and one past, R = 1, 2, 4, 8), at two and three bands,
+    at one side far longer than the other, and on a batch that mixes empty,
+    one-token and 4096-token pairs; each case prints its strip heights,
+    bands and carry scratch;
 22. the corpus WER lifecycle (numpy seed 31, 2^16 pairs in 8 updates of
     8192, references of 1-200 ids, hypotheses with substitutions, deletions
     and insertions, packed to (8192, 256) int32): ``WordErrorRate``,
@@ -119,8 +123,12 @@ times kernels and lifecycle with CUDA events.  Phases:
     bits on two launches, bit-equal to ``binned_counts`` under unit
     weights; the same three checks on NaN / +-inf scores, mixed-sign and
     zero weights, T = 1, T = 60 000 (the global-memory path), a strided
-    (C, N) class view, and N = 0 (no launch); its time beside its plain
-    version's and the unweighted kernel's;
+    (C, N) class view, N = 0 (no launch), weights at both edges of the
+    fixed-point range and just past it (the f64 route), and one row of 2^20
+    at T = 16 384 (slot windows); each case prints the route it took
+    (``LAUNCHES["binned_weighted_counts"]``: fixed point, ``..._f64``:
+    f64); its time beside its plain version's and the unweighted kernel's,
+    and the device time a call by kernel;
 27. the north-star sharded multiclass histogram (numpy seed 6, (2^17, 1000)
     f32 scores, int32 targets, 2048 bins) over ``LocalWorld(4)`` ranks on
     the one card, each with its ``shard_batch`` block: 4 ``binned_counts``
@@ -128,12 +136,14 @@ times kernels and lifecycle with CUDA events.  Phases:
     no plain call; the merged counts bit-equal to ``LocalWorld(1)`` on the
     whole array (weighted: within 1e-6 of the sum of |w|), unit weights
     bit-equal to unweighted, every class's AUROC within 1e-6 of a float64
-    ``np.bincount`` oracle of the same binned curve;
+    ``np.bincount`` oracle of the same binned curve; both kernels held
+    against their plain versions on rank 1's block, with the weighted
+    kernel's route and its time there beside its bound;
 28. binary ``sharded_auroc_histogram`` / ``sharded_auprc_histogram`` at the
     repository's sharded-sync shape (numpy seed 5, 2^22 samples, 16 384
     bins), weighted and unweighted, over ``LocalWorld(4)``: 4 launches a
     call, unit weights and ``LocalWorld(1)`` bit-equal, within 1e-6 of the
-    float64 oracles;
+    float64 oracles; rank 1's block held and timed as in phase 27;
 29. ``make_synced_update`` over ``LocalWorld(4)`` on the per-class accuracy
     counts of phase 27's batch, bit-equal to one rank's update on the
     whole batch; then the wall clock of each sharded call (median of 5)
@@ -1179,9 +1189,12 @@ def main(argv) -> int:
     from torcheval_tpu_torch.metrics.text._tokens import WordInterner, _pack, tokenize_pairs
     from torcheval_tpu_torch.native import edit_distance as native_dp
     from torcheval_tpu_torch.ops.wavefront import (
+        _BAND_ROWS,
         _edit_distance_kernel,
         _edit_distance_native,
         _edit_distance_plain,
+        _strip_rows,
+        _wavefront_plan,
         edit_distance_tokens,
         lens_from_ids,
     )
@@ -1221,6 +1234,13 @@ def main(argv) -> int:
               and got.dtype == torch.int32 and got.shape == (n_pairs,)
               and torch.equal(got, want) and np.array_equal(got.cpu().numpy(), native),
               f"edit_distance_tokens bit-equal to plain and to the native DP: {label}")
+        if n_pairs:
+            rows = torch.minimum(la, lb).cpu().numpy()
+            blocks, scratch_len = _wavefront_plan(n_pairs, a.shape[1], b.shape[1])
+            print(f"   route: a warp a pair, rows a lane R in "
+                  f"{sorted({_strip_rows(int(m)) for m in rows})}, bands up to "
+                  f"{max(1, -(-int(rows.max()) // _BAND_ROWS))}, {blocks} blocks, carry scratch "
+                  f"{scratch_len} int32", flush=True)
         return int((got - want).abs().max()) if n_pairs else 0
 
     def ragged(rng, n_pairs, width, lo, hi, vocab):
@@ -1272,6 +1292,21 @@ def main(argv) -> int:
               ragged(wrng, 8, 4096, 0, 4096, 30))
     wave_case("(3, 12000) pairs, the diagonals in a global scratch",
               ragged(wrng, 3, 12_000, 9000, 12_000, 30), ragged(wrng, 3, 12_000, 9000, 12_000, 30))
+    # The warp-a-pair geometry's edges: each strip height R at 32 R rows and
+    # one past, two and three bands of 256 rows, each side far longer.
+    for la_e, lb_e in [(31, 40), (32, 32), (33, 90), (64, 70), (65, 65), (128, 128), (129, 129),
+                       (255, 256), (256, 300), (257, 257), (512, 512), (513, 700), (5, 4000),
+                       (4000, 5)]:
+        wave_case(f"exact lengths ({la_e}, {lb_e}), 7 pairs from 5",
+                  wrng.integers(0, 5, (7, la_e)).astype(np.int32),
+                  wrng.integers(0, 5, (7, lb_e)).astype(np.int32))
+    mix_la = np.array([0, 1, 4096, 0, 1, 4096, 300, 4096, 17, 2], np.int32)
+    mix_lb = np.array([0, 0, 4096, 4096, 1, 1, 4096, 257, 4096, 4000], np.int32)
+    mix_a = wrng.integers(0, 30, (10, 4096)).astype(np.int32)
+    mix_b = wrng.integers(0, 30, (10, 4096)).astype(np.int32)
+    mix_a[np.arange(4096)[None, :] >= mix_la[:, None]] = -1
+    mix_b[np.arange(4096)[None, :] >= mix_lb[:, None]] = -1
+    wave_case("a mixed batch of empty, one-token and 4096-token pairs", mix_a, mix_b)
 
     # ------------------------------------ 22. the corpus WER lifecycle
     def wer_lifecycle(col):
@@ -1387,12 +1422,17 @@ def main(argv) -> int:
     wave_bound, wave_by = max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
     big_h, big_r = max(token_batches, key=lambda p: p[0].shape[0])
     st_dev_ms = device_ms(torch, lambda: edit_distance_tokens(big_h, big_r))
+    lm_x, lm_t = lm_batches[0]
+    lm_ids = lm_x.argmax(dim=-1).to(torch.int32)
+    lm_ref = lm_t.to(torch.int32)
+    lm_dev_ms = device_ms(torch, lambda: edit_distance_tokens(lm_ids, lm_ref))
     print(f"time {card}: edit_distance_tokens ({per}, 256) x ({per}, 256), {cells} DP cells: "
           f"kernel {wave_ms:.4f} ms, plain {wave_plain_ms:.4f} ms, library none, bound "
           f"{wave_bound:.4f} ms ({wave_by}: {CELL_OPS} int32 operations a cell at "
           f"{INT32_OPS_PER_S:.3g}/s; the bytes alone {by_bytes * 1e3:.4f} ms); at the WER "
           f"stream's largest batch {tuple(big_h.shape)} x {tuple(big_r.shape)}, device time per "
-          f"call (lengths, kernel) {st_dev_ms:.4f} ms", flush=True)
+          f"call (lengths, kernel) {st_dev_ms:.4f} ms; at an LM logits update's argmax "
+          f"{tuple(lm_ids.shape)} x {tuple(lm_ref.shape)} {lm_dev_ms:.4f} ms", flush=True)
     wer_life_ms = host_median_ms(lambda: wer_lifecycle(wer_col))
     one_wer = MetricCollection({"wer": WordErrorRate()})
     wer_one_ms = host_median_ms(lambda: wer_lifecycle(one_wer))
@@ -1418,8 +1458,14 @@ def main(argv) -> int:
     )
     from torcheval_tpu_torch.ops.binned import (
         _binned_weighted_counts_plain,
+        _fixed_point_exponent,
+        _weight_range,
+        _weight_range_plain,
         binned_weighted_counts,
     )
+
+    def fixed_exponent(w):
+        return _fixed_point_exponent(*_weight_range(w), w.shape[0])
     from torcheval_tpu_torch.parallel import (
         make_mesh,
         make_synced_update,
@@ -1480,10 +1526,12 @@ def main(argv) -> int:
         for _ in range(3):
             binned_weighted_counts(wh_s, wh_h, wh_w, wh_th)
         torch.cuda.synchronize()
-    split = sorted(((e.key, device_us(e) / 3e3) for e in device_events(torch, prof)),
-                   key=lambda r: -r[1])
+    # Each kernel's total over its own count of calls: a profile that
+    # misses a call's kernel must not divide what it saw by every call.
+    split = sorted(((e.key, device_us(e) / 1e3 / e.count, e.count)
+                    for e in device_events(torch, prof)), key=lambda r: -r[1])
     print(f"   device time a call by kernel: " + "; ".join(
-        f"{key[:48]} {ms:.4f} ms" for key, ms in split[:5]), flush=True)
+        f"{key[:48]} {ms:.4f} ms (x{count})" for key, ms, count in split[:5]), flush=True)
     edge_s = torch.rand(2, 100_003, device=dev, generator=gen)
     edge_s[0, :6] = torch.tensor([float("nan"), float("inf"), -float("inf"), -1.0, 2.0, 0.5])
     edge_h = torch.rand(2, 100_003, device=dev, generator=gen) < 0.4
@@ -1493,6 +1541,25 @@ def main(argv) -> int:
     view_s = torch.rand(4096 * 3 + 7, NUM_CLASSES // 10, device=dev, generator=gen)
     view_y = torch.randint(0, NUM_CLASSES // 10, (4096 * 3 + 7,), device=dev, generator=gen)
     view_w = torch.rand(4096 * 3 + 7, device=dev, generator=gen) + 0.5
+    # The fixed-point range over 100 003 samples: q = 2^(1 + 17 - 62) for
+    # max|w| in [1, 2), down to min|w| = 2^21 q = 2^-23.  The tiny weights
+    # score 1.0: they alone fill the top slot's cells.
+    edge_s_top = edge_s.clone()
+    edge_s_top[:, 6:56] = 1.0
+    low_w, past_w = edge_w.clone(), edge_w.clone()
+    low_w[6:56], low_w[56] = 2.0**-23, 1.5
+    past_w[6:56], past_w[56] = 2.0**-23 * (1 - 2.0**-20), 1.5
+    high_w = torch.full_like(edge_w, 1.9999999)
+    check(fixed_exponent(low_w) == -44 and fixed_exponent(past_w) is None,
+          "the range's low edge takes the fixed point (q = 2^-44), just past it the f64 route")
+    nonfinite_w = edge_w.clone()
+    nonfinite_w[3], nonfinite_w[9] = float("inf"), float("nan")
+    range_pairs = [(_weight_range(x), _weight_range_plain(x)) for x in (
+        edge_w, mixed_w, low_w, past_w, high_w, torch.zeros_like(edge_w), nonfinite_w,
+        wh_w)]
+    check(all(str(a) == str(b) for a, b in range_pairs),
+          "the weights' range (max |w|, smallest finite nonzero |w|) from the range kernel "
+          "equal to its plain version on 8 weight vectors (NaN, inf and all-zero among them)")
     long_s = torch.full((1, 2**26), 0.37, device=dev)
     long_h = torch.ones(1, 2**26, dtype=torch.bool, device=dev)
     long_w = torch.full((2**26,), 0.1, device=dev)
@@ -1511,11 +1578,21 @@ def main(argv) -> int:
         ("(2, 100003) x 10000 (the histograms only in shared memory, one warp)", edge_s,
          edge_h, edge_w, _create_threshold_tensor(10_000, dev)),
         ("N = 0", edge_s[:, :0], edge_h[:, :0], edge_w[:0], _create_threshold_tensor(200, dev)),
+        ("weights at the low edge of the fixed-point range (min |w| = 2^21 q = 2^-23), alone "
+         "in the top slot", edge_s_top, edge_h, low_w, _create_threshold_tensor(200, dev)),
+        ("weights just past it (2^-23 (1 - 2^-20)): the f64 route", edge_s_top, edge_h, past_w,
+         _create_threshold_tensor(200, dev)),
+        ("weights at the high edge (N max|w| just under 2^62 q)", edge_s, edge_h, high_w,
+         _create_threshold_tensor(200, dev)),
+        ("one row (1, 2^20) x 16384 (slot windows)", edge_s[:1].repeat(1, 11)[:, :2**20],
+         edge_h[:1].repeat(1, 11)[:, :2**20], edge_w.repeat(11)[:2**20],
+         _create_threshold_tensor(16_384, dev)),
     ]:
         _build.reset_counts()
         got = binned_weighted_counts(es, eh, ew, et)
         torch.cuda.synchronize()
-        launched = _build.LAUNCHES["binned_weighted_counts"]
+        routes = dict(_build.LAUNCHES)
+        launched = sum(routes.values())
         ok, err = within(got, _binned_weighted_counts_plain(es, eh, ew, et),
                          _binned_weighted_counts_plain(es, eh, ew.abs(), et))
         twice = all(torch.equal(a, b) for a, b in zip(got, binned_weighted_counts(es, eh, ew, et)))
@@ -1524,6 +1601,7 @@ def main(argv) -> int:
         check(ok and twice and unit and launched == (0 if es.shape[1] == 0 else 1),
               f"binned_weighted_counts: {label}: within tolerance of plain (max err {err:.3e}), "
               f"same bits twice, unit weights bit-equal to binned_counts, {launched} launch(es)")
+        print(f"   route: {routes or 'none'}", flush=True)
     del edge_s, edge_h, view_s, long_s, long_h, long_w
     del wh_s, wh_h, wk
 
@@ -1556,7 +1634,10 @@ def main(argv) -> int:
         counts = binned_counts(s, h, grid)
         check(all(torch.equal(a, b) for a, b in zip(counts, _binned_counts_plain(s, h, grid))),
               f"binned_counts on {label}: bit-equal to its plain version")
+        _build.reset_counts()
         got = binned_weighted_counts(s, h, w, grid)
+        torch.cuda.synchronize()
+        print(f"   route: {dict(_build.LAUNCHES)}", flush=True)
         ok, err = within(got, _binned_weighted_counts_plain(s, h, w, grid),
                          _binned_weighted_counts_plain(s, h, w.abs(), grid))
         twice = all(torch.equal(a, b) for a, b in zip(got, binned_weighted_counts(s, h, w, grid)))
@@ -1565,6 +1646,14 @@ def main(argv) -> int:
         check(ok and twice and unit,
               f"binned_weighted_counts on {label}: within 1e-6 x sum|w| of plain (max err "
               f"{err:.3e}), same bits twice, unit weights bit-equal to binned_counts")
+        rows, n_block = s.shape
+        t_block = grid.numel()
+        block_ms = median_ms(lambda: binned_weighted_counts(s, h, w, grid))
+        block_bound, block_by = bound(
+            rows * n_block * 5 + n_block * 4 + t_block * 4 + (2 * rows * t_block + 2 * rows) * 4,
+            rows * n_block * (int(np.ceil(np.log2(t_block + 1))) + 2))
+        print(f"time {card}: binned_weighted_counts on {label}: kernel {block_ms:.4f} ms, bound "
+              f"{block_bound:.4f} ms ({block_by})", flush=True)
         return err
 
     def rank_block(rank, *arrays):

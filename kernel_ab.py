@@ -1,0 +1,183 @@
+"""Time the port's two redesigned kernels against another checkout's, in
+turns, on one NVIDIA GPU.
+
+    python3 kernel_ab.py --other DIR            # turns: other, this, this, other
+    python3 kernel_ab.py --worker DIR           # one turn: DIR's package, JSON out
+
+``DIR`` is the root of another checkout of this repository (for example
+the parent commit, unpacked with ``git archive`` into a git-ignored
+directory).  Each turn is its own process that imports
+``torcheval_tpu_torch`` from one root, builds its kernels, and times, on
+the same seeded inputs:
+
+- ``edit_distance_tokens`` (``csrc/wavefront.cu``) at the corpus WER
+  update, (8192, 256) x (8192, 256) int32 (``chip_smoke.py``'s corpus,
+  numpy seed 31), and on random ids at the WER stream's largest batch,
+  (64, 32) pairs of 1-20 tokens, and at an LM logits update, (2, 256);
+- ``binned_weighted_counts`` (``csrc/binned_wcount.cu``) at the weighted
+  histogram, (1000, 2^17) x 2048 (numpy seed 15, as ``chip_smoke.py``
+  phase 26), at a north-star rank block, the strided (1000, 2^15) class
+  view x 2048 (seed 6, rank 1's quarter), and at a binary rank block,
+  (1, 2^20) x 16 384 (seed 5, rank 1's quarter).
+
+Each time is the median of 7 CUDA-event timings after a warm-up, beside
+the device time a call by kernel from ``torch.profiler`` over 5 calls
+(each kernel's total over its own count of calls).  The driver prints the
+card's name and power limit, each turn's line, and one JSON object.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def worker(root: str) -> dict:
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import torcheval_tpu_torch
+    from torcheval_tpu_torch.metrics.functional.classification._sort_scan import class_hits
+    from torcheval_tpu_torch.metrics.functional.classification.binned_precision_recall_curve import (
+        _create_threshold_tensor,
+    )
+    from torcheval_tpu_torch.metrics.text._tokens import _pack
+    from torcheval_tpu_torch.ops import _build
+    from torcheval_tpu_torch.ops.binned import binned_weighted_counts
+    from torcheval_tpu_torch.ops.wavefront import _edit_distance_kernel, lens_from_ids
+    from torcheval_tpu_torch.parallel.sync import _grid_np
+
+    sys.path.insert(0, HERE)
+    from chip_smoke import wer_corpus
+
+    pkg = os.path.dirname(os.path.abspath(torcheval_tpu_torch.__file__))
+    assert pkg == os.path.join(os.path.abspath(root), "torcheval_tpu_torch"), pkg
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab.py needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    _build.library()
+    from torch.profiler import ProfilerActivity, profile
+
+    def median_ms(fn, reps=7):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def by_kernel(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = float(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))
+            if us > 0 and not e.key.startswith("Activity Buffer"):
+                out[e.key[:60]] = [round(us / 1e3 / e.count, 4), e.count]
+        return out
+
+    res = {"root": root}
+    hyp, ref = wer_corpus(np.random.default_rng(31), 2**16)
+    a = torch.from_numpy(_pack(hyp[:8192], 16)).to(dev)
+    b = torch.from_numpy(_pack(ref[:8192], 16)).to(dev)
+    al, bl = lens_from_ids(a), lens_from_ids(b)
+    wave = lambda: _edit_distance_kernel(a, b, al, bl)  # noqa: E731
+    res["edit_distance_tokens (8192, 256)"] = [median_ms(wave), by_kernel(wave)]
+    for n_pairs, width, hi_len, vocab in ((64, 32, 20, 97), (2, 256, 256, 8192)):
+        # The WER stream's largest batch, and an LM logits update's argmax.
+        rng = np.random.default_rng(width)
+        lens = rng.integers(1, hi_len + 1, (2, n_pairs))
+        ids = rng.integers(0, vocab, (2, n_pairs, width)).astype(np.int32)
+        ids[np.arange(width)[None, None, :] >= lens[..., None]] = -1
+        x, y = (torch.from_numpy(v).to(dev) for v in ids)
+        xl, yl = lens_from_ids(x), lens_from_ids(y)
+        small = lambda: _edit_distance_kernel(x, y, xl, yl)  # noqa: E731
+        res[f"edit_distance_tokens ({n_pairs}, {width})"] = [median_ms(small), by_kernel(small)]
+
+    rng = np.random.default_rng(15)
+    s = torch.from_numpy(rng.random((1000, 2**17)).astype(np.float32)).to(dev)
+    h = torch.from_numpy(rng.random((1000, 2**17)) > 0.4).to(dev)
+    w = torch.from_numpy(rng.random(2**17).astype(np.float32) + 0.5).to(dev)
+    th = _create_threshold_tensor(2048, dev)
+    call = lambda: binned_weighted_counts(s, h, w, th)  # noqa: E731
+    res["binned_weighted_counts (1000, 2^17) x 2048"] = [median_ms(call), by_kernel(call)]
+    del s, h
+
+    rng = np.random.default_rng(6)
+    ns_s = rng.random((2**17, 1000), dtype=np.float32)
+    ns_t = rng.integers(0, 1000, 2**17).astype(np.int32)
+    ns_w = rng.random(2**17).astype(np.float32) + 0.5
+    q = slice(2**15, 2**16)  # rank 1's block of four
+    s = torch.from_numpy(ns_s[q]).to(dev).T
+    h = class_hits(torch.from_numpy(ns_t[q]).to(dev), 1000)
+    w = torch.from_numpy(ns_w[q]).to(dev)
+    grid = torch.tensor(_grid_np(2048), device=dev)
+    call = lambda: binned_weighted_counts(s, h, w, grid)  # noqa: E731
+    res["binned_weighted_counts north-star block (1000, 2^15) strided x 2048"] = [
+        median_ms(call), by_kernel(call)]
+
+    rng = np.random.default_rng(5)
+    bs_s = rng.random(2**22, dtype=np.float32)
+    bs_t = rng.random(2**22) > 0.5
+    bs_w = rng.random(2**22).astype(np.float32) + 0.5
+    q = slice(2**20, 2**21)
+    s = torch.from_numpy(bs_s[q]).to(dev)[None]
+    h = torch.from_numpy(bs_t[q]).to(dev)[None]
+    w = torch.from_numpy(bs_w[q]).to(dev)
+    grid = torch.tensor(_grid_np(16_384), device=dev)
+    call = lambda: binned_weighted_counts(s, h, w, grid)  # noqa: E731
+    res["binned_weighted_counts binary block (1, 2^20) x 16384"] = [
+        median_ms(call), by_kernel(call)]
+    res["launches"] = dict(_build.LAUNCHES)
+    return res
+
+
+def main(argv) -> int:
+    if argv[:1] == ["--worker"]:
+        print(json.dumps(worker(argv[1])), flush=True)
+        return 0
+    if argv[:1] != ["--other"] or len(argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    other = os.path.abspath(argv[1])
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    turns = []
+    for label, root in [("other", other), ("this", HERE), ("this", HERE), ("other", other)]:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout, proc.stderr, file=sys.stderr)
+            return 1
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        res["turn"] = label
+        turns.append(res)
+        for key, val in res.items():
+            if isinstance(val, list):
+                print(f"{label} [{smi}]: {key}: {val[0]:.4f} ms; by kernel {val[1]}", flush=True)
+        print(f"{label}: launches {res['launches']}", flush=True)
+    print(json.dumps({"card": smi, "turns": turns}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

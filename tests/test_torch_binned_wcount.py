@@ -171,3 +171,126 @@ def test_launch_plan_fits_the_card(rows, n, t, row_warps, smem):
         per_part = 1 if row_warps else warps
         assert scratch == rows * ranges * per_part * 2 * (t + 1)
         assert ranges == 1 or scratch * 8 <= port_binned._SCRATCH_BYTES
+
+
+# ---------------------------------------------------------------------------
+# The fixed-point route of csrc/binned_wcount.cu: its quantum and range
+# check, its launch plan, and a numpy model of its sums.
+
+
+@pytest.mark.parametrize(
+    "wmax,wmin,n,exponent",
+    [(1.5, 0.5, 2**17, -44), (1.0, 1.0, 2**17, -44), (0.999, 0.5, 2**17, -45),
+     (1.0, 1.0, 1, -61), (1.0, 1.0, 2**31 - 1, -30), (2.0**-30, 2.0**-40, 1000, -81),
+     (1.5, 2.0**-23, 100_003, -44), (1.5, 2.0**-23 * (1 - 2.0**-20), 100_003, None),
+     (1.5, 0.0 + 2.0**-30, 2**17, None), (0.0, float("inf"), 10, 0),
+     (float("inf"), 1.0, 10, None), (float("nan"), 1.0, 10, None), (3.0e38, 1.0e33, 2**20, 86),
+     (3.0e38, 1.0e30, 2**20, None)],
+)
+def test_fixed_point_exponent(wmax, wmin, n, exponent):
+    got = port_binned._fixed_point_exponent(wmax, wmin, n)
+    assert got == exponent
+    if got is not None and wmax > 0:
+        q = 2.0**got
+        # No row's cell passes 2^62 quanta; q within a factor 4 of the least.
+        assert n * wmax <= 2.0**62 * q < 4 * n * wmax
+        assert wmin >= 2.0**21 * q
+
+
+def test_weight_range_reads_max_and_smallest_nonzero():
+    w = torch.tensor([0.0, -3.0, 0.25, 0.0, 1.0])
+    assert port_binned._weight_range(w) == (3.0, 0.25)
+    assert port_binned._weight_range(torch.zeros(4)) == (0.0, float("inf"))
+    wmax, _ = port_binned._weight_range(torch.tensor([1.0, float("nan")]))
+    assert wmax != wmax
+
+
+@pytest.mark.parametrize(
+    "rows,n,t,window,smem_thr,ranges",
+    [(1000, 2**17, 2048, 2049, True, 1), (1000, 2**15, 2048, 2049, True, 1),
+     (1, 2**20, 16384, 8193, True, 66), (2, 100_003, 60_000, 12_001, False, 14),
+     (2, 100_003, 10_000, 10_001, True, 25), (37, 12_295, 200, 201, True, 4),
+     (1, 5, 1, 2, True, 1), (1, 2**26, 2048, 2049, True, 132),
+     (1, 2**31 - 1, 2048, 2049, True, 132)],
+)
+def test_fixed_point_launch_plan_fits_the_card(rows, n, t, window, smem_thr, ranges):
+    got = port_binned._wcount_fixed_plan(rows, n, t)
+    assert (got[0], got[1], got[3]) == (window, ranges, smem_thr)
+    per_range = got[2]
+    assert ranges * per_range >= n and (ranges - 1) * per_range < n and ranges <= 65535
+    splits = -(-(t + 1) // window)
+    assert splits * window >= t + 1 and splits <= 65535
+    assert 16 * window + (4 * t if smem_thr else 0) <= port_binned._MAX_SMEM
+    if ranges > 1:  # about a block an SM, of about _MIN_RANGE samples or more
+        assert ranges <= -(-n // port_binned._MIN_RANGE)
+        assert rows * splits * (ranges - 1) < port_binned._FIXED_TARGET_BLOCKS
+
+
+def test_weight_range_words_decode():
+    # The range kernel's words: the bits of max |w|, and 0x7f800000 less
+    # the bits of the smallest finite nonzero |w| (0: none).
+    assert port_binned._decode_weight_range([0x3FC00000, 0x7F800000 - 0x3F000000]) == (1.5, 0.5)
+    assert port_binned._decode_weight_range([0, 0]) == (0.0, float("inf"))
+    wmax, wmin = port_binned._decode_weight_range([-0x00400000, 0x7F800000 - 0x3F800000])
+    assert wmax != wmax and wmin == 1.0  # 0xffc00000 read as int32: a NaN's bits
+    assert port_binned._decode_weight_range([0x7F800000, 0x7F800000 - 1]) == (float("inf"), 2.0**-149)
+
+
+def _fixed_point_model(s, h, w, th):
+    """The fixed-point route's sums in numpy: each weight rounded to an
+    integer count of quanta (half to even, as __double2ll_rn), exact
+    integer slot sums, each slot times q rounded once to f32, then the f64
+    suffix sums rounded once."""
+    r, n = s.shape
+    t = th.shape[0]
+    e = port_binned._fixed_point_exponent(
+        float(np.abs(w).max()), float(np.abs(w[w != 0]).min()) if (w != 0).any() else np.inf, n)
+    assert e is not None
+    wq = np.rint(w.astype(np.float64) * 2.0**-e).astype(np.int64)
+    slot = np.searchsorted(th, s, side="right")
+    slot[np.isnan(s)] = t
+    hist = np.zeros((r, 2, t + 1), dtype=object)  # Python ints: exact
+    for row in range(r):
+        for half, sel in ((0, h[row]), (1, ~h[row])):
+            sums = np.zeros(t + 1, dtype=object)
+            np.add.at(sums, slot[row][sel], wq[sel].astype(object))
+            hist[row, half] = sums
+    per_slot = (hist.astype(np.float64) * 2.0**e).astype(np.float32).astype(np.float64)
+    cum = np.cumsum(per_slot[..., ::-1], axis=-1)[..., ::-1].astype(np.float32)
+    return [cum[:, 0, 1:], cum[:, 1, 1:], cum[:, 0, 0]]
+
+
+@pytest.mark.parametrize("edge", ["low", "high", "mixed-sign", "unit"])
+def test_fixed_point_model_within_tolerance_of_the_plain_version(edge):
+    # n = 3000: q = 2^(1 + 12 - 62) = 2^-49 for max|w| in [1, 2), so the
+    # range reaches down to min|w| = 2^21 q = 2^-28.
+    rng = np.random.default_rng({"low": 1, "high": 2, "mixed-sign": 3, "unit": 4}[edge])
+    n, t = 3000, 64
+    s = rng.random((2, n)).astype(np.float32)
+    h = rng.random((2, n)) > 0.4
+    w = (rng.random(n) + 0.5).astype(np.float32)
+    if edge == "low":
+        # Tiny weights with bits far below q, alone in the top slot.
+        w[:40] = (2.0**-28 * (1 + rng.random(40) * 0.999)).astype(np.float32)
+        w[40] = 1.5
+        s[:, :40] = 1.0
+    elif edge == "high":
+        w[:] = np.float32(1.9999999)
+    elif edge == "mixed-sign":
+        w = ((w - 1.0) * 3.0).astype(np.float32)
+        w[::5] = 0.0
+    else:
+        w[:] = 1.0
+    th = _grid(t)
+    assert port_binned._fixed_point_exponent(
+        float(np.abs(w).max()), float(np.abs(w[w != 0]).min()), n) is not None
+    got = _fixed_point_model(s, h, w, th)
+    want = _port(s, h, w, th)
+    scale = _port(s, h, np.abs(w), th)
+    for g, x, a, name in zip(got, want, scale, _NAMES):
+        np.testing.assert_array_less(np.abs(g.astype(np.float64) - x.numpy()),
+                                     1e-6 * a.numpy() + 1e-30, err_msg=name)
+    if edge == "unit":  # integer weights convert exactly: the counts, bit for bit
+        counts = binned_counts(torch.from_numpy(s), torch.from_numpy(h), torch.from_numpy(th))
+        for g, c in zip(got, counts):
+            np.testing.assert_array_equal(g, c.numpy().astype(np.float32))

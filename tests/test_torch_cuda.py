@@ -451,6 +451,70 @@ def test_edit_distance_kernel_bitwise_equals_plain_and_native(n, wa, wb, lo, voc
     assert torch.equal(again, got)
 
 
+def _edge_pairs(rng, la, lb, vocab=5):
+    """One batch of pairs of exactly ``la`` and ``lb`` tokens (padded to
+    their widths), and their mirror."""
+    a = rng.integers(0, vocab, (7, max(la, 1))).astype(np.int32)[:, :la]
+    b = rng.integers(0, vocab, (7, max(lb, 1))).astype(np.int32)[:, :lb]
+    return a, b
+
+
+# (la, lb): every strip height R (32 R rows a band) at its edge and one
+# past, two and three bands, a lane count that is not a multiple of 32
+# rows, and each side far longer than the other.
+_WAVE_EDGES = [(31, 40), (32, 32), (33, 90), (63, 64), (64, 70), (65, 65), (127, 300),
+               (128, 128), (129, 129), (255, 256), (256, 300), (257, 257), (511, 600),
+               (512, 512), (513, 700), (769, 800), (5, 4000), (4000, 5), (1, 3000), (100, 37)]
+
+
+@pytest.mark.parametrize("la,lb", _WAVE_EDGES)
+def test_edit_distance_kernel_at_band_edges(la, lb):
+    from torcheval_tpu_torch.ops.wavefront import (
+        _edit_distance_native,
+        _edit_distance_plain,
+        _strip_rows,
+        edit_distance_tokens,
+    )
+
+    dev = _cuda()
+    rng = np.random.default_rng(la * 7919 + lb)
+    a, b = _edge_pairs(rng, la, lb)
+    b[0, : min(la, lb)] = a[0, : min(la, lb)]  # a shared prefix
+    print(f"rows {min(la, lb)}: R = {_strip_rows(min(la, lb))}")
+    for x, y in ((a, b), (b, a)):
+        tx, ty = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        _build.reset_counts()
+        got = edit_distance_tokens(tx, ty)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["edit_distance_tokens"] == 1
+        lx = torch.full((7,), x.shape[1], dtype=torch.int32, device=dev)
+        ly = torch.full((7,), y.shape[1], dtype=torch.int32, device=dev)
+        np.testing.assert_array_equal(got.cpu().numpy(), _edit_distance_native(x, y, lx, ly))
+        if max(la, lb) <= 800:
+            assert torch.equal(got, _edit_distance_plain(tx, ty, lx, ly))
+
+
+def test_edit_distance_kernel_on_a_mixed_batch():
+    """Empty, one-token and 4096-token pairs in one launch (the carry
+    scratch of the widest pairs beside pairs of no band at all)."""
+    from torcheval_tpu_torch.ops.wavefront import _edit_distance_native, edit_distance_tokens
+
+    dev = _cuda()
+    rng = np.random.default_rng(4096)
+    lens_a = np.array([0, 1, 4096, 0, 1, 4096, 300, 4096, 17, 2], np.int32)
+    lens_b = np.array([0, 0, 4096, 4096, 1, 1, 4096, 257, 4096, 4000], np.int32)
+    a = rng.integers(0, 30, (10, 4096)).astype(np.int32)
+    b = rng.integers(0, 30, (10, 4096)).astype(np.int32)
+    a[np.arange(4096)[None, :] >= lens_a[:, None]] = -1
+    b[np.arange(4096)[None, :] >= lens_b[:, None]] = -1
+    _build.reset_counts()
+    got = edit_distance_tokens(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["edit_distance_tokens"] == 1 and not _build.PLAIN_CALLS
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _edit_distance_native(a, b, lens_a, lens_b))
+
+
 def test_text_lifecycles_on_the_card_equal_the_cpu_and_the_host_path():
     from torcheval_tpu_torch.metrics import (
         MetricCollection,
@@ -543,11 +607,26 @@ def _wcount_case(case, dev):
         w[::7] = 0.0
     if case == "one-slot-long":
         w = torch.full_like(w, 0.1)
+    if case in ("range-low-edge", "range-past"):
+        # The fixed-point route's range over 100 003 samples: q = 2^(1 + 17
+        # - 62) for max|w| in [1, 2); it holds down to 2^21 q = 2^-23 and
+        # no further.  The tiny weights score 1.0, so they alone fill the
+        # top slot's cells (the random scores stay below 1).
+        edge = 2.0**-23 if case == "range-low-edge" else 2.0**-23 * (1 - 2.0**-20)
+        w[:50] = edge
+        w[50] = 1.5
+        s[:, :50] = 1.0
+    if case == "range-high-edge":
+        # The largest |w| of its quantum: N max|w| just under 2^62 q.
+        w = torch.full_like(w, 1.9999999)
     return s, h, w, th
 
 
 _WCASES = ["strided-classes", "one-row", "one-bin", "specials", "mixed-sign", "t1",
-           "empty", "wide-smem", "hist-only", "wide-grid", "binary-shard", "one-slot-long"]
+           "empty", "wide-smem", "hist-only", "wide-grid", "binary-shard", "one-slot-long",
+           "range-low-edge", "range-high-edge", "range-past"]
+# Cases past the fixed-point range: the f64 route.
+_F64_CASES = ("range-past",)
 
 
 @pytest.mark.parametrize("case", _WCASES)
@@ -557,7 +636,8 @@ def test_weighted_kernel_within_tolerance_of_plain(case):
     _build.reset_counts()
     got = binned_weighted_counts(s, h, w, th)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["binned_weighted_counts"] == (0 if case == "empty" else 1)
+    route = "binned_weighted_counts_f64" if case in _F64_CASES else "binned_weighted_counts"
+    assert dict(_build.LAUNCHES) == ({} if case == "empty" else {route: 1})
     want = _binned_weighted_counts_plain(s, h, w, th)
     # 1e-6 of the sum of |w| over the samples that reach each cell.
     scale = _binned_weighted_counts_plain(s, h, w.abs(), th)
@@ -575,13 +655,45 @@ def test_weighted_kernel_under_unit_weights_equals_the_counts(case):
         assert torch.equal(g, c.to(torch.float32))
 
 
-@pytest.mark.parametrize("case", ["strided-classes", "one-row", "mixed-sign", "wide-grid"])
+@pytest.mark.parametrize("case", ["strided-classes", "one-row", "mixed-sign", "wide-grid",
+                                  "range-low-edge", "range-past", "binary-shard"])
 def test_weighted_kernel_gives_the_same_bits_twice(case):
     dev = _cuda()
     s, h, w, th = _wcount_case(case, dev)
     first = binned_weighted_counts(s, h, w, th)
     second = binned_weighted_counts(s, h, w, th)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("case", ["one-row", "mixed-sign", "range-low-edge", "range-past",
+                                  "zeros", "nonfinite", "t1"])
+def test_weight_range_kernel_equals_its_plain_version(case):
+    from torcheval_tpu_torch.ops.binned import _weight_range, _weight_range_plain
+
+    dev = _cuda()
+    _, _, w, _ = _wcount_case(case if case in _WCASES else "one-row", dev)
+    if case == "zeros":
+        w = torch.zeros_like(w)
+    if case == "nonfinite":
+        w[3], w[5] = float("-inf"), float("nan")
+    assert str(_weight_range(w)) == str(_weight_range_plain(w))
+
+
+@pytest.mark.parametrize("bad", [float("inf"), float("nan")])
+def test_weighted_kernel_takes_the_f64_route_for_a_nonfinite_weight(bad):
+    dev = _cuda()
+    s, h, w, th = _wcount_case("one-row", dev)
+    w[7] = bad
+    _build.reset_counts()
+    got = binned_weighted_counts(s, h, w, th)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"binned_weighted_counts_f64": 1}
+    want = _binned_weighted_counts_plain(s, h, w, th)
+    scale = _binned_weighted_counts_plain(s, h, w.abs(), th)
+    for g, x, a in zip(got[:3], want[:3], scale[:3]):
+        finite = torch.isfinite(x)
+        assert torch.equal(torch.isfinite(g), finite)
+        assert bool(((g - x).abs() <= 1e-6 * a)[finite].all())
 
 
 @pytest.mark.parametrize("weighted", [False, True])

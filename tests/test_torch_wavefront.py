@@ -19,7 +19,7 @@ from torcheval_tpu.ops.pallas_wavefront import edit_distance_tokens as jax_edit_
 from torcheval_tpu.ops.pallas_wavefront import lens_from_ids as jax_lens_from_ids
 from torcheval_tpu_torch import ops
 from torcheval_tpu_torch.native import edit_distance as port_native
-from torcheval_tpu_torch.ops import _build
+from torcheval_tpu_torch.ops import _build, wavefront
 from torcheval_tpu_torch.ops.wavefront import (
     _edit_distance_native,
     edit_distance_tokens,
@@ -221,3 +221,107 @@ def test_native_cpp_equals_the_python_dp(monkeypatch):
 def test_native_batch_rejects_unequal_counts():
     with pytest.raises(ValueError, match="equally many"):
         port_native.edit_distance_batch([[1]], [[1], [2]])
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's geometry (csrc/wavefront.cu), modelled in numpy: a warp a
+# pair, the shorter side on the rows, lane k on rows k R + 1 .. k R + R of a
+# band of 32 R, the columns swept in a skewed pipeline (lane k one column
+# behind lane k - 1, handed its bottom cell and token by a shuffle), bands
+# of 256 rows joined by a two-buffer carry row.  The kernel cannot run on
+# the CPU; its schedule can, and must give the native DP's distances.
+
+
+def _sweep_model(x, y):
+    """D[len(x), len(y)] by the kernel's schedule; ``len(x) <= len(y)``."""
+    m, n = len(x), len(y)
+    if m == 0:
+        return n
+    r_rows = wavefront._strip_rows(m)
+    band = 32 * r_rows
+    lane = np.arange(32)
+    carry_in = None
+    result = None
+    for base in range(0, m, band):
+        last = base + band >= m
+        row0 = base + lane * r_rows
+        rows = row0[:, None] + np.arange(r_rows)[None, :]  # token index i - 1
+        xt = np.where(rows < m, np.asarray(list(x) + [0])[np.minimum(rows, m)], -1)
+        col = rows + 1  # column 0: D[i, 0] = i
+        up_prev = row0.copy()
+        lanes = min(32, -(-(m - base) // r_rows))
+        carry_out = np.zeros(n, np.int64)
+        tok = np.zeros(32, np.int64)
+        bottom = np.zeros(32, np.int64)
+        for s in range(1, n + lanes):
+            up = np.roll(bottom, 1)  # __shfl_up_sync: lane k gets lane k - 1's
+            tok = np.roll(tok, 1)
+            up[0] = s if carry_in is None else (carry_in[s - 1] if s - 1 < n else 0)
+            tok[0] = y[s - 1] if s - 1 < n else 0
+            j = s - lane
+            act = (j >= 1) & (j <= n)
+            new = col.copy()
+            diag, above = up_prev, up
+            for r in range(r_rows):
+                left = col[:, r]
+                v = np.minimum(np.minimum(above, left) + 1, diag + (xt[:, r] != tok))
+                new[:, r] = v
+                diag, above = left, v
+            col = np.where(act[:, None], new, col)
+            up_prev = np.where(act, up, up_prev)
+            bottom = np.where(act, col[:, -1], bottom)
+            if not last and act[31]:
+                carry_out[j[31] - 1] = bottom[31]
+        if last:
+            k, rr = divmod(m - 1 - base, r_rows)
+            result = int(col[k, rr])
+        carry_in = carry_out
+    return result
+
+
+def _model_distance(a, b):
+    # Unit-cost Levenshtein distance is symmetric: the shorter on the rows.
+    return _sweep_model(a, b) if len(a) <= len(b) else _sweep_model(b, a)
+
+
+@pytest.mark.parametrize(
+    "la,lb",
+    [(0, 0), (0, 5), (5, 0), (1, 1), (1, 40), (31, 40), (32, 32), (33, 33), (63, 70), (64, 64),
+     (65, 90), (127, 130), (128, 128), (129, 140), (255, 260), (256, 256), (257, 300),
+     (300, 257), (511, 520), (512, 512), (513, 513), (3, 600), (600, 3)],
+)
+def test_band_and_strip_schedule_model_equals_the_native_dp(la, lb):
+    rng = np.random.default_rng(la * 1009 + lb)
+    for vocab in (2, 7):
+        a = rng.integers(0, vocab, la).tolist()
+        b = rng.integers(0, vocab, lb).tolist()
+        if la and lb and vocab == 7:
+            b[: min(la, lb) // 2] = a[: min(la, lb) // 2]  # a shared prefix
+        want = port_native.edit_distance_batch([a], [b])[0]
+        assert _model_distance(a, b) == want == port_native._edit_distance_py(a, b)
+
+
+@pytest.mark.parametrize(
+    "m,r", [(0, 1), (1, 1), (32, 1), (33, 2), (64, 2), (65, 4), (128, 4), (129, 8), (256, 8),
+            (257, 8), (12_000, 8)],
+)
+def test_strip_rows_cover_a_band(m, r):
+    assert wavefront._strip_rows(m) == r
+    assert m <= 32 * r or r == wavefront._MAX_R
+
+
+@pytest.mark.parametrize(
+    "n,wa,wb,blocks,scratch",
+    [(8192, 256, 256, 2048, 0), (8192, 256, 16, 2048, 0), (4097, 16, 4096, 1025, 0),
+     (5, 257, 300, 2, 2 * 4 * 2 * 300), (64, 2048, 2048, 16, 16 * 4 * 2 * 2048),
+     (3, 12_000, 9000, 1, 4 * 2 * 12_000), (100_000, 4096, 4096, 256, 256 * 4 * 2 * 4096),
+     (1, 0, 7, 1, 0)],
+)
+def test_launch_plan(n, wa, wb, blocks, scratch):
+    assert wavefront._wavefront_plan(n, wa, wb) == (blocks, scratch)
+    if scratch:  # two carry rows of max(wa, wb) for every warp of the grid
+        assert scratch == blocks * wavefront._WARPS * 2 * max(wa, wb)
+        assert scratch * 4 <= max(wavefront._SCRATCH_BYTES,
+                                  8 * max(wa, wb) * wavefront._MIN_SCRATCH_WARPS + 16 * max(wa, wb))
+    else:  # a warp a pair
+        assert blocks * wavefront._WARPS >= n and min(wa, wb) <= wavefront._BAND_ROWS

@@ -53,6 +53,7 @@ _BUILD_LOCK = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_D = ctypes.c_double
 
 # C entry point -> argument types.  Every entry returns cudaGetLastError().
 _SIGNATURES: Dict[str, tuple] = {
@@ -76,6 +77,15 @@ _SIGNATURES: Dict[str, tuple] = {
     "binned_wcount_launch": (
         _P, _LL, _LL, _P, _LL, _LL, _P, _I, _I, _P,
         _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+    ),
+    # weights, n, bits, stream
+    "binned_wcount_range_launch": (_P, _LL, _P, _P),
+    # scores, s_row, s_col, hits, h_row, h_col, weights, rows, n, thresholds,
+    # t, scale, quantum, window, ranges, per_range, smem_thr, hist, w_tp,
+    # w_fp, w_pos, stream
+    "binned_wcount_fixed_launch": (
+        _P, _LL, _LL, _P, _LL, _LL, _P, _I, _I, _P,
+        _I, _D, _D, _I, _I, _I, _I, _P, _P, _P, _P, _P,
     ),
 }
 

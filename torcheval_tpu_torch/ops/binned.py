@@ -22,8 +22,10 @@ thresholds go to global memory past shared memory).
 
 :func:`binned_weighted_counts` is the weighted entry (the port of
 ``pallas_binned_weighted_counts``): f32 sums of one per-sample weight
-vector instead of counts, through ``csrc/binned_wcount.cu`` on the GPU and
-:func:`_binned_weighted_counts_plain` on the CPU, with the same slot rule.
+vector instead of counts, through ``csrc/binned_wcount.cu`` on the GPU (an
+int64 fixed-point route for weights of a bounded range, an f64 route for
+the rest) and :func:`_binned_weighted_counts_plain` on the CPU, with the
+same slot rule.
 Dropped with the TPU kernel: the bf16 three-way weight split and its
 ``|w| >= 2^-100`` gate (``split_safe_weights``); any finite weight, of any
 sign, is summed as it is.
@@ -31,7 +33,9 @@ sign, is summed as it is.
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+import struct
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,15 +43,26 @@ from torcheval_tpu_torch.ops import _build
 
 _MAX_N = 2**31  # int32 counts and sample indices
 
-# The weighted kernel's launch plan (binned_wcount.cu): shared memory a
-# block may use on the H100, warps a block at most, samples a range at
-# least, the blocks a launch aims for, and the global path's scratch.
+# The weighted kernel's launch plans (binned_wcount.cu): shared memory a
+# block may use on the H100, warps a block at most (f64 route), samples a
+# range at least, the blocks a launch aims for, and the f64 route's global
+# scratch.
 _MAX_SMEM = 232448
 _MAX_WARPS = 8
 _MIN_RANGE = 4096
 _TARGET_BLOCKS = 1024
 _SCRATCH_BYTES = 2**27
 _MAX_GRID_Y = 65535
+# The fixed-point route aims at a block an SM: each block zeroes, fills and
+# flushes a whole histogram window, so more blocks than the card holds at
+# once only add that cost (measured on the H100, PERF.md).
+_FIXED_TARGET_BLOCKS = 132
+
+# The fixed-point route: cells of a row stay within 2^_CELL_BITS quanta,
+# and it is taken while the smallest nonzero |w| is at least
+# 2^_RANGE_BITS quanta (a sample's rounding at most 2^-22 |w|).
+_CELL_BITS = 62
+_RANGE_BITS = 21
 
 Counts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -171,9 +186,14 @@ def binned_weighted_counts(
     Σ_i w_i``.  Slots as :func:`binned_counts` (a NaN score counts at every
     threshold), so unit weights give its counts as f32, bit for bit, while
     every count is below 2^24.  Other weights agree with the plain version
-    within ``1e-6·Σ|w|`` over the samples of each cell: both sum each slot
-    in f64 and round it once to f32, so they differ only by the order of
-    the f64 sums.  Two calls on one input give the same bits.  ``scores`` and
+    within ``1e-6·Σ|w|`` over the samples of each cell.  Two calls on one
+    input give the same bits.  On the GPU one of two routes of
+    ``csrc/binned_wcount.cu`` runs, each counted under its own name:
+    weights within the range of :func:`_fixed_point_exponent` are summed
+    as int64 multiples of a power-of-two quantum
+    (``LAUNCHES["binned_weighted_counts"]``), any others in f64
+    (``LAUNCHES["binned_weighted_counts_f64"]``); the choice reads the
+    weights' range back to the host once.  ``scores`` and
     ``hits`` take any strides; ``weights`` is ``(N,)``; ``thresholds`` is
     ``(T,)``, ascending, ``T ≥ 1``.  Requires ``N < 2^31``."""
     r, n, t = _check_binned_args(scores, hits, thresholds)
@@ -195,18 +215,53 @@ def binned_weighted_counts(
     s = scores.to(torch.float32)
     h = hits.to(torch.bool)
     th = thresholds.to(torch.float32).contiguous()
-    row_warps = s.stride(0) == 1 and r > 1
-    warps, smem_hist, ranges, per_range, scratch_len = _wcount_plan(
-        r, n, t, row_warps
-    )
-    # The global path's warps add into their scratch slices: zeroed first.
-    alloc = torch.empty if smem_hist else torch.zeros
-    scratch = alloc(scratch_len, dtype=torch.float64, device=s.device)
     w_tp = torch.empty((r, t), dtype=torch.float32, device=s.device)
     w_fp = torch.empty_like(w_tp)
     w_pos = torch.empty((r,), dtype=torch.float32, device=s.device)
+    # Made before the range is read back, so that after it only the launch
+    # keeps the card waiting (the f64 route drops it).
+    hist = torch.zeros((r, 2 * (t + 1)), dtype=torch.int64, device=s.device)
+    exponent = _fixed_point_exponent(*_weight_range(w), n)
     lib = _build.library()
     with torch.cuda.device(s.device):
+        stream = _build.stream_handle(s.device)
+        if exponent is not None:
+            window, ranges, per_range, smem_thr = _wcount_fixed_plan(r, n, t)
+            err = lib.binned_wcount_fixed_launch(
+                s.data_ptr(),
+                s.stride(0),
+                s.stride(1),
+                h.data_ptr(),
+                h.stride(0),
+                h.stride(1),
+                w.data_ptr(),
+                r,
+                n,
+                th.data_ptr(),
+                t,
+                math.ldexp(1.0, -exponent),
+                math.ldexp(1.0, exponent),
+                window,
+                ranges,
+                per_range,
+                int(smem_thr),
+                hist.data_ptr(),
+                w_tp.data_ptr(),
+                w_fp.data_ptr(),
+                w_pos.data_ptr(),
+                stream,
+            )
+            _build.check_launch("binned_wcount_fixed", err)
+            _build.count_launch("binned_weighted_counts")
+            return w_tp, w_fp, w_pos, w.sum().expand(r).clone()
+        del hist
+        rows_adjacent = s.stride(0) == 1 and r > 1
+        warps, smem_hist, ranges, per_range, scratch_len = _wcount_plan(
+            r, n, t, rows_adjacent
+        )
+        # The global path's warps add into their scratch slices: zeroed first.
+        alloc = torch.empty if smem_hist else torch.zeros
+        scratch = alloc(scratch_len, dtype=torch.float64, device=s.device)
         err = lib.binned_wcount_launch(
             s.data_ptr(),
             s.stride(0),
@@ -220,7 +275,7 @@ def binned_weighted_counts(
             th.data_ptr(),
             t,
             warps,
-            int(row_warps),
+            int(rows_adjacent),
             smem_hist,
             ranges,
             per_range,
@@ -228,11 +283,94 @@ def binned_weighted_counts(
             w_tp.data_ptr(),
             w_fp.data_ptr(),
             w_pos.data_ptr(),
-            _build.stream_handle(s.device),
+            stream,
         )
     _build.check_launch("binned_wcount", err)
-    _build.count_launch("binned_weighted_counts")
+    _build.count_launch("binned_weighted_counts_f64")
     return w_tp, w_fp, w_pos, w.sum().expand(r).clone()
+
+
+def _weight_range(w: torch.Tensor) -> Tuple[float, float]:
+    """``(max |w|, smallest finite nonzero |w|)`` of a non-empty f32 weight
+    vector (``inf`` for the second when there is none; NaN or ``inf`` for
+    the first when a weight is not finite).  On the GPU one pass of
+    ``binned_wcount.cu``'s range kernel, read back once; on the CPU
+    :func:`_weight_range_plain`."""
+    if w.device.type == "cpu":
+        return _weight_range_plain(w)
+    bits = torch.empty(2, dtype=torch.int32, device=w.device)
+    with torch.cuda.device(w.device):
+        err = _build.library().binned_wcount_range_launch(
+            w.data_ptr(), w.shape[0], bits.data_ptr(), _build.stream_handle(w.device)
+        )
+    _build.check_launch("binned_wcount_range", err)
+    return _decode_weight_range(bits.tolist())
+
+
+def _decode_weight_range(bits) -> Tuple[float, float]:
+    """``(max |w|, smallest finite nonzero |w|)`` from the range kernel's
+    words: the bits of the largest |w|, and 0x7f800000 less the bits of
+    the smallest finite nonzero one (0: none)."""
+    hi, lo = (b & 0xFFFFFFFF for b in bits)
+    wmax = struct.unpack("<f", struct.pack("<I", hi))[0]
+    wmin = math.inf if lo == 0 else struct.unpack("<f", struct.pack("<I", 0x7F800000 - lo))[0]
+    return wmax, wmin
+
+
+def _weight_range_plain(w: torch.Tensor) -> Tuple[float, float]:
+    """:func:`_weight_range` in plain torch ops."""
+    a = w.to(torch.float32).abs()
+    finite_nonzero = (a > 0) & (a < math.inf)
+    wmin = torch.where(finite_nonzero, a, torch.full_like(a, math.inf))
+    wmax, wmin = torch.stack([a.max(), wmin.min()]).tolist()  # max propagates NaN
+    return wmax, wmin
+
+
+def _fixed_point_exponent(wmax: float, wmin: float, n: int) -> Optional[int]:
+    """The exponent ``e`` of the fixed-point quantum ``q = 2^e`` for
+    weights of largest magnitude ``wmax`` and smallest nonzero ``wmin``
+    over rows of ``n`` samples, or None when they take the f64 route.
+    ``q = 2^(k + b - 62)`` for ``wmax < 2^k`` and ``n ≤ 2^b``, so ``n·wmax <
+    2^62·q``: no cell of a row can pass 2^62 quanta, nor a partial sum of
+    them 2^63, in any order.  The route
+    needs ``wmin ≥ 2^21·q``, so a sample's rounding ``q/2`` is at most
+    ``2^-22·|w|``.  Non-finite weights take the f64 route; all-zero weights
+    the fixed point (q = 1, every sum 0)."""
+    if not math.isfinite(wmax):
+        return None
+    if wmax == 0.0:
+        return 0
+    # wmax < 2^k and n <= 2^bits, so n·wmax < 2^(k + bits).
+    k = math.frexp(wmax)[1]
+    bits = (n - 1).bit_length()
+    exponent = k + bits - _CELL_BITS
+    if wmin < math.ldexp(1.0, exponent + _RANGE_BITS):
+        return None
+    return exponent
+
+
+def _wcount_fixed_plan(rows: int, n: int, t: int) -> Tuple[int, int, int, bool]:
+    """``(window, ranges, per_range, smem_thr)`` of a fixed-point launch
+    (``binned_wcount_fixed_launch``), a row a block: a ``window`` of slots
+    a block (``T + 1``, or fewer where one row's ``2 (T + 1)`` int64 pass
+    shared memory, as at T = 16 384), the thresholds staged in shared
+    memory where they fit beside it, and sample ranges so the launch has
+    about :data:`_FIXED_TARGET_BLOCKS` blocks of at least
+    :data:`_MIN_RANGE` samples.  Depends on the shapes only."""
+    t1 = t + 1
+    thr = 4 * t
+    window = t1
+    if 16 * window + thr > _MAX_SMEM:
+        # As many slots as fit, beside the thresholds while they take at
+        # most half the room; the windows split the slots evenly.
+        room = _MAX_SMEM - (thr if thr <= _MAX_SMEM // 2 else 0)
+        window = -(-t1 // -(-t1 // (room // 16)))
+    smem_thr = 16 * window + thr <= _MAX_SMEM
+    blocks = rows * -(-t1 // window)
+    ranges = max(1, min(-(-n // _MIN_RANGE), -(-_FIXED_TARGET_BLOCKS // blocks), _MAX_GRID_Y))
+    per_range = -(-n // ranges)
+    ranges = -(-n // per_range)
+    return window, ranges, per_range, smem_thr
 
 
 def _wcount_plan(

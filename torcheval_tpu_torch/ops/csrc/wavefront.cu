@@ -1,135 +1,219 @@
-// Batched token-level Levenshtein distance by an anti-diagonal sweep.
+// Batched token-level Levenshtein distance: one warp a pair, lanes on row
+// strips, columns swept in a skewed pipeline with no block barrier.
 //
 // Replaces the TPU kernel torcheval_tpu/ops/pallas_wavefront.py::
 // _wavefront_kernel (entry _edit_distance_pallas).  For each pair r it
 // computes the edit distance between a[r, :a_lens[r]] and b[r, :b_lens[r]]
-// as an exact int32.
+// as an exact int32:
 //
-// Every cell of the DP matrix on the anti-diagonal d = i + j depends only on
-// the diagonals d-1 and d-2, so a diagonal is data-parallel:
-//
-//     D[i, j] = min(D[i-1, j] + 1, D[i, j-1] + 1, D[i-1, j-1] + (a[i-1] != b[j-1]))
+//     D[i, j] = min(D[i-1, j] + 1, D[i, j-1] + 1, D[i-1, j-1] + (x[i-1] != y[j-1]))
 //     D[i, 0] = i,  D[0, j] = j
 //
-// The TPU kernel advanced the whole padded bucket one diagonal per grid
-// step, to the bucket's La + Lb + 1, with pairs on sublanes padded to 8 and
-// ids on lanes padded to 128, a pre-shifted copy of `a` with a -1 sentinel,
-// a rolling reversed copy of `b`, out-of-matrix lanes poisoned with 2^30 and
-// a one-hot capture accumulator that a lane sum read back.  All of that is
-// TPU layout, and none of it is carried over.
+// The TPU kernel advanced the whole padded bucket one anti-diagonal per grid
+// step, with pairs on sublanes, ids on lanes padded to 128, poisoned
+// out-of-matrix lanes and a one-hot capture.  All of that is TPU layout,
+// and none of it is carried over.
 //
-// Design.  One thread block per pair.  The pair's real ids (never a pad)
-// and three rolling diagonals, indexed by the DP row i, live in shared
-// memory.  On diagonal d the block's threads take the rows lo..hi that the
-// diagonal crosses inside THIS pair's (a_len + 1) x (b_len + 1) matrix (a
-// strided loop where they are more than the block), one __syncthreads()
-// ends the diagonal, and the sweep stops at the pair's own a_len + b_len: a
-// ragged batch costs its own cells, not the bucket's.  Every read of a
-// non-boundary cell lands inside the matrix, so nothing needs a poison
-// value; a[i-1] is read only for i <= a_len and b[j-1] only for j <= b_len,
-// so pad values cannot matter.  Thread 0 writes D[a_len, b_len].
+// Design.  Unit-cost Levenshtein distance is symmetric, so the shorter
+// side x (length m) goes on the rows and the longer y (length n >= m) on
+// the columns.  One warp owns a pair; a block holds kWarps warps, each on
+// its own pair, and nothing in the sweep waits on another warp.  Lane k
+// owns the R consecutive rows k R + 1 .. k R + R of a band of 32 R rows:
+// it keeps their x tokens and their cells of the previous column in
+// registers.  The warp sweeps the columns in a skewed pipeline: at step s
+// lane k computes column j = s - k, so lane k - 1 has finished column j one
+// step before, and one __shfl_up_sync hands lane k that lane's bottom cell
+// (the cell above the strip; the one a column back, the diagonal, it kept
+// from the step before) and the token y[j-1] it used.  Lane 0 takes its
+// token, and the cell above it, from a chunk of 32 columns the warp loaded
+// together (coalesced), one chunk ahead; a chunk of 32 steps in which
+// every lane is inside the matrix runs without the per-lane bounds test.
+// R is 1, 2, 4 or 8: the least
+// that covers the pair's m rows in one band, 8 past 256 rows, chosen per
+// pair (ops/wavefront.py::_strip_rows is the same rule), so a short pair
+// has few lanes and few steps: n + lanes - 1.  Rows past 256 go in bands
+// of 256: the last lane writes its bottom row to a per-warp global carry
+// (two buffers, written by one band and read by the next, one __syncwarp
+// between), which lane 0 of the next band reads in its chunks.  Cells of
+// rows past m are computed and never read (the DP flows down and right);
+// x and y are read only below their lengths, so pad values never matter.
+// The lane that holds row m writes D[m, n] after the last band.
 //
-// Widths whose buffers (3 (La + 1) + La + Lb ints) pass the 227 KB of shared
-// memory a block can have take the same sweep with the diagonals in a
-// global-memory scratch the wrapper allocates, a fixed number of blocks
-// striding over the pairs, and the ids read from global memory in place.
+// The first version of this kernel ran one block a pair over the
+// anti-diagonals with a __syncthreads() a diagonal (~200 for a pair of ~100
+// tokens) and most of its 288 threads idle on most diagonals.  Here a step
+// costs R cells a lane and three or four shuffles, and no warp waits on
+// another: about 5x faster at the corpus update on the H100 (PERF.md).
 //
 // Bound on the H100: operations.  A cell needs five integer operations (a
 // compare, two adds, two mins), and the card issues 132 SMs x 64 int32
-// lanes x 1.98 GHz = 16.7e12 of them a second (half the 33.5 TOPS of the
-// Hopper white paper, which counts a multiply-add as two).  The bytes, n x
-// (La + Lb) x 4 read once, take less time than that from a few tokens a
-// pair on.  This first version is far from the bound: a diagonal costs a
-// block barrier whatever its length, and short pairs leave most of a block
-// idle.
+// lanes x 1.98 GHz = 16.7e12 of them a second.  The bytes, n x (La + Lb) x
+// 4 read once, take less time than that from a few tokens a pair on.  The
+// pipeline's fill and drain (lanes - 1 steps a band), the idle lanes of a
+// strip past m and the shuffles and feed of each step are the work this
+// design does beyond the cells; the R = 8 strips' 64 registers a thread
+// hold an SM to 32 warps (forcing fewer registers spills, and was slower).
+//
+// Deterministic: integer minima, no atomics, one fixed schedule.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr size_t kMaxShared = 232448;  // 227 KB: the most a block can opt into
-constexpr size_t kDefaultShared = 48 * 1024;
+constexpr int kWarps = 4;  // warps (pairs in flight) a block
+constexpr int kMaxR = 8;   // rows a lane at most: a band is 256 rows
+constexpr unsigned kFull = 0xffffffffu;
 
-template <bool kShared>  // the diagonals and ids in shared memory, or not
-__global__ void wavefront_kernel(const int* __restrict__ a, const int* __restrict__ b,
-                                 const int* __restrict__ a_lens,
-                                 const int* __restrict__ b_lens, int n, int wa, int wb,
-                                 int* __restrict__ scratch, int* __restrict__ out) {
-  extern __shared__ int smem[];
-  const int row = wa + 1;  // a diagonal has at most wa + 1 cells
-  int* const diag = kShared ? smem : scratch + (size_t)blockIdx.x * 3 * row;
-  int* const sa = smem + 3 * row;
-  int* const sb = sa + wa;
-  const int tid = threadIdx.x;
+// Lane 0's feed for 32 columns: y[c0 + lane] and the carry above the band
+// at the same column, 0 past n (never used: lane 0 stops at n).
+__device__ __forceinline__ void load_chunk(const int* __restrict__ y, const int* cin,
+                                           int c0, int n, int lane, int& tok, int& up) {
+  const int c = c0 + lane;
+  tok = c < n ? y[c] : 0;
+  up = (cin != nullptr && c < n) ? cin[c] : 0;
+}
 
-  for (int r = blockIdx.x; r < n; r += gridDim.x) {
-    const int la = min(max(a_lens[r], 0), wa);
-    const int lb = min(max(b_lens[r], 0), wb);
-    const int* ar = a + (size_t)r * wa;
-    const int* br = b + (size_t)r * wb;
-    if (kShared) {
-      for (int i = tid; i < la; i += blockDim.x) sa[i] = ar[i];
-      for (int j = tid; j < lb; j += blockDim.x) sb[j] = br[j];
-      ar = sa;
-      br = sb;
-      __syncthreads();
+// One step s of the sweep: lane k computes column j = s - k of its strip.
+// Lane 0 takes the column's token and the cell above the band from the
+// chunk registers (lane c of them); every other lane takes lane k - 1's
+// bottom cell and token from the step before.  GUARD: lanes outside the
+// matrix (j < 1 in the pipeline's fill, j > n in its drain) keep their
+// cells; unguarded steps are those where every lane is inside.
+template <int R, bool GUARD>
+__device__ __forceinline__ void step(int s, int c, int lane, int n, bool first, int* cout,
+                                     int tok_cur, int up_cur, const int (&xt)[R],
+                                     int (&col)[R], int& up_prev, int& tok, int& bottom) {
+  const int feed_tok = __shfl_sync(kFull, tok_cur, c);
+  const int feed_up = first ? s : __shfl_sync(kFull, up_cur, c);
+  int up = __shfl_up_sync(kFull, bottom, 1);
+  tok = __shfl_up_sync(kFull, tok, 1);
+  if (lane == 0) {
+    up = feed_up;
+    tok = feed_tok;
+  }
+  const int j = s - lane;
+  if (!GUARD || (j >= 1 && j <= n)) {
+    int diag = up_prev, above = up;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int left = col[r];
+      const int v = min(min(above, left) + 1, diag + (xt[r] != tok));
+      diag = left;
+      col[r] = v;
+      above = v;
     }
-    int* cur = diag;
-    int* p1 = diag + row;      // diagonal d - 1: p1[i] = D[i, d - 1 - i]
-    int* p2 = diag + 2 * row;  // diagonal d - 2: p2[i] = D[i, d - 2 - i]
-    for (int d = 0; d <= la + lb; ++d) {
-      const int lo = max(0, d - lb), hi = min(d, la);
-      for (int i = lo + tid; i <= hi; i += blockDim.x) {
-        int v = d;  // the first row (i = 0) and the first column (i = d)
-        if (i != 0 && i != d) {
-          const int sub = ar[i - 1] != br[d - i - 1];
-          v = min(min(p1[i - 1], p1[i]) + 1, p2[i - 1] + sub);
+    up_prev = up;
+    bottom = col[R - 1];
+    if (cout != nullptr && lane == 31) cout[j - 1] = bottom;
+  }
+}
+
+// D[m, n] of x (m rows) against y (n >= m >= 1 columns), R rows a lane.
+// carry: two buffers of carry_len >= n ints for this warp (used only when
+// m > 32 R).  The steps go in chunks of 32, one chunk of feed registers
+// each; a chunk where every lane is inside the matrix runs unguarded.
+template <int R>
+__device__ int sweep(const int* __restrict__ x, int m, const int* __restrict__ y, int n,
+                     int* carry, int carry_len, int lane) {
+  constexpr int kBand = 32 * R;
+  int result = 0;
+  for (int base = 0, band = 0; base < m; base += kBand, ++band) {
+    const bool last = base + kBand >= m;
+    const int* cin = band == 0 ? nullptr : carry + (band & 1) * carry_len;
+    int* cout = last ? nullptr : carry + ((band + 1) & 1) * carry_len;
+    const int row0 = base + lane * R;  // the row above this lane's strip
+    int xt[R], col[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      xt[r] = row0 + r < m ? x[row0 + r] : -1;
+      col[r] = row0 + r + 1;  // column 0: D[i, 0] = i
+    }
+    int up_prev = row0;  // D[row0, j - 1]
+    const int lanes = min(32, (m - base + R - 1) / R);
+    const int steps = n + lanes - 1;
+    int tok_cur, up_cur, tok_next, up_next;
+    load_chunk(y, cin, 0, n, lane, tok_cur, up_cur);
+    int tok = 0, bottom = 0;
+    for (int s0 = 1; s0 <= steps; s0 += 32) {
+      // Steps s0 .. s0 + 31 feed lane 0 columns s0 .. s0 + 31 (chunk
+      // indices s0 - 1 ..); the next chunk's loads are in flight meanwhile.
+      load_chunk(y, cin, s0 - 1 + 32, n, lane, tok_next, up_next);
+      if (s0 >= 32 && s0 + 31 <= n) {
+#pragma unroll 8
+        for (int c = 0; c < 32; ++c) {
+          step<R, false>(s0 + c, c, lane, n, cin == nullptr, cout, tok_cur, up_cur, xt, col,
+                         up_prev, tok, bottom);
         }
-        cur[i] = v;
+      } else {
+        const int end = min(32, steps - s0 + 1);
+        for (int c = 0; c < end; ++c) {
+          step<R, true>(s0 + c, c, lane, n, cin == nullptr, cout, tok_cur, up_cur, xt, col,
+                        up_prev, tok, bottom);
+        }
       }
-      // Ends the diagonal: its cells are visible to the block, and the
-      // reads of p2 are done before the next diagonal overwrites it.
-      __syncthreads();
-      int* const oldest = p2;
-      p2 = p1;
-      p1 = cur;
-      cur = oldest;
+      tok_cur = tok_next;
+      up_cur = up_next;
     }
-    if (tid == 0) out[r] = p1[la];  // D[la, lb], on the last diagonal
-    __syncthreads();  // before the next pair reuses the buffers
+    if (last) {
+      const int k = (m - 1 - base) / R, rr = (m - 1 - base) % R;
+      int v = 0;
+#pragma unroll
+      for (int r = 0; r < R; ++r) v = r == rr ? col[r] : v;
+      result = __shfl_sync(kFull, v, k);
+    }
+    __syncwarp();  // this band's carry is visible to the next band's loads
+  }
+  return result;
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+wavefront_kernel(const int* __restrict__ a, const int* __restrict__ b,
+                 const int* __restrict__ a_lens, const int* __restrict__ b_lens, int n,
+                 int wa, int wb, int* __restrict__ scratch, int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long warp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const long long warps = (long long)gridDim.x * kWarps;
+  const int carry_len = wa > wb ? wa : wb;
+  int* const carry = scratch == nullptr ? nullptr : scratch + warp * 2 * carry_len;
+  for (long long p = warp; p < n; p += warps) {
+    const int la = min(max(a_lens[p], 0), wa);
+    const int lb = min(max(b_lens[p], 0), wb);
+    const bool a_rows = la <= lb;
+    const int* x = a_rows ? a + p * wa : b + p * wb;
+    const int* y = a_rows ? b + p * wb : a + p * wa;
+    const int m = a_rows ? la : lb;
+    const int cols = a_rows ? lb : la;
+    int d;
+    if (m == 0) {
+      d = cols;
+    } else if (m <= 32) {
+      d = sweep<1>(x, m, y, cols, carry, carry_len, lane);
+    } else if (m <= 64) {
+      d = sweep<2>(x, m, y, cols, carry, carry_len, lane);
+    } else if (m <= 128) {
+      d = sweep<4>(x, m, y, cols, carry, carry_len, lane);
+    } else {
+      d = sweep<kMaxR>(x, m, y, cols, carry, carry_len, lane);
+    }
+    if (lane == 0) out[p] = d;
   }
 }
 
 }  // namespace
 
 // a: (n, wa) int32, b: (n, wb) int32, contiguous; a_lens, b_lens, out: (n,)
-// int32; n >= 1.  scratch is null when the buffers fit a block's shared
-// memory (one block per pair), else scratch_blocks x 3 x (wa + 1) int32 for
-// scratch_blocks blocks.  Returns the first CUDA error, or
-// cudaGetLastError() after the launch.
+// int32; n >= 1.  `blocks` blocks of 4 warps stride over the pairs, a warp
+// a pair.  scratch is null when min(wa, wb) <= 256 (every pair one band),
+// else blocks x 4 x 2 x max(wa, wb) int32: each warp's two carry rows.
+// Returns cudaGetLastError() after the launch.
 extern "C" int wavefront_launch(const void* a, const void* b, const void* a_lens,
                                 const void* b_lens, int n, int wa, int wb,
-                                void* scratch, int scratch_blocks, void* out,
-                                void* stream) {
-  const int span = (wa < wb ? wa : wb) + 1;  // the longest diagonal
-  int threads = (span + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  size_t shared = 0;
-  int blocks = scratch_blocks;
-  if (scratch == nullptr) {
-    shared = (3 * ((size_t)wa + 1) + (size_t)wa + (size_t)wb) * sizeof(int);
-    if (shared > kMaxShared) return (int)cudaErrorInvalidValue;
-    if (shared > kDefaultShared) {
-      cudaError_t err = cudaFuncSetAttribute(
-          wavefront_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared);
-      if (err != cudaSuccess) return (int)err;
-    }
-    blocks = n;
+                                void* scratch, int blocks, void* out, void* stream) {
+  const int rows = wa < wb ? wa : wb;
+  if (blocks < 1 || n < 1 || (rows > 32 * kMaxR && scratch == nullptr)) {
+    return (int)cudaErrorInvalidValue;
   }
-  if (blocks < 1) return (int)cudaErrorInvalidValue;
-  auto kernel = scratch == nullptr ? wavefront_kernel<true> : wavefront_kernel<false>;
-  kernel<<<blocks, threads, shared, static_cast<cudaStream_t>(stream)>>>(
+  wavefront_kernel<<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(a), static_cast<const int*>(b),
       static_cast<const int*>(a_lens), static_cast<const int*>(b_lens), n, wa, wb,
       static_cast<int*>(scratch), static_cast<int*>(out));

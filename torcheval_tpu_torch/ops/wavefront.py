@@ -18,13 +18,15 @@ Not carried over from the JAX module: ``wavefront_route``'s three-way
 choice, the ``TORCHEVAL_TPU_WAVEFRONT`` flag and the measured-cost lookup
 behind it (a falsy flag would send GPU tensors to the plain version, a
 switch that hides the kernel), and ``wavefront_plan``, which sizes TPU
-tiles and their on-chip memory.  The kernel's own geometry is one block a
-pair and is decided in ``csrc/wavefront.cu``.
+tiles and their on-chip memory.  The kernel's own geometry is a warp a
+pair, the shorter side on the rows, ``R`` rows a lane (:func:`_strip_rows`)
+and bands of 256 rows past that (``csrc/wavefront.cu``); the launch and
+its carry scratch are :func:`_wavefront_plan`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,10 +37,41 @@ from torcheval_tpu_torch.ops import _build
 # picks a garbage lane, small enough that += 1 per diagonal cannot wrap.
 _BIG = 1 << 30
 
-# What a block can hold in shared memory (227 KB); wider pairs keep their
-# diagonals in a global scratch, _SCRATCH_BLOCKS blocks striding over them.
-_SHARED_BYTES = 232448
-_SCRATCH_BLOCKS = 1056  # 8 blocks for each of the H100's 132 SMs
+# The kernel's geometry (csrc/wavefront.cu): warps (pairs in flight) a
+# block, rows a lane at most, so a band of 32 x 8 rows; past one band each
+# warp keeps two carry rows of max(wa, wb) int32 in a global scratch of
+# about _SCRATCH_BYTES, and the warps stride over the pairs.
+_WARPS = 4
+_MAX_R = 8
+_BAND_ROWS = 32 * _MAX_R
+_SCRATCH_BYTES = 2**25
+_MIN_SCRATCH_WARPS = 4 * 132  # a block for each of the H100's 132 SMs
+
+
+def _strip_rows(m: int) -> int:
+    """Rows a lane (``R``) for a pair whose shorter side has ``m`` tokens:
+    the least of 1, 2, 4, 8 whose 32 lanes cover them, 8 past 256 (bands).
+    The kernel applies the same rule to each pair."""
+    for r in (1, 2, 4):
+        if m <= 32 * r:
+            return r
+    return _MAX_R
+
+
+def _wavefront_plan(n: int, wa: int, wb: int) -> Tuple[int, int]:
+    """``(blocks, scratch_len)`` of a ``wavefront.cu`` launch over ``n``
+    pairs of widths ``wa`` and ``wb``: a warp a pair in blocks of
+    :data:`_WARPS`.  While the shorter width fits one band, every pair
+    gets its own warp and no scratch; past it the warps (at most one a
+    pair, at least :data:`_MIN_SCRATCH_WARPS`, else as many as
+    :data:`_SCRATCH_BYTES` of carries hold) stride over the pairs, each
+    with two carry rows of ``max(wa, wb)`` int32 (``scratch_len``)."""
+    if min(wa, wb) <= _BAND_ROWS:
+        return -(-n // _WARPS), 0
+    row = 2 * max(wa, wb)
+    warps = min(n, max(_MIN_SCRATCH_WARPS, _SCRATCH_BYTES // (4 * row)))
+    blocks = -(-warps // _WARPS)
+    return blocks, blocks * _WARPS * row
 
 
 def lens_from_ids(ids: torch.Tensor) -> torch.Tensor:
@@ -107,10 +140,10 @@ def _edit_distance_kernel(
     n, wa = a_ids.shape
     wb = b_ids.shape[1]
     device = a_ids.device
-    out = torch.zeros(n, dtype=torch.int32, device=device)
+    out = torch.empty(n, dtype=torch.int32, device=device)  # the kernel writes every pair
     if n == 0:
         return out
-    if n >= 2**31 or 3 * (wa + 1) + wa + wb >= 2**29:
+    if n >= 2**31 or max(wa, wb) >= 2**29:
         raise ValueError(
             f"edit_distance_tokens: {n} pairs of widths {wa} and {wb} pass the "
             "kernel's int32 indices."
@@ -119,10 +152,10 @@ def _edit_distance_kernel(
     b = b_ids.to(torch.int32).contiguous()
     al = a_lens.to(torch.int32).contiguous()
     bl = b_lens.to(torch.int32).contiguous()
-    scratch, blocks = None, 0
-    if 4 * (3 * (wa + 1) + wa + wb) > _SHARED_BYTES:
-        blocks = min(n, _SCRATCH_BLOCKS)
-        scratch = torch.empty((blocks, 3, wa + 1), dtype=torch.int32, device=device)
+    blocks, scratch_len = _wavefront_plan(n, wa, wb)
+    scratch = (
+        torch.empty(scratch_len, dtype=torch.int32, device=device) if scratch_len else None
+    )
     lib = _build.library()
     with torch.cuda.device(device):
         err = lib.wavefront_launch(
