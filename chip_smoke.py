@@ -13,8 +13,13 @@ times kernels and lifecycle with CUDA events.  Phases:
    build time;
 2. kernels against their plain versions (bit-equal), at the headline
    shapes and at edge cases (ties on a 1/64 grid, a query count that is
-   not a multiple of the kernel's chunk, a pinned cap past shared memory,
-   contiguous rows, degenerate AUC rows);
+   not a multiple of the kernel's tile, less than one tile and one past
+   it, 31 and 33 classes, pinned caps past shared memory (784, 4096), a
+   cap that is not a power of two, C = 999 (a pitch that is not 16-byte
+   aligned), ``scores[:, 1:]`` and ``scores[:, :999]`` of the headline,
+   contiguous rows whole, cut short and misaligned, degenerate AUC rows);
+   each rank case prints its launch plan (rows a block, 16- or 4-byte
+   copies, shared or global tables, blocks);
 3. the headline lifecycle: ``MulticlassAUROC(num_classes=1000)`` on the
    repository's headline data (numpy seed 0, 8 updates of 16384 x 1000
    f32, one compute) takes the rank-sum route with cap 256 through the
@@ -43,8 +48,11 @@ times kernels and lifecycle with CUDA events.  Phases:
 10. times of phases 7-9, tagged with the card and power limit;
 11. the rank-histogram kernel against its plain version (bit-equal) at
     the headline's strided (1000, 131072) view with cap 256, on ties on a
-    1/8 grid with half-pad tables, at N = 100 003, on 37 contiguous rows
-    and at a pinned cap of 4096 (tables and counts in global memory);
+    1/8 grid with half-pad tables, at N = 100 003, on 37 contiguous rows,
+    at pinned caps of 4096 and 784 (tables and counts in global memory),
+    at cap 80, at N = 63 and 65, at C = 999, on ``scores[:, 1:]`` and
+    ``scores[:, :999]`` of the headline and on 2 rows of 2047, each case
+    with its launch plan;
 12. the binned-count kernel against its plain version (bit-equal) at the
     binned lifecycle's update (1, 2^19) x 10 000 thresholds, at the
     strided (1000, 16384) multiclass layout x 200, with scores equal to
@@ -81,8 +89,10 @@ times kernels and lifecycle with CUDA events.  Phases:
     kernel's device time per update beside its plain version, its bound
     and the per-member route's update, the lifecycle on three routes, and
     the sliced stream with its updates, ``compute_slices()`` and
-    ``reset()`` apart (with ``--profile``, the lifecycle by operator on two
-    routes, and the sliced stream's updates);
+    ``reset()`` apart, and the kernel's device time a launch over the
+    sliced stream's 96 ``fused_update`` (``torch.profiler``) beside its
+    bound at those batches (with ``--profile``, the lifecycle by operator
+    on two routes, and the sliced stream's updates);
 21. the edit-distance kernel against its plain version (bit-equal) and both
     against the port's native host DP (which must be the compiled one): at
     the corpus update's shape (8192 pairs, widths 256), on short pairs
@@ -185,6 +195,11 @@ SLICED_CLASSES, SLICES = 20, 16
 # 132 SMs x 64 int32 lanes x 1.98 GHz: half the 33.5 TOPS of the Hopper white
 # paper, which counts a multiply-add as two operations.
 INT32_OPS_PER_S = 16.7e12
+# Warp instructions a second: 132 SMs x 4 schedulers x 1.98 GHz, one each a
+# cycle.  A rank search step is at least 3 (a shared load at an address plus
+# a constant, a compare, a predicated add), as rank_sum.cu's steps compile.
+WARP_INSTR_PER_S = 132 * 4 * 1.98e9
+SEARCH_STEP_INSTR = 3
 CELL_OPS = 5  # one DP cell: a compare, two adds, two mins
 WER_PAIRS = 2**16  # the corpus WER lifecycle, 8 updates of 8192
 WER_MAX_LEN, WER_VOCAB = 200, 10_000
@@ -267,6 +282,14 @@ def wer_corpus(rng, n):
     hyp[r, start[r, c] + keep[r, c]] = ins[r, c]
     return ([hyp[i, :hyp_lens[i]].tolist() for i in range(n)],
             [ref[i, :lens[i]].tolist() for i in range(n)])
+
+
+def issue_floor_ms(searches, cap, extra=0):
+    """The least time the card could issue ``searches`` rank searches of a
+    power-of-two ``cap`` in: log2(cap) + 1 steps of SEARCH_STEP_INSTR warp
+    instructions, plus ``extra`` a query, 32 searches a warp instruction."""
+    steps = cap.bit_length()
+    return searches * (steps * SEARCH_STEP_INSTR + extra) / 32 / WARP_INSTR_PER_S * 1e3
 
 
 def device_us(evt):
@@ -368,6 +391,7 @@ def main(argv) -> int:
         _pack_row_tables,
         _rank_sum_counts_plain,
         rank_sum_counts,
+        rank_sum_plan,
         ustat_route_cap,
     )
 
@@ -421,27 +445,60 @@ def main(argv) -> int:
     check(torch.equal(k_kernel, k_plain),
           f"rank_sum_counts bit-equal to plain at the headline ({2 * c}, {n}), cap 256")
 
+    print(f"rank_sum_counts at the headline: {rank_sum_plan(s_all.T, tables2, negate=True).describe()}",
+          flush=True)
     gen = torch.Generator(device=dev).manual_seed(1)
     grid = torch.floor(torch.rand(100_003, 250, device=dev, generator=gen) * 64) / 64
     grid_t = torch.randint(0, 250, (100_003,), device=dev, generator=gen)
+    c999 = torch.floor(torch.rand(20_001, 999, device=dev, generator=gen) * 64) / 64
+    c999_t = torch.randint(0, 999, (20_001,), device=dev, generator=gen)
     for label, q_scores, q_target, cap in [
         ("ties on a 1/64 grid, N % 4096 != 0, cap 512", grid, grid_t, 512),
         ("pinned cap 4096 (tables past shared memory)", grid[:, :64], grid_t % 64, 4096),
+        ("cap 784, the first cap past shared memory", grid[:, :33], grid_t % 33, 784),
+        ("cap 80, not a power of two (guarded steps)", grid[:, :40], grid_t % 40, 80),
+        ("31 classes, N = 63, less than one tile", grid[:63, :31], grid_t[:63] % 31, 256),
+        ("33 classes, N = 65, a tile and one sample", grid[:65, :33], grid_t[:65] % 33, 256),
+        ("C = 999, a row pitch that is not 16-byte aligned, N = 20001", c999, c999_t, 256),
+        ("scores[:, 1:] of the headline, a base that is not 16-byte aligned", s_all[:, 1:],
+         t_all % 999, 256),
+        ("scores[:, :999] of the headline, a partial last 16-byte copy", s_all[:, :999],
+         t_all % 999, 256),
+        *[(f"cap {cap}, the fixed steps of that cap, (33, 3000) strided", grid[:3000, :33],
+           grid_t[:3000] % 33, cap) for cap in (16, 32, 64, 128)],
     ]:
         cnt, tab = _pack_positive_tables(q_scores, q_target, q_scores.shape[1], cap)
         tabs = torch.cat([tab, -tab.flip(1)])
         got = rank_sum_counts(q_scores.T, tabs, negate=True)
         torch.cuda.synchronize()
         check(torch.equal(got, _rank_sum_counts_plain(q_scores.T, tabs, negate=True)),
-              f"rank_sum_counts bit-equal to plain: {label}")
+              f"rank_sum_counts bit-equal to plain: {label} "
+              f"[{rank_sum_plan(q_scores.T, tabs, negate=True).describe()}]")
     rows = torch.floor(torch.rand(4, 2**20, device=dev, generator=gen) * 64) / 64
     cnt, tab = _pack_row_tables(rows, torch.rand(4, 2**20, device=dev, generator=gen) < 2e-4, 512)
     tabs = torch.cat([tab, -tab.flip(1)])
-    got = rank_sum_counts(rows, tabs, negate=True)
-    torch.cuda.synchronize()
-    check(torch.equal(got, _rank_sum_counts_plain(rows, tabs, negate=True)),
-          "rank_sum_counts bit-equal to plain: contiguous rows (4, 2^20), cap 512")
-    del grid, grid_t, rows, got
+    for label, q_rows, negate in [
+        ("contiguous rows (4, 2^20), cap 512", rows, True),
+        ("contiguous rows (4, 2^20 - 1) of the same, a partial last copy",
+         rows[:, : 2**20 - 1], True),
+        ("rows[:, 1:] of the same, a base that is not 16-byte aligned", rows[:, 1:], True),
+        ("one row (1, 2047), less than one tile, no negate", rows[:1, :2047], False),
+    ]:
+        t_rows = tabs if negate else tab[: q_rows.shape[0]]
+        got = rank_sum_counts(q_rows, t_rows, negate=negate)
+        torch.cuda.synchronize()
+        check(torch.equal(got, _rank_sum_counts_plain(q_rows, t_rows, negate=negate)),
+              f"rank_sum_counts bit-equal to plain: {label} "
+              f"[{rank_sum_plan(q_rows, t_rows, negate=negate).describe()}]")
+    for cap in (16, 32, 64, 128):
+        cnt, tab = _pack_row_tables(rows[:2, :5000], rows[2:, :5000] < 0.5, cap)
+        tabs = torch.cat([tab, -tab.flip(1)])
+        got = rank_sum_counts(rows[:2, :5000], tabs, negate=True)
+        torch.cuda.synchronize()
+        check(torch.equal(got, _rank_sum_counts_plain(rows[:2, :5000], tabs, negate=True)),
+              f"rank_sum_counts bit-equal to plain: rows (2, 5000) of the same, cap {cap} "
+              f"[{rank_sum_plan(rows[:2, :5000], tabs, negate=True).describe()}]")
+    del grid, grid_t, c999, c999_t, rows, got
 
     th, hh = sort_desc(s_all.T, class_hits(t_all, NUM_CLASSES))
     a_kernel = auc_from_sorted(th, hh)
@@ -551,11 +608,14 @@ def main(argv) -> int:
         n * c * 4 + tables2.numel() * 4 + tables2.shape[0] * 4,
         2 * n * c * 8,  # two binary searches of log2(256) compares per query
     )
+    rank_floor = issue_floor_ms(2 * n * c, 256)
     auc_ms = median_ms(lambda: auc_from_sorted(th, hh))
     auc_plain_ms = median_ms(lambda: _auc_from_sorted_plain(th, hh))
     auc_bound, auc_by = bound(c * n * (4 + 1) + c * 4, 3 * c * n)
     auc22_ms = median_ms(lambda: auc_from_sorted(th22, hh22))
     auc22_bound, _ = bound(2**22 * 5 + 4, 3 * 2**22)
+    print(f"time {card}: rank_sum_counts ({2 * c}, {n}) cap 256: issue floor "
+          f"{rank_floor:.4f} ms ({2 * n * c} searches of 9 steps)", flush=True)
     for name, ms, plain, lib, bnd in [
         (f"rank_sum_counts ({2 * c}, {n}) cap 256", rank_ms, rank_plain_ms, rank_lib_ms, rank_bound),
         (f"auc_from_sorted ({c}, {n})", auc_ms, auc_plain_ms, None, auc_bound),
@@ -740,7 +800,11 @@ def main(argv) -> int:
         _create_threshold_tensor,
     )
     from torcheval_tpu_torch.ops.binned import _binned_counts_plain, binned_counts
-    from torcheval_tpu_torch.ops.ustat import _rank_hist_counts_plain, rank_hist_counts
+    from torcheval_tpu_torch.ops.ustat import (
+        _rank_hist_counts_plain,
+        rank_hist_counts,
+        rank_hist_plan,
+    )
 
     # `table` is phase 2's: the headline's packed positive tables, cap 256.
     hist_kernel = rank_hist_counts(s_all.T, table)
@@ -761,20 +825,40 @@ def main(argv) -> int:
     def grid8(shape):
         return torch.floor(torch.rand(*shape, device=dev, generator=gen) * 8) / 8
 
+    print(f"rank_hist_counts at the headline: {rank_hist_plan(s_all.T, table).describe()}",
+          flush=True)
     for label, q, tab in [
         ("ties on a 1/8 grid, half-pad tables, (64, 2^16) strided, cap 256",
          grid8((2**16, 64)).T, rand_tables(64, 256, 128)),
-        ("N = 100003 (not a multiple of the 4096 chunk), (250, N) strided, cap 512",
+        ("N = 100003 (not a multiple of the tile), (250, N) strided, cap 512",
          grid8((100_003, 250)).T, rand_tables(250, 512, 200)),
         ("37 contiguous rows, (37, 50000), cap 64", grid8((37, 50_000)),
          rand_tables(37, 64, 10)),
         ("pinned cap 4096 (tables and counts in global memory), (64, 50000) strided",
          grid8((50_000, 64)).T, rand_tables(64, 4096, 1000)),
+        ("cap 784, the first cap past shared memory, (33, 3000) strided",
+         grid8((3000, 33)).T, rand_tables(33, 784, 300)),
+        ("cap 80, not a power of two (guarded steps), (40, 5000) strided",
+         grid8((5000, 40)).T, rand_tables(40, 80, 20)),
+        ("31 rows, N = 63, less than one tile", grid8((63, 31)).T, rand_tables(31, 256, 128)),
+        ("33 rows, N = 65, a tile and one sample", grid8((65, 33)).T, rand_tables(33, 256, 128)),
+        ("C = 999, a row pitch that is not 16-byte aligned, N = 20001",
+         grid8((20_001, 999)).T, rand_tables(999, 256, 128)),
+        ("scores[:, 1:] of the headline, a base that is not 16-byte aligned",
+         s_all[:, 1:].T, rand_tables(999, 256, 128)),
+        ("scores[:, :999] of the headline, a partial last 16-byte copy",
+         s_all[:, :999].T, rand_tables(999, 256, 128)),
+        ("2 contiguous rows, N = 2047, less than one tile", grid8((2, 2047)),
+         rand_tables(2, 256, 100)),
+        *[(f"cap {cap}, the fixed steps of that cap, (33, 3000) strided",
+           grid8((3000, 33)).T, rand_tables(33, cap, cap // 4)) for cap in (16, 32, 64, 128)],
+        *[(f"2 contiguous rows, N = 5000, cap {cap}", grid8((2, 5000)),
+           rand_tables(2, cap, cap // 4)) for cap in (16, 32)],
     ]:
         got = rank_hist_counts(q, tab)
         torch.cuda.synchronize()
         check(torch.equal(got, _rank_hist_counts_plain(q, tab)) and int(got[0].sum()) == 0,
-              f"rank_hist_counts bit-equal to plain: {label}")
+              f"rank_hist_counts bit-equal to plain: {label} [{rank_hist_plan(q, tab).describe()}]")
 
     # --------------------------------- 12. binned counts vs plain version
     bin_rng = np.random.default_rng(5)  # benchmarks/workloads.py's bench_binned_auroc
@@ -874,9 +958,10 @@ def main(argv) -> int:
     hist_ms = median_ms(lambda: rank_hist_counts(s_all.T, table))
     hist_plain_ms = median_ms(lambda: _rank_hist_counts_plain(s_all.T, table))
     hist_bound, hist_by = bound(n * c * 4 + 2 * table.numel() * 4, n * c * 8)
+    hist_floor = issue_floor_ms(n * c, 256, extra=2)  # and a shared-memory atomic
     print(f"time {card}: rank_hist_counts ({c}, {n}) cap 256: kernel {hist_ms:.4f} ms, "
-          f"plain {hist_plain_ms:.4f} ms, library none, bound {hist_bound:.4f} ms ({hist_by})",
-          flush=True)
+          f"plain {hist_plain_ms:.4f} ms, library none, bound {hist_bound:.4f} ms ({hist_by}), "
+          f"issue floor {hist_floor:.4f} ms", flush=True)
     m_bin = BINNED_SAMPLES // NUM_UPDATES
     one_bin = torch.full_like(upd_s, 0.37)
     bin_calls = {
@@ -919,6 +1004,7 @@ def main(argv) -> int:
         MulticlassPrecision,
         MulticlassRecall,
     )
+    from torcheval_tpu_torch.metrics._bucket import bucket_size
     from torcheval_tpu_torch.metrics.toolkit import sync_and_compute
     from torcheval_tpu_torch.ops._mega_plan import plan_for
     from torcheval_tpu_torch.ops.mega import _mega_counts_plain, mega_counts
@@ -1007,6 +1093,9 @@ def main(argv) -> int:
             plan, ops = mega_case(members, x, y, mask, sids, slices)
             ok, _ = mega_equal(plan, ops)
             check(ok, f"mega_counts bit-equal to plain: {label}")
+        sl_plan, sl_ops = mega_case(five(SLICED_CLASSES), sl, sl_y, sl_mask, sl_ids, SLICES)
+        sl_counter_bytes = sum(t.numel() * 4 for pair in mega_counts(sl_plan, *sl_ops)
+                               for t in pair if t is not None)
         _build.reset_counts()
         empty = mega_counts(main_plan, col_x[0][:0], col_y[0][:0])
         check(not _build.LAUNCHES and all(t is None or int(t.abs().sum()) == 0
@@ -1162,6 +1251,27 @@ def main(argv) -> int:
         for x, y, ids in sliced_batches:
             sliced.fused_update(x, y, slice_ids=ids)
 
+    # mega.cu at the sliced stream's batches: its device time over the 96
+    # fused_update, divided by its own count of launches there.
+    from torch.profiler import ProfilerActivity, profile
+
+    sliced_updates()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sliced_updates()
+        torch.cuda.synchronize()
+    mega_rows = [e for e in device_events(torch, prof) if "mega_kernel" in e.key]
+    sl_launches = sum(e.count for e in mega_rows)
+    sl_mega_ms = (sum(device_us(e) for e in mega_rows) / 1e3 / sl_launches
+                  if sl_launches else None)
+    sl_in_bytes = sum(bucket_size(b) * (SLICED_CLASSES * 4 + 12) for b in sizes) / len(sizes)
+    sl_bound, sl_by = bound(sl_in_bytes + sl_counter_bytes, 0)
+    print(f"time {card}: mega_counts at the sliced stream's batches (C={SLICED_CLASSES}, "
+          f"{SLICES} slices, bucket=True), device time a launch: "
+          f"{'not measured' if sl_mega_ms is None else f'{sl_mega_ms:.4f} ms'} over "
+          f"{sl_launches} launches of {len(sizes)} fused_update; bound {sl_bound:.6f} ms "
+          f"({sl_by}: {sl_in_bytes:.0f} B of batch, {sl_counter_bytes} B of counters)",
+          flush=True)
     sliced_ms = host_median_ms(lambda: sliced_lifecycle(sliced), reps=3)
     sliced_upd_ms = host_median_ms(sliced_updates, reps=3)
     sliced_cmp_ms = host_median_ms(sliced.compute_slices, reps=3)
@@ -1913,6 +2023,8 @@ def main(argv) -> int:
             "bound_ms": mega_bound,
             "bound_by": mega_by,
             "library_ms": None,
+            "sliced_ms": sl_mega_ms,
+            "sliced_launches": sliced_launches,
             "verdict": "bit-equal",
         },
         {

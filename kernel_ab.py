@@ -1,8 +1,9 @@
-"""Time the port's two redesigned kernels against another checkout's, in
+"""Time the port's redesigned kernels against another checkout's, in
 turns, on one NVIDIA GPU.
 
     python3 kernel_ab.py --other DIR            # turns: other, this, this, other
-    python3 kernel_ab.py --worker DIR           # one turn: DIR's package, JSON out
+    python3 kernel_ab.py --other DIR --only rank    # one family: rank, wavefront, binned
+    python3 kernel_ab.py --worker DIR [FAMILY]  # one turn: DIR's package, JSON out
 
 ``DIR`` is the root of another checkout of this repository (for example
 the parent commit, unpacked with ``git archive`` into a git-ignored
@@ -18,7 +19,15 @@ the same seeded inputs:
   histogram, (1000, 2^17) x 2048 (numpy seed 15, as ``chip_smoke.py``
   phase 26), at a north-star rank block, the strided (1000, 2^15) class
   view x 2048 (seed 6, rank 1's quarter), and at a binary rank block,
-  (1, 2^20) x 16 384 (seed 5, rank 1's quarter).
+  (1, 2^20) x 16 384 (seed 5, rank 1's quarter);
+- ``rank_sum_counts`` (``csrc/rank_sum.cu``) at the headline, the strided
+  (1000, 2^17) view of ``chip_smoke.py``'s headline scores (numpy seed 0)
+  against its packed cap-256 tables with ``negate``, and at contiguous
+  (4, 2^20) rows on a 1/64 grid with cap 512 (numpy seed 1); and
+  ``rank_hist_counts`` (``csrc/rank_hist.cu``) at the headline view with
+  cap 256; in a checkout whose wrappers pass a launch plan, each of the
+  three again with the plan's query copies forced to 4 bytes.  Each result
+  is held against the plain version once.
 
 Each time is the median of 7 CUDA-event timings after a warm-up, beside
 the device time a call by kernel from ``torch.profiler`` over 5 calls
@@ -35,24 +44,15 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def worker(root: str) -> dict:
+FAMILIES = ("wavefront", "binned", "rank")
+
+
+def worker(root: str, only: str = "") -> dict:
     sys.path.insert(0, root)
-    import numpy as np
     import torch
 
     import torcheval_tpu_torch
-    from torcheval_tpu_torch.metrics.functional.classification._sort_scan import class_hits
-    from torcheval_tpu_torch.metrics.functional.classification.binned_precision_recall_curve import (
-        _create_threshold_tensor,
-    )
-    from torcheval_tpu_torch.metrics.text._tokens import _pack
     from torcheval_tpu_torch.ops import _build
-    from torcheval_tpu_torch.ops.binned import binned_weighted_counts
-    from torcheval_tpu_torch.ops.wavefront import _edit_distance_kernel, lens_from_ids
-    from torcheval_tpu_torch.parallel.sync import _grid_np
-
-    sys.path.insert(0, HERE)
-    from chip_smoke import wer_corpus
 
     pkg = os.path.dirname(os.path.abspath(torcheval_tpu_torch.__file__))
     assert pkg == os.path.join(os.path.abspath(root), "torcheval_tpu_torch"), pkg
@@ -93,6 +93,93 @@ def worker(root: str) -> dict:
         return out
 
     res = {"root": root}
+    if only in ("", "rank"):
+        rank_turn(res, dev, median_ms, by_kernel)
+    if only in ("", "wavefront"):
+        wavefront_turn(res, dev, median_ms, by_kernel)
+    if only in ("", "binned"):
+        binned_turn(res, dev, median_ms, by_kernel)
+    res["launches"] = dict(_build.LAUNCHES)
+    return res
+
+
+def rank_turn(res, dev, median_ms, by_kernel):
+    import numpy as np
+    import torch
+
+    from torcheval_tpu_torch.ops.ustat import (
+        _pack_positive_tables,
+        _pack_row_tables,
+        _rank_hist_counts_plain,
+        _rank_sum_counts_plain,
+        rank_hist_counts,
+        rank_sum_counts,
+    )
+
+    sys.path.insert(0, HERE)
+    from chip_smoke import NUM_CLASSES, headline_data
+
+    scores, target = headline_data()
+    s = torch.from_numpy(scores).to(dev)
+    t = torch.from_numpy(target).to(dev)
+    _, table = _pack_positive_tables(s, t, NUM_CLASSES, 256)
+    tables2 = torch.cat([table, -table.flip(1)])
+    rng = np.random.default_rng(1)
+    rows = torch.from_numpy((np.floor(rng.random((4, 2**20)) * 64) / 64).astype(np.float32)).to(dev)
+    hits = torch.from_numpy(rng.random((4, 2**20)) < 2e-4).to(dev)
+    _, row_table = _pack_row_tables(rows, hits, 512)
+    row_tables2 = torch.cat([row_table, -row_table.flip(1)])
+    cases = [
+        ("rank_sum_counts headline (2000, 2^17) strided, cap 256",
+         lambda: rank_sum_counts(s.T, tables2, negate=True),
+         lambda: _rank_sum_counts_plain(s.T, tables2, negate=True)),
+        ("rank_sum_counts rows (4, 2^20) contiguous, cap 512, negate",
+         lambda: rank_sum_counts(rows, row_tables2, negate=True),
+         lambda: _rank_sum_counts_plain(rows, row_tables2, negate=True)),
+        ("rank_hist_counts headline (1000, 2^17) strided, cap 256",
+         lambda: rank_hist_counts(s.T, table),
+         lambda: _rank_hist_counts_plain(s.T, table)),
+    ]
+    from torcheval_tpu_torch.ops import ustat
+
+    if hasattr(ustat, "_launch_rank_sum"):
+        # A checkout whose wrappers pass a launch plan: the same cases with
+        # the plan's copies forced to 4 bytes, to weigh the 16-byte path.
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+        def four_byte_sum(q, tabs):
+            plan = ustat.rank_sum_plan(q, tabs, negate=True, sms=sms)._replace(copy="4 B")
+            out = torch.zeros(tabs.shape[0], dtype=torch.int32, device=dev)
+            return lambda: ustat._launch_rank_sum(q, tabs, True, plan, out.zero_()) or out
+
+        def four_byte_hist(q, tab):
+            plan = ustat.rank_hist_plan(q, tab, sms=sms)._replace(copy="4 B")
+            out = torch.zeros(tab.shape, dtype=torch.int32, device=dev)
+            return lambda: ustat._launch_rank_hist(q, tab, plan, out.zero_()) or out
+
+        cases += [
+            (cases[0][0] + ", 4-byte copies", four_byte_sum(s.T, tables2), cases[0][2]),
+            (cases[1][0] + ", 4-byte copies", four_byte_sum(rows, row_tables2), cases[1][2]),
+            (cases[2][0] + ", 4-byte copies", four_byte_hist(s.T, table), cases[2][2]),
+        ]
+    for key, call, plain in cases:
+        got = call()
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain()):
+            raise SystemExit(f"{key}: the kernel disagrees with its plain version")
+        res[key] = [median_ms(call), by_kernel(call)]
+
+
+def wavefront_turn(res, dev, median_ms, by_kernel):
+    import numpy as np
+    import torch
+
+    from torcheval_tpu_torch.metrics.text._tokens import _pack
+    from torcheval_tpu_torch.ops.wavefront import _edit_distance_kernel, lens_from_ids
+
+    sys.path.insert(0, HERE)
+    from chip_smoke import wer_corpus
+
     hyp, ref = wer_corpus(np.random.default_rng(31), 2**16)
     a = torch.from_numpy(_pack(hyp[:8192], 16)).to(dev)
     b = torch.from_numpy(_pack(ref[:8192], 16)).to(dev)
@@ -109,6 +196,18 @@ def worker(root: str) -> dict:
         xl, yl = lens_from_ids(x), lens_from_ids(y)
         small = lambda: _edit_distance_kernel(x, y, xl, yl)  # noqa: E731
         res[f"edit_distance_tokens ({n_pairs}, {width})"] = [median_ms(small), by_kernel(small)]
+
+
+def binned_turn(res, dev, median_ms, by_kernel):
+    import numpy as np
+    import torch
+
+    from torcheval_tpu_torch.metrics.functional.classification._sort_scan import class_hits
+    from torcheval_tpu_torch.metrics.functional.classification.binned_precision_recall_curve import (
+        _create_threshold_tensor,
+    )
+    from torcheval_tpu_torch.ops.binned import binned_weighted_counts
+    from torcheval_tpu_torch.parallel.sync import _grid_np
 
     rng = np.random.default_rng(15)
     s = torch.from_numpy(rng.random((1000, 2**17)).astype(np.float32)).to(dev)
@@ -144,14 +243,47 @@ def worker(root: str) -> dict:
     call = lambda: binned_weighted_counts(s, h, w, grid)  # noqa: E731
     res["binned_weighted_counts binary block (1, 2^20) x 16384"] = [
         median_ms(call), by_kernel(call)]
-    res["launches"] = dict(_build.LAUNCHES)
-    return res
+
+
+def ptxas(root: str) -> list:
+    """``nvcc -Xptxas -v``'s lines for the rank kernels of ``root``: each
+    kernel's registers, spills and shared memory, and each source's
+    compile time."""
+    import shutil
+    import tempfile
+    import time
+
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    lines = []
+    csrc = os.path.join(root, "torcheval_tpu_torch", "ops", "csrc")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("rank_sum.cu", "rank_hist.cu"):
+            start = time.perf_counter()
+            proc = subprocess.run(
+                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                 "-Xptxas", "-v", "-c", os.path.join(csrc, name), "-o",
+                 os.path.join(tmp, name + ".o")],
+                capture_output=True, text=True, timeout=600,
+            )
+            lines.append(f"{name}: nvcc {time.perf_counter() - start:.1f} s")
+            fn = "?"
+            for line in proc.stderr.splitlines():
+                if "Compiling entry function" in line:
+                    fn = line.split("'")[1] if "'" in line else line
+                elif "registers" in line or "spill" in line:
+                    lines.append(f"{name} {fn}: {line.split(':', 1)[-1].strip()}")
+            if proc.returncode != 0:
+                lines.append(f"{name}: nvcc failed: {proc.stderr[-2000:]}")
+    return lines
 
 
 def main(argv) -> int:
     if argv[:1] == ["--worker"]:
-        print(json.dumps(worker(argv[1])), flush=True)
+        print(json.dumps(worker(*argv[1:3])), flush=True)
         return 0
+    only = ""
+    if argv[2:3] == ["--only"] and len(argv) == 4 and argv[3] in FAMILIES:
+        only, argv = argv[3], argv[:2]
     if argv[:1] != ["--other"] or len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -161,10 +293,15 @@ def main(argv) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    if only in ("", "rank"):
+        for label, root in [("other", other), ("this", HERE)]:
+            for line in ptxas(root):
+                print(f"ptxas {label}: {line}", flush=True)
     turns = []
     for label, root in [("other", other), ("this", HERE), ("this", HERE), ("other", other)]:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
-                              capture_output=True, text=True, timeout=900)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker", root, only],
+            capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
             return 1

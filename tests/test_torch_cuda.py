@@ -56,27 +56,76 @@ def _tables(rng, r, cap, pad_front=0, pad_back=0):
     return t
 
 
+def _rank_queries(layout, rng, rq, n, dev):
+    """``(rq, n)`` f32 queries on a 1/4 grid (ties with the tables) in one
+    of the kernels' layouts: "columns", the (N, C) buffer's transpose read
+    in place (G = 32, 16-byte copies); "rows", contiguous rows (G = 1);
+    "pitch", the same with a pitch of ``rq`` floats, not a multiple of four
+    (4-byte copies); "offset", ``buf[:, 1:]`` of an (N, rq + 1) buffer (a
+    base 4 bytes past 16-byte alignment: 4-byte copies); "narrow",
+    ``buf[:, :rq]`` of an (N, rq + 1) buffer, rq + 1 a multiple of four
+    (16-byte copies, the last group's last copy zero-filled)."""
+    width = rq + 1 if layout in ("offset", "narrow") else rq
+    buf = torch.from_numpy((rng.integers(-9, 9, (n, width)) / 4).astype(np.float32)).to(dev)
+    if layout == "rows":
+        return buf.T.contiguous()
+    return {"offset": buf[:, 1:], "narrow": buf[:, :rq]}.get(layout, buf).T
+
+
+def _check_copy(layout, plan):
+    if layout in ("pitch", "offset"):
+        assert plan.copy == "4 B"
+    if layout == "narrow":
+        assert plan.copy == "16 B"
+
+
+# G = 32 tiles hold 64 samples, G = 1 tiles 2048; tables leave shared
+# memory past cap 768 (G = 32, negate) and 24 704 (G = 1, negate).
 @pytest.mark.parametrize(
     "layout,rq,n,cap",
     [
         ("columns", 40, 4096 * 2 + 5, 256),  # 32-row groups, shared-memory tables
         ("rows", 3, 70_000, 512),  # one row per block
         ("columns", 33, 50_000, 4096),  # tables read from global memory
+        ("columns", 31, 63, 256),  # less than one tile
+        ("columns", 33, 65, 128),  # one tile and one sample
+        ("columns", 32, 64, 16),  # exactly one tile
+        ("columns/no-negate", 33, 1000, 80),  # cap not a power of two: guarded steps
+        ("columns/no-negate", 40, 1000, 256),  # one table: guarded steps
+        ("rows", 2, 3000, 1024),  # a power of two past the route's: guarded steps
+        ("rows", 2, 2048 * 3 - 1, 256),  # a tile short
+        ("rows/no-negate", 1, 2048 + 1, 48),
+        ("pitch", 999, 4099, 256),  # C = 999: 4-byte copies
+        ("offset", 40, 5000, 256),  # scores[:, 1:]: 4-byte copies
+        ("narrow", 999, 4099, 256),  # scores[:, :999] of 1000: a partial 16-byte copy
+        ("columns", 33, 3000, 768),  # the largest shared-memory cap
+        ("columns", 33, 3000, 784),  # one past it: global tables
+        ("rows", 2, 3000, 24_704),
+        ("rows", 2, 3000, 24_720),
+        ("columns", 33, 3000, 32),  # each cap with fixed steps, G = 32
+        ("columns", 33, 3000, 64),  # 48 KiB dynamic + the static buffer: opt-in
+        ("rows", 2, 5000, 32),  # and G = 1
+        ("rows", 2, 3000, 1808),  # G = 1 past 48 KiB only with the static buffer
     ],
 )
 def test_rank_sum_kernel_bitwise_equals_plain(layout, rq, n, cap):
     dev = _cuda()
+    layout, _, flag = layout.partition("/")
+    negate = flag != "no-negate"
     rng = np.random.default_rng(rq)
-    t = torch.from_numpy(
-        np.concatenate([_tables(rng, rq, cap, 0, 3), _tables(rng, rq, cap, 3, 0)])
-    ).to(dev)
-    q = torch.from_numpy((rng.integers(-9, 9, (n, rq)) / 4).astype(np.float32)).to(dev)
-    q = q.T if layout == "columns" else q.T.contiguous()
+    halves = [_tables(rng, rq, cap, 0, 3), _tables(rng, rq, cap, 3, 0)]
+    t = torch.from_numpy(np.concatenate(halves if negate else halves[:1])).to(dev)
+    q = _rank_queries(layout, rng, rq, n, dev)
     _build.reset_counts()
-    got = ustat.rank_sum_counts(q, t, negate=True)
+    got = ustat.rank_sum_counts(q, t, negate=negate)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["rank_sum_counts"] == 1
-    assert torch.equal(got, ustat._rank_sum_counts_plain(q, t, negate=True))
+    assert torch.equal(got, ustat._rank_sum_counts_plain(q, t, negate=negate))
+    plan = ustat.rank_sum_plan(q, t, negate=negate)
+    _check_copy(layout, plan)
+    assert plan.tables == ("global" if cap in (784, 4096, 24_720) else "shared")
+    fixed = negate and plan.tables == "shared" and cap in ustat._FIXED_CAPS
+    assert plan.fixed_top == (cap if fixed else 0)
 
 
 @pytest.mark.parametrize("rows,n", [(5, 4096 * 3 + 17), (1, 100_000)])
@@ -190,12 +239,30 @@ def test_flagship_on_the_card_equals_the_cpu():
     assert abs(float(got["auroc"]) - float(want["auroc"])) <= 1e-6
 
 
+# Tables and counts leave shared memory past cap 768 (G = 32) and 24 960
+# (G = 1).
 @pytest.mark.parametrize(
     "layout,rows,n,cap",
     [
         ("columns", 37, 4096 * 2 + 5, 256),  # 32-row groups, shared-memory histograms
         ("rows", 3, 70_000, 512),  # one row per block
         ("columns", 33, 50_000, 4096),  # tables and counts in global memory
+        ("columns", 31, 63, 256),  # less than one tile
+        ("columns", 33, 65, 128),  # one tile and one sample
+        ("columns", 32, 64, 16),  # exactly one tile
+        ("columns", 33, 1000, 80),  # cap not a power of two: guarded steps
+        ("rows", 2, 3000, 1024),  # a power of two past the route's: guarded steps
+        ("rows", 2, 2048 * 3 - 1, 256),  # a tile short
+        ("pitch", 999, 4099, 256),  # C = 999: 4-byte copies
+        ("offset", 40, 5000, 256),  # scores[:, 1:]: 4-byte copies
+        ("narrow", 999, 4099, 256),  # scores[:, :999] of 1000: a partial 16-byte copy
+        ("columns", 33, 3000, 768),  # the largest shared-memory cap
+        ("columns", 33, 3000, 784),  # one past it: global tables and counts
+        ("rows", 2, 3000, 24_960),
+        ("rows", 2, 3000, 24_976),
+        ("columns", 33, 3000, 32),  # each cap with fixed steps, G = 32
+        ("columns", 33, 3000, 64),
+        ("rows", 2, 5000, 32),  # and G = 1
     ],
 )
 def test_rank_hist_kernel_bitwise_equals_plain(layout, rows, n, cap):
@@ -203,15 +270,53 @@ def test_rank_hist_kernel_bitwise_equals_plain(layout, rows, n, cap):
     rng = np.random.default_rng(rows + cap)
     t = _tables(rng, rows, cap, 0, cap // 2)
     t[1] = _BIG  # a row without positives: no bin
-    q = torch.from_numpy((rng.integers(-9, 9, (n, rows)) / 4).astype(np.float32)).to(dev)
-    q = q.T if layout == "columns" else q.T.contiguous()
+    q = _rank_queries(layout, rng, rows, n, dev)
     t = torch.from_numpy(t).to(dev)
+    plan = ustat.rank_hist_plan(q, t)
+    _check_copy(layout, plan)
+    assert plan.tables == ("global" if cap in (784, 4096, 24_976) else "shared")
+    fixed = plan.tables == "shared" and cap in ustat._FIXED_CAPS
+    assert plan.fixed_top == (cap if fixed else 0)
     _build.reset_counts()
     got = ustat.rank_hist_counts(q, t)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["rank_hist_counts"] == 1
     assert torch.equal(got, ustat._rank_hist_counts_plain(q, t))
     assert int(got[1].sum()) == 0
+
+
+@pytest.mark.parametrize(
+    "kernel,cap,fixed_top,tables",
+    [
+        ("sum", 80, 80, "shared"),  # no fixed steps at cap 80
+        ("sum", 256, 128, "shared"),  # fixed steps of another cap
+        ("sum", 784, 784, "global"),  # fixed steps need shared-memory tables
+        ("sum/no-negate", 256, 256, "shared"),  # and the stacked form
+        ("hist", 80, 80, "shared"),
+        ("hist", 256, 512, "shared"),
+        ("hist", 784, 784, "global"),
+    ],
+)
+def test_rank_kernels_refuse_a_search_form_they_lack(kernel, cap, fixed_top, tables):
+    """The C entries launch the plan's search form or refuse it: no other
+    form takes its place."""
+    dev = _cuda()
+    rng = np.random.default_rng(cap)
+    kernel, _, flag = kernel.partition("/")
+    negate = kernel == "sum" and flag != "no-negate"
+    q = _rank_queries("columns", rng, 33, 3000, dev)
+    t = torch.from_numpy(_tables(rng, 66 if negate else 33, cap, 0, 3)).to(dev)
+    if kernel == "sum":
+        plan = ustat.rank_sum_plan(q, t, negate=negate)._replace(
+            fixed_top=fixed_top, tables=tables)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            ustat._launch_rank_sum(q, t, negate, plan, torch.zeros(t.shape[0], dtype=torch.int32,
+                                                                   device=dev))
+    else:
+        plan = ustat.rank_hist_plan(q, t)._replace(fixed_top=fixed_top, tables=tables)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            ustat._launch_rank_hist(q, t, plan, torch.zeros_like(t, dtype=torch.int32))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize(

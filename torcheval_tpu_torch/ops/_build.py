@@ -57,14 +57,16 @@ _D = ctypes.c_double
 
 # C entry point -> argument types.  Every entry returns cudaGetLastError().
 _SIGNATURES: Dict[str, tuple] = {
-    # queries, stride_row, stride_col, rq, n, tables, cap, negate, out, stream
-    "rank_sum_counts_launch": (_P, _LL, _LL, _I, _I, _P, _I, _I, _P, _P),
+    # queries, stride_row, stride_col, rq, n, tables, cap, negate, group_rows,
+    # vec16, smem_tables, fixed_top, blocks_per_group, out, stream
+    "rank_sum_counts_launch": (_P, _LL, _LL, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # thresholds, hits, rows, n, out, stream
     "auc_scan_launch": (_P, _P, _I, _LL, _P, _P),
     # target, pred, n, w, slab, stream
     "cm_slab_launch": (_P, _P, _LL, _I, _P, _P),
-    # queries, stride_row, stride_col, rq, n, tables, cap, hist, stream
-    "rank_hist_counts_launch": (_P, _LL, _LL, _I, _I, _P, _I, _P, _P),
+    # queries, stride_row, stride_col, rq, n, tables, cap, group_rows, vec16,
+    # smem_tables, fixed_top, blocks_per_group, hist, stream
+    "rank_hist_counts_launch": (_P, _LL, _LL, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     # scores, s_row, s_col, hits, h_row, h_col, rows, n, thresholds, t, hist, stream
     "binned_count_launch": (_P, _LL, _LL, _P, _LL, _LL, _I, _I, _P, _I, _P, _P),
     # scores, pred, target, weight, sids, n, thresholds, plan, plan_bytes, out, stream

@@ -23,6 +23,13 @@ query's table bin (:func:`rank_hist_counts`: ``csrc/rank_hist.cu`` on the
 GPU, :func:`_rank_hist_counts_plain` on the CPU) gives the denominators
 by suffix sums (:func:`_ap_from_hist`).
 
+Both kernels walk query tiles through a ring in shared memory filled by
+asynchronous copies (``csrc/query_ring.cuh``), with 8 queries a lane in
+flight and the tables staged once a block of a persistent grid; the
+wrapper decides the launch (:func:`_rank_plan`: rows a block, 16- or
+4-byte copies, shared or global tables, the search form, blocks) and
+passes it to the kernel, so the CPU tests can hold it.
+
 Dropped from the JAX module, because they exist only for the TPU's MXU
 gather and the Mosaic compiler: the exact bf16 three-way split
 (``_split3_bf16``, ``_trunc_bf16_f32``, ``_gather_split3``), its
@@ -39,7 +46,8 @@ binds first.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +57,138 @@ from torcheval_tpu_torch.ops._flags import ustat_disabled
 
 _FW = 16  # table capacities are multiples of this
 _BIG = 3.0e38  # pad sentinel; the route guarantees |score| < _BIG
+
+# The rank kernels' schedule (csrc/query_ring.cuh, rank_sum.cu, rank_hist.cu):
+# blocks of 256 threads (8 warps) walk query tiles of 64 slots x 32 columns
+# of f32 through a ring of 4 tiles in shared memory; a warp takes 8 slots a
+# tile, each lane's 8 searches in flight.
+_RING_WARPS = 8
+_RING_SLOTS = 64
+_RING_TILE = 32 * _RING_SLOTS
+_RING_STAGES = 4
+_RING_BYTES = _RING_STAGES * _RING_TILE * 4
+_RANK_SUM_STATIC = 2 * _RING_WARPS * 32 * 4  # rank_sum.cu's reduction buffer
+_BLOCK_SMEM = 232_448  # H100: shared memory a block may opt in to
+_SM_SMEM = 233_472  # H100: shared memory an SM shares among its blocks
+_BLOCK_RESERVED = 1024  # the runtime's own shared memory a block
+_BLOCKS_PER_SM = 2  # __launch_bounds__(256, 2)
+_H100_SMS = 132
+_FIXED_CAPS = (16, 32, 64, 128, 256, 512)  # count_le.cuh::with_top
+
+
+class RankPlan(NamedTuple):
+    """One launch of ``rank_sum.cu`` / ``rank_hist.cu``, as
+    :func:`_rank_plan` decides it and the wrapper passes it on."""
+
+    group_rows: int  # G: rows a block (32: adjacent rows; 1: one row)
+    copy: str  # "16 B" or "4 B": the cp.async size that fills the ring
+    tables: str  # "shared" or "global": where the searches read the tables
+    fixed_top: int  # cap: fixed search steps (count_le.cuh); 0: guarded steps
+    tile_samples: int  # samples of a row in one tile
+    stages: int  # tiles in the ring, all but one in flight
+    tiles: int  # tiles of a row group
+    groups: int  # row groups
+    blocks_per_group: int
+    smem_bytes: int  # dynamic shared memory a block
+    blocks_per_sm: int
+
+    @property
+    def blocks(self) -> int:
+        return self.groups * self.blocks_per_group
+
+    def describe(self) -> str:
+        return (
+            f"G={self.group_rows}, cp.async {self.copy}, {self.tables} tables, "
+            + (f"fixed steps to {self.fixed_top}, " if self.fixed_top else "guarded steps, ")
+            + f"{self.blocks} blocks ({self.groups} groups x {self.blocks_per_group}, "
+            f"{self.blocks_per_sm} an SM), {self.tiles} tiles of {self.tile_samples} a group "
+            f"through a ring of {self.stages}, "
+            f"{self.smem_bytes} B shared"
+        )
+
+
+@functools.lru_cache(maxsize=256)
+def _rank_plan(
+    rq: int,
+    n: int,
+    cap: int,
+    stride_row: int,
+    stride_col: int,
+    data_ptr: int,
+    *,
+    tables: int,
+    hist: bool,
+    sms: int = _H100_SMS,
+) -> RankPlan:
+    """The launch of a rank kernel over ``(rq, n)`` f32 queries at these
+    strides and address (only its residue mod 16 matters), against
+    ``tables`` (1 or 2 with ``negate``) ``(·, cap)`` tables, with a shared-memory histogram beside them when
+    ``hist``.  G = 32 rows a block when the rows are adjacent in memory
+    (``stride_row == 1``), else 1.  16-byte copies where four adjacent
+    columns of a tile are contiguous and 16-byte aligned in every tile,
+    else 4-byte copies.  Tables (and counts) in shared memory while they
+    fit beside the ring, else in global memory.  At the route's caps (16 ..
+    512) and in the forms the routes launch (the histogram, the stacked
+    two-table rank sum), shared-memory searches take steps fixed at compile
+    time without a bound check; anything else takes guarded steps.  A
+    persistent grid: about ``blocks_per_sm`` blocks on each of ``sms``
+    SMs, shared evenly among the row groups, none with fewer than one
+    tile."""
+    g = 32 if stride_row == 1 and rq > 1 else 1
+    if g == 32:
+        vec16 = data_ptr % 16 == 0 and stride_col % 4 == 0
+        tile_samples = _RING_SLOTS
+    else:
+        vec16 = data_ptr % 16 == 0 and stride_col == 1 and (rq == 1 or stride_row % 4 == 0)
+        tile_samples = _RING_TILE
+    static = 0 if hist else _RANK_SUM_STATIC
+    table_bytes = g * cap * 4 * (tables + int(hist))
+    shared = _RING_BYTES + table_bytes <= _BLOCK_SMEM - static
+    smem = _RING_BYTES + (table_bytes if shared else 0)
+    per_sm = min(_BLOCKS_PER_SM, _SM_SMEM // (smem + static + _BLOCK_RESERVED))
+    groups = -(-rq // g)
+    tiles = -(-n // tile_samples)
+    fixed = shared and cap in _FIXED_CAPS and (hist or tables == 2)
+    return RankPlan(
+        group_rows=g,
+        copy="16 B" if vec16 else "4 B",
+        tables="shared" if shared else "global",
+        fixed_top=cap if fixed else 0,
+        tile_samples=tile_samples,
+        stages=_RING_STAGES,
+        tiles=tiles,
+        groups=groups,
+        blocks_per_group=max(1, min(tiles, sms * per_sm // groups)),
+        smem_bytes=smem,
+        blocks_per_sm=per_sm,
+    )
+
+
+def rank_sum_plan(
+    queries: torch.Tensor, tables: torch.Tensor, *, negate: bool = False, sms: int = _H100_SMS
+) -> RankPlan:
+    """The plan of :func:`rank_sum_counts` on these operands."""
+    rq, n = queries.shape
+    return _rank_plan(
+        rq, n, tables.shape[1], queries.stride(0), queries.stride(1), queries.data_ptr() % 16,
+        tables=2 if negate else 1, hist=False, sms=sms,
+    )
+
+
+def rank_hist_plan(
+    queries: torch.Tensor, tables: torch.Tensor, *, sms: int = _H100_SMS
+) -> RankPlan:
+    """The plan of :func:`rank_hist_counts` on these operands."""
+    rq, n = queries.shape
+    return _rank_plan(
+        rq, n, tables.shape[1], queries.stride(0), queries.stride(1), queries.data_ptr() % 16,
+        tables=1, hist=True, sms=sms,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def rank_sum_counts(
@@ -67,11 +207,21 @@ def rank_sum_counts(
         return _rank_sum_counts_plain(queries, tables, negate=negate)
     if queries.device.type != "cuda":
         raise ValueError(f"rank_sum_counts runs on cuda or cpu, not {queries.device}.")
-    cap = tables.shape[1]
     tables = tables.contiguous()
     out = torch.zeros(tables.shape[0], dtype=torch.int32, device=queries.device)
     if rq == 0 or n == 0:
         return out
+    plan = rank_sum_plan(queries, tables, negate=negate, sms=_sm_count(queries.device.index))
+    _launch_rank_sum(queries, tables, negate, plan, out)
+    return out
+
+
+def _launch_rank_sum(
+    queries: torch.Tensor, tables: torch.Tensor, negate: bool, plan: RankPlan, out: torch.Tensor
+) -> None:
+    """Launch ``rank_sum.cu`` on checked CUDA operands (``tables``
+    contiguous, ``out`` zeroed) as ``plan`` says."""
+    rq, n = queries.shape
     lib = _build.library()
     with torch.cuda.device(queries.device):
         err = lib.rank_sum_counts_launch(
@@ -81,14 +231,26 @@ def rank_sum_counts(
             rq,
             n,
             tables.data_ptr(),
-            cap,
+            tables.shape[1],
             int(negate),
+            *_plan_args(plan),
             out.data_ptr(),
             _build.stream_handle(queries.device),
         )
     _build.check_launch("rank_sum", err)
     _build.count_launch("rank_sum_counts")
-    return out
+
+
+def _plan_args(plan: RankPlan) -> Tuple[int, int, int, int, int]:
+    """The plan as the C entries take it: group_rows, vec16, smem_tables,
+    fixed_top, blocks_per_group."""
+    return (
+        plan.group_rows,
+        int(plan.copy == "16 B"),
+        int(plan.tables == "shared"),
+        plan.fixed_top,
+        plan.blocks_per_group,
+    )
 
 
 def _check_rank_sum_args(
@@ -152,6 +314,17 @@ def rank_hist_counts(queries: torch.Tensor, tables: torch.Tensor) -> torch.Tenso
     hist = torch.zeros((r, cap), dtype=torch.int32, device=queries.device)
     if r == 0 or n == 0:
         return hist
+    plan = rank_hist_plan(queries, tables, sms=_sm_count(queries.device.index))
+    _launch_rank_hist(queries, tables, plan, hist)
+    return hist
+
+
+def _launch_rank_hist(
+    queries: torch.Tensor, tables: torch.Tensor, plan: RankPlan, hist: torch.Tensor
+) -> None:
+    """Launch ``rank_hist.cu`` on checked CUDA operands (``tables``
+    contiguous, ``hist`` zeroed) as ``plan`` says."""
+    r, n = queries.shape
     lib = _build.library()
     with torch.cuda.device(queries.device):
         err = lib.rank_hist_counts_launch(
@@ -161,13 +334,13 @@ def rank_hist_counts(queries: torch.Tensor, tables: torch.Tensor) -> torch.Tenso
             r,
             n,
             tables.data_ptr(),
-            cap,
+            tables.shape[1],
+            *_plan_args(plan),
             hist.data_ptr(),
             _build.stream_handle(queries.device),
         )
     _build.check_launch("rank_hist", err)
     _build.count_launch("rank_hist_counts")
-    return hist
 
 
 def _check_rank_hist_args(queries: torch.Tensor, tables: torch.Tensor) -> Tuple[int, int]:
