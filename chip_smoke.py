@@ -17,21 +17,27 @@ times kernels and lifecycle with CUDA events.  Phases:
    it, 31 and 33 classes, pinned caps past shared memory (784, 4096), a
    cap that is not a power of two, C = 999 (a pitch that is not 16-byte
    aligned), ``scores[:, 1:]`` and ``scores[:, :999]`` of the headline,
-   contiguous rows whole, cut short and misaligned, degenerate AUC rows);
-   each rank case prints its launch plan (rows a block, 16- or 4-byte
-   copies, shared or global tables, blocks);
+   contiguous rows whole, cut short and misaligned, degenerate AUC rows,
+   and the AUC scan at (1, 2^22), an all-tied 2^22 row, a tie run over 64
+   chunks, the flagship's (8, 1024), lengths one either side of a chunk
+   edge and of 2^22, operands that are not 16-byte aligned); each rank
+   case prints its launch plan (rows a block, 16- or 4-byte copies, shared
+   or global tables, blocks), each AUC case its chunks a row, blocks and
+   loads;
 3. the headline lifecycle: ``MulticlassAUROC(num_classes=1000)`` on the
    repository's headline data (numpy seed 0, 8 updates of 16384 x 1000
    f32, one compute) takes the rank-sum route with cap 256 through the
    kernel, and agrees with the oracle within 1e-6;
 4. the sort route at full width: ``BinaryAUROC`` on 2^22 balanced samples
-   and the headline ``MulticlassAUROC`` with the rank-sum route switched
-   off, both through the AUC-scan kernel;
-5. times: the median of 7 CUDA-event timings per kernel and of 5 host
-   timings of each lifecycle, each line tagged with the card and power
-   limit;
+   (with no flag set, past the rank route's cap, and again with the flag,
+   the same bits) and the headline ``MulticlassAUROC`` with the rank-sum
+   route switched off, all through the AUC-scan kernel;
+5. times: the median of 7 CUDA-event timings per kernel (and the AUC
+   scan's device time a call by ``torch.profiler``) and of 5 host timings
+   of each lifecycle, each line tagged with the card and power limit;
 6. with ``--profile`` only: ``torch.profiler`` over 3 lifecycles of each
-   route (and of the lifecycles of phases 8 and 9), printing device time
+   route, of ``BinaryAUROC`` on 2^22 (with its host time by operator), and
+   of the lifecycles of phases 8 and 9, printing device time
    by kernel, the device's busy share of the host wall time, and the peak
    device memory;
 7. the confusion-slab kernel against its plain version (bit-equal) at the
@@ -70,9 +76,12 @@ times kernels and lifecycle with CUDA events.  Phases:
     ``--profile``, both lifecycles profiled);
 16. the one-pass collection kernel against its plain version (bit-equal)
     at the main path's update (65536 x 100, five members), at the sliced
-    stream's shapes (C = 20, 16 slices, a mask), on the binary + binned
-    set (1-D scores, T = 512, NaN scores), at the plan bounds (F = C =
-    256), with labels out of range and negative, and at N = 0;
+    stream's shapes (C = 20, 16 slices, a mask) and at n = 1, 31, 33, 128,
+    512, 513, 4096 and 4097 of them, on the binary + binned set (1-D
+    scores, T = 512, NaN scores), at the plan bounds (F = C = 256), with
+    labels out of range and negative, with 70 members (two launches), with
+    scores that are not 16-byte aligned, and at N = 0; each case prints
+    its launch plan (image or global counters, groups, blocks, warps);
 17. the collection lifecycle of the repository's collection workload
     (numpy seed 6, 2^19 x 100 f32 scores, five 100-class members,
     ``fused_update`` x 8, one compute): 8 kernel launches and no other,
@@ -384,7 +393,7 @@ def main(argv) -> int:
         sort_desc,
     )
     from torcheval_tpu_torch.ops import _build
-    from torcheval_tpu_torch.ops.auc import _auc_from_sorted_plain, auc_from_sorted
+    from torcheval_tpu_torch.ops.auc import _auc_from_sorted_plain, auc_from_sorted, auc_plan
     from torcheval_tpu_torch.ops.ustat import (
         _auroc_from_counts,
         _pack_positive_tables,
@@ -500,20 +509,46 @@ def main(argv) -> int:
               f"[{rank_sum_plan(rows[:2, :5000], tabs, negate=True).describe()}]")
     del grid, grid_t, c999, c999_t, rows, got
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     th, hh = sort_desc(s_all.T, class_hits(t_all, NUM_CLASSES))
     a_kernel = auc_from_sorted(th, hh)
     torch.cuda.synchronize()
     a_plain = _auc_from_sorted_plain(th, hh)
     auc_err = float((a_kernel - a_plain).abs().max())
     check(torch.equal(a_kernel, a_plain),
-          f"auc_from_sorted bit-equal to plain at the headline ({c}, {n})")
+          f"auc_from_sorted bit-equal to plain at the headline ({c}, {n}) "
+          f"[{auc_plan(th, hh, sms).describe()}]")
     x22 = torch.rand(1, 2**22, device=dev, generator=gen)
     y22 = torch.rand(1, 2**22, device=dev, generator=gen) < 0.5
     th22, hh22 = sort_desc(x22, y22)
-    got = auc_from_sorted(th22, hh22)
-    torch.cuda.synchronize()
-    check(torch.equal(got, _auc_from_sorted_plain(th22, hh22)),
-          "auc_from_sorted bit-equal to plain at (1, 2^22)")
+
+    def sorted_rows(rows, n, levels):
+        t = torch.floor(torch.rand(rows, n, device=dev, generator=gen) * levels) / levels
+        return (torch.sort(t, dim=1, descending=True).values,
+                torch.rand(rows, n, device=dev, generator=gen) < 0.3)
+
+    tied22 = torch.full((1, 2**22), 0.5, device=dev)
+    run_t, run_h = sorted_rows(1, 2**20, 4)  # runs of 2^18 over 64 chunks
+    flag_t, flag_h = sorted_rows(8, 1024, 64)
+    edge_cases = [("(1, 2^22)", th22, hh22), ("all tied (1, 2^22)", tied22, hh22),
+                  ("a tie run over 64 chunks (1, 2^20)", run_t, run_h),
+                  ("the flagship's (8, 1024)", flag_t, flag_h)]
+    for m in (4095, 4097, 2**22 - 1, 2**22 + 3):  # a chunk edge +-1; 2^22 +-
+        edge_cases.append((f"(1, {m})", *sorted_rows(1, m, 64)))
+    odd_t, odd_h = sorted_rows(3, 50_000, 64)
+    flat_t = torch.empty(3 * 50_000 + 1, device=dev)
+    flat_t[1:].copy_(odd_t.flatten())
+    flat_h = torch.empty(3 * 50_000 + 1, dtype=torch.bool, device=dev)
+    flat_h[1:].copy_(odd_h.flatten())
+    edge_cases.append(("(3, 50000), operands not 16-byte aligned",
+                       flat_t[1:].view(3, 50_000), flat_h[1:].view(3, 50_000)))
+    for label, t_case, h_case in edge_cases:
+        got = auc_from_sorted(t_case, h_case)
+        torch.cuda.synchronize()
+        check(torch.equal(got, _auc_from_sorted_plain(t_case, h_case)),
+              f"auc_from_sorted bit-equal to plain at {label} "
+              f"[{auc_plan(t_case, h_case, sms).describe()}]")
+    del tied22, run_t, run_h, odd_t, odd_h, flat_t, flat_h, edge_cases
     deg_t = torch.sort(torch.floor(torch.rand(4, 10_007, device=dev, generator=gen) * 64) / 64,
                        dim=1, descending=True).values
     deg_t[0] = 0.25  # all tied
@@ -577,6 +612,10 @@ def main(argv) -> int:
 
     binary = BinaryAUROC()
     sorted_mc = MulticlassAUROC(num_classes=NUM_CLASSES, average=None)
+    # With no flag set, the rank route's cap (<= 512 positives, <= N/128)
+    # declines a balanced 2^22 and the sort route runs the AUC scan.
+    b_noflag, binary_launches = counted("BinaryAUROC 2^22, no flag (past the rank route's cap)",
+                                        binary_lifecycle, binary, "auc_from_sorted")
     os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
     try:
         b_out, _ = counted("BinaryAUROC 2^22 (sort route)", binary_lifecycle, binary,
@@ -586,6 +625,7 @@ def main(argv) -> int:
             "auc_from_sorted")
     finally:
         del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
+    check(torch.equal(b_noflag, b_out), "BinaryAUROC 2^22: the same bits with the flag and without")
     b_val = float(b_out)
     b_err = abs(b_val - oracle_auc(xb, yb == 1))
     check(b_err <= TOL, f"BinaryAUROC 2^22 vs float64 oracle: {b_val!r}, err {b_err:.3e}")
@@ -614,6 +654,12 @@ def main(argv) -> int:
     auc_bound, auc_by = bound(c * n * (4 + 1) + c * 4, 3 * c * n)
     auc22_ms = median_ms(lambda: auc_from_sorted(th22, hh22))
     auc22_bound, _ = bound(2**22 * 5 + 4, 3 * 2**22)
+    auc_dev_ms = device_ms(torch, lambda: auc_from_sorted(th, hh))
+    auc22_dev_ms = device_ms(torch, lambda: auc_from_sorted(th22, hh22))
+    flag_dev_ms = device_ms(torch, lambda: auc_from_sorted(flag_t, flag_h))
+    print(f"time {card}: auc_from_sorted device time a call (both launches): ({c}, {n}) "
+          f"{auc_dev_ms:.4f} ms, (1, 2^22) {auc22_dev_ms:.4f} ms, (8, 1024) "
+          f"{flag_dev_ms:.4f} ms", flush=True)
     print(f"time {card}: rank_sum_counts ({2 * c}, {n}) cap 256: issue floor "
           f"{rank_floor:.4f} ms ({2 * n * c} searches of 9 steps)", flush=True)
     for name, ms, plain, lib, bnd in [
@@ -659,6 +705,8 @@ def main(argv) -> int:
                               lambda: headline_lifecycle(sorted_mc))
         finally:
             del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
+        profile_lifecycle(torch, card, "BinaryAUROC 2^22 lifecycle (sort route, no flag)",
+                          lambda: binary_lifecycle(binary), host_ops=True)
 
     # ------------------------------------ 7. confusion slab vs plain version
     from torcheval_tpu_torch.convert import params_from_jax
@@ -1007,7 +1055,7 @@ def main(argv) -> int:
     from torcheval_tpu_torch.metrics._bucket import bucket_size
     from torcheval_tpu_torch.metrics.toolkit import sync_and_compute
     from torcheval_tpu_torch.ops._mega_plan import plan_for
-    from torcheval_tpu_torch.ops.mega import _mega_counts_plain, mega_counts
+    from torcheval_tpu_torch.ops.mega import _mega_counts_plain, launch_plans, mega_counts
 
     def five(c):
         """The collection workload's members (benchmarks/workloads.py's
@@ -1057,12 +1105,46 @@ def main(argv) -> int:
                         err = max(err, int((g - w).abs().max()))
         return err == 0, err
 
+    def plans_of(plan, x):
+        return "; ".join(lp.describe() for lp in launch_plans(
+            plan, x.shape[0], sms, x.data_ptr() % 16 == 0 or plan.features == 0))
+
     os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"] = "1"  # plan single members too
     try:
         main_plan, main_ops = mega_case(five(COL_CLASSES), col_x[0], col_y[0])
         ok, mega_err = mega_equal(main_plan, main_ops)
         check(ok, f"mega_counts bit-equal to plain at the main path's update "
-                  f"({COL_SAMPLES // NUM_UPDATES}, {COL_CLASSES}), five members")
+                  f"({COL_SAMPLES // NUM_UPDATES}, {COL_CLASSES}), five members "
+                  f"[{plans_of(main_plan, col_x[0])}]")
+        for m in (1, 31, 33, 128, 512, 513, 4096, 4097):
+            ex = torch.rand(m, SLICED_CLASSES, device=dev, generator=gen)
+            ey = torch.randint(-2, SLICED_CLASSES + 2, (m,), device=dev, generator=gen,
+                               dtype=torch.int32)
+            emask = (torch.rand(m, device=dev, generator=gen) < 0.8).to(torch.int32)
+            eids = torch.randint(-1, SLICES + 1, (m,), device=dev, generator=gen,
+                                 dtype=torch.int32)
+            plan, ops = mega_case(five(SLICED_CLASSES), ex, ey, emask, eids, SLICES)
+            ok, _ = mega_equal(plan, ops)
+            check(ok, f"mega_counts bit-equal to plain: n={m}, C={SLICED_CLASSES}, "
+                      f"{SLICES} slices, a mask [{plans_of(plan, ex)}]")
+        many = {f"acc{i}": MulticlassAccuracy(num_classes=5, average="macro") for i in range(70)}
+        for m in (300, 9000):
+            ex = torch.randn(m, 5, device=dev, generator=gen)
+            ey = torch.randint(0, 5, (m,), device=dev, generator=gen, dtype=torch.int32)
+            eids = torch.randint(0, 2, (m,), device=dev, generator=gen, dtype=torch.int32)
+            plan, ops = mega_case(many, ex, ey, None, eids, 2)
+            _build.reset_counts()
+            ok, _ = mega_equal(plan, ops)
+            check(ok and _build.LAUNCHES["mega_counts"] == 2,
+                  f"mega_counts bit-equal to plain: 70 members, two launches, n={m} "
+                  f"[{plans_of(plan, ex)}]")
+        unaligned = torch.empty(col_x[0].numel() + 1, device=dev)
+        unaligned[1:].copy_(col_x[0].flatten())
+        ux = unaligned[1:].view(col_x[0].shape)
+        ok, _ = mega_equal(main_plan, (ux, col_y[0], None, None, []))
+        check(ok, f"mega_counts bit-equal to plain: the main path's update, scores not "
+                  f"16-byte aligned [{plans_of(main_plan, ux)}]")
+        del unaligned, ux
         sl = torch.rand(313, SLICED_CLASSES, device=dev, generator=gen)
         sl_y = torch.randint(0, SLICED_CLASSES, (313,), device=dev, generator=gen,
                              dtype=torch.int32)
@@ -1967,6 +2049,10 @@ def main(argv) -> int:
             "bound_ms": auc_bound,
             "bound_by": auc_by,
             "library_ms": None,
+            "device_ms": auc_dev_ms,
+            "one_row_ms": auc22_ms,
+            "one_row_device_ms": auc22_dev_ms,
+            "one_row_launches": binary_launches,
             "verdict": "bit-equal",
         },
         {

@@ -2,7 +2,7 @@
 turns, on one NVIDIA GPU.
 
     python3 kernel_ab.py --other DIR            # turns: other, this, this, other
-    python3 kernel_ab.py --other DIR --only rank    # one family: rank, wavefront, binned
+    python3 kernel_ab.py --other DIR --only rank    # one family: rank, wavefront, binned, auc, mega
     python3 kernel_ab.py --worker DIR [FAMILY]  # one turn: DIR's package, JSON out
 
 ``DIR`` is the root of another checkout of this repository (for example
@@ -27,7 +27,18 @@ the same seeded inputs:
   ``rank_hist_counts`` (``csrc/rank_hist.cu``) at the headline view with
   cap 256; in a checkout whose wrappers pass a launch plan, each of the
   three again with the plan's query copies forced to 4 bytes.  Each result
-  is held against the plain version once.
+  is held against the plain version once;
+- ``auc_from_sorted`` (``csrc/auc_scan.cu``) on one sorted row of 2^22
+  (``chip_smoke.py`` phase 4's ``BinaryAUROC`` data, numpy seed 2), on
+  the headline's (1000, 2^17) class rows sorted (``chip_smoke.py``'s
+  headline, numpy seed 0) and at the flagship's (8, 1024) (numpy seed 4),
+  each held against the plain version once;
+- ``mega_counts`` (``csrc/mega.cu``) at the collection update, five
+  100-class members over (65536, 100) f32 (``chip_smoke.py`` phase 17's
+  data, numpy seed 6; each call takes the next of its 8 updates, so the
+  scores come from device memory), and at the sliced stream's bucketed
+  batches, n = 128, 256 and 512, C = 20, 16 slices and a mask (numpy seed
+  23), each held against the plain version once.
 
 Each time is the median of 7 CUDA-event timings after a warm-up, beside
 the device time a call by kernel from ``torch.profiler`` over 5 calls
@@ -44,7 +55,7 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-FAMILIES = ("wavefront", "binned", "rank")
+FAMILIES = ("wavefront", "binned", "rank", "auc", "mega")
 
 
 def worker(root: str, only: str = "") -> dict:
@@ -99,6 +110,10 @@ def worker(root: str, only: str = "") -> dict:
         wavefront_turn(res, dev, median_ms, by_kernel)
     if only in ("", "binned"):
         binned_turn(res, dev, median_ms, by_kernel)
+    if only in ("", "auc"):
+        auc_turn(res, dev, median_ms, by_kernel)
+    if only in ("", "mega"):
+        mega_turn(res, dev, median_ms, by_kernel)
     res["launches"] = dict(_build.LAUNCHES)
     return res
 
@@ -245,9 +260,97 @@ def binned_turn(res, dev, median_ms, by_kernel):
         median_ms(call), by_kernel(call)]
 
 
-def ptxas(root: str) -> list:
-    """``nvcc -Xptxas -v``'s lines for the rank kernels of ``root``: each
-    kernel's registers, spills and shared memory, and each source's
+def auc_turn(res, dev, median_ms, by_kernel):
+    import numpy as np
+    import torch
+
+    from torcheval_tpu_torch.metrics.functional.classification._sort_scan import (
+        class_hits,
+        sort_desc,
+    )
+    from torcheval_tpu_torch.ops.auc import _auc_from_sorted_plain, auc_from_sorted
+
+    sys.path.insert(0, HERE)
+    from chip_smoke import NUM_CLASSES, headline_data
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.random(2**22).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.random(2**22) < 0.5).to(dev)
+    scores, target = headline_data()
+    s = torch.from_numpy(scores).to(dev)
+    t = torch.from_numpy(target).to(dev)
+    rng = np.random.default_rng(4)
+    f = torch.from_numpy(rng.random((8, 1024)).astype(np.float32)).to(dev)
+    fy = torch.from_numpy(rng.random((8, 1024)) < 0.2).to(dev)
+    for key, (th, hh) in [
+        ("auc_from_sorted (1, 2^22)", sort_desc(x[None], y[None])),
+        ("auc_from_sorted headline (1000, 2^17)", sort_desc(s.T, class_hits(t, NUM_CLASSES))),
+        ("auc_from_sorted flagship (8, 1024)", sort_desc(f, fy)),
+    ]:
+        call = lambda: auc_from_sorted(th, hh)  # noqa: E731
+        if not torch.equal(call(), _auc_from_sorted_plain(th, hh)):
+            raise SystemExit(f"{key}: the kernel disagrees with its plain version")
+        res[key] = [median_ms(call), by_kernel(call, reps=20)]
+
+
+def mega_turn(res, dev, median_ms, by_kernel):
+    import numpy as np
+    import torch
+
+    from torcheval_tpu_torch import metrics as M
+    from torcheval_tpu_torch.ops._mega_plan import plan_for
+    from torcheval_tpu_torch.ops.mega import _mega_counts_plain, mega_counts
+
+    def five(c):
+        return {
+            "acc": M.MulticlassAccuracy(num_classes=c, average="macro"),
+            "f1": M.MulticlassF1Score(num_classes=c, average="macro"),
+            "cm": M.MulticlassConfusionMatrix(num_classes=c),
+            "prec": M.MulticlassPrecision(num_classes=c, average="macro"),
+            "rec": M.MulticlassRecall(num_classes=c, average="macro"),
+        }
+
+    def check(key, plan, *ops):
+        got = mega_counts(plan, *ops)
+        torch.cuda.synchronize()
+        want = _mega_counts_plain(plan, *ops)
+        if not all((a is None and b is None) or torch.equal(a, b)
+                   for ga, wa in zip(got, want) for a, b in zip(ga, wa)):
+            raise SystemExit(f"{key}: the kernel disagrees with its plain version")
+
+    os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"] = "1"
+    rng = np.random.default_rng(6)
+    xs = [torch.from_numpy(rng.random((65536, 100), dtype=np.float32)).to(dev) for _ in range(8)]
+    ys = [torch.from_numpy(rng.integers(0, 100, 65536).astype(np.int32)).to(dev)
+          for _ in range(8)]
+    plan = plan_for(five(100), (xs[0], ys[0]), {}, None)
+    key = "mega_counts collection update (65536, 100), five members"
+    check(key, plan, xs[0], ys[0])
+    turn = [0]
+
+    def update():
+        i = turn[0] = (turn[0] + 1) % 8
+        return mega_counts(plan, xs[i], ys[i])
+
+    res[key] = [median_ms(update), by_kernel(update, reps=24)]
+    del xs, ys
+    rng = np.random.default_rng(23)
+    for n in (128, 256, 512):
+        x = torch.from_numpy(rng.random((n, 20), dtype=np.float32)).to(dev)
+        y = torch.from_numpy(rng.integers(0, 20, n).astype(np.int32)).to(dev)
+        mask = torch.from_numpy((rng.random(n) < 0.7).astype(np.int32)).to(dev)
+        sids = torch.from_numpy(rng.integers(0, 16, n).astype(np.int32)).to(dev)
+        sp = plan_for(five(20), (x, y), {"mask": mask}, 16)
+        key = f"mega_counts sliced batch n={n}, C=20, 16 slices, a mask"
+        check(key, sp, x, y, mask, sids)
+        call = lambda: mega_counts(sp, x, y, mask, sids)  # noqa: E731
+        res[key] = [median_ms(call), by_kernel(call, reps=24)]
+    del os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"]
+
+
+def ptxas(root: str, names=("rank_sum.cu", "rank_hist.cu")) -> list:
+    """``nvcc -Xptxas -v``'s lines for the kernels of ``names`` in ``root``:
+    each kernel's registers, spills and shared memory, and each source's
     compile time."""
     import shutil
     import tempfile
@@ -257,7 +360,7 @@ def ptxas(root: str) -> list:
     lines = []
     csrc = os.path.join(root, "torcheval_tpu_torch", "ops", "csrc")
     with tempfile.TemporaryDirectory() as tmp:
-        for name in ("rank_sum.cu", "rank_hist.cu"):
+        for name in names:
             start = time.perf_counter()
             proc = subprocess.run(
                 [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -293,10 +396,13 @@ def main(argv) -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    if only in ("", "rank"):
-        for label, root in [("other", other), ("this", HERE)]:
-            for line in ptxas(root):
-                print(f"ptxas {label}: {line}", flush=True)
+    sources = {"rank": ("rank_sum.cu", "rank_hist.cu"), "auc": ("auc_scan.cu",),
+               "mega": ("mega.cu",)}
+    for family, names in sources.items():
+        if only in ("", family):
+            for label, root in [("other", other), ("this", HERE)]:
+                for line in ptxas(root, names):
+                    print(f"ptxas {label}: {line}", flush=True)
     turns = []
     for label, root in [("other", other), ("this", HERE), ("this", HERE), ("other", other)]:
         proc = subprocess.run(

@@ -26,7 +26,7 @@ from torcheval_tpu_torch.metrics import (
 )
 from torcheval_tpu_torch.metrics.functional._host_checks import skip_value_checks
 from torcheval_tpu_torch.ops import _build, ustat
-from torcheval_tpu_torch.ops.auc import _auc_from_sorted_plain, auc_from_sorted
+from torcheval_tpu_torch.ops.auc import _auc_from_sorted_plain, auc_from_sorted, auc_plan
 from torcheval_tpu_torch.ops.binned import (
     _binned_counts_plain,
     _binned_weighted_counts_plain,
@@ -140,6 +140,52 @@ def test_auc_kernel_bitwise_equals_plain(rows, n):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["auc_from_sorted"] == 1
     assert torch.equal(got, _auc_from_sorted_plain(t, h))
+
+
+def _auc_case(case, dev):
+    """Sorted (rows, n) scores and hits for one edge of auc_scan.cu's plan."""
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    shapes = {"one row 2^22": (1, 2**22), "all tied 2^22": (1, 2**22),
+              "chunk edge - 1": (1, 4095), "chunk edge + 1": (1, 4097),
+              "2^22 - 1": (1, 2**22 - 1), "2^22 + 3, shifted": (1, 2**22 + 3),
+              "tie run over 64 chunks": (1, 2**20), "flagship 8 x 1024": (8, 1024),
+              "headline 1000 x 131072": (1000, 131072), "37 rows of 10007": (37, 10_007),
+              "unaligned operands": (3, 50_000)}
+    rows, n = shapes[case]
+    levels = 4 if case.startswith("tie run") else 64
+    t = torch.floor(torch.rand(rows, n, device=dev, generator=gen) * levels) / levels
+    if case.startswith("all tied"):
+        t.fill_(0.5)
+    t = torch.sort(t, dim=1, descending=True).values
+    h = torch.rand(rows, n, device=dev, generator=gen) < 0.3
+    if case == "unaligned operands":
+        tb = torch.empty(rows * n + 1, device=dev)
+        hb = torch.empty(rows * n + 1, dtype=torch.bool, device=dev)
+        tb[1:].copy_(t.flatten())
+        hb[1:].copy_(h.flatten())
+        t, h = tb[1:].view(rows, n), hb[1:].view(rows, n)
+    return t, h
+
+
+@pytest.mark.parametrize("case", [
+    "one row 2^22", "all tied 2^22", "chunk edge - 1", "chunk edge + 1", "2^22 - 1",
+    "2^22 + 3, shifted", "tie run over 64 chunks", "flagship 8 x 1024",
+    "headline 1000 x 131072", "37 rows of 10007", "unaligned operands",
+])
+def test_auc_kernel_at_the_plan_edges(case):
+    dev = _cuda()
+    t, h = _auc_case(case, dev)
+    plan = auc_plan(t, h, torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"auc_from_sorted {case}: {plan.describe()}")
+    assert plan.vec == (case != "unaligned operands")
+    _build.reset_counts()
+    got = auc_from_sorted(t, h)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"auc_from_sorted": 1} and not _build.PLAIN_CALLS
+    want = _auc_from_sorted_plain(t, h)
+    assert torch.equal(got, want), (case, plan.describe())
+    if case.startswith("all tied"):
+        assert float(got[0]) == 0.5
 
 
 @pytest.mark.parametrize("num_classes", [200, 16])
@@ -467,6 +513,80 @@ def test_mega_kernel_bitwise_equals_plain(monkeypatch, c, n, slices, masked):
     for (gm, gc), (wm, wc) in zip(got, want):
         for g, w in ((gm, wm), (gc, wc)):
             assert (g is None and w is None) or (g.dtype == torch.int32 and torch.equal(g, w))
+
+
+def _mega_check(plan, x, y, mask, sids, thr, launches=1):
+    from torcheval_tpu_torch.ops.mega import _mega_counts_plain, mega_counts
+
+    _build.reset_counts()
+    got = mega_counts(plan, x, y, mask, sids, thr)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"mega_counts": launches} and not _build.PLAIN_CALLS
+    want = _mega_counts_plain(plan, x, y, mask, sids, thr)
+    for (gm, gc), (wm, wc) in zip(got, want):
+        for g, w in ((gm, wm), (gc, wc)):
+            assert (g is None and w is None) or (g.dtype == torch.int32 and torch.equal(g, w))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 128, 512, 513, 4096, 4097])
+def test_mega_kernel_at_the_launch_edges(monkeypatch, n):
+    """The sliced stream's shapes (C = 20, 16 slices, a mask) on each side
+    of a tile and of the split-counter shape's limit."""
+    from torcheval_tpu_torch.ops._mega_plan import plan_for
+    from torcheval_tpu_torch.ops.mega import launch_plans
+
+    dev = _cuda()
+    monkeypatch.setenv("TORCHEVAL_TPU_TORCH_MEGAKERNEL", "1")
+    rng = np.random.default_rng(n)
+    members = _mega_members(20, dev)
+    x = torch.from_numpy(rng.random((n, 20), dtype=np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(-2, 22, n).astype(np.int32)).to(dev)
+    mask = torch.from_numpy((rng.random(n) < 0.8).astype(np.int32)).to(dev)
+    sids = torch.from_numpy(rng.integers(-1, 17, n).astype(np.int32)).to(dev)
+    plan = plan_for(members, (x, y), {"mask": mask}, 16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"mega_counts n={n}: {[lp.describe() for lp in launch_plans(plan, n, sms)]}")
+    _mega_check(plan, x, y, mask, sids, [])
+
+
+def test_mega_kernel_at_the_collection_update(monkeypatch):
+    from torcheval_tpu_torch.ops._mega_plan import plan_for
+    from torcheval_tpu_torch.ops.mega import launch_plans
+
+    dev = _cuda()
+    monkeypatch.setenv("TORCHEVAL_TPU_TORCH_MEGAKERNEL", "1")
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.random((65536, 100), dtype=np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 100, 65536).astype(np.int32)).to(dev)
+    members = {k: v for k, v in _mega_members(100, dev).items() if k != "micro"}
+    plan = plan_for(members, (x, y), {}, None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    (launch,) = launch_plans(plan, 65536, sms)
+    print(f"mega_counts (65536, 100): {launch.describe()}")
+    assert launch.image and launch.blocks == sms
+    _mega_check(plan, x, y, None, None, [])
+    # scores not 16-byte aligned: 4-byte copies
+    xb = torch.empty(65536 * 100 + 1, device=dev)
+    xb[1:].copy_(x.flatten())
+    _mega_check(plan, xb[1:].view(65536, 100), y, None, None, [])
+
+
+@pytest.mark.parametrize("n", [300, 9000])
+def test_mega_kernel_past_64_members_launches_twice(monkeypatch, n):
+    from torcheval_tpu_torch import metrics as M
+    from torcheval_tpu_torch.ops._mega_plan import plan_for
+
+    dev = _cuda()
+    monkeypatch.setenv("TORCHEVAL_TPU_TORCH_MEGAKERNEL", "1")
+    rng = np.random.default_rng(n)
+    members = {f"acc{i}": M.MulticlassAccuracy(num_classes=5, average="macro", device=dev)
+               for i in range(70)}
+    x = torch.from_numpy(rng.standard_normal((n, 5)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 5, n).astype(np.int32)).to(dev)
+    sids = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(dev)
+    plan = plan_for(members, (x, y), {}, 2)
+    assert len(plan.members) == 70
+    _mega_check(plan, x, y, None, sids, [], launches=2)
 
 
 def test_fused_collection_on_the_card_equals_the_per_member_path(monkeypatch):

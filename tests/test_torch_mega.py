@@ -3,12 +3,21 @@ package's interpret-mode ``_mega_kernel`` on the same batches and plans:
 2-D scores and 1-D inputs, masks, slices 3 and 16, labels out of range,
 argmax ties and scores on the thresholds.  Every count is bit-equal.
 
+The kernel's launch plan (``mega.launch_plans``) is held here too: every
+counter owned by one block column (member group), shared memory within
+the H100's 227 KB, and a model of the kernel's work split (each block's
+members over its warps' tiles, counted apart and summed) bit-equal to the
+plain version and to the JAX kernel.
+
 NaN is the one place the two kernels differ by design: the port counts
 it as the port's per-member paths do (``torch.argmax`` picks the first
 NaN; a NaN binned score counts at every threshold), so NaN inputs are
 held against the port's own per-member path instead."""
 
+import dataclasses
 import os
+import re
+from pathlib import Path
 from unittest import mock
 
 import jax.numpy as jnp
@@ -51,6 +60,21 @@ def binary(lib, **dev):
     }
 
 
+def five(c):
+    """The collection workload's five members at ``c`` classes."""
+
+    def members(lib, **dev):
+        return {
+            "acc": lib.MulticlassAccuracy(num_classes=c, average="macro", **dev),
+            "f1": lib.MulticlassF1Score(num_classes=c, average="macro", **dev),
+            "cm": lib.MulticlassConfusionMatrix(num_classes=c, **dev),
+            "prec": lib.MulticlassPrecision(num_classes=c, average="macro", **dev),
+            "rec": lib.MulticlassRecall(num_classes=c, average="macro", **dev),
+        }
+
+    return members
+
+
 def _plans(members, x, y, mask, slices):
     kw = {} if mask is None else {"mask": mask}
     env = {"TORCHEVAL_TPU_MEGAKERNEL": "1", "TORCHEVAL_TPU_TORCH_MEGAKERNEL": "1"}
@@ -71,7 +95,9 @@ def _port_counts(pm, pp, x, y, mask, sids):
                                    t(sids), thr)
 
 
-def _assert_matches_jax(members, x, y, mask=None, sids=None, slices=None):
+def _assert_matches_jax(members, x, y, mask=None, sids=None, slices=None, counts=None):
+    """The port's counts (the plain version, or ``counts(pm, pp, ...)``)
+    against the JAX kernel's."""
     jm, pm, jp, pp = _plans(members, x, y, mask, slices)
     thr = [jm[mp.name].threshold for mp in jp.members if mp.kind == "binned"]
     outs = pallas_mega._dispatch(
@@ -79,7 +105,7 @@ def _assert_matches_jax(members, x, y, mask=None, sids=None, slices=None):
         None if sids is None else jnp.asarray(sids), thr, interpret=True,
     )
     outs = [np.asarray(o) for o in outs]
-    got = _port_counts(pm, pp, x, y, mask, sids)
+    got = (counts or _port_counts)(pm, pp, x, y, mask, sids)
     a = pp.a
     oi, col = 0, 0
     mom = None
@@ -230,3 +256,169 @@ def test_wrapper_checks_and_empty_batch():
         mega.mega_counts(bp, xt[:, 0], yt % 2, thresholds=[])
     with pytest.raises(ValueError, match="cuda or cpu"):
         mega.mega_counts(pp, xt.to("meta"), yt.to("meta"))
+
+
+# ------------------------------------------------------- the launch plan
+
+
+def _regions(mp, a):
+    """A member's (part, ints) regions, as ``mega._layout`` lays them."""
+    moment = a * len(mp.moment_slots)
+    main = _mega_plan.counters(mp, a) - moment
+    return [(part, size) for part, size in (("moment", moment), ("main", main)) if size]
+
+
+def _launches(pp, n, sms=132):
+    for begin in range(0, len(pp.members), mega._MAX_MEMBERS):
+        members = pp.members[begin : begin + mega._MAX_MEMBERS]
+        yield begin, members, *mega._launch(n, pp.features, members, pp.a, True, sms)
+
+
+def _block_counts(sms):
+    """The kernel's work split as a counts function for
+    ``_assert_matches_jax``: block b counts group b // sample_blocks's
+    members over the tiles its warps walk (warp w of sample block sb:
+    tiles sb * warps + w, then every sample_blocks * warps), each block apart
+    with the plain version, the blocks' counts summed."""
+
+    def counts(pm, pp, x, y, mask, sids):
+        n = y.shape[0]
+        total = [[None, None] for _ in pp.members]
+        for begin, members, launch, _, _ in _launches(pp, n, sms):
+            tiles = -(-n // 32)
+            step = launch.sample_blocks * launch.warps
+            for b in range(launch.blocks):
+                g, sb = divmod(b, launch.sample_blocks)
+                group = members[g * launch.group_members : (g + 1) * launch.group_members]
+                rows = [
+                    r
+                    for w in range(launch.warps)
+                    for tile in range(sb * launch.warps + w, tiles, step)
+                    for r in range(32 * tile, min(32 * tile + 32, n))
+                ]
+                if not rows:
+                    continue
+                sub = dataclasses.replace(pp, members=tuple(group))
+                pick = lambda v: None if v is None else v[rows]  # noqa: E731
+                part = _port_counts(pm, sub, x[rows], y[rows], pick(mask), pick(sids))
+                for j, pair in enumerate(part):
+                    slot = total[begin + g * launch.group_members + j]
+                    for k, t in enumerate(pair):
+                        if t is not None:
+                            slot[k] = t if slot[k] is None else slot[k] + t
+        return [tuple(pair) for pair in total]
+
+    return counts
+
+
+def _assert_counts_equal(got, want):
+    assert len(got) == len(want)
+    for pair_got, pair_want in zip(got, want):
+        for g, w in zip(pair_got, pair_want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize(
+    "members,f,classes,n,slices,masked,sms",
+    [
+        (five(20), 20, 20, 313, 16, True, 132),  # a sliced-stream batch
+        (five(20), 20, 20, 33, 16, True, 132),  # a tile and one sample
+        (five(7), 7, 7, 4200, None, False, 3),  # a narrow collection update, image
+        (binary, 0, 2, 4500, 3, True, 2),  # 1-D input, image
+    ],
+)
+def test_block_partial_counts_sum_to_the_plain_version_and_jax(
+    members, f, classes, n, slices, masked, sms
+):
+    x, y, mask, sids = _batch(n + classes, n, f, classes, slices, masked)
+    _, pm, _, pp = _plans(members, x, y, mask, slices)
+    model = _block_counts(sms)
+    _assert_counts_equal(model(pm, pp, x, y, mask, sids), _port_counts(pm, pp, x, y, mask, sids))
+    _assert_matches_jax(members, x, y, mask, sids, slices, counts=model)
+
+
+def _many(lib, **dev):
+    """70 members: a plan past the kernel's 64, launched twice."""
+    return {f"acc{i}": lib.MulticlassAccuracy(num_classes=5, average="macro", **dev)
+            for i in range(70)}
+
+
+@pytest.mark.parametrize(
+    "members,f,classes,n,slices",
+    [
+        (five(20), 20, 20, 1, 16),
+        (five(20), 20, 20, 31, 16),
+        (five(20), 20, 20, 512, 16),
+        (five(20), 20, 20, 513, 16),
+        (five(100), 100, 100, 65536, None),  # the collection update
+        (five(256), 256, 256, 70_001, 3),  # the plan bounds F = C = 256
+        (binary, 0, 2, 100_003, 16),
+        (_many, 5, 5, 300, None),
+        (_many, 5, 5, 9000, 2),
+    ],
+)
+def test_launch_plan_owns_every_counter_once(members, f, classes, n, slices):
+    x, y, _, _ = _batch(1, 64, f, classes, slices)
+    with mock.patch.dict(os.environ, {"TORCHEVAL_TPU_TORCH_MEGAKERNEL": "1"}):
+        pm = members(P, device="cpu")
+        pp = _mega_plan.plan_for(pm, (torch.from_numpy(x), torch.from_numpy(y)), {}, slices)
+    assert len(pp.members) == len(pm)
+    launches = list(_launches(pp, n))
+    assert len(launches) == -(-len(pp.members) // 64)
+    assert [lp.describe() for lp in mega.launch_plans(pp, n)] == [
+        lp.describe() for _, _, lp, _, _ in launches]
+    for _, members_, launch, offsets, total in launches:
+        assert launch.smem_bytes <= 232_448 and 1 <= launch.warps <= 16
+        assert launch.groups * launch.group_members >= len(members_)
+        assert launch.image == (n > mega._GLOBAL_MAX_SAMPLES)
+        if launch.image:
+            assert launch.groups == 1 and launch.image_ints > 0
+        else:
+            assert launch.group_members == 1 and launch.image_ints == 0
+            assert launch.sample_blocks * launch.warps * 32 >= n
+        if f:
+            assert launch.smem_bytes == (
+                mega._stage_offset(launch.image_ints) * 4 + launch.warps * 32 * 4 * f)
+        owner = np.full(total, -1)
+        for q, mp in enumerate(members_):
+            for part, size in _regions(mp, pp.a):
+                o = offsets[(q, part)]
+                assert (owner[o : o + size] == -1).all()
+                owner[o : o + size] = q // launch.group_members
+                # the image holds whole regions only
+                assert o + size <= launch.image_ints or o >= launch.image_ints
+        assert (owner >= 0).all()
+
+
+def test_plans_at_the_main_path_shapes():
+    x, y, _, _ = _batch(2, 64, 100, 100)
+    _, _, _, pp = _plans(five(100), x, y, None, None)
+    (col,) = mega.launch_plans(pp, 65536)
+    assert col.image and col.blocks == 132 and col.warps == 9 and col.copy == "16 B"
+    assert col.image_ints == sum(size for mp in pp.members for _, size in _regions(mp, 1))
+    x, y, mask, sids = _batch(3, 64, 20, 20, 16, True)
+    _, _, _, sp = _plans(five(20), x, y, mask, 16)
+    for n in (128, 313, 512):
+        (sl,) = mega.launch_plans(sp, n)
+        assert not sl.image and sl.groups == 5 and sl.sample_blocks == 1
+        assert sl.warps == -(-n // 32)
+
+
+def test_plan_constants_match_the_kernel_source():
+    """The wrapper's copies of ``mega.cu``'s limits and ``Plan`` layout."""
+    src = (Path(mega.__file__).parent / "csrc" / "mega.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", src))
+    assert int(const["kMaxWarps"]) == mega._MAX_WARPS
+    assert int(const["kMaxMembers"]) == mega._MAX_MEMBERS
+    assert int(const["kMaxSharedBytes"]) == mega._BLOCK_SMEM
+    assert int(const["kMaxFeatures"]) == _mega_plan._MAX_FEATURES
+    plan = src[src.index("struct Plan {") :]
+    plan = plan[: plan.index("};")]
+    assert len(re.findall(r"^  int \w+;", plan, re.M)) == mega._HEADER_WORDS
+    desc = src[src.index("struct MemberDesc {") :]
+    desc = desc[: desc.index("};")]
+    assert len(re.findall(r"^  int \w+;", desc, re.M)) == mega._DESC_WORDS
+    assert "(smem_ints + 3) & ~3" in src
+    assert mega._stage_offset(5) == 8 and mega._stage_offset(8) == 8

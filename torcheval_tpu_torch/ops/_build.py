@@ -60,8 +60,8 @@ _SIGNATURES: Dict[str, tuple] = {
     # queries, stride_row, stride_col, rq, n, tables, cap, negate, group_rows,
     # vec16, smem_tables, fixed_top, blocks_per_group, out, stream
     "rank_sum_counts_launch": (_P, _LL, _LL, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
-    # thresholds, hits, rows, n, out, stream
-    "auc_scan_launch": (_P, _P, _I, _LL, _P, _P),
+    # thresholds, hits, rows, n, chunk, chunks, vec, scratch, out, stream
+    "auc_scan_launch": (_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P),
     # target, pred, n, w, slab, stream
     "cm_slab_launch": (_P, _P, _LL, _I, _P, _P),
     # queries, stride_row, stride_col, rq, n, tables, cap, group_rows, vec16,

@@ -11,15 +11,83 @@ kernel::
 
     area = P·N_neg − ½ · Σ_groups P_g · (end_fp_g + prevend_fp_g)
     AUC  = area / (P·N_neg)            (0.5 when P·N_neg == 0)
+
+The kernel splits each row into chunks (:func:`auc_plan`): a block
+reduces one chunk to an exact integer summary, and the chunks of a row
+combine in order, so one long row spreads over every SM.  Any split gives
+the same integers (``csrc/auc_scan.cu``'s ``combine``).
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from torcheval_tpu_torch.ops import _build
+from torcheval_tpu_torch.ops.ustat import _H100_SMS, _sm_count
 
 _ONE_BYTE = (torch.bool, torch.uint8, torch.int8)
+
+# csrc/auc_scan.cu: 8 warps a block, a warp's step 32 lanes x 16 elements.
+_WARPS = 8
+_SPAN = 32 * 16
+_CHUNK_UNIT = _WARPS * _SPAN
+_SUM_BYTES = 32  # one chunk's summary (struct Sum)
+# Blocks the plan aims at: about 4 resident on each SM, 4 waves of them.
+_BLOCKS_PER_SM = 4
+_WAVES = 4
+
+
+class AucPlan(NamedTuple):
+    """One call of ``auc_scan.cu``, as :func:`auc_plan` decides it."""
+
+    chunk: int  # positions of a row a block reduces (a multiple of 4096)
+    chunks: int  # chunks a row
+    rows: int
+    vec: bool  # 16-byte loads: both arrays 16-byte aligned
+    reach: int  # positions of a row the chunks cover: n, plus 15 for a shift
+
+    @property
+    def blocks(self) -> int:
+        return self.rows * self.chunks
+
+    @property
+    def combine(self) -> bool:
+        """A second launch combines each row's chunks (else each block
+        finishes its row)."""
+        return self.chunks > 1
+
+    def describe(self) -> str:
+        return (
+            f"{self.chunks} chunks of {self.chunk} a row, {self.blocks} blocks, "
+            f"{self.chunk // _WARPS // _SPAN} spans of {_SPAN} a warp, "
+            + ("16-byte loads" if self.vec else "4- and 1-byte loads")
+            + (", a combine launch of one block a row" if self.combine else ", no combine launch")
+        )
+
+
+@functools.lru_cache(maxsize=256)
+def _auc_plan(rows: int, n: int, vec: bool, sms: int) -> AucPlan:
+    """Chunks of whole warp spans: about ``sms x _BLOCKS_PER_SM x _WAVES``
+    blocks over all rows where the rows hold that much work, then spread
+    evenly over each row; never fewer than one span a warp."""
+    reach = n + (15 if vec and n % 16 else 0)
+    spans = -(-reach // _SPAN)
+    target_warps = sms * _BLOCKS_PER_SM * _WAVES * _WARPS
+    per_warp = max(1, min(-(-spans // _WARPS), rows * spans // target_warps))
+    chunks = -(-spans // (_WARPS * per_warp))
+    per_warp = -(-spans // (_WARPS * chunks))
+    return AucPlan(_WARPS * per_warp * _SPAN, chunks, rows, vec, reach)
+
+
+def auc_plan(thresholds: torch.Tensor, hits: torch.Tensor, sms: int = _H100_SMS) -> AucPlan:
+    """The launch plan of :func:`auc_from_sorted` on these ``(R, N)``
+    contiguous operands."""
+    rows, n = thresholds.shape
+    vec = thresholds.data_ptr() % 16 == 0 and hits.data_ptr() % 16 == 0
+    return _auc_plan(rows, n, vec, sms)
 
 
 def auc_from_sorted(thresholds: torch.Tensor, hits: torch.Tensor) -> torch.Tensor:
@@ -50,6 +118,14 @@ def auc_from_sorted(thresholds: torch.Tensor, hits: torch.Tensor) -> torch.Tenso
     out = torch.empty(rows, dtype=torch.float32, device=thresholds.device)
     if rows == 0:
         return out
+    if n == 0:
+        return out.fill_(0.5)
+    plan = auc_plan(thresholds, hits, _sm_count(thresholds.device.index))
+    scratch = (
+        torch.empty(plan.blocks * _SUM_BYTES // 8, dtype=torch.int64, device=thresholds.device)
+        if plan.combine
+        else None
+    )
     lib = _build.library()
     with torch.cuda.device(thresholds.device):
         err = lib.auc_scan_launch(
@@ -57,6 +133,10 @@ def auc_from_sorted(thresholds: torch.Tensor, hits: torch.Tensor) -> torch.Tenso
             hits.data_ptr(),
             rows,
             n,
+            plan.chunk,
+            plan.chunks,
+            int(plan.vec),
+            None if scratch is None else scratch.data_ptr(),
             out.data_ptr(),
             _build.stream_handle(thresholds.device),
         )

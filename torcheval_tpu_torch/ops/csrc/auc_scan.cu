@@ -9,181 +9,266 @@
 // with P_g the group's positives, end_fp_g / prevend_fp_g the cumulative
 // negatives at the end of the group and of the group before it, and 0.5
 // for a row with no positives or no negatives.  A group is settled at the
-// first element of the NEXT group (t[i] != t[i-1]), whose exclusive
-// cumulative counts are the group's end values; the row's last group is
-// settled after the loop from the row totals.
+// first element of the NEXT group (t[i] != t[i-1], a boundary), whose
+// exclusive cumulative counts are the group's end values.
 //
-// Design.  One block per row loops over tiles of 4096 elements (256
-// threads x 16 consecutive elements each), carrying per-row scalars from
-// tile to tile: the running positive/negative counts, the counts at the
-// last group boundary, and the last threshold.  That loop takes the place
-// of the TPU grid's sequential axis.  Per tile: a coalesced load into
-// shared memory, an exclusive block scan of each thread's positives, an
-// exclusive block max-scan of the boundary counts (cumulative counts only
-// grow, so the nearest boundary to the left is the max), then each thread
-// walks its 16 elements again and adds its groups' products.  The products
-// are summed EXACTLY in int64 (acc < 2^61 for N < 2^31), so the result
-// does not depend on summation order and equals the plain PyTorch version
-// bit for bit; the JAX kernel's Kahan f32 sum agrees bitwise while its
-// partial sums stay below 2^24.  The final f32 arithmetic is spelled with
-// _rn intrinsics so nvcc cannot contract it into an FMA.
+// Design: a row split over every SM.  Any stretch of a row reduces to a
+// summary (struct Sum): its positives and negatives, the stretch-local
+// counts before its first and before its last boundary, and the int64 sum
+// `a` of the groups that open and close inside it.  Two adjacent summaries
+// combine exactly (combine() below), and the combine is associative, so a
+// row can be cut anywhere and reduced in any tree that keeps the order:
+//
+//   * lane: 16 consecutive elements in registers (four 16-byte score loads
+//     and one 16-byte load of 16 hits; a warp reads one contiguous span of
+//     512), its left neighbour from __shfl_up_sync, at the warp's edge from
+//     the span before, at the start of the warp's stretch from t[e - 1] in
+//     global memory;
+//   * warp: an ordered shuffle tree over its 32 lanes, then carried across
+//     its spans;
+//   * block (one chunk of a row): the 8 warps' summaries, one barrier;
+//   * row: a second small launch combines the row's chunks in order (one
+//     block a row); a row of one chunk is finished by its own block.
+//
+// The grid is rows x chunks on gridDim.x; the wrapper's plan
+// (ops/auc.py::auc_plan) sizes the chunks so that one long row fills the
+// card (2^22 samples: 1024 chunks of 4096) and many rows take a few chunks
+// each.  Where both arrays are 16-byte aligned, each row's spans are laid
+// on the 16-element grid of the flat (rows, n) array (the row's `shift`),
+// so every full lane group loads with 16-byte loads; elements outside [0,
+// n) are masked.  The chunk summaries live in a scratch the wrapper takes
+// from PyTorch's caching allocator.
+//
+// Every count is an integer and `a` an exact int64 (acc < 2^61 for N <
+// 2^31), so any split gives the same bits as the plain PyTorch version;
+// the JAX kernel's Kahan f32 sum agrees bitwise while its partial sums stay
+// below 2^24.  The final f32 arithmetic is spelled with _rn intrinsics so
+// nvcc cannot contract it into an FMA.
 //
 // Bound on the H100: bytes (each sorted score, 4 B, and hit, 1 B, read
-// once).  Known weakness: one row runs on one SM, so a single long binary
-// row (2^22 samples) uses 1 of 132 SMs.
+// once).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPerThread = 16;
-constexpr int kTile = kThreads * kPerThread;
+constexpr int kPer = 16;                 // consecutive elements a lane
+constexpr int kSpan = 32 * kPer;         // a warp's step: 512 elements
+constexpr int kChunkUnit = kWarps * kSpan;  // chunks are multiples of 4096
 constexpr unsigned kFull = 0xffffffffu;
 
+// A stretch of a row.  Counts are local to the stretch; ftp < 0: no
+// boundary in it.  32 bytes, the layout of ops/auc.py's scratch.
 struct Sum {
-  __device__ int operator()(int a, int b) const { return a + b; }
+  int tp, fp;    // positives and negatives
+  int ftp, ffp;  // counts before its first boundary
+  int ltp, lfp;  // counts before its last boundary
+  long long a;   // sum over consecutive boundaries (i-1, i) inside it of
+                 // (tp_i - tp_{i-1}) * (fp_i + fp_{i-1})
 };
-struct Max {
-  __device__ int operator()(int a, int b) const { return a > b ? a : b; }
-};
+static_assert(sizeof(Sum) == 32, "ops/auc.py's scratch holds 32 B a chunk");
 
-// Exclusive scan of one int per thread across the block; `*total` gets the
-// reduction over all threads.  `buf` holds kWarps + 1 ints.  Every thread
-// of the block must call it.
-template <class Op>
-__device__ int block_scan_exclusive(int v, Op op, int identity, int* buf,
-                                    int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-  for (int d = 1; d < 32; d <<= 1) {
-    int y = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl = op(incl, y);
+__device__ __forceinline__ Sum empty_sum() { return Sum{0, 0, -1, 0, 0, 0, 0}; }
+
+// x followed by y.  Counts of y shift by x's totals; y's first boundary
+// settles the group that opened at x's last boundary.
+__device__ __forceinline__ Sum combine(const Sum& x, const Sum& y) {
+  Sum r = x;
+  r.tp = x.tp + y.tp;
+  r.fp = x.fp + y.fp;
+  if (y.ftp < 0) return r;
+  const long long inner = y.a + 2LL * x.fp * (long long)(y.ltp - y.ftp);
+  if (x.ftp < 0) {
+    r.ftp = x.tp + y.ftp;
+    r.ffp = x.fp + y.ffp;
+    r.a = inner;
+  } else {
+    r.a = x.a + inner +
+          (long long)(x.tp + y.ftp - x.ltp) * ((long long)x.fp + y.ffp + x.lfp);
   }
-  int excl = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) excl = identity;
-  if (lane == 31) buf[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kWarps ? buf[lane] : identity;
-    for (int d = 1; d < kWarps; d <<= 1) {
-      int y = __shfl_up_sync(kFull, w, d);
-      if (lane >= d) w = op(w, y);
-    }
-    if (lane < kWarps) buf[lane] = w;  // inclusive over warps
-  }
-  __syncthreads();
-  int prefix = warp > 0 ? buf[warp - 1] : identity;
-  *total = buf[kWarps - 1];
-  __syncthreads();  // buf is reused by the next scan
-  return op(prefix, excl);
+  r.ltp = x.tp + y.ltp;
+  r.lfp = x.fp + y.lfp;
+  return r;
 }
 
-__global__ void __launch_bounds__(kThreads)
-auc_scan_kernel(const float* __restrict__ thresholds,
-                const uint8_t* __restrict__ hits, long long n,
-                float* __restrict__ out) {
-  __shared__ float s_t[kTile];
-  __shared__ uint8_t s_h[kTile];
-  __shared__ int s_buf[kWarps + 1];
-  __shared__ long long s_red[kWarps];
+__device__ __forceinline__ Sum shfl_down(const Sum& s, int d) {
+  Sum r;
+  r.tp = __shfl_down_sync(kFull, s.tp, d);
+  r.fp = __shfl_down_sync(kFull, s.fp, d);
+  r.ftp = __shfl_down_sync(kFull, s.ftp, d);
+  r.ffp = __shfl_down_sync(kFull, s.ffp, d);
+  r.ltp = __shfl_down_sync(kFull, s.ltp, d);
+  r.lfp = __shfl_down_sync(kFull, s.lfp, d);
+  r.a = __shfl_down_sync(kFull, s.a, d);
+  return r;
+}
 
-  const int tid = threadIdx.x;
-  const float* t_row = thresholds + (long long)blockIdx.x * n;
-  const uint8_t* h_row = hits + (long long)blockIdx.x * n;
+// Lane 0 gets lanes 0..31 combined in lane order.
+__device__ __forceinline__ Sum warp_reduce(Sum s) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) s = combine(s, shfl_down(s, d));
+  return s;
+}
 
-  // Per-row carries, identical in every thread.
-  int cum_tp = 0, cum_fp = 0;  // counts before this tile
-  int pe_tp = 0, pe_fp = 0;    // counts at the last group boundary
-  float prev_t = 0.0f;         // last threshold of the previous tile
-  long long acc = 0;           // this thread's share of the group sum
-
-  for (long long base = 0; base < n; base += kTile) {
-    const int valid = (int)(n - base < kTile ? n - base : kTile);
-    for (int k = tid; k < valid; k += kThreads) {
-      s_t[k] = t_row[base + k];
-      s_h[k] = h_row[base + k] != 0;
-    }
-    __syncthreads();
-
-    const int lo = tid * kPerThread;
-    const int hi_end = min(lo + kPerThread, valid);
-    // First walk: this thread's positives and its last boundary, counted
-    // from the start of its elements.
-    int my_tp = 0, last_tp = -1, last_fp = -1;
-    for (int k = lo; k < hi_end; ++k) {
-      bool flag = k > 0 ? s_t[k] != s_t[k - 1] : (base > 0 && s_t[0] != prev_t);
-      if (flag) {
-        last_tp = my_tp;
-        last_fp = (k - lo) - my_tp;
-      }
-      my_tp += s_h[k];
-    }
-    int tile_tp;
-    const int ex_tp = block_scan_exclusive(my_tp, Sum(), 0, s_buf, &tile_tp);
-    const int start = lo < valid ? lo : valid;
-    const int ex_fp = start - ex_tp;
-    // Absolute counts at this thread's last boundary (-1: none).
-    int b_tp = -1, b_fp = -1;
-    if (last_tp >= 0) {
-      b_tp = cum_tp + ex_tp + last_tp;
-      b_fp = cum_fp + ex_fp + last_fp;
-    }
-    int max_tp, max_fp;
-    int prev_tp = block_scan_exclusive(b_tp, Max(), -1, s_buf, &max_tp);
-    int prev_fp = block_scan_exclusive(b_fp, Max(), -1, s_buf, &max_fp);
-    if (prev_tp < 0) {  // no boundary earlier in this tile
-      prev_tp = pe_tp;
-      prev_fp = pe_fp;
-    }
-    // Second walk: settle each group that ends before one of our elements.
-    int run_tp = cum_tp + ex_tp, run_fp = cum_fp + ex_fp;
-    for (int k = lo; k < hi_end; ++k) {
-      bool flag = k > 0 ? s_t[k] != s_t[k - 1] : (base > 0 && s_t[0] != prev_t);
-      if (flag) {
-        acc += (long long)(run_tp - prev_tp) * ((long long)run_fp + prev_fp);
-        prev_tp = run_tp;
-        prev_fp = run_fp;
-      }
-      int h = s_h[k];
-      run_tp += h;
-      run_fp += 1 - h;
-    }
-    if (max_tp >= 0) {
-      pe_tp = max_tp;
-      pe_fp = max_fp;
-    }
-    cum_tp += tile_tp;
-    cum_fp += valid - tile_tp;
-    prev_t = s_t[valid - 1];
-    __syncthreads();  // the next tile overwrites s_t / s_h
-  }
-
-  for (int d = 16; d > 0; d >>= 1) acc += __shfl_down_sync(kFull, acc, d);
-  if ((tid & 31) == 0) s_red[tid >> 5] = acc;
+// The block's warps' summaries, in warp order, on thread 0.
+__device__ __forceinline__ Sum block_reduce(const Sum& warp_sum, Sum* s_warp) {
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = warp_sum;
   __syncthreads();
-  if (tid == 0) {
-    long long total = 0;
-    for (int w = 0; w < kWarps; ++w) total += s_red[w];
-    // The row's last group ends at its last element.
-    total += (long long)(cum_tp - pe_tp) * ((long long)cum_fp + pe_fp);
-    float factor = __fmul_rn(__int2float_rn(cum_tp), __int2float_rn(cum_fp));
-    float area = __fsub_rn(factor, __fmul_rn(0.5f, __ll2float_rn(total)));
-    out[blockIdx.x] = factor == 0.0f ? 0.5f : __fdiv_rn(area, factor);
+  Sum c = s_warp[0];
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kWarps; ++w) c = combine(c, s_warp[w]);
   }
+  return c;
+}
+
+// A row's AUC from its summary: a boundary at counts (0, 0) before the row
+// and one at the row's totals after it settle the first and last groups.
+__device__ __forceinline__ float finish(const Sum& s) {
+  const Sum edge{0, 0, 0, 0, 0, 0, 0};
+  const Sum all = combine(combine(edge, s), edge);
+  const float factor = __fmul_rn(__int2float_rn(s.tp), __int2float_rn(s.fp));
+  const float area = __fsub_rn(factor, __fmul_rn(0.5f, __ll2float_rn(all.a)));
+  return factor == 0.0f ? 0.5f : __fdiv_rn(area, factor);
+}
+
+// One chunk of one row: block b = row * chunks + k covers q in [k * chunk,
+// (k + 1) * chunk) of the row's positions q = e + shift; warp w takes
+// chunk / kWarps consecutive positions of it, kSpan at a time.
+__global__ void __launch_bounds__(kThreads)
+auc_chunk_kernel(const float* __restrict__ thresholds,
+                 const uint8_t* __restrict__ hits, long long n, int chunk,
+                 int chunks, int vec, Sum* __restrict__ sums,
+                 float* __restrict__ out) {
+  __shared__ Sum s_warp[kWarps];
+  const long long row = blockIdx.x / chunks;
+  const int k = (int)(blockIdx.x - row * chunks);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const float* t_row = thresholds + row * n;
+  const uint8_t* h_row = hits + row * n;
+  const int shift = vec ? (int)((row * n) & 15) : 0;
+  const int warp_len = chunk / kWarps;
+  const long long e_begin = (long long)k * chunk + (long long)w * warp_len - shift;
+  const long long e_end = e_begin + warp_len < n ? e_begin + warp_len : n;
+
+  Sum acc = empty_sum();
+  // The element left of the warp's first: read once, a broadcast load.
+  float prev = (e_begin > 0 && e_begin <= n) ? t_row[e_begin - 1] : 0.0f;
+  for (long long base = e_begin; base < e_end; base += kSpan) {
+    const long long e0 = base + lane * kPer;
+    float v[kPer];
+    uint32_t hw[kPer / 4];
+    if (vec && e0 >= 0 && e0 + kPer <= n) {
+      const float4* t4 = reinterpret_cast<const float4*>(t_row + e0);
+#pragma unroll
+      for (int j = 0; j < kPer / 4; ++j) {
+        const float4 q = t4[j];
+        v[4 * j] = q.x;
+        v[4 * j + 1] = q.y;
+        v[4 * j + 2] = q.z;
+        v[4 * j + 3] = q.w;
+      }
+      const uint4 hq = *reinterpret_cast<const uint4*>(h_row + e0);
+      hw[0] = hq.x;
+      hw[1] = hq.y;
+      hw[2] = hq.z;
+      hw[3] = hq.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPer / 4; ++j) hw[j] = 0;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const long long e = e0 + j;
+        const bool in = e >= 0 && e < n;
+        v[j] = in ? t_row[e] : 0.0f;
+        hw[j >> 2] |= (in && h_row[e] != 0 ? 1u : 0u) << (8 * (j & 3));
+      }
+    }
+    const float up = __shfl_up_sync(kFull, v[kPer - 1], 1);
+    const float left0 = lane == 0 ? prev : up;
+    prev = __shfl_sync(kFull, v[kPer - 1], 31);
+
+    Sum s = empty_sum();
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const long long e = e0 + j;
+      const bool valid = e >= 0 && e < n;
+      const float left = j == 0 ? left0 : v[j - 1];
+      if (valid && e > 0 && v[j] != left) {
+        if (s.ftp < 0) {
+          s.ftp = s.tp;
+          s.ffp = s.fp;
+        } else {
+          s.a += (long long)(s.tp - s.ltp) * (long long)(s.fp + s.lfp);
+        }
+        s.ltp = s.tp;
+        s.lfp = s.fp;
+      }
+      const int hit = ((hw[j >> 2] >> (8 * (j & 3))) & 0xffu) != 0;
+      s.tp += valid & hit;
+      s.fp += valid & !hit;
+    }
+    acc = combine(acc, warp_reduce(s));  // lane 0's is the warp's
+  }
+
+  const Sum c = block_reduce(acc, s_warp);
+  if (threadIdx.x == 0) {
+    if (chunks == 1) {
+      out[row] = finish(c);
+    } else {
+      sums[blockIdx.x] = c;
+    }
+  }
+}
+
+// The chunks of row blockIdx.x, combined in order: thread i takes a
+// contiguous run of them, then the warp tree and the block's warps.
+__global__ void __launch_bounds__(kThreads)
+auc_combine_kernel(const Sum* __restrict__ sums, int chunks,
+                   float* __restrict__ out) {
+  __shared__ Sum s_warp[kWarps];
+  const Sum* row_sums = sums + (long long)blockIdx.x * chunks;
+  const int per = (chunks + kThreads - 1) / kThreads;
+  const int j0 = threadIdx.x * per;
+  const int j1 = min(j0 + per, chunks);
+  Sum s = empty_sum();
+  for (int j = j0; j < j1; ++j) s = combine(s, row_sums[j]);
+  const Sum c = block_reduce(warp_reduce(s), s_warp);
+  if (threadIdx.x == 0) out[blockIdx.x] = finish(c);
 }
 
 }  // namespace
 
 // thresholds (rows, n) f32 and hits (rows, n) 1-byte 0/1, both contiguous,
-// rows sorted by descending threshold; out (rows,) f32.  Returns
-// cudaGetLastError() after the launch.
+// rows sorted by descending threshold; out (rows,) f32.  The plan
+// (ops/auc.py::auc_plan): `chunks` chunks of `chunk` positions a row (a
+// multiple of 4096, covering n plus the row's shift), `vec` when both
+// arrays are 16-byte aligned; `scratch` holds rows x chunks summaries of 32
+// bytes when chunks > 1.  Returns cudaGetLastError() after the launches,
+// or cudaErrorInvalidValue for a plan that does not cover the rows.
 extern "C" int auc_scan_launch(const void* thresholds, const void* hits,
-                               int rows, long long n, void* out, void* stream) {
-  auc_scan_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                               int rows, long long n, int chunk, int chunks,
+                               int vec, void* scratch, void* out,
+                               void* stream) {
+  const long long reach = n + (vec && n % 16 ? 15 : 0);
+  if (rows < 1 || n < 1 || chunk < kChunkUnit || chunk % kChunkUnit != 0 ||
+      chunks < 1 || (long long)chunk * chunks < reach ||
+      (long long)chunk * (chunks - 1) >= reach ||
+      (long long)rows * chunks > INT_MAX || (chunks > 1 && scratch == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Sum* sums = static_cast<Sum*>(scratch);
+  float* o = static_cast<float*>(out);
+  auc_chunk_kernel<<<rows * chunks, kThreads, 0, s>>>(
       static_cast<const float*>(thresholds), static_cast<const uint8_t*>(hits),
-      n, static_cast<float*>(out));
+      n, chunk, chunks, vec, sums, o);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return (int)err;
+  auc_combine_kernel<<<rows, kThreads, 0, s>>>(sums, chunks, o);
   return (int)cudaGetLastError();
 }

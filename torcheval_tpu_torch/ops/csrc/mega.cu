@@ -11,23 +11,34 @@
 // for each member the counts the JAX kernel computes (the payloads of
 // pallas_mega.py:161-196 and its wrap rules).
 //
-// Design.  A warp takes 32 consecutive samples.  With 2-D scores it walks
-// the 32 rows four at a time: the lanes read the rows coalesced (256
-// columns a pass) and reduce each to torch.argmax's answer (the first NaN,
-// else the first maximum), and lane r keeps row r's.  Then each lane holds one
-// sample, and every counter add goes through add_grouped: lanes that add
-// the same value at the same address are merged (__match_any_sync on the
-// 64-bit (address, value) key) and the group's lowest lane adds
-// value x group size.  A sample adds into two accumulation rows, not A:
-// the global row 0, and row 1 + slice_id when 0 <= slice_id < K.
+// Design: a launch plan (ops/mega.py::_launch_plan) picks one of two
+// shapes of the same kernel from n and the counter layout.
 //
-// Counters are int32.  The wrapper orders the member regions so that the
-// ones that fit in shared memory come first: a block zeroes a private
-// image of that prefix, adds into it, and at the end adds its nonzero
-// entries into global memory.  Regions past the image (large confusion
-// slabs) take global atomics, which land in the 50 MB L2.  Integer adds
-// in any order give the same counts, so the result is bit-equal to the
-// plain PyTorch version (ops/mega.py::_mega_counts_plain).
+//   * global (small batches, n <= 4096, as a sliced stream's): the counters
+//     are split, not the samples.  Each block takes one member (a "group")
+//     and all of the batch's samples, and adds straight into the counters
+//     in global memory (atomics that land in the 50 MB L2): no image to
+//     zero or flush, and the members run on as many SMs at once.
+//   * image (large batches, as the collection update's 65536 x 100): one
+//     persistent block an SM takes every member over its share of the
+//     batch, in a private image of the counters in shared memory (the
+//     layout's prefix that fits), zeroed once and added into global memory
+//     once a block.  Regions past the image take global atomics.
+//
+// Either way a warp walks tiles of 32 consecutive samples.  With 2-D
+// scores, the warp stages its tile's contiguous (32, F) rows in its own
+// buffer in shared memory with 16-byte cp.async copies (4-byte where the
+// scores are not 16-byte aligned), lane r reduces row r to torch.argmax's
+// answer (the first NaN, else the first maximum), and the warp starts the
+// copy of its next tile before the current tile's adds, so those bytes are
+// in flight while it counts.  Then each lane holds one sample and adds its
+// counts with one atomic each (a moment's, which every lane adds at one
+// address, is summed over the warp first).  A sample adds into row 0 and,
+// with slices, into row 1 + slice_id when 0 <= slice_id < K.
+//
+// Counters are int32.  Integer adds in any order give the same counts, so
+// the result is bit-equal to the plain PyTorch version
+// (ops/mega.py::_mega_counts_plain) whatever the plan.
 //
 // Binned members count, per sample, slot = #{t_j <= s} (count_le.cuh; NaN
 // goes to slot T, counted at every threshold as the per-member route
@@ -41,17 +52,23 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
-#include <cmath>
 #include <cstring>
 
 #include "count_le.cuh"
+#include "query_ring.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kRowsInFlight = 4;  // rows whose loads a warp has in flight at once
-constexpr int kColsPerLane = 8;   // 256 columns a pass, one load a lane each
+using query_ring::cp_async16;
+using query_ring::cp_async4;
+using query_ring::cp_async_commit;
+using query_ring::cp_async_wait;
+
+constexpr int kMaxWarps = 16;
+constexpr int kMaxThreads = kMaxWarps * 32;
+constexpr int kMaxFeatures = 256;  // ops/_mega_plan.py's _MAX_FEATURES
 constexpr int kMaxMembers = 64;
 constexpr int kMaxSlots = 3 * kMaxMembers;
 constexpr int kMaxSharedBytes = 232448;  // 227 KB, a block's opt-in maximum
@@ -83,11 +100,22 @@ struct MemberDesc {
 struct Plan {
   int num_members;
   int slices;
-  int features;   // F, or 0 for 1-D input
-  int smem_ints;  // counters [0, smem_ints) live in the shared image
+  int features;       // F, or 0 for 1-D input
+  int smem_ints;      // counters [0, smem_ints) live in the shared image
+  int warps;          // warps a block
+  int group_members;  // members a block counts: 1, or all with an image
+  int sample_blocks;  // blocks that share one group's samples
+  int vec16;          // 16-byte copies of the score tiles, else 4-byte
+  int smem_bytes;     // dynamic shared memory: the image, then the tiles
   MemberDesc members[kMaxMembers];
   int slots[kMaxSlots];
 };
+
+// Where the warps' score tiles start in the dynamic shared memory, in
+// ints: past the image, 16-byte aligned.
+__host__ __device__ __forceinline__ int stage_offset(int smem_ints) {
+  return (smem_ints + 3) & ~3;
+}
 
 // True when (va, ia) comes before (vb, ib) in torch.argmax's order: a NaN
 // first (the lowest index among NaNs), then the larger value, then the
@@ -99,87 +127,86 @@ __device__ __forceinline__ bool before(float va, int ia, float vb, int ib) {
   return ia < ib;
 }
 
-// The argmaxes of rows [base, base + 32) of the (n, f) scores, rows past n
-// skipped: lane r returns row base + r's.  The warp starts the loads of
-// kRowsInFlight rows (kColsPerLane a lane and row) before it reduces any of
-// them, so their latencies overlap; each lane visits its columns in
-// increasing order, and the shuffle reduction breaks ties by index.
-__device__ __forceinline__ int warp_argmax_rows(const float* __restrict__ scores,
-                                                int f, long long base,
-                                                long long n, int lane) {
-  int mine = 0;
-  for (int r0 = 0; r0 < 32 && base + r0 < n; r0 += kRowsInFlight) {
-    float bv[kRowsInFlight];
-    int bi[kRowsInFlight];
-#pragma unroll
-    for (int q = 0; q < kRowsInFlight; ++q) {
-      bv[q] = -INFINITY;
-      bi[q] = INT_MAX;
-    }
-    for (int c0 = 0; c0 < f; c0 += 32 * kColsPerLane) {
-      float v[kRowsInFlight][kColsPerLane];
-#pragma unroll
-      for (int q = 0; q < kRowsInFlight; ++q) {
-        const long long row = base + r0 + q;
-#pragma unroll
-        for (int k = 0; k < kColsPerLane; ++k) {
-          const int c = c0 + lane + 32 * k;
-          v[q][k] = (row < n && c < f) ? scores[row * f + c] : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kRowsInFlight; ++q) {
-#pragma unroll
-        for (int k = 0; k < kColsPerLane; ++k) {
-          const int c = c0 + lane + 32 * k;
-          if (base + r0 + q < n && c < f && before(v[q][k], c, bv[q], bi[q])) {
-            bv[q] = v[q][k];
-            bi[q] = c;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int q = 0; q < kRowsInFlight; ++q) {
-        const float ov = __shfl_xor_sync(kFull, bv[q], off);
-        const int oi = __shfl_xor_sync(kFull, bi[q], off);
-        if (before(ov, oi, bv[q], bi[q])) {
-          bv[q] = ov;
-          bi[q] = oi;
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kRowsInFlight; ++q) {
-      if (lane == r0 + q) mine = bi[q];
-    }
+// One step of a scan in increasing column order: keep the first NaN, else
+// the first maximum.
+__device__ __forceinline__ void take(float v, int c, float& best, int& bi) {
+  if (best == best && (v != v || v > best)) {
+    best = v;
+    bi = c;
   }
-  return mine;
 }
 
-// All 32 lanes call this together.  A lane with idx < 0 or val == 0 adds
-// nothing; lanes with equal (idx, val) are merged into one atomic.
-__device__ __forceinline__ void add_grouped(int* base, int idx, int val,
-                                            int lane) {
-  const bool live = idx >= 0 && val != 0;
-  const unsigned long long key =
-      live ? ((unsigned long long)(unsigned)idx << 32) | (unsigned)val
-           : ~0ull;
-  const unsigned peers = __match_any_sync(kFull, key);
-  if (live && lane == __ffs(peers) - 1) {
-    atomicAdd(base + idx, __popc(peers) * val);
+// torch.argmax of one row of f scores in shared memory.  Where f % 4 == 0
+// the row is 16-byte aligned: 16-byte loads (a quarter warp's eight rows
+// then fall on distinct banks) feed four scans, of the columns equal to 0,
+// 1, 2 and 3 mod 4, merged in torch.argmax's order.
+__device__ __forceinline__ int row_argmax(const float* row, int f) {
+  if ((f & 3) == 0) {
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+    float4 q = r4[0];
+    float b0 = q.x, b1 = q.y, b2 = q.z, b3 = q.w;
+    int i0 = 0, i1 = 1, i2 = 2, i3 = 3;
+#pragma unroll 4
+    for (int k = 1; k < f / 4; ++k) {
+      q = r4[k];
+      take(q.x, 4 * k, b0, i0);
+      take(q.y, 4 * k + 1, b1, i1);
+      take(q.z, 4 * k + 2, b2, i2);
+      take(q.w, 4 * k + 3, b3, i3);
+    }
+    if (before(b1, i1, b0, i0)) b0 = b1, i0 = i1;
+    if (before(b3, i3, b2, i2)) b2 = b3, i2 = i3;
+    return before(b2, i2, b0, i0) ? i2 : i0;
+  }
+  float best = row[0];
+  int bi = 0;
+  for (int c = 1; c < f; ++c) take(row[c], c, best, bi);
+  return bi;
+}
+
+// Start the copies of tile `tile` (rows 32 tile .. 32 tile + 31, those
+// below n) of the (n, f) scores into the warp's buffer: the rows are
+// contiguous, so lane k copies pieces k, k + 32, ...  A 16-byte copy of a
+// partial last piece reads only the live bytes; rows past n are not
+// copied, and their lanes never read them.
+__device__ __forceinline__ void issue_tile(float* dst, const float* scores,
+                                           long long tile, long long n, int f,
+                                           bool vec16, int lane) {
+  const long long row0 = tile * 32;
+  const int count = (int)(n - row0 < 32 ? n - row0 : 32) * f;
+  const float* src = scores + row0 * f;
+  if (vec16) {
+    for (int p = lane * 4; p < count; p += 128) {
+      cp_async16(dst + p, src + p, 4 * min(4, count - p));
+    }
+  } else {
+    for (int p = lane; p < count; p += 32) cp_async4(dst + p, src + p);
   }
 }
 
 // One counter family of `row_len` entries per accumulation row: entry idx
-// of row 0, and of row `row1` when the sample has a slice.
+// of row 0 and, when the plan has slices (`sliced`, the same in every
+// lane), of row `row1` when the sample has one.  A lane with idx < 0 or
+// val == 0 adds nothing.  Each add is one atomic of its own: lanes that hit
+// one address are serialised by the atomic unit, which costs less than
+// grouping them first (__match_any_sync) where the addresses spread.
 __device__ __forceinline__ void add_rows(int* base, int row_len, int row1,
-                                         int idx, int val, int lane) {
-  add_grouped(base, idx, val, lane);
-  add_grouped(base, (row1 < 0 || idx < 0) ? -1 : row1 * row_len + idx, val,
-              lane);
+                                         int idx, int val, bool sliced) {
+  if (idx >= 0 && val != 0) {
+    atomicAdd(base + idx, val);
+    if (sliced && row1 >= 0) atomicAdd(base + row1 * row_len + idx, val);
+  }
+}
+
+// A moment payload: every lane adds at entry j of row 0, so the warp sums
+// first and one lane adds; the slice rows take an atomic a lane.  All 32
+// lanes call this together.
+__device__ __forceinline__ void add_moment(int* base, int slots, int row1,
+                                           int j, int val, int lane,
+                                           bool sliced) {
+  const int total = __reduce_add_sync(kFull, val);
+  if (lane == 0 && total != 0) atomicAdd(base + j, total);
+  if (sliced && row1 >= 0 && val != 0) atomicAdd(base + row1 * slots + j, val);
 }
 
 // numpy's negative wrap, once; what stays outside [0, c) is dropped (-1).
@@ -212,50 +239,68 @@ __device__ __forceinline__ int payload(int pid, int pred, int t, int pb) {
   return 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 mega_kernel(const float* __restrict__ scores, const int* __restrict__ pred_in,
             const int* __restrict__ target, const int* __restrict__ weight,
             const int* __restrict__ sids, long long n,
             const float* __restrict__ thresholds, int* __restrict__ out,
             const __grid_constant__ Plan plan) {
-  extern __shared__ int image[];
-  for (int j = threadIdx.x; j < plan.smem_ints; j += kThreads) image[j] = 0;
+  extern __shared__ __align__(16) int image[];
+  for (int j = threadIdx.x; j < plan.smem_ints; j += blockDim.x) image[j] = 0;
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int group = blockIdx.x / plan.sample_blocks;
+  const int q_begin = group * plan.group_members;
+  const int q_end = min(q_begin + plan.group_members, plan.num_members);
   const int a = 1 + plan.slices;
-  const long long step = (long long)gridDim.x * kThreads;
+  const bool sliced = plan.slices > 0;
+  const int f = plan.features;
+  float* stage = reinterpret_cast<float*>(image + stage_offset(plan.smem_ints)) +
+                 (long long)w * 32 * f;
+  const long long tiles = (n + 31) / 32;
+  const long long step = (long long)plan.sample_blocks * plan.warps;
+  long long tile =
+      (long long)(blockIdx.x - group * plan.sample_blocks) * plan.warps + w;
+  if (f > 0 && tile < tiles) issue_tile(stage, scores, tile, n, f, plan.vec16, lane);
+  cp_async_commit();
   // The loop bound is the warp's, so all 32 lanes reach every warp-wide
   // intrinsic together; lanes past n carry weight 0.
-  for (long long base = (long long)blockIdx.x * kThreads + (threadIdx.x & ~31);
-       base < n; base += step) {
-    const long long i = base + lane;
+  for (; tile < tiles; tile += step) {
+    const long long i = tile * 32 + lane;
     const bool valid = i < n;
-    int pred = 0;
-    float s = 0.0f;
-    if (plan.features > 0) {
-      pred = warp_argmax_rows(scores, plan.features, base, n, lane);
-    } else if (valid) {
-      if (scores != nullptr) s = scores[i];
-      if (pred_in != nullptr) pred = pred_in[i];
-    }
     const int t = valid ? target[i] : 0;
-    const int w = valid ? (weight != nullptr ? weight[i] : 1) : 0;
+    const int w8 = valid ? (weight != nullptr ? weight[i] : 1) : 0;
     int row1 = -1;
     if (valid && sids != nullptr) {
       const int k = sids[i];
       if (k >= 0 && k < plan.slices) row1 = 1 + k;
     }
+    int pred = 0;
+    float s = 0.0f;
+    if (f > 0) {
+      cp_async_wait<0>();
+      __syncwarp();  // every lane's copies of this tile are visible
+      if (valid) pred = row_argmax(stage + lane * f, f);
+      __syncwarp();  // the buffer is free for the next tile's copies
+      if (tile + step < tiles) {
+        issue_tile(stage, scores, tile + step, n, f, plan.vec16, lane);
+      }
+      cp_async_commit();
+    } else if (valid) {
+      if (scores != nullptr) s = scores[i];
+      if (pred_in != nullptr) pred = pred_in[i];
+    }
 
-    for (int q = 0; q < plan.num_members; ++q) {
+    for (int q = q_begin; q < q_end; ++q) {
       const MemberDesc& m = plan.members[q];
       const int pb = !(s < __int_as_float(m.thr_bits));  // NaN -> 1
       if (m.num_slots > 0) {
         int* mom = m.moment_region < plan.smem_ints ? image + m.moment_region
                                                     : out + m.moment_region;
         for (int j = 0; j < m.num_slots; ++j) {
-          const int v = payload(plan.slots[m.slot_begin + j], pred, t, pb) * w;
-          add_rows(mom, m.num_slots, row1, j, v, lane);
+          const int v = payload(plan.slots[m.slot_begin + j], pred, t, pb) * w8;
+          add_moment(mom, m.num_slots, row1, j, v, lane, sliced);
         }
       }
       if (m.kind == kMoment) continue;
@@ -267,20 +312,20 @@ mega_kernel(const float* __restrict__ scores, const int* __restrict__ pred_in,
           // .at[target].add: wrap once, drop the rest; correct is raw
           // equality.
           const int ti = wrap_drop(t, c);
-          add_rows(reg, c, row1, ti, pred == t ? w : 0, lane);
-          add_rows(reg + ac, c, row1, ti, w, lane);
+          add_rows(reg, c, row1, ti, pred == t ? w8 : 0, sliced);
+          add_rows(reg + ac, c, row1, ti, w8, sliced);
         } else {
           const int tw = wrap_sentinel(t, c), pw = wrap_sentinel(pred, c);
           const int ti = tw < c ? tw : -1, pi = pw < c ? pw : -1;
-          add_rows(reg, c, row1, ti, (ti >= 0 && tw == pw) ? w : 0, lane);
-          add_rows(reg + ac, c, row1, ti, w, lane);
-          add_rows(reg + 2 * ac, c, row1, pi, w, lane);
+          add_rows(reg, c, row1, ti, (ti >= 0 && tw == pw) ? w8 : 0, sliced);
+          add_rows(reg + ac, c, row1, ti, w8, sliced);
+          add_rows(reg + 2 * ac, c, row1, pi, w8, sliced);
         }
       } else if (m.kind == kCm) {
         const int tw = wrap_sentinel(t, c);
         const int pw = wrap_sentinel(m.spec == kBinaryCm ? pb : pred, c);
         const int cell = (tw < c && pw < c) ? tw * c + pw : -1;
-        add_rows(reg, c * c, row1, cell, w, lane);
+        add_rows(reg, c * c, row1, cell, w8, sliced);
       } else {  // kBinned
         const int nt = c;
         const int slot =
@@ -288,17 +333,39 @@ mega_kernel(const float* __restrict__ scores, const int* __restrict__ pred_in,
                    : count_le<1>(thresholds + m.thr_off, nt,
                                  1 << (31 - __clz(nt)), s);
         const int row_len = nt + 1;
-        add_rows(reg, row_len, row1, slot, w, lane);
-        add_rows(reg + a * row_len, row_len, row1, slot, t == 1 ? w : 0, lane);
+        add_rows(reg, row_len, row1, slot, w8, sliced);
+        add_rows(reg + a * row_len, row_len, row1, slot, t == 1 ? w8 : 0, sliced);
       }
     }
   }
 
+  cp_async_wait<0>();
   __syncthreads();
-  for (int j = threadIdx.x; j < plan.smem_ints; j += kThreads) {
+  for (int j = threadIdx.x; j < plan.smem_ints; j += blockDim.x) {
     const int v = image[j];
     if (v != 0) atomicAdd(out + j, v);
   }
+}
+
+// The opt-in maximum of dynamic shared memory, set once a device.  The
+// attribute is per device, and every launch asks for at most this value,
+// so threads that race here all set the same value and none can refuse
+// another thread's launch.
+std::atomic<unsigned long long> g_smem_attribute_set{0};
+
+cudaError_t ensure_smem_attribute() {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (bit != 0 && (g_smem_attribute_set.load(std::memory_order_acquire) & bit)) {
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(mega_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSharedBytes);
+  if (err == cudaSuccess) g_smem_attribute_set.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 }  // namespace
@@ -306,9 +373,10 @@ mega_kernel(const float* __restrict__ scores, const int* __restrict__ pred_in,
 // scores: (n, F) f32 row-major when plan.features > 0, else (n,) f32 or
 // null; pred: (n,) int32 or null; target: (n,) int32; weight, sids: (n,)
 // int32 or null; thresholds: the binned members' grids, f32; plan: the
-// host bytes of a Plan (plan_bytes == sizeof(Plan)); out: the counters,
-// int32, zeroed by the caller.  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a malformed plan.
+// host bytes of a Plan (plan_bytes == sizeof(Plan)), its launch geometry
+// included; out: the counters, int32, zeroed by the caller.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// malformed plan.
 extern "C" int mega_counts_launch(const void* scores, const void* pred,
                                   const void* target, const void* weight,
                                   const void* sids, long long n,
@@ -317,30 +385,25 @@ extern "C" int mega_counts_launch(const void* scores, const void* pred,
   if (plan_bytes != (int)sizeof(Plan)) return (int)cudaErrorInvalidValue;
   Plan p;
   memcpy(&p, plan, sizeof(Plan));
+  const long long smem =
+      p.features > 0
+          ? (long long)stage_offset(p.smem_ints) * 4 +
+                (long long)p.warps * 32 * p.features * 4
+          : (long long)p.smem_ints * 4;
   if (p.num_members < 1 || p.num_members > kMaxMembers || p.smem_ints < 0 ||
-      (long long)p.smem_ints * 4 > kMaxSharedBytes) {
+      p.features < 0 || p.features > kMaxFeatures || p.warps < 1 ||
+      p.warps > kMaxWarps || p.group_members < 1 || p.sample_blocks < 1 ||
+      (p.smem_ints > 0 && p.group_members < p.num_members) ||
+      p.smem_bytes != smem || smem > kMaxSharedBytes) {
     return (int)cudaErrorInvalidValue;
   }
-  // The opt-in maximum on every launch, whatever the plan: the attribute
-  // is per device, and a smaller value set by one thread could otherwise
-  // refuse another thread's launch.
-  cudaError_t err = cudaFuncSetAttribute(
-      mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSharedBytes);
+  const long long groups = (p.num_members + p.group_members - 1) / p.group_members;
+  const long long blocks = groups * p.sample_blocks;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = ensure_smem_attribute();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)p.smem_ints * 4;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mega_kernel,
-                                                kThreads, (int)smem);
-  if (per_sm < 1) per_sm = 1;
-  // At least one sample per thread, so a block's private image is added
-  // into global memory once per kThreads samples at the most.
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > (long long)sms * per_sm) blocks = (long long)sms * per_sm;
-  if (blocks < 1) blocks = 1;
-  mega_kernel<<<(int)blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  mega_kernel<<<(int)blocks, p.warps * 32, (size_t)smem,
+                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(scores), static_cast<const int*>(pred),
       static_cast<const int*>(target), static_cast<const int*>(weight),
       static_cast<const int*>(sids), n, static_cast<const float*>(thresholds),

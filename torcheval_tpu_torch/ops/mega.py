@@ -11,6 +11,15 @@ kernel ``csrc/mega.cu``; for tensors on the CPU it runs
 bit.  :func:`run_plan` turns the counts into each member's state deltas,
 and :func:`apply_folds` adds them.
 
+The kernel's launch plan (:func:`launch_plans`, one launch per 64
+members) takes one of two shapes.  A small batch (``n <= 4096``, as a
+sliced stream's) splits the counters: one block a member, every sample in
+it, adds straight into global memory.  A large batch (as the collection
+update's) takes one block an SM over every member, each with a private
+image in shared memory of the counters that fit, zeroed and flushed once
+a block.  Either way each warp stages its (32, F) score tiles in shared
+memory with asynchronous copies.
+
 What each member's counts are (``MemberPlan.kind``):
 
 * ``moment``: ``(A, S)`` sums of the member's payloads (``_PAYLOADS``);
@@ -33,13 +42,15 @@ collection call).
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import functools
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from torcheval_tpu_torch.ops import _build
 from torcheval_tpu_torch.ops._mega_plan import MegaPlan, MemberPlan, counters
+from torcheval_tpu_torch.ops.ustat import _H100_SMS, _sm_count
 
 # Numbers shared with csrc/mega.cu (its Kind, Spec and Payload enums).
 _KINDS = {"moment": 0, "scatter": 1, "cm": 2, "binned": 3}
@@ -49,22 +60,115 @@ _PAYLOADS = {
     "pb_t0": 7, "traw": 8, "pb_traw": 9, "hit1": 10,
 }
 
-# csrc/mega.cu's Plan: 4 header words, kMaxMembers descriptors of 10
+# csrc/mega.cu's Plan: 9 header words, kMaxMembers descriptors of 10
 # words, kMaxSlots slot words.
 _MAX_MEMBERS = 64
+_HEADER_WORDS = 9
 _DESC_WORDS = 10
-_PLAN_WORDS = 4 + _MAX_MEMBERS * _DESC_WORDS + 3 * _MAX_MEMBERS
-# Counters a block keeps in shared memory: the H100's 227 KB opt-in.
-_SMEM_INTS = 232448 // 4
+_PLAN_WORDS = _HEADER_WORDS + _MAX_MEMBERS * _DESC_WORDS + 3 * _MAX_MEMBERS
+# Shared memory a block may opt in to on the H100 (csrc/mega.cu's
+# kMaxSharedBytes): the image and the warps' score tiles share it.
+_BLOCK_SMEM = 232448
+_MAX_WARPS = 16  # kMaxWarps
+_TILE_ROWS = 32  # a warp's tile: 32 samples, one a lane
+# Batches up to this many samples take the split-counter, global-memory
+# shape; larger ones the persistent shape with a shared image.
+_GLOBAL_MAX_SAMPLES = 4096
 
 MemberCounts = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
 
 
-def _layout(members: Sequence[MemberPlan], a: int) -> Tuple[Dict, int, int]:
+class MegaLaunch(NamedTuple):
+    """One launch of ``csrc/mega.cu``, as :func:`launch_plans` decides it."""
+
+    image: bool  # a shared image of the counters (else global atomics)
+    warps: int  # warps a block, one 32-sample tile each at a time
+    group_members: int  # members a block counts
+    groups: int  # member groups (blocks along the counters)
+    sample_blocks: int  # blocks along the samples, for each group
+    image_ints: int  # counters in the image (the layout's prefix)
+    smem_bytes: int  # dynamic shared memory a block: image, then tiles
+    copy: str  # "16 B" or "4 B" cp.async copies of the tiles; "none": 1-D
+
+    @property
+    def blocks(self) -> int:
+        return self.groups * self.sample_blocks
+
+    def describe(self) -> str:
+        shape = (
+            f"image of {self.image_ints} counters"
+            if self.image
+            else "counters added in global memory"
+        )
+        return (
+            f"{shape}: {self.groups} group(s) of {self.group_members} member(s) x "
+            f"{self.sample_blocks} sample block(s) = {self.blocks} blocks of "
+            f"{self.warps} warps, tiles copied {self.copy}, {self.smem_bytes} B shared"
+        )
+
+
+@functools.lru_cache(maxsize=256)
+def _geometry(n: int, features: int, members: int, sms: int) -> Tuple[bool, int, int, int, int]:
+    """``(image, warps, group_members, sample_blocks, image cap in ints)``
+    for ``n >= 1`` samples of ``features`` columns (0: 1-D input) and
+    ``members`` members.  Small batches: one member a block, as many warps
+    as tiles (16 at most, and as many tiles as fit), no image.  Large
+    batches: every member in each block, one block an SM, as many warps as
+    half the shared memory holds tiles for; the image takes the rest."""
+    tiles = -(-n // _TILE_ROWS)
+    tile_bytes = _TILE_ROWS * 4 * features
+    if n <= _GLOBAL_MAX_SAMPLES:
+        room = _BLOCK_SMEM // tile_bytes if tile_bytes else _MAX_WARPS
+        warps = min(_MAX_WARPS, tiles, room)
+        return False, warps, 1, -(-tiles // warps), 0
+    warps = min(_MAX_WARPS, _BLOCK_SMEM // 2 // tile_bytes) if tile_bytes else _MAX_WARPS
+    cap = (_BLOCK_SMEM - warps * tile_bytes) // 4 - 3  # 3: the tiles' 16-byte alignment
+    return True, warps, members, min(sms, -(-tiles // warps)), cap
+
+
+def _stage_offset(image_ints: int) -> int:
+    """csrc/mega.cu's stage_offset: the tiles' start, in ints."""
+    return (image_ints + 3) & ~3
+
+
+def _launch(
+    n: int, features: int, members: Sequence[MemberPlan], a: int, vec16: bool, sms: int
+) -> Tuple[MegaLaunch, Dict, int]:
+    """The launch of one chunk of members, its layout and total ints."""
+    image, warps, group_members, sample_blocks, cap = _geometry(n, features, len(members), sms)
+    offsets, image_ints, total = _layout(members, a, cap)
+    smem = (
+        _stage_offset(image_ints) * 4 + warps * _TILE_ROWS * 4 * features
+        if features
+        else image_ints * 4
+    )
+    launch = MegaLaunch(
+        image=image,
+        warps=warps,
+        group_members=group_members,
+        groups=-(-len(members) // group_members),
+        sample_blocks=sample_blocks,
+        image_ints=image_ints,
+        smem_bytes=smem,
+        copy=("16 B" if vec16 else "4 B") if features else "none",
+    )
+    return launch, offsets, total
+
+
+def launch_plans(plan: MegaPlan, n: int, sms: int = _H100_SMS, vec16: bool = True) -> List[MegaLaunch]:
+    """The launches of :func:`mega_counts` for ``n >= 1`` samples: one per
+    64 members.  ``vec16``: the f32 scores are 16-byte aligned."""
+    return [
+        _launch(n, plan.features, plan.members[b : b + _MAX_MEMBERS], plan.a, vec16, sms)[0]
+        for b in range(0, len(plan.members), _MAX_MEMBERS)
+    ]
+
+
+def _layout(members: Sequence[MemberPlan], a: int, cap: int = 0) -> Tuple[Dict, int, int]:
     """Offsets of each member's moment block and main region in one int32
     buffer: the regions sorted by size, the smallest first, so the longest
-    prefix that fits in shared memory is the kernel's private image.
-    Returns ``({(member index, part): offset}, image ints, total ints)``."""
+    prefix of at most ``cap`` ints is the kernel's private image.  Returns
+    ``({(member index, part): offset}, image ints, total ints)``."""
     regions = []
     for q, mp in enumerate(members):
         if mp.moment_slots:
@@ -77,7 +181,7 @@ def _layout(members: Sequence[MemberPlan], a: int) -> Tuple[Dict, int, int]:
     for size, q, part in regions:
         offsets[(q, part)] = total
         total += size
-        if total <= _SMEM_INTS and image == total - size:
+        if total <= cap and image == total - size:
             image = total
     return offsets, image, total
 
@@ -186,30 +290,45 @@ def mega_counts(
     )
     n = tgt.shape[0]
     a = plan.a
+    sms = _sm_count(target.device.index)
+    vec16 = scores is None or scores.data_ptr() % 16 == 0
     result: List[MemberCounts] = []
     thr_off = 0
     # A plan of more than 64 members launches once per 64 (the kernel's
     # plan is a parameter of fixed size).
     for begin in range(0, len(plan.members), _MAX_MEMBERS):
         members = plan.members[begin : begin + _MAX_MEMBERS]
-        offsets, image, total = _layout(members, a)
+        if n:
+            launch, offsets, total = _launch(n, plan.features, members, a, vec16, sms)
+        else:
+            offsets, _, total = _layout(members, a)
         out = torch.zeros(total, dtype=torch.int32, device=target.device)
         if n:
             words = _desc(plan, members, thr[begin : begin + _MAX_MEMBERS], offsets,
-                          image, thr_off)
-            _launch(scores, pred, tgt, weight, sid, n, grids, words, out)
+                          launch, thr_off)
+            _launch_kernel(scores, pred, tgt, weight, sid, n, grids, words, out)
         thr_off += sum(mp.num_thresholds for mp in members if mp.kind == "binned")
         result.extend(_unpack(members, a, offsets, out))
     return result
 
 
-def _desc(plan, members, thr, offsets, image, thr_off) -> np.ndarray:
+def _desc(plan, members, thr, offsets, launch: MegaLaunch, thr_off) -> np.ndarray:
     """csrc/mega.cu's ``Plan`` as int32 words."""
     words = np.zeros(_PLAN_WORDS, dtype=np.int32)
-    words[:4] = (len(members), plan.slices, plan.features, image)
+    words[:_HEADER_WORDS] = (
+        len(members),
+        plan.slices,
+        plan.features,
+        launch.image_ints,
+        launch.warps,
+        launch.group_members,
+        launch.sample_blocks,
+        int(launch.copy == "16 B"),
+        launch.smem_bytes,
+    )
     slot = 0
     for q, mp in enumerate(members):
-        d = 4 + q * _DESC_WORDS
+        d = _HEADER_WORDS + q * _DESC_WORDS
         words[d : d + _DESC_WORDS] = (
             _KINDS[mp.kind],
             _SPECS.get(mp.spec, 0),
@@ -223,14 +342,14 @@ def _desc(plan, members, thr, offsets, image, thr_off) -> np.ndarray:
             0,
         )
         for _, pid in mp.moment_slots:
-            words[4 + _MAX_MEMBERS * _DESC_WORDS + slot] = _PAYLOADS[pid]
+            words[_HEADER_WORDS + _MAX_MEMBERS * _DESC_WORDS + slot] = _PAYLOADS[pid]
             slot += 1
         if mp.kind == "binned":
             thr_off += mp.num_thresholds
     return words
 
 
-def _launch(scores, pred, target, weight, sids, n, grids, words, out) -> None:
+def _launch_kernel(scores, pred, target, weight, sids, n, grids, words, out) -> None:
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     lib = _build.library()
     with torch.cuda.device(target.device):
@@ -448,4 +567,4 @@ def apply_folds(folds: Sequence[Fold], donate: bool) -> None:
                 setattr(m, state, new)
 
 
-__all__ = ("apply_folds", "mega_counts", "run_plan")
+__all__ = ("apply_folds", "launch_plans", "mega_counts", "run_plan")
