@@ -42,16 +42,24 @@ times kernels and lifecycle with CUDA events.  Phases:
    device memory;
 7. the confusion-slab kernel against its plain version (bit-equal) at the
    lifecycle's shape (2^17 labels in [0, 1000] with the sentinel), at
-   C = 130, with every sample in one cell, at N = 100 003 and at N = 0;
+   C = 130 and C = 100, with every sample in one cell, with two cells at
+   random, at N = 100 003, on int64 labels, on an int32 target with an
+   int64 prediction, on labels that are not 16-byte aligned, on a
+   non-contiguous int64 view and at N = 0, each case with its launch plan;
 8. the 1000-class confusion-matrix + F1 lifecycle of the repository's
    confusion workload (numpy seed 3, 2^20 int32 label pairs, 8 updates of
    2^17, one compute of each): 16 slab launches, the matrix bit-equal to
-   an ``np.add.at`` oracle, macro F1 within 1e-6 of a float64 oracle;
+   an ``np.add.at`` oracle, macro F1 within 1e-6 of a float64 oracle; the
+   same on int64 labels, bit-equal, and one slab call on them profiled:
+   the kernel and no cast or copy;
 9. the flagship eval step (``torcheval_tpu_torch.flagship``) with numpy
    weights, TF32 off: logits within 1e-5 of a float64 forward, accuracy
    and matrix exact against numpy counts, AUROC within 1e-6 of the
    oracle, one AUC-scan launch;
-10. times of phases 7-9, tagged with the card and power limit;
+10. times of phases 7-9, tagged with the card and power limit: the slab's
+    device time a call at C = 1000 (int32 and int64 labels, every sample in
+    one cell) and at C = 100, beside its plain version, ``torch.bincount``
+    and its bound, and the CM + F1 lifecycle on int32 and on int64 labels;
 11. the rank-histogram kernel against its plain version (bit-equal) at
     the headline's strided (1000, 131072) view with cap 256, on ties on a
     1/8 grid with half-pad tables, at N = 100 003, on 37 contiguous rows,
@@ -62,8 +70,10 @@ times kernels and lifecycle with CUDA events.  Phases:
 12. the binned-count kernel against its plain version (bit-equal) at the
     binned lifecycle's update (1, 2^19) x 10 000 thresholds, at the
     strided (1000, 16384) multiclass layout x 200, with scores equal to
-    thresholds, outside [0, 1], +-inf and NaN, all in one bin, at T = 1
-    and at N = 0;
+    thresholds, outside [0, 1], +-inf and NaN, all in one bin, in two bins
+    at random, on ``scores[:, 1:]`` (not 16-byte aligned, N % 4 != 0), on a
+    geometric grid (slot_of's binary search), at T = 1 and at N = 0, each
+    case with its launch plan;
 13. the 1000-class AUPRC lifecycle: ``MulticlassAUPRC(num_classes=1000)``
     on the headline batches takes the rank-histogram route (one launch),
     every class's AP within 1e-6 of a float64 step-sum oracle, the macro
@@ -72,8 +82,11 @@ times kernels and lifecycle with CUDA events.  Phases:
     5, ``BinaryBinnedAUROC(threshold=10_000)`` over 2^22 samples in 8
     updates): 8 launches, counts bit-equal to a numpy ``searchsorted``
     count over the same grid, AUROC within 1e-6 of a float64 trapezoid;
-15. times of phases 11-14, tagged with the card and power limit (with
-    ``--profile``, both lifecycles profiled);
+15. times of phases 11-14, tagged with the card and power limit:
+    ``binned_counts`` at the lifecycle's update and with every score in one
+    bin, each also by kernel (zero fill, count, suffix), and at the strided
+    (1000, 16384) x 200 layout (with ``--profile``, both lifecycles
+    profiled);
 16. the one-pass collection kernel against its plain version (bit-equal)
     at the main path's update (65536 x 100, five members), at the sliced
     stream's shapes (C = 20, 16 slices, a mask) and at n = 1, 31, 33, 128,
@@ -157,7 +170,8 @@ times kernels and lifecycle with CUDA events.  Phases:
     bit-equal to unweighted, every class's AUROC within 1e-6 of a float64
     ``np.bincount`` oracle of the same binned curve; both kernels held
     against their plain versions on rank 1's block, with the weighted
-    kernel's route and its time there beside its bound;
+    kernel's route, and both kernels' times there beside their bounds
+    (``binned_counts`` also by kernel);
 28. binary ``sharded_auroc_histogram`` / ``sharded_auprc_histogram`` at the
     repository's sharded-sync shape (numpy seed 5, 2^22 samples, 16 384
     bins), weighted and unweighted, over ``LocalWorld(4)``: 4 launches a
@@ -335,6 +349,29 @@ def device_ms(torch, fn, reps=20):
     if total_us == 0:
         fail("the profiler recorded no device time")
     return total_us / 1e3 / reps
+
+
+def device_split(torch, fn, reps=20):
+    """Device time per call of ``fn`` by kernel, under ``torch.profiler``
+    over ``reps`` calls, each kernel named by what it is: ``"count"`` and
+    ``"suffix"`` for the two kernels of either route of
+    ``binned_count.cu``, ``"zero fill"`` for a fill, else the profiler's
+    name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in device_events(torch, prof):
+        name = ("count" if "binned_count_kernel" in e.key or "binned_private_kernel" in e.key else
+                "suffix" if "binned_suffix_kernel" in e.key or "binned_cell_suffix" in e.key else
+                "zero fill" if "fill" in e.key.lower() else e.key[:50])
+        out[name] = out.get(name, 0.0) + device_us(e) / 1e3 / reps
+    return out
 
 
 def profile_lifecycle(torch, card, label, lifecycle, repeats=3, host_ops=False):
@@ -712,19 +749,27 @@ def main(argv) -> int:
     from torcheval_tpu_torch.convert import params_from_jax
     from torcheval_tpu_torch.flagship import FlagshipMLP, eval_step
     from torcheval_tpu_torch.metrics import MulticlassConfusionMatrix, MulticlassF1Score
-    from torcheval_tpu_torch.ops.cm import _confusion_slab_plain, _slab
+    from torcheval_tpu_torch.ops.cm import _confusion_slab_plain, _slab, slab_plan
 
     m = CM_SAMPLES // NUM_UPDATES
     cm_t = torch.randint(0, CM_CLASSES + 1, (m,), device=dev, generator=gen, dtype=torch.int32)
     cm_p = torch.randint(0, CM_CLASSES + 1, (m,), device=dev, generator=gen, dtype=torch.int32)
     one_t = torch.zeros(m, dtype=torch.int32, device=dev)
     one_p = torch.full((m,), 7, dtype=torch.int32, device=dev)
+    pick = torch.rand(m, device=dev, generator=gen) < 0.5
     slab_err = None
     for label, st, sp, sc in [
         (f"lifecycle shape ({m},), C={CM_CLASSES}, labels in [0, C]", cm_t, cm_p, CM_CLASSES),
         ("C=130", cm_t % 131, cm_p % 131, 130),
+        ("C=100", cm_t % 101, cm_p % 101, 100),
         ("every sample in cell (0, 7)", one_t, one_p, CM_CLASSES),
+        ("two cells, (3, 5) and (8, 9) at random", torch.where(pick, 3, 8).int(),
+         torch.where(pick, 5, 9).int(), CM_CLASSES),
         ("N=100003, not a multiple of the block", cm_t[:100_003], cm_p[:100_003], CM_CLASSES),
+        ("int64 labels, read in place", cm_t.long(), cm_p.long(), CM_CLASSES),
+        ("int32 target, int64 prediction", cm_t, cm_p.long(), CM_CLASSES),
+        ("labels not 16-byte aligned, N=100002", cm_t[1:100_003], cm_p[2:100_004], CM_CLASSES),
+        ("a non-contiguous int64 view", cm_t.long()[::2], cm_p.long()[1::2], CM_CLASSES),
         ("N=0", cm_t[:0], cm_p[:0], CM_CLASSES),
     ]:
         got = _slab(st, sp, sc)
@@ -732,8 +777,10 @@ def main(argv) -> int:
         want = _confusion_slab_plain(st, sp, sc)
         if slab_err is None:
             slab_err = int((got - want).abs().max())
+        plan = slab_plan(st.contiguous(), sp.contiguous()).describe() if st.numel() else "no launch"
         check(torch.equal(got, want) and int(got.sum()) == st.numel(),
-              f"confusion_slab bit-equal to plain: {label}")
+              f"confusion_slab bit-equal to plain: {label} [{plan}]")
+    del pick
 
     # --------------------------------- 8. the 1000-class CM + F1 lifecycle
     cm_rng = np.random.default_rng(3)  # benchmarks/workloads.py's bench_confusion_f1
@@ -756,6 +803,30 @@ def main(argv) -> int:
     (cm_out, f1_out), cm_launches = counted(
         "1000-class CM + F1 lifecycle", cm_f1_lifecycle, cm_pair, "confusion_slab",
         times=2 * NUM_UPDATES)
+    # The same lifecycle on int64 labels (PyTorch's default integer): the
+    # slab reads them in place, so its call runs the zero fill and the
+    # kernel and no cast.
+    p_chunks32, y_chunks32 = p_chunks, y_chunks
+    p_chunks, y_chunks = [x.long() for x in p_chunks32], [x.long() for x in y_chunks32]
+    cm_pair64 = (MulticlassConfusionMatrix(num_classes=CM_CLASSES),
+                 MulticlassF1Score(num_classes=CM_CLASSES, average="macro"))
+    (cm_out64, f1_out64), _ = counted(
+        "1000-class CM + F1 lifecycle, int64 labels", cm_f1_lifecycle, cm_pair64,
+        "confusion_slab", times=2 * NUM_UPDATES)
+    check(torch.equal(cm_out64, cm_out) and torch.equal(f1_out64, f1_out),
+          "the int64-label lifecycle's matrix and F1 bit-equal to the int32 one's")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _slab(p_chunks[0], y_chunks[0], CM_CLASSES)
+        torch.cuda.synchronize()
+    slab_ops = [e.key for e in device_events(torch, prof)]
+    print(f"device ops of one slab call on int64 labels: {[k[:60] for k in slab_ops]}",
+          flush=True)
+    check(any("cm_slab_kernel" in k for k in slab_ops)
+          and not any("copy" in k.lower() or "cast" in k.lower() for k in slab_ops),
+          "a slab call on int64 labels launches the kernel and no cast or copy")
+    p_chunks, y_chunks = p_chunks32, y_chunks32
     cm_oracle = np.zeros((CM_CLASSES, CM_CLASSES), np.int64)
     np.add.at(cm_oracle, (target_np, pred_np), 1)
     check(np.array_equal(cm_out.cpu().numpy(), cm_oracle),
@@ -816,6 +887,14 @@ def main(argv) -> int:
         "library": lambda: torch.bincount(flat, minlength=(CM_CLASSES + 1) ** 2),
         "one cell": lambda: _slab(one_t, one_p, CM_CLASSES),
     }
+    c100_t, c100_p = cm_t % 101, cm_p % 101
+    slab_calls = {
+        **slab_calls,
+        "int64 labels": lambda: _slab(cm_t64, cm_p64, CM_CLASSES),
+        "C=100": lambda: _slab(c100_t, c100_p, 100),
+        "C=100 plain": lambda: _confusion_slab_plain(c100_t, c100_p, 100),
+    }
+    cm_t64, cm_p64 = cm_t.long(), cm_p.long()
     slab_dev = {k: device_ms(torch, fn) for k, fn in slab_calls.items()}
     slab_wall = {k: median_ms(fn) for k, fn in slab_calls.items()}
     slab_ms, slab_plain_ms, slab_lib_ms = (slab_dev[k] for k in ("kernel", "plain", "library"))
@@ -823,8 +902,13 @@ def main(argv) -> int:
     print(f"time {card}: confusion_slab ({m},) C={CM_CLASSES}, device time per call: "
           f"kernel {slab_ms:.4f} ms, plain {slab_plain_ms:.4f} ms, library {slab_lib_ms:.4f} ms "
           f"(torch.bincount), bound {slab_bound:.4f} ms ({slab_by}); every sample in one "
-          f"cell {slab_dev['one cell']:.4f} ms", flush=True)
-    print(f"time {card}: confusion_slab ({m},) C={CM_CLASSES}, CUDA events around one call: "
+          f"cell {slab_dev['one cell']:.4f} ms; int64 labels {slab_dev['int64 labels']:.4f} ms "
+          f"(bound {bound(m * 16 + (CM_CLASSES + 1) ** 2 * 4, m)[0]:.4f} ms)", flush=True)
+    print(f"time {card}: confusion_slab ({m},) C=100 [{slab_plan(c100_t, c100_p).describe()}], "
+          f"device time per call: kernel {slab_dev['C=100']:.4f} ms, plain "
+          f"{slab_dev['C=100 plain']:.4f} ms, bound {bound(m * 8 + 101**2 * 4, m)[0]:.4f} ms",
+          flush=True)
+    print(f"time {card}: confusion_slab, CUDA events around one call: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in slab_wall.items()), flush=True)
     cm_life_ms = host_median_ms(lambda: cm_f1_lifecycle(cm_pair))
     os.environ["TORCHEVAL_TPU_TORCH_SKIP_VALUE_CHECKS"] = "1"
@@ -832,8 +916,12 @@ def main(argv) -> int:
         cm_life_skip_ms = host_median_ms(lambda: cm_f1_lifecycle(cm_pair))
     finally:
         del os.environ["TORCHEVAL_TPU_TORCH_SKIP_VALUE_CHECKS"]
+    p_chunks, y_chunks = [x.long() for x in p_chunks32], [x.long() for x in y_chunks32]
+    cm_life64_ms = host_median_ms(lambda: cm_f1_lifecycle(cm_pair64))
+    p_chunks, y_chunks = p_chunks32, y_chunks32
     print(f"time {card}: 1000-class CM + F1 lifecycle (8 updates + 2 computes): "
-          f"{cm_life_ms:.3f} ms; with value checks skipped {cm_life_skip_ms:.3f} ms", flush=True)
+          f"{cm_life_ms:.3f} ms; with value checks skipped {cm_life_skip_ms:.3f} ms; on int64 "
+          f"labels, no cast before the slab, {cm_life64_ms:.3f} ms", flush=True)
     fl_ms = host_median_ms(lambda: eval_step(model, fl_x_dev, fl_y_dev))
     print(f"time {card}: flagship eval step (1024 x 32 -> 8): {fl_ms:.3f} ms", flush=True)
     if profile_phase:
@@ -847,7 +935,11 @@ def main(argv) -> int:
     from torcheval_tpu_torch.metrics.functional.classification.binned_precision_recall_curve import (
         _create_threshold_tensor,
     )
-    from torcheval_tpu_torch.ops.binned import _binned_counts_plain, binned_counts
+    from torcheval_tpu_torch.ops.binned import (
+        _binned_counts_plain,
+        binned_count_plan,
+        binned_counts,
+    )
     from torcheval_tpu_torch.ops.ustat import (
         _rank_hist_counts_plain,
         rank_hist_counts,
@@ -932,6 +1024,12 @@ def main(argv) -> int:
         ("scores outside [0, 1], +-inf and NaN, (2, 100003) x 200", special, hits2, grid200),
         ("every score in one bin, (1, 2^19) x 10000", torch.full_like(upd_s, 0.37), upd_h,
          grid10k),
+        ("two bins at random, (1, 2^19) x 10000",
+         torch.where(torch.rand_like(upd_s) < 0.5, 0.37, 0.81), upd_h, grid10k),
+        ("scores[:, 1:] of (2, 100003), not 16-byte aligned, N % 4 != 0", special[:, 1:],
+         hits2[:, 1:], grid200),
+        ("a geometric grid of 1000 (slot_of's binary search), (2, 100003)", special.abs(), hits2,
+         torch.logspace(-6, 0, 1000, device=dev)),
         ("T = 1", special, hits2, _create_threshold_tensor(1, dev)),
         ("N = 0", special[:, :0], hits2[:, :0], grid200),
     ]:
@@ -940,8 +1038,9 @@ def main(argv) -> int:
         want = _binned_counts_plain(bs, bh, bt)
         if bin_err is None:
             bin_err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        plan = binned_count_plan(bs, bh, bt.numel()).describe() if bs.numel() else "no launch"
         check(all(g.dtype == torch.int32 and torch.equal(g, w) for g, w in zip(got, want)),
-              f"binned_counts bit-equal to plain: {label}")
+              f"binned_counts bit-equal to plain: {label} [{plan}]")
     del special, on_grid, hits2
 
     # ---------------------------------- 13. the 1000-class AUPRC lifecycle
@@ -1024,11 +1123,28 @@ def main(argv) -> int:
         m_bin * 5 + BINNED_THRESHOLDS * 4 + 2 * BINNED_THRESHOLDS * 4 + 8,
         m_bin * int(np.ceil(np.log2(BINNED_THRESHOLDS + 1))),
     )
-    print(f"time {card}: binned_counts (1, {m_bin}) x {BINNED_THRESHOLDS}, device time per "
+
+    def split_text(fn):
+        return ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(device_split(torch, fn).items()))
+
+    print(f"time {card}: binned_counts (1, {m_bin}) x {BINNED_THRESHOLDS} "
+          f"[{binned_count_plan(upd_s, upd_h, BINNED_THRESHOLDS).describe()}], device time per "
           f"call: kernel {bin_ms:.4f} ms, plain {bin_plain_ms:.4f} ms, library none, bound "
           f"{bin_bound:.4f} ms ({bin_by}); every score in one bin {bin_dev['one bin']:.4f} ms; "
           "CUDA events around one call: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in bin_wall.items()), flush=True)
+    print(f"time {card}: binned_counts (1, {m_bin}) x {BINNED_THRESHOLDS}, device time per call "
+          f"by kernel: {split_text(bin_calls['kernel'])}; every score in one bin: "
+          f"{split_text(bin_calls['one bin'])}", flush=True)
+    g32_s, g32_h = s_chunks[0].T, class_hits(t_chunks[0], NUM_CLASSES)
+    g32 = lambda: binned_counts(g32_s, g32_h, grid200)  # noqa: E731
+    g32_bound = bound(g32_s.numel() * 5 + 200 * 4 + (2 * NUM_CLASSES * 200 + 2 * NUM_CLASSES) * 4,
+                      g32_s.numel() * 8)[0]
+    print(f"time {card}: binned_counts ({NUM_CLASSES}, {n // NUM_UPDATES}) strided x 200 "
+          f"[{binned_count_plan(g32_s, g32_h, 200).describe()}]: device time per call "
+          f"{device_ms(torch, g32):.4f} ms ({split_text(g32)}), bound {g32_bound:.4f} ms",
+          flush=True)
+    del g32_h
     ap_life_ms = host_median_ms(lambda: headline_lifecycle(auprc))
     print(f"time {card}: headline MulticlassAUPRC lifecycle (8 updates + compute, "
           f"rank-histogram route): {ap_life_ms:.3f} ms", flush=True)
@@ -1840,6 +1956,16 @@ def main(argv) -> int:
               f"{err:.3e}), same bits twice, unit weights bit-equal to binned_counts")
         rows, n_block = s.shape
         t_block = grid.numel()
+        counts_call = lambda: binned_counts(s, h, grid)  # noqa: E731
+        counts_bound, counts_by = bound(
+            rows * n_block * 5 + t_block * 4 + (2 * rows * t_block + 2 * rows) * 4,
+            rows * n_block * int(np.ceil(np.log2(t_block + 1))))
+        print(f"time {card}: binned_counts on {label} "
+              f"[{binned_count_plan(s, h, t_block).describe()}]: device time per call "
+              f"{device_ms(torch, counts_call):.4f} ms "
+              f"({', '.join(f'{k} {v:.4f} ms' for k, v in sorted(device_split(torch, counts_call).items()))}), "
+              f"CUDA events {median_ms(counts_call):.4f} ms, bound {counts_bound:.4f} ms ({counts_by})",
+              flush=True)
         block_ms = median_ms(lambda: binned_weighted_counts(s, h, w, grid))
         block_bound, block_by = bound(
             rows * n_block * 5 + n_block * 4 + t_block * 4 + (2 * rows * t_block + 2 * rows) * 4,

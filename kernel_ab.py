@@ -2,7 +2,7 @@
 turns, on one NVIDIA GPU.
 
     python3 kernel_ab.py --other DIR            # turns: other, this, this, other
-    python3 kernel_ab.py --other DIR --only rank    # one family: rank, wavefront, binned, auc, mega
+    python3 kernel_ab.py --other DIR --only rank    # one family: rank, wavefront, binned, auc, mega, cm
     python3 kernel_ab.py --worker DIR [FAMILY]  # one turn: DIR's package, JSON out
 
 ``DIR`` is the root of another checkout of this repository (for example
@@ -19,7 +19,24 @@ the same seeded inputs:
   histogram, (1000, 2^17) x 2048 (numpy seed 15, as ``chip_smoke.py``
   phase 26), at a north-star rank block, the strided (1000, 2^15) class
   view x 2048 (seed 6, rank 1's quarter), and at a binary rank block,
-  (1, 2^20) x 16 384 (seed 5, rank 1's quarter);
+  (1, 2^20) x 16 384 (seed 5, rank 1's quarter); and ``binned_counts``
+  (``csrc/binned_count.cu``) at the binned lifecycle's update, (1, 2^19) x
+  10 000 (seed 5, as ``chip_smoke.py`` phase 14), with every score in one
+  bin, as four contiguous rows of 2^17 with its scores and with scores in
+  two bins, at the G = 32 layout of ``chip_smoke.py`` phase 12 (the headline's
+  first update, the strided (1000, 16384) class view x 200) and at the two
+  rank blocks; in a checkout whose wrapper passes a launch plan, the
+  lifecycle's update again on the private route with a half and a
+  quarter of the plan's blocks, and on the atomics route (one histogram
+  in L2) with the thresholds in shared memory and in L1/L2, every score
+  in one bin on the atomics route, and the G = 32 layout and the
+  north-star rank block at 1, 2 and 4 blocks an SM.  Each
+  ``binned_counts`` result is held against the plain version once;
+- ``confusion_slab`` (``csrc/cm_slab.cu``) at the CM + F1 lifecycle's
+  update, 2^17 int32 label pairs in [0, 1000] (C = 1000), with every pair
+  in one cell, in one of two cells, with int64 labels, at C = 100 (2^17, 2^20 and 2^22 pairs)
+  and at C = 200 (2^22).  Each result is held against the plain version
+  once;
 - ``rank_sum_counts`` (``csrc/rank_sum.cu``) at the headline, the strided
   (1000, 2^17) view of ``chip_smoke.py``'s headline scores (numpy seed 0)
   against its packed cap-256 tables with ``negate``, and at contiguous
@@ -55,7 +72,7 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-FAMILIES = ("wavefront", "binned", "rank", "auc", "mega")
+FAMILIES = ("wavefront", "binned", "rank", "auc", "mega", "cm")
 
 
 def worker(root: str, only: str = "") -> dict:
@@ -114,6 +131,8 @@ def worker(root: str, only: str = "") -> dict:
         auc_turn(res, dev, median_ms, by_kernel)
     if only in ("", "mega"):
         mega_turn(res, dev, median_ms, by_kernel)
+    if only in ("", "cm"):
+        cm_turn(res, dev, median_ms, by_kernel)
     res["launches"] = dict(_build.LAUNCHES)
     return res
 
@@ -221,8 +240,15 @@ def binned_turn(res, dev, median_ms, by_kernel):
     from torcheval_tpu_torch.metrics.functional.classification.binned_precision_recall_curve import (
         _create_threshold_tensor,
     )
-    from torcheval_tpu_torch.ops.binned import binned_weighted_counts
+    from torcheval_tpu_torch.ops import binned
+    from torcheval_tpu_torch.ops.binned import (
+        _binned_counts_plain,
+        binned_counts,
+        binned_weighted_counts,
+    )
     from torcheval_tpu_torch.parallel.sync import _grid_np
+
+    sys.path.insert(0, HERE)
 
     rng = np.random.default_rng(15)
     s = torch.from_numpy(rng.random((1000, 2**17)).astype(np.float32)).to(dev)
@@ -258,6 +284,71 @@ def binned_turn(res, dev, median_ms, by_kernel):
     call = lambda: binned_weighted_counts(s, h, w, grid)  # noqa: E731
     res["binned_weighted_counts binary block (1, 2^20) x 16384"] = [
         median_ms(call), by_kernel(call)]
+    counts_cases = [("binned_counts binary block (1, 2^20) x 16384", s, h, grid)]
+
+    s = torch.from_numpy(ns_s[2**15 : 2**16]).to(dev).T
+    h = class_hits(torch.from_numpy(ns_t[2**15 : 2**16]).to(dev), 1000)
+    counts_cases.append(("binned_counts north-star block (1000, 2^15) strided x 2048", s, h,
+                         torch.tensor(_grid_np(2048), device=dev)))
+    rng = np.random.default_rng(5)
+    upd = torch.from_numpy(rng.random(2**22, dtype=np.float32)[: 2**19]).to(dev)[None]
+    upd_h = torch.from_numpy((rng.random(2**22) > 0.5)[: 2**19]).to(dev)[None]
+    grid10k = _create_threshold_tensor(10_000, dev)
+    counts_cases += [
+        ("binned_counts lifecycle update (1, 2^19) x 10000", upd, upd_h, grid10k),
+        ("binned_counts every score in one bin (1, 2^19) x 10000", torch.full_like(upd, 0.37),
+         upd_h, grid10k),
+        ("binned_counts (4, 2^17) contiguous rows x 10000", upd.view(4, 2**17),
+         upd_h.view(4, 2**17), grid10k),
+        ("binned_counts two bins, (4, 2^17) contiguous rows x 10000",
+         torch.where(upd < 0.5, 0.37, 0.81).view(4, 2**17), upd_h.view(4, 2**17), grid10k),
+    ]
+    from chip_smoke import NUM_CLASSES, NUM_UPDATES, headline_data
+
+    scores, target = headline_data()
+    first = scores.shape[0] // NUM_UPDATES
+    hs = torch.from_numpy(scores[:first]).to(dev)
+    counts_cases.append(("binned_counts G = 32 layout (1000, 16384) strided x 200", hs.T,
+                         class_hits(torch.from_numpy(target[:first]).to(dev), NUM_CLASSES),
+                         _create_threshold_tensor(200, dev)))
+    for key, cs, ch, cg in counts_cases:
+        call = lambda: binned_counts(cs, ch, cg)  # noqa: E731
+        if not all(torch.equal(a, b) for a, b in zip(call(), _binned_counts_plain(cs, ch, cg))):
+            raise SystemExit(f"{key}: the kernel disagrees with its plain version")
+        res[key] = [median_ms(call), by_kernel(call, reps=20)]
+    if hasattr(binned, "_launch_binned_count"):
+        # A checkout whose wrapper passes a launch plan: the lifecycle's
+        # update on the private route with fewer blocks and on the atomics
+        # route with the thresholds in either home, every score in one bin
+        # on the atomics route, and the atomics route's G = 32 and
+        # north-star shapes at 1, 2 and 4 blocks an SM.
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = binned.binned_count_plan(upd, upd_h, 10_000)
+        variants = [
+            (f"lifecycle update, private route, {plan.blocks // d} blocks", upd, upd_h, grid10k,
+             plan._replace(blocks=plan.blocks // d))
+            for d in (2, 4)
+        ]
+        for smem in (True, False):
+            variants.append(("lifecycle update, atomics into one histogram, thresholds in "
+                             + ("shared memory" if smem else "L1/L2"), upd, upd_h, grid10k,
+                             plan._replace(private=False, smem=smem)))
+        one_bin = torch.full_like(upd, 0.37)
+        variants.append(("every score in one bin, atomics into one histogram", one_bin, upd_h,
+                         grid10k, plan._replace(private=False)))
+        for key, cs, ch, cg in counts_cases:
+            if "G = 32" not in key and "north-star" not in key:
+                continue
+            base = binned.binned_count_plan(cs, ch, cg.numel())
+            for per_sm in (1, 2, 4):
+                blocks = max(1, min(-(-base.tiles // binned._COUNT_WARPS), sms * per_sm))
+                variants.append((f"{key[len('binned_counts '):]}, {per_sm} blocks an SM", cs, ch,
+                                 cg, base._replace(blocks=blocks)))
+        for label, cs, ch, cg, other in variants:
+            call = lambda: binned._launch_binned_count(cs, ch, cg, other)  # noqa: E731
+            if not all(torch.equal(a, b) for a, b in zip(call(), _binned_counts_plain(cs, ch, cg))):
+                raise SystemExit(f"{label}: the kernel disagrees with its plain version")
+            res["binned_counts " + label] = [median_ms(call), by_kernel(call, reps=20)]
 
 
 def auc_turn(res, dev, median_ms, by_kernel):
@@ -348,6 +439,34 @@ def mega_turn(res, dev, median_ms, by_kernel):
     del os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"]
 
 
+def cm_turn(res, dev, median_ms, by_kernel):
+    import torch
+
+    from torcheval_tpu_torch.ops.cm import _confusion_slab_plain, _slab
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n = 2**17
+    t = torch.randint(0, 1001, (2**22,), device=dev, generator=gen, dtype=torch.int32)
+    p = torch.randint(0, 1001, (2**22,), device=dev, generator=gen, dtype=torch.int32)
+    cases = [
+        ("confusion_slab lifecycle update (2^17,) int32, C = 1000", t[:n], p[:n], 1000),
+        ("confusion_slab every pair in one cell (2^17,), C = 1000",
+         torch.zeros_like(t[:n]), torch.full_like(p[:n], 7), 1000),
+        ("confusion_slab every pair in one of two cells (2^17,), C = 1000",
+         torch.where(t[:n] < 500, 3, 8), torch.where(t[:n] < 500, 5, 9), 1000),
+        ("confusion_slab (2^17,) int64 labels, C = 1000", t[:n].long(), p[:n].long(), 1000),
+        ("confusion_slab (2^17,) int32, C = 100", t[:n] % 101, p[:n] % 101, 100),
+        ("confusion_slab (2^20,) int32, C = 100", t[: 2**20] % 101, p[: 2**20] % 101, 100),
+        ("confusion_slab (2^22,) int32, C = 100", t % 101, p % 101, 100),
+        ("confusion_slab (2^22,) int32, C = 200", t % 201, p % 201, 200),
+    ]
+    for key, ct, cp, c in cases:
+        call = lambda: _slab(ct, cp, c)  # noqa: E731
+        if not torch.equal(call(), _confusion_slab_plain(ct, cp, c)):
+            raise SystemExit(f"{key}: the kernel disagrees with its plain version")
+        res[key] = [median_ms(call), by_kernel(call, reps=20)]
+
+
 def ptxas(root: str, names=("rank_sum.cu", "rank_hist.cu")) -> list:
     """``nvcc -Xptxas -v``'s lines for the kernels of ``names`` in ``root``:
     each kernel's registers, spills and shared memory, and each source's
@@ -397,7 +516,8 @@ def main(argv) -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     sources = {"rank": ("rank_sum.cu", "rank_hist.cu"), "auc": ("auc_scan.cu",),
-               "mega": ("mega.cu",)}
+               "mega": ("mega.cu",), "binned": ("binned_count.cu", "binned_wcount.cu"),
+               "cm": ("cm_slab.cu",)}
     for family, names in sources.items():
         if only in ("", family):
             for label, root in [("other", other), ("this", HERE)]:

@@ -208,3 +208,41 @@ def test_non_cuda_devices_are_refused():
     with pytest.raises(ValueError, match="cuda or cpu"):
         binned_counts(s, torch.zeros(2, 8, dtype=torch.bool, device="meta"),
                       torch.zeros(3, device="meta"))
+
+
+@pytest.mark.parametrize("hit_dtype", [np.bool_, np.int64, np.int32, np.uint8])
+@pytest.mark.parametrize("grid", ["bisected-2048", "geometric-300", "linspace-10000"])
+def test_hits_of_any_width_and_the_slot_grids_bitwise_with_jax(hit_dtype, grid):
+    # The grids the kernel's slot guess serves (the sync's bisected grid,
+    # jnp.linspace) and one far from uniform, which takes its binary
+    # search; hits as the callers hand them, in any integer width.
+    from torcheval_tpu_torch.parallel.sync import _grid_np
+
+    kind, t_count = grid.split("-")
+    th = {
+        "bisected": lambda t: _grid_np(t).copy(),
+        "geometric": lambda t: np.geomspace(1e-4, 1.0, t).astype(np.float32),
+        "linspace": _grid,
+    }[kind](int(t_count))
+    rng = np.random.default_rng(int(t_count))
+    s = rng.random((2, 3001)).astype(np.float32)
+    s[0, :4] = [np.nextafter(th[5], np.float32(0)), th[5], -0.0, 1.5]
+    h = rng.random((2, 3001)) > 0.5
+    got = binned_counts(torch.from_numpy(s), torch.from_numpy(h.astype(hit_dtype)),
+                        torch.from_numpy(th))
+    kernel, sort = _jax_both(s, h, th)
+    _assert_counts_equal(got, kernel, grid)
+    _assert_counts_equal(got, sort, grid)
+
+
+def test_unaligned_view_and_ragged_rows_bitwise_with_jax():
+    # scores[:, 1:] (the card's scalar path) at N % 4 != 0.
+    rng = np.random.default_rng(8)
+    base = rng.random((3, 1027)).astype(np.float32)
+    hits = rng.random((3, 1027)) > 0.3
+    th = _grid(200)
+    got = binned_counts(torch.from_numpy(base)[:, 1:], torch.from_numpy(hits)[:, 1:],
+                        torch.from_numpy(th))
+    kernel, sort = _jax_both(base[:, 1:], hits[:, 1:], th)
+    _assert_counts_equal(got, kernel, "unaligned")
+    _assert_counts_equal(got, sort, "unaligned")

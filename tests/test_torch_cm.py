@@ -12,10 +12,12 @@ import torch
 from torcheval_tpu.ops.pallas_cm import confusion_slab as jax_confusion_slab
 from torcheval_tpu_torch.metrics.functional import skip_value_checks
 from torcheval_tpu_torch.ops import _build
+from torcheval_tpu_torch.ops import cm
 from torcheval_tpu_torch.ops.cm import (
     _confusion_slab_plain,
     class_window,
     confusion_slab,
+    slab_plan,
 )
 
 
@@ -125,3 +127,68 @@ def test_non_cuda_devices_are_refused():
     t = torch.zeros(4, dtype=torch.int32, device="meta")
     with skip_value_checks(), pytest.raises(ValueError, match="cuda or cpu"):
         confusion_slab(t, t, num_classes=4)
+
+
+@pytest.mark.parametrize(
+    "t_dtype,p_dtype",
+    [(np.int64, np.int64), (np.int32, np.int64), (np.int64, np.int32), (np.int16, np.int32)],
+    ids=["int64", "int32-int64", "int64-int32", "int16-int32"],
+)
+def test_labels_of_either_width_match_the_jax_kernel(t_dtype, p_dtype):
+    # The card reads int32 and int64 labels in place (one template each);
+    # the CPU's plain version counts the same for every width.
+    rng = np.random.default_rng(11)
+    t, p = _uniform(rng, 201, 3001), _uniform(rng, 201, 3001)
+    t[:500] = 3  # a skew: one cell for a sixth of the pairs
+    p[:500] = 4
+    _check(t.astype(t_dtype), p.astype(p_dtype), 200)
+
+
+def test_non_contiguous_labels_match_the_jax_kernel():
+    rng = np.random.default_rng(12)
+    t, p = _uniform(rng, 101, 4002), _uniform(rng, 101, 4002)
+    got = confusion_slab(torch.from_numpy(t)[::2], torch.from_numpy(p.astype(np.int64))[1::2],
+                         num_classes=100)
+    np.testing.assert_array_equal(got.numpy(), _jax_slab(t[::2], p[1::2], 100))
+
+
+_SLAB_WARPS, _SLAB_PER = 4, 8  # cm_slab.cu's kWarps, kPer
+
+
+def test_slab_plan_constants_match_the_kernel_source():
+    import re
+    from pathlib import Path
+
+    text = (Path(cm.__file__).resolve().parent / "csrc" / "cm_slab.cu").read_text()
+    for name, value in (("kWarps", _SLAB_WARPS), ("kPer", _SLAB_PER)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", text).group(1)) == value
+    assert (cm._SLAB_WARPS, cm._SLAB_PER_LANE) == (_SLAB_WARPS, _SLAB_PER)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 1000, 4099, 2**17 + 3])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_slab_plan_visits_every_pair_once(n, dtype, offset):
+    # cm_slab.cu's schedule: warps grid-stride over tiles of 256 pairs,
+    # lane l taking pairs 8l .. 8l + 7 of its tile (16-byte loads when
+    # both vectors are aligned, label by label otherwise).
+    labels = torch.zeros(n + offset, dtype=dtype)[offset:]
+    plan = slab_plan(labels, labels, sms=8)
+    assert plan.vec == (labels.data_ptr() % 16 == 0) == (offset == 0)
+    assert plan.tiles == -(-n // (32 * _SLAB_PER))
+    warps = plan.blocks * _SLAB_WARPS
+    assert plan.blocks == max(1, min(-(-plan.tiles // _SLAB_WARPS), 8 * cm._SLAB_BLOCKS_PER_SM))
+    tiles = np.concatenate([np.arange(w, plan.tiles, warps) for w in range(warps)])
+    q = (tiles[:, None] * 32 * _SLAB_PER + np.arange(32 * _SLAB_PER)).reshape(-1)
+    np.testing.assert_array_equal(np.bincount(q[q < n], minlength=n), np.ones(n))
+
+
+def test_slab_plan_at_the_main_paths_shapes():
+    # The CM + F1 update (2^17 pairs) and the C = 100 case of the card's
+    # smoke run: one slab in L2, a tile a warp, 16-byte loads where aligned.
+    labels = torch.zeros(2**17, dtype=torch.int32)
+    plan = slab_plan(labels, labels)
+    assert plan == cm.SlabPlan(True, 512, 128)
+    assert slab_plan(labels.long(), labels[1:]).vec is False
+    assert cm._slab_plan(2**22, True, 132).blocks == 132 * cm._SLAB_BLOCKS_PER_SM
+    assert "16-byte label loads, 512 warp tiles, 128 blocks" in plan.describe()

@@ -25,7 +25,7 @@ from torcheval_tpu_torch.metrics import (
     MultilabelRecallAtFixedPrecision,
 )
 from torcheval_tpu_torch.metrics.functional._host_checks import skip_value_checks
-from torcheval_tpu_torch.ops import _build, ustat
+from torcheval_tpu_torch.ops import _build, binned, cm, ustat
 from torcheval_tpu_torch.ops.auc import _auc_from_sorted_plain, auc_from_sorted, auc_plan
 from torcheval_tpu_torch.ops.binned import (
     _binned_counts_plain,
@@ -218,8 +218,9 @@ def test_binary_metric_on_the_card_equals_the_cpu():
 
 @pytest.mark.parametrize(
     "n,c,one_cell",
-    [(2**17, 1000, False), (100_003, 130, False), (2**17, 1000, True), (0, 1000, False), (5, 3, False)],
-    ids=["lifecycle-shape", "c130-ragged", "one-cell", "empty", "tiny"],
+    [(2**17, 1000, False), (100_003, 130, False), (2**17, 1000, True), (0, 1000, False), (5, 3, False),
+     (2**17, 100, False)],
+    ids=["lifecycle-shape", "c130-ragged", "one-cell", "empty", "tiny", "c100"],
 )
 def test_slab_kernel_bitwise_equals_plain(n, c, one_cell):
     dev = _cuda()
@@ -236,6 +237,59 @@ def test_slab_kernel_bitwise_equals_plain(n, c, one_cell):
     assert _build.LAUNCHES["confusion_slab"] == (1 if n else 0)
     assert torch.equal(got, _confusion_slab_plain(t, p, c))
     assert int(got.sum()) == n
+
+
+@pytest.mark.parametrize(
+    "layout", ["int64", "int32-int64", "int64-int32", "int16", "non-contiguous", "unaligned",
+               "two-cell"]
+)
+def test_slab_kernel_reads_labels_in_place(layout):
+    # int32 and int64 labels in place (a template each), other widths
+    # widened, views made contiguous; the launch count stays one a call.
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(len(layout))
+    n, c = 100_003, 1000
+    t = torch.randint(0, c + 1, (2 * n,), device=dev, generator=gen)
+    p = torch.randint(0, c + 1, (2 * n,), device=dev, generator=gen)
+    if layout == "two-cell":
+        pick = torch.rand(2 * n, device=dev, generator=gen) < 0.5
+        t, p = torch.where(pick, 3, 8), torch.where(pick, 5, 9)
+    t_dtype, p_dtype = {"int64": (torch.int64,) * 2, "int32-int64": (torch.int32, torch.int64),
+                        "int64-int32": (torch.int64, torch.int32),
+                        "int16": (torch.int16,) * 2}.get(layout, (torch.int32,) * 2)
+    t, p = t.to(t_dtype), p.to(p_dtype)
+    if layout == "non-contiguous":
+        t, p = t[::2], p[1::2]
+    elif layout == "unaligned":
+        t, p = t[1 : n + 1], p[3 : n + 3]
+    else:
+        t, p = t[:n], p[:n]
+    _build.reset_counts()
+    got = confusion_slab(t, p, num_classes=c)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"confusion_slab": 1}
+    assert torch.equal(got, _confusion_slab_plain(t, p, c)) and int(got.sum()) == n
+
+
+@pytest.mark.parametrize("cells", ["spread", "one-cell", "two-cell"])
+def test_slab_kernel_plan_variants_bitwise_equal_plain(cells):
+    # Both load forms, at one block and at the plan's grid, on spread
+    # labels, on rounds all in one cell and on rounds split over two.
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, c = 2**17 + 9, 100
+    t = torch.randint(0, c + 1, (n,), device=dev, generator=gen, dtype=torch.int32)
+    p = torch.randint(0, c + 1, (n,), device=dev, generator=gen, dtype=torch.int32)
+    if cells == "one-cell":
+        t.fill_(c)
+    elif cells == "two-cell":
+        t, p = torch.where(t < 50, 3, 8).int(), torch.where(t < 50, 5, 9).int()
+    plan = cm.slab_plan(t, p)
+    for variant in {plan, plan._replace(vec=False), plan._replace(blocks=1)}:
+        slab = torch.zeros((c + 1, c + 1), dtype=torch.int32, device=dev)
+        cm._launch_slab(t, p, c + 1, variant, slab)
+        torch.cuda.synchronize()
+        assert torch.equal(slab, _confusion_slab_plain(t, p, c)), variant.describe()
 
 
 def test_counting_metrics_on_the_card_equal_the_cpu():
@@ -365,33 +419,90 @@ def test_rank_kernels_refuse_a_search_form_they_lack(kernel, cap, fixed_top, tab
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize(
-    "case", ["strided-classes", "one-row", "one-bin", "specials", "t1", "empty", "wide-grid"]
-)
-def test_binned_kernel_bitwise_equals_plain(case):
-    dev = _cuda()
+_BINNED_CASES = ["strided-classes", "one-row", "one-bin", "specials", "t1", "empty", "wide-grid",
+                 "two-bin", "geometric-grid", "unaligned", "strided-g32-1000", "one-row-2^19",
+                 "single-row-specials", "single-row-unaligned", "single-row-wide-grid"]
+
+
+def _binned_case(case, dev):
     gen = torch.Generator(device=dev).manual_seed(len(case))
-    t_count = {"t1": 1, "wide-grid": 70_000}.get(case, 200)
+    t_count = {"t1": 1, "wide-grid": 70_000, "one-row-2^19": 10_000, "strided-g32-1000": 2048,
+               "single-row-wide-grid": 30_000}.get(case, 200)
     th = torch.arange(t_count, dtype=torch.float32, device=dev) / max(t_count - 1, 1)
-    if case == "strided-classes":
-        s = torch.rand(4096 + 7, 100, device=dev, generator=gen).T
-        y = torch.randint(0, 100, (4096 + 7,), device=dev, generator=gen)
-        h = y[None, :] == torch.arange(100, device=dev)[:, None]
+    if case == "geometric-grid":  # far from uniform: slot_of's binary search
+        th = torch.logspace(-6, 0, t_count, device=dev)
+    if case in ("strided-classes", "strided-g32-1000"):
+        n, c = (4096 + 7, 100) if case == "strided-classes" else (2**15 + 5, 1000)
+        s = torch.rand(n, c, device=dev, generator=gen).T
+        y = torch.randint(0, c, (n,), device=dev, generator=gen)
+        h = y[None, :] == torch.arange(c, device=dev)[:, None]
+    elif case in ("unaligned", "single-row-unaligned"):  # scores[:, 1:], N % 4 != 0
+        rows = 3 if case == "unaligned" else 1
+        s = torch.rand(rows, 100_003, device=dev, generator=gen)[:, 1:]
+        h = (torch.rand(rows, 100_003, device=dev, generator=gen) < 0.4)[:, 1:]
     else:
-        n = 0 if case == "empty" else 100_003
-        s = torch.rand(2, n, device=dev, generator=gen)
-        h = torch.rand(2, n, device=dev, generator=gen) < 0.4
+        n = {"empty": 0, "one-row-2^19": 2**19}.get(case, 100_003)
+        rows = 1 if case.startswith("single-row") or case == "one-row-2^19" else 2
+        s = torch.rand(rows, n, device=dev, generator=gen)
+        h = torch.rand(rows, n, device=dev, generator=gen) < 0.4
         if case == "one-bin":
             s.fill_(0.37)
+        if case == "two-bin":  # every round's lanes in two slots
+            s = torch.where(torch.rand(rows, n, device=dev, generator=gen) < 0.5, 0.37, 0.81)
         if case == "specials":
             s[0, :6] = torch.tensor([float("nan"), float("inf"), -float("inf"), -1.0, 2.0, 0.5])
             s[1, : th.numel()] = th  # scores equal to thresholds
+        if case == "single-row-specials":
+            s[0, :6] = torch.tensor([float("nan"), float("inf"), -float("inf"), -1.0, 2.0, 0.5])
+            s[0, 6 : 6 + th.numel()] = th
+    return s, h, th
+
+
+@pytest.mark.parametrize("case", _BINNED_CASES)
+def test_binned_kernel_bitwise_equals_plain(case):
+    dev = _cuda()
+    s, h, th = _binned_case(case, dev)
     _build.reset_counts()
     got = binned_counts(s, h, th)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["binned_counts"] == (0 if case == "empty" else 1)
     for g, w in zip(got, _binned_counts_plain(s, h, th)):
         assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("smem", [True, False], ids=["shared-table", "l2-table"])
+@pytest.mark.parametrize("case", [c for c in _BINNED_CASES if "wide-grid" not in c and c != "empty"])
+def test_binned_kernel_plan_variants_bitwise_equal_plain(case, smem):
+    # Both homes of the thresholds on the L2 route, the private route where
+    # one row allows it, and a vector layout that falls back to scalar
+    # loads, give the plain version's bits.
+    dev = _cuda()
+    s, h, th = _binned_case(case, dev)
+    plan = binned.binned_count_plan(s, h, th.numel())
+    shared = plan._replace(private=False, smem=smem)
+    variants = {shared, shared._replace(vec=False)}
+    if s.shape[0] == 1 and binned._private_smem(th.numel()) <= binned._MAX_SMEM:
+        variants |= {plan._replace(private=True, smem=True), plan._replace(private=True, vec=False)}
+    for p in variants:
+        got = binned._launch_binned_count(s, h, th, p)
+        torch.cuda.synchronize()
+        for g, w in zip(got, _binned_counts_plain(s, h, th)):
+            assert torch.equal(g, w), p.describe()
+
+
+def test_binned_kernel_refuses_a_plan_its_operands_do_not_allow():
+    dev = _cuda()
+    s, h, th = _binned_case("unaligned", dev)
+    plan = binned.binned_count_plan(s, h, th.numel())
+    with pytest.raises(RuntimeError, match="cudaError"):
+        binned._launch_binned_count(s, h, th, plan._replace(vec=True))
+    with pytest.raises(RuntimeError, match="cudaError"):  # three rows: no private route
+        binned._launch_binned_count(s, h, th, plan._replace(private=True))
+    one = torch.rand(1, 2**20, device=dev)  # a block of 2^20 samples: its counts pass 2^16
+    with pytest.raises(RuntimeError, match="cudaError"):
+        binned._launch_binned_count(one, one < 0.5, th, binned.binned_count_plan(
+            one, one < 0.5, th.numel())._replace(blocks=1))
+    torch.cuda.synchronize()
 
 
 def test_auprc_and_binned_metrics_on_the_card_equal_the_cpu():

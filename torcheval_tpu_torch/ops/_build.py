@@ -39,6 +39,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
+# The H100's SM count: the launch plans' default where no card is asked.
+H100_SMS = 132
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -62,13 +64,18 @@ _SIGNATURES: Dict[str, tuple] = {
     "rank_sum_counts_launch": (_P, _LL, _LL, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # thresholds, hits, rows, n, chunk, chunks, vec, scratch, out, stream
     "auc_scan_launch": (_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P),
-    # target, pred, n, w, slab, stream
-    "cm_slab_launch": (_P, _P, _LL, _I, _P, _P),
+    # target, target_wide, pred, pred_wide, n, w, vec, blocks, slab, stream
+    "cm_slab_launch": (_P, _I, _P, _I, _LL, _I, _I, _I, _P, _P),
     # queries, stride_row, stride_col, rq, n, tables, cap, group_rows, vec16,
     # smem_tables, fixed_top, blocks_per_group, hist, stream
     "rank_hist_counts_launch": (_P, _LL, _LL, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P),
-    # scores, s_row, s_col, hits, h_row, h_col, rows, n, thresholds, t, hist, stream
-    "binned_count_launch": (_P, _LL, _LL, _P, _LL, _LL, _I, _I, _P, _I, _P, _P),
+    # scores, s_row, s_col, hits, h_row, h_col, rows, n, thresholds, t,
+    # group_rows, vec, smem, private_route, blocks, scratch, cell_sums,
+    # num_tp, num_fp, num_pos, num_total, stream
+    "binned_count_launch": (
+        _P, _LL, _LL, _P, _LL, _LL, _I, _I, _P, _I,
+        _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+    ),
     # scores, pred, target, weight, sids, n, thresholds, plan, plan_bytes, out, stream
     "mega_counts_launch": (_P, _P, _P, _P, _P, _LL, _P, _P, _I, _P, _P),
     # a, b, a_lens, b_lens, n, wa, wb, scratch, scratch_blocks, out, stream
@@ -195,3 +202,9 @@ def check_launch(name: str, err: int) -> None:
 def stream_handle(device: torch.device) -> int:
     """PyTorch's current CUDA stream on ``device``, as the C entries take it."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, asked once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

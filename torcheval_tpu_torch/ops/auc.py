@@ -26,7 +26,6 @@ from typing import NamedTuple
 import torch
 
 from torcheval_tpu_torch.ops import _build
-from torcheval_tpu_torch.ops.ustat import _H100_SMS, _sm_count
 
 _ONE_BYTE = (torch.bool, torch.uint8, torch.int8)
 
@@ -82,7 +81,7 @@ def _auc_plan(rows: int, n: int, vec: bool, sms: int) -> AucPlan:
     return AucPlan(_WARPS * per_warp * _SPAN, chunks, rows, vec, reach)
 
 
-def auc_plan(thresholds: torch.Tensor, hits: torch.Tensor, sms: int = _H100_SMS) -> AucPlan:
+def auc_plan(thresholds: torch.Tensor, hits: torch.Tensor, sms: int = _build.H100_SMS) -> AucPlan:
     """The launch plan of :func:`auc_from_sorted` on these ``(R, N)``
     contiguous operands."""
     rows, n = thresholds.shape
@@ -120,7 +119,7 @@ def auc_from_sorted(thresholds: torch.Tensor, hits: torch.Tensor) -> torch.Tenso
         return out
     if n == 0:
         return out.fill_(0.5)
-    plan = auc_plan(thresholds, hits, _sm_count(thresholds.device.index))
+    plan = auc_plan(thresholds, hits, _build.sm_count(thresholds.device.index))
     scratch = (
         torch.empty(plan.blocks * _SUM_BYTES // 8, dtype=torch.int64, device=thresholds.device)
         if plan.combine

@@ -5,12 +5,13 @@ family (the port of ``torcheval_tpu/ops/pallas_binned.py``, unweighted).
 ascending threshold grid, the int32 ``(num_tp (R,T), num_fp (R,T),
 num_pos (R,), num_total (R,))`` that every binned metric accumulates: a
 per-slot (total, hit) histogram packed in one int64 a slot, slot
-``k = #{j : t_j ≤ s}``, then one suffix sum (:func:`_counts_from_hist`).  For tensors on the GPU the histogram is
-the CUDA kernel ``csrc/binned_count.cu``; for tensors on the CPU it is
-:func:`_binned_counts_plain`.  Both count integers, so they agree bit for
-bit with each other and with the JAX sort formulation
-(``binned_auc._binned_counts_rows_sort``), NaN scores included: a NaN
-counts at every threshold, where the sort orders it.
+``k = #{j : t_j ≤ s}``, then one suffix sum.  For tensors on the GPU both
+are kernels of ``csrc/binned_count.cu`` (launch plan:
+:func:`binned_count_plan`); for tensors on the CPU they are
+:func:`_binned_counts_plain` and :func:`_counts_from_hist`.  Both count
+integers, so they agree bit for bit with each other and with the JAX sort
+formulation (``binned_auc._binned_counts_rows_sort``), NaN scores
+included: a NaN counts at every threshold, where the sort orders it.
 
 Dropped from the JAX module, because they exist only for the TPU's MXU
 gather and its f32 accumulator: the finite pad sentinel and the score
@@ -33,15 +34,30 @@ sign, is summed as it is.
 
 from __future__ import annotations
 
+import functools
 import math
 import struct
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from torcheval_tpu_torch.ops import _build
 
 _MAX_N = 2**31  # int32 counts and sample indices
+
+# The count kernel's launch plans (binned_count.cu): warps a block, samples
+# a lane, blocks an SM at most on the L2 route (two blocks of 512 threads
+# at 64 registers, every form but G = 32 with the thresholds in L1/L2,
+# fill an SM's 65 536; more blocks wait for a second wave and stage the
+# thresholds again: 2 an SM measured 1-2 % faster than 1 and 3-4 % faster
+# than 4 at the G = 32 layout and the north-star rank block, PERF.md);
+# the private route's cells of slots, and its most tiles a warp (a
+# block's 16 warps then count below 2^16 samples).
+_COUNT_WARPS = 16
+_COUNT_PER_LANE = 8
+_COUNT_BLOCKS_PER_SM = 2
+_CELL = 64
+_PRIVATE_TILES_PER_WARP = 15
 
 # The weighted kernel's launch plans (binned_wcount.cu): shared memory a
 # block may use on the H100, warps a block at most (f64 route), samples a
@@ -67,6 +83,92 @@ _RANGE_BITS = 21
 Counts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+class CountPlan(NamedTuple):
+    """One call of ``binned_count.cu``, as :func:`binned_count_plan`
+    decides it."""
+
+    group_rows: int  # 32: a warp's lanes are 32 adjacent rows; 1: samples of one row
+    vec: bool  # G = 1: 16-byte score and 4-byte hit loads; G = 32: 8-byte hit loads
+    smem: bool  # the thresholds staged in shared memory (else read through L1/L2)
+    private: bool  # one row: a private histogram a block, its copies summed after
+    tiles: int  # warp tiles: 256 samples of a row, or 32 rows x 8 samples
+    blocks: int  # blocks of _COUNT_WARPS warps, grid-stride over the tiles
+
+    def describe(self) -> str:
+        layout = (
+            "G = 32 (lanes are rows), "
+            + ("8-byte hit loads" if self.vec else "1-byte hit loads")
+            if self.group_rows == 32
+            else "G = 1 (lanes are samples), "
+            + ("16-byte score / 4-byte hit loads" if self.vec else "scalar loads at any strides")
+        )
+        route = (
+            "a private histogram a block, copies summed a cell of 64 slots a block"
+            if self.private
+            else "atomics into one histogram in L2"
+        )
+        return (
+            f"{layout}, thresholds in {'shared memory' if self.smem else 'L1/L2'}, {route}, "
+            f"{self.tiles} warp tiles, {self.blocks} blocks of {_COUNT_WARPS} warps"
+        )
+
+
+def binned_count_plan(
+    scores: torch.Tensor, hits: torch.Tensor, t: int, sms: int = _build.H100_SMS
+) -> CountPlan:
+    """The launch plan of :func:`binned_counts` on these ``(R, N)`` f32
+    scores and one-byte hits over ``t`` thresholds."""
+    r, n = scores.shape
+    s_row, s_col = scores.stride()
+    h_row, h_col = hits.stride()
+    group_rows = 32 if s_row == 1 and r > 1 else 1
+    if group_rows == 1:
+        vec = (
+            s_col == 1
+            and h_col == 1
+            and scores.data_ptr() % 16 == 0
+            and hits.data_ptr() % 4 == 0
+            and (r == 1 or (s_row % 4 == 0 and h_row % 4 == 0))
+        )
+    else:
+        vec = h_col == 1 and hits.data_ptr() % 8 == 0 and h_row % 8 == 0
+    return _count_plan(r, n, t, group_rows, vec, sms)
+
+
+def _private_smem(t: int) -> int:
+    """Shared memory of the private route's block (``binned_count.cu``'s
+    ``private_smem``): the slots, the thresholds, the cells' sums."""
+    t1 = t + 1
+    return -(-4 * t1 // 16) * 16 + 4 * -(-t // 4) * 4 + 4 * -(-t1 // _CELL)
+
+
+@functools.lru_cache(maxsize=256)
+def _count_plan(r: int, n: int, t: int, group_rows: int, vec: bool, sms: int) -> CountPlan:
+    """Warp tiles of :data:`_COUNT_PER_LANE` samples a lane.  One row whose
+    slots and thresholds fit in a block's shared memory takes the private
+    route, a block an SM at most, while no warp counts more than
+    :data:`_PRIVATE_TILES_PER_WARP` tiles (L2 atomics into one small
+    histogram were the slower route at the binned lifecycle's update,
+    measured on the H100, PERF.md).  Else atomics into one histogram: the
+    thresholds in shared memory where they fit (faster than reading them
+    through L1/L2), about one tile a warp, at most
+    :data:`_COUNT_BLOCKS_PER_SM` blocks an SM (one where two tables pass
+    shared memory)."""
+    if group_rows == 1:
+        tiles = r * -(-n // (32 * _COUNT_PER_LANE))
+    else:
+        tiles = -(-r // 32) * -(-n // _COUNT_PER_LANE)
+    if r == 1 and group_rows == 1 and _private_smem(t) <= _MAX_SMEM:
+        blocks = max(1, min(-(-tiles // _COUNT_WARPS), sms))
+        if -(-tiles // (blocks * _COUNT_WARPS)) <= _PRIVATE_TILES_PER_WARP:
+            return CountPlan(group_rows, vec, True, True, tiles, blocks)
+    table = 4 * t
+    smem = table <= _MAX_SMEM
+    per_sm = min(_COUNT_BLOCKS_PER_SM, _MAX_SMEM // table) if smem else _COUNT_BLOCKS_PER_SM
+    blocks = max(1, min(-(-tiles // _COUNT_WARPS), sms * per_sm))
+    return CountPlan(group_rows, vec, smem, False, tiles, blocks)
+
+
 def binned_counts(
     scores: torch.Tensor, hits: torch.Tensor, thresholds: torch.Tensor
 ) -> Counts:
@@ -76,7 +178,12 @@ def binned_counts(
     ``num_pos[r] = Σ_i hits[r, i]`` and ``num_total[r] = N``.  ``scores``
     and ``hits`` take any strides (the multiclass path passes the (N, C)
     buffer as a (C, N) view); ``thresholds`` is ``(T,)``, ascending,
-    ``T ≥ 1``.  Requires ``N < 2^31``."""
+    ``T ≥ 1``.  Requires ``N < 2^31``.  On the GPU a call is one C entry
+    of ``binned_count.cu`` and two kernels, the count, then the suffix sum
+    that writes the four arrays (one row: a private histogram a block, then
+    the copies' sum; else a zero fill of one packed histogram with
+    ``cudaMemsetAsync`` first); ``LAUNCHES["binned_counts"]`` counts one a
+    call."""
     r, n, t = _check_binned_args(scores, hits, thresholds)
     if scores.device.type == "cpu":
         return _binned_counts_plain(scores, hits, thresholds)
@@ -87,9 +194,29 @@ def binned_counts(
     s = scores.to(torch.float32)
     h = hits.to(torch.bool)
     th = thresholds.to(torch.float32).contiguous()
-    hist = torch.zeros((r, t + 1), dtype=torch.int64, device=scores.device)
+    plan = binned_count_plan(s, h, t, _build.sm_count(s.device.index))
+    return _launch_binned_count(s, h, th, plan)
+
+
+def _launch_binned_count(
+    s: torch.Tensor, h: torch.Tensor, th: torch.Tensor, plan: CountPlan
+) -> Counts:
+    """Launch ``binned_count.cu`` on checked CUDA operands (f32 scores,
+    bool hits, contiguous f32 thresholds, ``N ≥ 1``) as ``plan`` says."""
+    r, n = s.shape
+    t = th.shape[0]
+    if plan.private:  # the blocks' copies, then the cells' sums, all written whole
+        cells = -(-(t + 1) // _CELL)
+        scratch = torch.empty(plan.blocks * (t + 1 + cells), dtype=torch.int32, device=s.device)
+        cell_sums = scratch[plan.blocks * (t + 1) :].data_ptr()
+    else:  # one packed int64 histogram, zeroed by the C entry
+        scratch = torch.empty((r, t + 1), dtype=torch.int64, device=s.device)
+        cell_sums = None
+    out = torch.empty(2 * r * t + 2 * r, dtype=torch.int32, device=s.device)
+    num_tp, num_fp = out[: r * t].view(r, t), out[r * t : 2 * r * t].view(r, t)
+    num_pos, num_total = out[2 * r * t : 2 * r * t + r], out[2 * r * t + r :]
     lib = _build.library()
-    with torch.cuda.device(scores.device):
+    with torch.cuda.device(s.device):
         err = lib.binned_count_launch(
             s.data_ptr(),
             s.stride(0),
@@ -101,12 +228,22 @@ def binned_counts(
             n,
             th.data_ptr(),
             t,
-            hist.data_ptr(),
-            _build.stream_handle(scores.device),
+            plan.group_rows,
+            int(plan.vec),
+            int(plan.smem),
+            int(plan.private),
+            plan.blocks,
+            scratch.data_ptr(),
+            cell_sums,
+            num_tp.data_ptr(),
+            num_fp.data_ptr(),
+            num_pos.data_ptr(),
+            num_total.data_ptr(),
+            _build.stream_handle(s.device),
         )
     _build.check_launch("binned_count", err)
     _build.count_launch("binned_counts")
-    return _counts_from_hist(hist, n)
+    return num_tp, num_fp, num_pos, num_total
 
 
 def _check_binned_args(
@@ -450,4 +587,4 @@ def _binned_weighted_counts_plain(
     return cum[:, 0, 1:], cum[:, 1, 1:], cum[:, 0, 0], w.sum().expand(r).clone()
 
 
-__all__ = ("binned_counts", "binned_weighted_counts")
+__all__ = ("binned_count_plan", "binned_counts", "binned_weighted_counts")

@@ -4,7 +4,8 @@
 :func:`confusion_slab` counts ``slab[t, p] = #{i : target_i = t, pred_i =
 p}`` for labels already mapped into ``[0, C]`` (``C`` is the callers'
 out-of-range sentinel).  For tensors on the GPU it launches the CUDA
-kernel ``csrc/cm_slab.cu``; for tensors on the CPU it runs
+kernel ``csrc/cm_slab.cu`` on the int32 or int64 labels as they are
+(launch plan: :func:`slab_plan`); for tensors on the CPU it runs
 :func:`_confusion_slab_plain`.  Counts are int32 integers in both, so the
 two agree bit for bit.
 
@@ -20,6 +21,9 @@ callers' route, not of the kernel.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from torcheval_tpu_torch.ops import _build
@@ -29,6 +33,13 @@ from torcheval_tpu_torch.ops import _build
 # kernel itself takes any window with W^2 < 2^31.
 _MAX_W = 2560
 _MAX_N = 2**31  # int32 counts and sample indices
+
+# The kernel's launch plans (cm_slab.cu): warps a block, pairs a lane,
+# blocks an SM at most (8 blocks of 128 threads at 44 registers or fewer
+# are all resident at once).
+_SLAB_WARPS = 4
+_SLAB_PER_LANE = 8
+_SLAB_BLOCKS_PER_SM = 8
 
 
 def class_window(num_classes: int) -> int:
@@ -84,6 +95,47 @@ def _check_slab_args(target: torch.Tensor, pred: torch.Tensor, num_classes: int)
         raise ValueError(f"{target.shape[0]} samples; the int32 counts need N < 2^31.")
 
 
+class SlabPlan(NamedTuple):
+    """One launch of ``cm_slab.cu``, as :func:`slab_plan` decides it."""
+
+    vec: bool  # 16-byte label loads: both vectors 16-byte aligned
+    tiles: int  # warp tiles of 256 pairs
+    blocks: int  # blocks of _SLAB_WARPS warps, grid-stride over the tiles
+
+    def describe(self) -> str:
+        return (
+            ("16-byte label loads" if self.vec else "label-by-label loads")
+            + f", {self.tiles} warp tiles, {self.blocks} blocks of {_SLAB_WARPS} warps"
+        )
+
+
+def slab_plan(
+    target: torch.Tensor, pred: torch.Tensor, sms: int = _build.H100_SMS
+) -> SlabPlan:
+    """The launch plan of :func:`confusion_slab` on these contiguous
+    int32 / int64 label vectors."""
+    vec = target.data_ptr() % 16 == 0 and pred.data_ptr() % 16 == 0
+    return _slab_plan(target.shape[0], vec, sms)
+
+
+@functools.lru_cache(maxsize=256)
+def _slab_plan(n: int, vec: bool, sms: int) -> SlabPlan:
+    """About one tile a warp, at most :data:`_SLAB_BLOCKS_PER_SM` blocks an
+    SM."""
+    tiles = -(-n // (32 * _SLAB_PER_LANE))
+    blocks = max(1, min(-(-tiles // _SLAB_WARPS), sms * _SLAB_BLOCKS_PER_SM))
+    return SlabPlan(vec, tiles, blocks)
+
+
+def _label_operand(x: torch.Tensor) -> torch.Tensor:
+    """Labels as the kernel reads them: int32 or int64 in place (made
+    contiguous if they are not), any other integer type widened to
+    int64."""
+    if x.dtype not in (torch.int32, torch.int64):
+        x = x.to(torch.int64)
+    return x.contiguous()
+
+
 def _slab(target: torch.Tensor, pred: torch.Tensor, num_classes: int) -> torch.Tensor:
     """:func:`confusion_slab` without the value check, for callers whose
     labels are in ``[0, C]`` by construction (``_wrap_labels`` then a
@@ -93,25 +145,37 @@ def _slab(target: torch.Tensor, pred: torch.Tensor, num_classes: int) -> torch.T
     if target.device.type != "cuda":
         raise ValueError(f"confusion_slab runs on cuda or cpu, not {target.device}.")
     w = class_window(num_classes)
-    target = target.to(torch.int32).contiguous()
-    pred = pred.to(torch.int32).contiguous()
     slab = torch.zeros((w, w), dtype=torch.int32, device=target.device)
-    n = target.shape[0]
-    if n == 0:
+    if target.shape[0] == 0:
         return slab
+    target = _label_operand(target)
+    pred = _label_operand(pred)
+    plan = slab_plan(target, pred, _build.sm_count(target.device.index))
+    _launch_slab(target, pred, w, plan, slab)
+    return slab
+
+
+def _launch_slab(
+    target: torch.Tensor, pred: torch.Tensor, w: int, plan: SlabPlan, slab: torch.Tensor
+) -> None:
+    """Launch ``cm_slab.cu`` on checked CUDA operands (contiguous int32 /
+    int64 labels, ``N ≥ 1``, ``slab`` zeroed) as ``plan`` says."""
     lib = _build.library()
     with torch.cuda.device(target.device):
         err = lib.cm_slab_launch(
             target.data_ptr(),
+            int(target.dtype == torch.int64),
             pred.data_ptr(),
-            n,
+            int(pred.dtype == torch.int64),
+            target.shape[0],
             w,
+            int(plan.vec),
+            plan.blocks,
             slab.data_ptr(),
             _build.stream_handle(target.device),
         )
     _build.check_launch("cm_slab", err)
     _build.count_launch("confusion_slab")
-    return slab
 
 
 def _confusion_slab_plain(
@@ -129,4 +193,4 @@ def _confusion_slab_plain(
     return counts[: w * w].to(torch.int32).view(w, w)
 
 
-__all__ = ("class_window", "confusion_slab")
+__all__ = ("class_window", "confusion_slab", "slab_plan")

@@ -109,10 +109,11 @@
 // Bound on the H100: bytes.  At the (1000, 2^17) x 2048 shape the kernel
 // reads 524 MB of f32 scores, 131 MB of hits and 0.5 MB of weights and
 // writes 16 MB, ~0.20 ms at 3.35 TB/s.  Each sample's slot is guessed from
-// the grid's ends and walked to (slot_of), not searched for.  The f64
-// route, this kernel's first design, holds 5 warps an SM (its private f64
-// histograms fill shared memory), 5 x 32 lanes x 8 samples in flight, and
-// reads the (C, N) class view a class a warp, 32 sectors a load: its pass
+// the grid's ends and walked to (count_le.cuh's slot_of), not searched
+// for.  The f64 route, this kernel's first design, holds 5 warps an SM
+// (its private f64 histograms fill shared memory), 5 x 32 lanes x 8
+// samples in flight, and reads the (C, N) class view a class a warp, 32
+// sectors a load: its pass
 // 1 moves those 656 MB in ~3.6 ms on the H100.  The fixed-point route keeps
 // 64 warps an SM; what holds it back now is its 64-bit shared-memory
 // atomics (a 32-bit add in their place, wrong sums but the same loads,
@@ -127,7 +128,6 @@ namespace {
 constexpr int kMaxWarps = 8;
 constexpr int kUnroll = 8;  // samples a lane has in flight (f64 route)
 constexpr int kFixedUnroll = 4;  // the same for the fixed-point route
-constexpr int kWalk = 4;    // steps from the guessed slot before a search
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 232448;  // H100 per-block opt-in limit
 constexpr int kMaxGridY = 65535;
@@ -173,31 +173,6 @@ __device__ __forceinline__ void warp_add_tagged(double* hist, int* tag,
     hist[cell] += w;
   }
   __syncwarp();
-}
-
-// The slot of a score, #{ j : t[j] <= x } (NaN: T), exactly as count_le
-// gives it.  The guess interpolates between the grid's ends, then walks to
-// the count: one or two probes on a near-uniform grid (the linspace and
-// bisected grids of the binned metrics) instead of log2(T) dependent ones;
-// a grid far from uniform runs out of steps and takes the binary search.
-// `scale` is (T - 1) / (t[T-1] - t[0]), 0 when T = 1 or the ends are equal.
-__device__ __forceinline__ int slot_of(const float* th, int t, int top,
-                                       float lo, float scale, float x) {
-  if (x != x) return t;
-  if (scale == 0.0f) return count_le<1>(th, t, top, x);
-  if (!(x >= lo)) return 0;
-  const float g = (x - lo) * scale;
-  int k = g < (float)(t - 1) ? (int)g + 1 : t;  // >= 1, as x >= t[0]
-  for (int step = 0; step < kWalk; ++step) {
-    if (th[k - 1] > x) {
-      --k;
-    } else if (k < t && th[k] <= x) {
-      ++k;
-    } else {
-      return k;
-    }
-  }
-  return count_le<1>(th, t, top, x);
 }
 
 // One group of kUnroll samples a lane, lane's first at q, the next `step`

@@ -1,4 +1,5 @@
-// The binary search shared by rank_sum.cu, rank_hist.cu and binned_count.cu.
+// The binary search shared by rank_sum.cu, rank_hist.cu and the two binned
+// kernels, and the binned kernels' slot of a score (slot_of).
 #pragma once
 
 #include <type_traits>
@@ -126,4 +127,38 @@ inline int top_step(int n) {
   int top = 1;
   while (top * 2 <= n) top *= 2;
   return top;
+}
+
+// Steps slot_of walks from its guessed slot before it takes count_le.
+constexpr int kWalk = 4;
+
+// slot_of's first guess for a score x >= lo on a grid of `scale` > 0:
+// interpolated between the grid's ends, in [1, T] (>= 1, as x >= t[0]).
+__device__ __forceinline__ int slot_guess(int t, float lo, float scale, float x) {
+  const float g = (x - lo) * scale;
+  return g < (float)(t - 1) ? (int)g + 1 : t;
+}
+
+// The slot of a score, #{ j : t[j] <= x } (NaN: T), exactly as count_le
+// gives it.  The guess interpolates between the grid's ends, then walks to
+// the count: one or two probes on a near-uniform grid (the linspace and
+// bisected grids of the binned metrics) instead of log2(T) dependent ones;
+// a grid far from uniform runs out of steps and takes the binary search.
+// `scale` is (T - 1) / (t[T-1] - t[0]), 0 when T = 1 or the ends are equal.
+__device__ __forceinline__ int slot_of(const float* th, int t, int top,
+                                       float lo, float scale, float x) {
+  if (x != x) return t;
+  if (scale == 0.0f) return count_le<1>(th, t, top, x);
+  if (!(x >= lo)) return 0;
+  int k = slot_guess(t, lo, scale, x);
+  for (int step = 0; step < kWalk; ++step) {
+    if (th[k - 1] > x) {
+      --k;
+    } else if (k < t && th[k] <= x) {
+      ++k;
+    } else {
+      return k;
+    }
+  }
+  return count_le<1>(th, t, top, x);
 }

@@ -50,7 +50,6 @@ import torch
 
 from torcheval_tpu_torch.ops import _build
 from torcheval_tpu_torch.ops._mega_plan import MegaPlan, MemberPlan, counters
-from torcheval_tpu_torch.ops.ustat import _H100_SMS, _sm_count
 
 # Numbers shared with csrc/mega.cu (its Kind, Spec and Payload enums).
 _KINDS = {"moment": 0, "scatter": 1, "cm": 2, "binned": 3}
@@ -155,7 +154,9 @@ def _launch(
     return launch, offsets, total
 
 
-def launch_plans(plan: MegaPlan, n: int, sms: int = _H100_SMS, vec16: bool = True) -> List[MegaLaunch]:
+def launch_plans(
+    plan: MegaPlan, n: int, sms: int = _build.H100_SMS, vec16: bool = True
+) -> List[MegaLaunch]:
     """The launches of :func:`mega_counts` for ``n >= 1`` samples: one per
     64 members.  ``vec16``: the f32 scores are 16-byte aligned."""
     return [
@@ -290,7 +291,7 @@ def mega_counts(
     )
     n = tgt.shape[0]
     a = plan.a
-    sms = _sm_count(target.device.index)
+    sms = _build.sm_count(target.device.index)
     vec16 = scores is None or scores.data_ptr() % 16 == 0
     result: List[MemberCounts] = []
     thr_off = 0

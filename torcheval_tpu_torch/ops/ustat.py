@@ -72,7 +72,6 @@ _BLOCK_SMEM = 232_448  # H100: shared memory a block may opt in to
 _SM_SMEM = 233_472  # H100: shared memory an SM shares among its blocks
 _BLOCK_RESERVED = 1024  # the runtime's own shared memory a block
 _BLOCKS_PER_SM = 2  # __launch_bounds__(256, 2)
-_H100_SMS = 132
 _FIXED_CAPS = (16, 32, 64, 128, 256, 512)  # count_le.cuh::with_top
 
 
@@ -118,7 +117,7 @@ def _rank_plan(
     *,
     tables: int,
     hist: bool,
-    sms: int = _H100_SMS,
+    sms: int = _build.H100_SMS,
 ) -> RankPlan:
     """The launch of a rank kernel over ``(rq, n)`` f32 queries at these
     strides and address (only its residue mod 16 matters), against
@@ -165,7 +164,7 @@ def _rank_plan(
 
 
 def rank_sum_plan(
-    queries: torch.Tensor, tables: torch.Tensor, *, negate: bool = False, sms: int = _H100_SMS
+    queries: torch.Tensor, tables: torch.Tensor, *, negate: bool = False, sms: int = _build.H100_SMS
 ) -> RankPlan:
     """The plan of :func:`rank_sum_counts` on these operands."""
     rq, n = queries.shape
@@ -176,7 +175,7 @@ def rank_sum_plan(
 
 
 def rank_hist_plan(
-    queries: torch.Tensor, tables: torch.Tensor, *, sms: int = _H100_SMS
+    queries: torch.Tensor, tables: torch.Tensor, *, sms: int = _build.H100_SMS
 ) -> RankPlan:
     """The plan of :func:`rank_hist_counts` on these operands."""
     rq, n = queries.shape
@@ -184,11 +183,6 @@ def rank_hist_plan(
         rq, n, tables.shape[1], queries.stride(0), queries.stride(1), queries.data_ptr() % 16,
         tables=1, hist=True, sms=sms,
     )
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def rank_sum_counts(
@@ -211,7 +205,7 @@ def rank_sum_counts(
     out = torch.zeros(tables.shape[0], dtype=torch.int32, device=queries.device)
     if rq == 0 or n == 0:
         return out
-    plan = rank_sum_plan(queries, tables, negate=negate, sms=_sm_count(queries.device.index))
+    plan = rank_sum_plan(queries, tables, negate=negate, sms=_build.sm_count(queries.device.index))
     _launch_rank_sum(queries, tables, negate, plan, out)
     return out
 
@@ -314,7 +308,7 @@ def rank_hist_counts(queries: torch.Tensor, tables: torch.Tensor) -> torch.Tenso
     hist = torch.zeros((r, cap), dtype=torch.int32, device=queries.device)
     if r == 0 or n == 0:
         return hist
-    plan = rank_hist_plan(queries, tables, sms=_sm_count(queries.device.index))
+    plan = rank_hist_plan(queries, tables, sms=_build.sm_count(queries.device.index))
     _launch_rank_hist(queries, tables, plan, hist)
     return hist
 
