@@ -180,7 +180,45 @@ times kernels and lifecycle with CUDA events.  Phases:
 29. ``make_synced_update`` over ``LocalWorld(4)`` on the per-class accuracy
     counts of phase 27's batch, bit-equal to one rank's update on the
     whole batch; then the wall clock of each sharded call (median of 5)
-    beside its all-reduce alone, whose tensors pickle through the CPU.
+    beside its all-reduce alone, whose tensors pickle through the CPU;
+30. ``WindowedBinaryAUROC(max_num_samples=2**20)`` on the repository's
+    windowed workload (numpy seed 14, 32 updates of 2^16 f32 scores,
+    balanced targets: the window wraps twice): one ``auc_from_sorted``
+    launch a lifecycle and no plain call, the ring bit-equal to a numpy
+    ring model, the AUROC within 1e-6 of a float64 Mann-Whitney oracle
+    over the last 2^20 samples; the same with batches that wrap past the
+    ring's end and a batch larger than the window; two windows merged
+    (capacity 2^21), one launch, within 1e-6 of the oracle;
+31. a rare-positive windowed AUROC (numpy seed 17, ``num_tasks=16``,
+    ``max_num_samples=2**17``, positives at 1/512, 32 updates of 2^13):
+    one ``rank_sum_counts`` launch a lifecycle, within 1e-6 of the oracle;
+    with ``TORCHEVAL_TPU_TORCH_DISABLE_USTAT=1`` one ``auc_from_sorted``
+    launch and the same figures within 1e-6;
+32. ``WindowedBinaryNormalizedEntropy``, ``WindowedClickThroughRate``,
+    ``WindowedWeightedCalibration`` and ``WindowedMeanSquaredError``
+    (2-D, ``raw_values``) in one ``MetricCollection`` through ``update()``
+    (numpy seed 32, ``num_tasks=8``, ``max_num_updates=100``, lifetime
+    on, 250 updates of (8, 2^16) clicks and predicted probabilities):
+    window and lifetime figures within 1e-5 relative of float64 numpy over
+    the same columns; ``fused_update`` refuses and names a windowed
+    member;
+33. ``PeakSignalNoiseRatio`` and ``StructuralSimilarity`` (11 x 11, sigma
+    1.5, ``data_range=1.0``) over 8 updates of (16, 3, 512, 512) f32 image
+    pairs (numpy seed 33): PSNR within 1e-5 relative and SSIM within 1e-5
+    of float64 numpy oracles (a separable valid gaussian window), and
+    SSIM's bits unchanged with ``cudnn.allow_tf32`` and
+    ``matmul.allow_tf32`` set True globally;
+34. ``FrechetInceptionDistance(model, feature_dim=2048)`` over 10 000 real
+    and 10 000 fake (3, 32, 32) images (numpy seed 35) in updates of 1250,
+    the model a linear map and ReLU from numpy seed 34: within 1e-3
+    relative of a float64 ``scipy.linalg.sqrtm`` oracle on the same
+    features, FID's own bits unchanged with TF32 set True globally, and
+    the peak device memory;
+35. times of phases 30-34, tagged with the card and power limit: each
+    lifecycle (median of 5), the two kernels' device time a windowed
+    compute beside their bounds, a wrapped ring insert, SSIM's
+    convolution, and FID's product, ``eigh`` and ``eigvalsh`` (with
+    ``--profile``, phases 30-34 by operator, phase 31 on both routes).
 
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
@@ -227,6 +265,10 @@ CELL_OPS = 5  # one DP cell: a compare, two adds, two mins
 WER_PAIRS = 2**16  # the corpus WER lifecycle, 8 updates of 8192
 WER_MAX_LEN, WER_VOCAB = 200, 10_000
 PPL_TOL = 1e-5
+# FID against its float64 oracle: two float32 eigendecompositions at D = 2048
+# and a covariance that is cov_sum - n mu mu^T in float32, as in the JAX
+# package (relative).
+FID_RTOL = 1e-3
 
 
 def fail(message: str) -> None:
@@ -332,23 +374,45 @@ def device_events(torch, prof):
             and not e.key.startswith("Activity Buffer") and device_us(e) > 0]
 
 
-def device_ms(torch, fn, reps=20):
-    """Device time per call of ``fn``: the time of every kernel, copy and
-    fill it ran, under ``torch.profiler`` over ``reps`` calls.  For calls of
-    a few microseconds, where CUDA events around one call time the host's
-    launch path instead."""
+def profiled_device_events(torch, fn, reps, attempts=3):
+    """The device rows of ``reps`` calls of ``fn`` under ``torch.profiler``.
+    The profiler now and then returns a trace without its device rows: such
+    a trace is taken again, up to ``attempts`` times; ``[]`` if none had
+    them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(device_us(e) for e in device_events(torch, prof))
-    if total_us == 0:
-        fail("the profiler recorded no device time")
-    return total_us / 1e3 / reps
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(torch, prof)
+        if events:
+            return events
+        print(f"profiler: a trace of {reps} calls without device rows; tracing again", flush=True)
+    return []
+
+
+def device_ms(torch, fn, reps=20):
+    """Device time per call of ``fn``: the time of every kernel, copy and
+    fill it ran, under ``torch.profiler`` over ``reps`` calls.  For calls of
+    a few microseconds, where CUDA events around one call time the host's
+    launch path instead.  Where no trace has device rows, CUDA events
+    around all ``reps`` calls, which the line says."""
+    events = profiled_device_events(torch, fn, reps)
+    if events:
+        return sum(device_us(e) for e in events) / 1e3 / reps
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    print("profiler: no device rows in any trace; this time is CUDA events around "
+          f"{reps} calls", flush=True)
+    return start.elapsed_time(end) / reps
 
 
 def device_split(torch, fn, reps=20):
@@ -356,17 +420,9 @@ def device_split(torch, fn, reps=20):
     over ``reps`` calls, each kernel named by what it is: ``"count"`` and
     ``"suffix"`` for the two kernels of either route of
     ``binned_count.cu``, ``"zero fill"`` for a fill, else the profiler's
-    name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    name; ``{}`` where no trace has device rows."""
     out = {}
-    for e in device_events(torch, prof):
+    for e in profiled_device_events(torch, fn, reps):
         name = ("count" if "binned_count_kernel" in e.key or "binned_private_kernel" in e.key else
                 "suffix" if "binned_suffix_kernel" in e.key or "binned_cell_suffix" in e.key else
                 "zero fill" if "fill" in e.key.lower() else e.key[:50])
@@ -2147,6 +2203,506 @@ def main(argv) -> int:
     print(f"time {card}: sharded_multiclass_auroc_histogram unweighted, LocalWorld(1) on the whole "
           f"array: {one_ms:.3f} ms", flush=True)
 
+    # ------------------------------ 30. the 1M-sample windowed AUROC (sort route)
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torcheval_tpu_torch.metrics import (
+        FrechetInceptionDistance,
+        PeakSignalNoiseRatio,
+        StructuralSimilarity,
+        WindowedBinaryAUROC,
+        WindowedBinaryNormalizedEntropy,
+        WindowedClickThroughRate,
+        WindowedMeanSquaredError,
+        WindowedWeightedCalibration,
+    )
+    from torcheval_tpu_torch.metrics.functional.image._precision import full_f32
+    from torcheval_tpu_torch.metrics.functional.image.ssim import _gaussian_1d, _gaussian_window
+    from torcheval_tpu_torch.metrics.toolkit import clone_metric
+    from torcheval_tpu_torch.metrics.window.auroc import _ring_insert
+    from torcheval_tpu_torch.ops.ustat import binary_ustat_route
+
+    def ring_model(batches, w):
+        """A numpy ring over the last axis: each batch written at the cursor
+        mod ``w``; a batch of ``w`` or more keeps its last ``w``."""
+        ring = np.zeros(batches[0].shape[:-1] + (w,), np.float32)
+        cur = valid = 0
+        for b in batches:
+            n = b.shape[-1]
+            if n >= w:
+                ring[...] = b[..., -w:]
+                cur, valid = 0, w
+            else:
+                ring[..., (cur + np.arange(n)) % w] = b
+                cur, valid = (cur + n) % w, min(valid + n, w)
+        return ring, cur, valid
+
+    def window_lifecycle(batches):
+        def run(metric):
+            metric.reset()
+            for s, t in batches:
+                metric.update(s, t)
+            return metric.compute()
+        return run
+
+    def ring_equal(metric, s_batches, t_batches, w):
+        want_s, cur, valid = ring_model(s_batches, w)
+        want_t, _, _ = ring_model(t_batches, w)
+        rows = metric.inputs.shape[0]
+        return (np.array_equal(metric.inputs.cpu().numpy(), want_s.reshape(rows, w))
+                and np.array_equal(metric.targets.cpu().numpy(), want_t.reshape(rows, w))
+                and (metric.next_inserted, metric._num_valid) == (cur, valid))
+
+    win_rng = np.random.default_rng(14)  # benchmarks/workloads.py's bench_windowed_auroc
+    win_w, win_batch, win_updates = 2**20, 2**16, 32
+    win_s_np = win_rng.random(win_batch * win_updates, dtype=np.float32)
+    win_t_np = (win_rng.random(win_batch * win_updates) > 0.5).astype(np.float32)
+    win_s, win_t = torch.from_numpy(win_s_np).to(dev), torch.from_numpy(win_t_np).to(dev)
+    win_batches = list(zip(win_s.split(win_batch), win_t.split(win_batch)))
+    win = WindowedBinaryAUROC(max_num_samples=win_w)
+    win_auc, win_launches = counted(
+        f"WindowedBinaryAUROC(max_num_samples=2^20), {win_updates} updates of 2^16 "
+        "(the window wraps twice)", window_lifecycle(win_batches), win, "auc_from_sorted")
+    check(binary_ustat_route(win.inputs, win.targets) is None,
+          "the balanced 2^20 window is past the rank route's cap: the sort route")
+    check(ring_equal(win, np.split(win_s_np, win_updates), np.split(win_t_np, win_updates), win_w),
+          "the 2^20 ring (scores, targets, cursor, fill) bit-equal to the numpy ring model")
+    win_want = oracle_auc(win_s_np[-win_w:], win_t_np[-win_w:] == 1)
+    win_err = abs(float(win_auc) - win_want)
+    check(win_err <= TOL, f"windowed AUROC {float(win_auc)!r} vs float64 Mann-Whitney over the "
+          f"last 2^20 samples {win_want!r}: err {win_err:.3e}")
+    # The kernel at the compute's own operands, against its plain version.
+    win_th, win_hh = sort_desc(win.inputs, win.targets)
+    check(torch.equal(auc_from_sorted(win_th, win_hh), _auc_from_sorted_plain(win_th, win_hh)),
+          f"auc_from_sorted bit-equal to plain on the window's sorted (1, 2^20) operands "
+          f"[{auc_plan(win_th, win_hh, sms).describe()}]")
+    # Batches that do not divide the window: inserts that wrap past its end
+    # (two slice copies), then one batch larger than the window.
+    odd_n = 3 * 2**15 + 1
+    odd_cuts = list(range(odd_n, win_s.numel(), odd_n))
+    odd_s, odd_t = np.split(win_s_np, odd_cuts), np.split(win_t_np, odd_cuts)
+    odd = WindowedBinaryAUROC(max_num_samples=win_w)
+    odd_auc, _ = counted(f"WindowedBinaryAUROC 2^20, {len(odd_s)} updates of {odd_n} (wrapped "
+                         "inserts)", window_lifecycle(
+                             [(torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev))
+                              for s, t in zip(odd_s, odd_t)]), odd, "auc_from_sorted")
+    check(ring_equal(odd, odd_s, odd_t, win_w) and torch.equal(odd_auc, win_auc),
+          "wrapped inserts: the ring bit-equal to the numpy model, the same AUROC bits")
+    big = clone_metric(odd).update(win_s[:win_w + 5], win_t[:win_w + 5])
+    check(ring_equal(big, odd_s + [win_s_np[:win_w + 5]], odd_t + [win_t_np[:win_w + 5]], win_w),
+          "a batch of 2^20 + 5 keeps its last 2^20 samples and resets the cursor")
+    # Merge: the window of the stream's first million into the last million's.
+    early = WindowedBinaryAUROC(max_num_samples=win_w)
+    for s, t in win_batches[:win_updates // 2]:
+        early.update(s, t)
+    merged = clone_metric(win).merge_state([early])
+    _build.reset_counts()
+    merged_auc = merged.compute()
+    torch.cuda.synchronize()
+    print(f"merged windows, compute: launches {dict(_build.LAUNCHES)}, plain calls "
+          f"{dict(_build.PLAIN_CALLS)}", flush=True)
+    check(dict(_build.LAUNCHES) == {"auc_from_sorted": 1} and not _build.PLAIN_CALLS,
+          "the merged window's compute launched auc_from_sorted once, no plain version")
+    check(merged.max_num_samples == 2 * win_w and merged._num_valid == 2 * win_w
+          and torch.equal(merged.inputs[0], torch.cat([win.inputs[0], early.inputs[0]])),
+          "merge grew the window to 2^21 and packed both rings")
+    merged_want = oracle_auc(win_s_np, win_t_np == 1)
+    merged_err = abs(float(merged_auc) - merged_want)
+    check(merged_err <= TOL, f"merged 2^21 window AUROC vs float64 Mann-Whitney over the whole "
+          f"stream: err {merged_err:.3e}")
+    del big, merged, early
+
+    # -------------------- 31. a rare-positive windowed AUROC (rank-sum route)
+    rare_rng = np.random.default_rng(17)
+    rare_tasks, rare_w, rare_batch, rare_updates = 16, 2**17, 2**13, 32
+    rare_s_np = rare_rng.random((rare_tasks, rare_batch * rare_updates), dtype=np.float32)
+    rare_t_np = (rare_rng.random(rare_s_np.shape) < 1 / 512).astype(np.float32)
+    rare_batches = list(zip(torch.from_numpy(rare_s_np).to(dev).split(rare_batch, dim=1),
+                            torch.from_numpy(rare_t_np).to(dev).split(rare_batch, dim=1)))
+    rare = WindowedBinaryAUROC(num_tasks=rare_tasks, max_num_samples=rare_w)
+    rare_auc, rare_launches = counted(
+        f"WindowedBinaryAUROC(num_tasks=16, max_num_samples=2^17), positives 1/512, "
+        f"{rare_updates} updates of 2^13", window_lifecycle(rare_batches), rare,
+        "rank_sum_counts")
+    rare_route = binary_ustat_route(rare.inputs, rare.targets)
+    print(f"rare window: rank route {rare_route}, positives a task "
+          f"{rare.targets.sum(dim=1).int().tolist()}", flush=True)
+    check(ring_equal(rare, np.split(rare_s_np, rare_updates, axis=1),
+                     np.split(rare_t_np, rare_updates, axis=1), rare_w),
+          "the (16, 2^17) rings bit-equal to the numpy ring model")
+    rare_want = np.array([oracle_auc(rare_s_np[k, -rare_w:], rare_t_np[k, -rare_w:] == 1)
+                          for k in range(rare_tasks)])
+    rare_err = float(np.abs(rare_auc.cpu().numpy().astype(np.float64) - rare_want).max())
+    check(rare_err <= TOL, f"rank route, 16 tasks vs float64 Mann-Whitney: max err {rare_err:.3e}")
+    # One count moves a task's AUROC by 1/(p q), about 3e-8 here, so the
+    # oracle alone cannot see a miscount: the kernel at the compute's own
+    # operands (the stacked (32, 2^17) form), against its plain version.
+    rare_cap = rare_route[1]
+    rare_counts, rare_table = _pack_row_tables(rare.inputs, rare.targets == 1, rare_cap)
+    rare_tables = torch.cat([rare_table, -rare_table.flip(1)])
+    check(torch.equal(rank_sum_counts(rare.inputs, rare_tables, negate=True),
+                      _rank_sum_counts_plain(rare.inputs, rare_tables, negate=True)),
+          f"rank_sum_counts bit-equal to plain on the window's operands, cap {rare_cap} "
+          f"[{rank_sum_plan(rare.inputs, rare_tables, negate=True).describe()}]")
+    rare_th, rare_hh = sort_desc(rare.inputs, rare.targets)
+    check(torch.equal(auc_from_sorted(rare_th, rare_hh), _auc_from_sorted_plain(rare_th, rare_hh)),
+          f"auc_from_sorted bit-equal to plain on the window's sorted (16, 2^17) operands "
+          f"[{auc_plan(rare_th, rare_hh, sms).describe()}]")
+    del rare_th, rare_hh
+    os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
+    try:
+        rare_sorted, _ = counted("the same window with TORCHEVAL_TPU_TORCH_DISABLE_USTAT=1",
+                                 window_lifecycle(rare_batches), rare, "auc_from_sorted")
+    finally:
+        del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
+    rare_gap = float((rare_sorted - rare_auc).abs().max())
+    rare_sort_err = float(np.abs(rare_sorted.cpu().numpy().astype(np.float64) - rare_want).max())
+    check(rare_gap <= TOL and rare_sort_err <= TOL,
+          f"sort route: within {rare_gap:.3e} of the rank route, {rare_sort_err:.3e} of the oracle")
+
+    # ------------- 32. the four windowed members on click-prediction traffic
+    # Each update is one (8, 2^16) batch of 8 tasks: the model's predicted
+    # click probability p and the 0/1 click, each member fed as its users
+    # feed it.  NE (from probabilities) and weighted calibration both take
+    # (p, click), so they run in one MetricCollection through update(); CTR
+    # takes the clicks alone; MSE takes (prediction, target) as (2^16, 8):
+    # 2^16 samples of 8 outputs (raw_values), each task's Brier score.
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    cw_rng = np.random.default_rng(32)
+    cw_tasks, cw_n, cw_updates, cw_w = 8, 2**16, 250, 100
+    cw_eps = float(np.finfo(np.float32).eps)
+    cw_stats = {k: [] for k in ("ne", "ctr", "wc", "mse")}
+    cw_batches = []
+    for _ in range(cw_updates):
+        p = (0.01 + 0.19 * cw_rng.random((cw_tasks, cw_n), dtype=np.float32)).astype(np.float32)
+        click = (cw_rng.random((cw_tasks, cw_n)) < p).astype(np.float32)
+        x, y = p.astype(np.float64), click.astype(np.float64)
+        ce = -(y * np.log(x) + (1 - y) * np.log1p(-x))
+        cw_stats["ne"].append([ce.sum(1), np.full(cw_tasks, cw_n, np.float64), y.sum(1)])
+        cw_stats["ctr"].append([y.sum(1), np.full(cw_tasks, cw_n, np.float64)])
+        cw_stats["wc"].append([x.sum(1), y.sum(1)])
+        cw_stats["mse"].append([((x - y) ** 2).sum(1), np.full(cw_tasks, cw_n, np.float64)])
+        p_dev, click_dev = torch.from_numpy(p).to(dev), torch.from_numpy(click).to(dev)
+        cw_batches.append((p_dev, click_dev, p_dev.T.contiguous(), click_dev.T.contiguous()))
+    cw_stats = {k: np.asarray(v) for k, v in cw_stats.items()}
+
+    def baseline(q):
+        q = np.clip(q, cw_eps, 1 - cw_eps)
+        return -q * np.log(q) - (1 - q) * np.log1p(-q)
+
+    def cw_figures(sl):
+        ent, ex, pos = cw_stats["ne"][sl].sum(0)
+        return {"ne": (ent / ex) / baseline(pos / ex),
+                **{k: np.divide(*cw_stats[k][sl].sum(0)) for k in ("ctr", "wc", "mse")}}
+
+    kw = {"max_num_updates": cw_w}
+    cw_col = MetricCollection({
+        "ne": WindowedBinaryNormalizedEntropy(num_tasks=cw_tasks, **kw),
+        "wc": WindowedWeightedCalibration(num_tasks=cw_tasks, **kw),
+    })
+    cw_ctr = WindowedClickThroughRate(num_tasks=cw_tasks, **kw)
+    cw_mse = WindowedMeanSquaredError(multioutput="raw_values", **kw)
+
+    def cw_lifecycle():
+        for m in (cw_col, cw_ctr, cw_mse):
+            m.reset()
+        for p, click, p_rows, click_rows in cw_batches:
+            cw_col.update(p, click)
+            cw_ctr.update(click)
+            cw_mse.update(p_rows, click_rows)
+        return {**cw_col.compute(), "ctr": cw_ctr.compute(), "mse": cw_mse.compute()}
+
+    _build.reset_counts()
+    cw_out = cw_lifecycle()
+    torch.cuda.synchronize()
+    check(not _build.LAUNCHES and not _build.PLAIN_CALLS,
+          f"the windowed members ({cw_updates} updates) ran no kernel wrapper and no plain version")
+    want_life, want_win = cw_figures(slice(None)), cw_figures(slice(-cw_w, None))
+    for name in ("ne", "ctr", "wc", "mse"):
+        life, window = (t.cpu().numpy().astype(np.float64) for t in cw_out[name])
+        err = max(float(np.max(np.abs(life - want_life[name]) / np.abs(want_life[name]))),
+                  float(np.max(np.abs(window - want_win[name]) / np.abs(want_win[name]))))
+        check(life.shape == window.shape == (cw_tasks,) and err <= 1e-5,
+              f"windowed {name}: lifetime {life.shape} and window figures vs float64 numpy over "
+              f"the same columns: max relative err {err:.3e}")
+    check(cw_mse.windowed_sum_squared_error.shape == (cw_tasks, cw_w)
+          and all(m.max_num_updates == cw_w and m.total_updates == cw_updates
+                  for m in (cw_col["ne"], cw_col["wc"], cw_ctr, cw_mse)),
+          f"every ring holds {cw_w} columns after {cw_updates} updates; MSE's grew to {cw_tasks} rows")
+    try:
+        cw_col.fused_update(*cw_batches[0][:2])
+    except ValueError as exc:
+        cw_refusal = str(exc)
+    else:
+        cw_refusal = ""
+    check("windowed member 'ne'" in cw_refusal and cw_col["ne"].total_updates == cw_updates,
+          f"fused_update refuses and names the windowed member, writing nothing: {cw_refusal!r}")
+
+    # ----------------------------------------- 33. PSNR and SSIM, full width
+    img_rng = np.random.default_rng(33)
+    img_shape, img_updates = (16, 3, 512, 512), 8
+    g64 = _gaussian_1d(11, 1.5)
+
+    def blur64(z):
+        """A separable valid gaussian window in float64: rows, then columns."""
+        k, h, w = g64.size, z.shape[-2] - g64.size + 1, z.shape[-1] - g64.size + 1
+        rows = g64[0] * z[..., 0:h, :]
+        for i in range(1, k):
+            rows += g64[i] * z[..., i:i + h, :]
+        out = g64[0] * rows[..., 0:w]
+        for j in range(1, k):
+            out += g64[j] * rows[..., j:j + w]
+        return out
+
+    def ssim64(x, y, pool):
+        mu_x, mu_y, xx, yy, xy = (f.result() for f in [
+            pool.submit(blur64, z) for z in (x, y, x * x, y * y, x * y)])
+        c1, c2 = 0.01**2, 0.03**2
+        sx, sy, sxy = xx - mu_x**2, yy - mu_y**2, xy - mu_x * mu_y
+        smap = ((2 * mu_x * mu_y + c1) * (2 * sxy + c2)) / (
+            (mu_x**2 + mu_y**2 + c1) * (sx + sy + c2))
+        return smap.mean(axis=(1, 2, 3))
+
+    img_batches, sse64, count64, lo64, hi64, ssim_parts = [], 0.0, 0, np.inf, -np.inf, []
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        for _ in range(img_updates):
+            x = img_rng.random(img_shape, dtype=np.float32)
+            y = np.clip(x + 0.05 * img_rng.standard_normal(img_shape, dtype=np.float32),
+                        0.0, 1.0).astype(np.float32)
+            img_batches.append((torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)))
+            x64, y64 = x.astype(np.float64), y.astype(np.float64)
+            sse64 += float(((x64 - y64) ** 2).sum())
+            count64 += x.size
+            lo64, hi64 = min(lo64, float(y.min())), max(hi64, float(y.max()))
+            ssim_parts.append(ssim64(x64, y64, pool))
+    print(f"image oracles: {time.perf_counter() - t0:.1f} s on the host", flush=True)
+    psnr_want = 10 * np.log10((hi64 - lo64) ** 2 / (sse64 / count64))
+    psnr1_want = 10 * np.log10(1.0 / (sse64 / count64))
+    ssim_want = float(np.concatenate(ssim_parts).mean())
+
+    def image_lifecycle(metric):
+        metric.reset()
+        for x, y in img_batches:
+            metric.update(x, y)
+        return metric.compute()
+
+    psnr, psnr1 = PeakSignalNoiseRatio(), PeakSignalNoiseRatio(data_range=1.0)
+    ssim = StructuralSimilarity(kernel_size=11, sigma=1.5, data_range=1.0)
+    _build.reset_counts()
+    img_out = {name: image_lifecycle(m) for name, m in
+               (("psnr", psnr), ("psnr1", psnr1), ("ssim", ssim))}
+    torch.cuda.synchronize()
+    check(not _build.LAUNCHES and not _build.PLAIN_CALLS,
+          "the image lifecycles ran no kernel wrapper and no plain version")
+    for name, want in (("psnr", psnr_want), ("psnr1", psnr1_want)):
+        rel = abs(float(img_out[name]) - want) / abs(want)
+        check(rel <= 1e-5, f"PSNR{' data_range=1' if name == 'psnr1' else ''} over 8 x "
+              f"{img_shape}: {float(img_out[name])!r} vs float64 {want!r}, relative {rel:.3e}")
+    ssim_err = abs(float(img_out["ssim"]) - ssim_want)
+    check(ssim_err <= 1e-5, f"SSIM 11 x 11, sigma 1.5 over 8 x {img_shape}: "
+          f"{float(img_out['ssim'])!r} vs float64 separable window {ssim_want!r}, err {ssim_err:.3e}")
+    tf32_saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ssim_tf32 = image_lifecycle(ssim)
+        check(torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32,
+              "SSIM left the caller's TF32 settings on")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_saved
+    check(torch.equal(ssim_tf32, img_out["ssim"]),
+          "SSIM: the same bits with cudnn.allow_tf32 and matmul.allow_tf32 set True globally")
+
+    # ------------------------------------- 34. FID at InceptionV3's pool width
+    from scipy.linalg import sqrtm as scipy_sqrtm
+
+    fid_dim, fid_n, fid_batch = 2048, 10_000, 1250
+
+    class FeatureNet(torch.nn.Module):
+        """A small feature extractor made from numpy seed 34: (3, 32, 32)
+        images, a linear map of the flattened pixels to 2048 features, then
+        ReLU (non-negative, as InceptionV3's pool features are)."""
+
+        def __init__(self):
+            super().__init__()
+            frng = np.random.default_rng(34)
+            self.fc = torch.nn.Linear(3 * 32 * 32, fid_dim, device=dev)
+            with torch.no_grad():
+                self.fc.weight.copy_(torch.from_numpy(
+                    (frng.standard_normal((fid_dim, 3072)) / np.sqrt(3072)).astype(np.float32)))
+                self.fc.bias.copy_(torch.from_numpy(
+                    (0.1 * frng.standard_normal(fid_dim)).astype(np.float32)))
+            self.record = None
+
+        def forward(self, images):
+            feats = torch.relu(self.fc(images.flatten(1)))
+            if self.record is not None:
+                self.record.append(feats.double().cpu().numpy())
+            return feats
+
+    fid_rng = np.random.default_rng(35)
+    fid_real = torch.from_numpy(fid_rng.random((fid_n, 3, 32, 32), dtype=np.float32)).to(dev)
+    fid_fake = torch.from_numpy(
+        (fid_rng.random((fid_n, 3, 32, 32), dtype=np.float32) ** 1.2).astype(np.float32)).to(dev)
+    net = FeatureNet()
+
+    def fid_lifecycle(metric):
+        metric.reset()
+        for r, f in zip(fid_real.split(fid_batch), fid_fake.split(fid_batch)):
+            metric.update(r, is_real=True)
+            metric.update(f, is_real=False)
+        return metric.compute()
+
+    fid = FrechetInceptionDistance(net, feature_dim=fid_dim)
+    net.record = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fid_base = torch.cuda.memory_allocated()
+    _build.reset_counts()
+    fid_val = fid_lifecycle(fid)
+    torch.cuda.synchronize()
+    fid_peak = torch.cuda.max_memory_allocated()
+    check(not _build.LAUNCHES and not _build.PLAIN_CALLS,
+          "the FID lifecycle ran no kernel wrapper and no plain version")
+    feats64 = np.concatenate(net.record)
+    net.record = None
+    real64, fake64 = feats64.reshape(-1, 2, fid_batch, fid_dim).transpose(1, 0, 2, 3).reshape(
+        2, fid_n, fid_dim)
+    t0 = time.perf_counter()
+    mu_r, mu_f = real64.mean(0), fake64.mean(0)
+    cov_r, cov_f = np.cov(real64, rowvar=False), np.cov(fake64, rowvar=False)
+    root = scipy_sqrtm(cov_r @ cov_f)
+    fid_want = float(((mu_r - mu_f) ** 2).sum() + np.trace(cov_r) + np.trace(cov_f)
+                     - 2 * np.trace(root.real))
+    print(f"FID oracle (float64, scipy.linalg.sqrtm at {fid_dim}): {time.perf_counter() - t0:.1f} s "
+          f"on the host; peak device memory {fid_peak / 2**30:.2f} GiB, of which the lifecycle's own "
+          f"{(fid_peak - fid_base) / 2**30:.3f} GiB over the {fid_base / 2**30:.2f} GiB allocated "
+          "before it (images and earlier phases)", flush=True)
+    del feats64, real64, fake64
+    fid_rel = abs(float(fid_val) - fid_want) / abs(fid_want)
+    check(fid_rel <= FID_RTOL, f"FID, D = {fid_dim}, {fid_n} real and {fid_n} fake images in "
+          f"updates of {fid_batch}: {float(fid_val)!r} vs float64 oracle {fid_want!r}, relative "
+          f"{fid_rel:.3e}")
+    # TF32: the extractor is the caller's and rounds its own product under
+    # TF32, so FID's own path is held on fixed features: the net's, taken
+    # once with TF32 off, through an identity extractor.
+    fid_feats = [(net(r), net(f)) for r, f in zip(fid_real.split(fid_batch),
+                                                   fid_fake.split(fid_batch))]
+
+    def feats_lifecycle(metric):
+        metric.reset()
+        for fr, ff in fid_feats:
+            metric.update(fr, is_real=True)
+            metric.update(ff, is_real=False)
+        return metric.compute()
+
+    fid_ident = FrechetInceptionDistance(lambda feats: feats, feature_dim=fid_dim)
+    fid_ident_val = feats_lifecycle(fid_ident)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        fid_tf32 = feats_lifecycle(fid_ident)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_saved
+    check(torch.equal(fid_tf32, fid_ident_val) and abs(float(fid_ident_val) - fid_want)
+          <= FID_RTOL * abs(fid_want),
+          "FID statistics and compute: the same bits with cudnn.allow_tf32 and matmul.allow_tf32 "
+          "set True globally")
+    del fid_feats
+
+    # ----------------------------------------------- 35. times of phases 30-34
+    win_ms = host_median_ms(lambda: window_lifecycle(win_batches)(win))
+    rare_ms = host_median_ms(lambda: window_lifecycle(rare_batches)(rare))
+    os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
+    try:
+        rare_sort_ms = host_median_ms(lambda: window_lifecycle(rare_batches)(rare))
+    finally:
+        del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
+    cw_ms = host_median_ms(cw_lifecycle)
+    psnr_ms = host_median_ms(lambda: image_lifecycle(psnr))
+    ssim_ms = host_median_ms(lambda: image_lifecycle(ssim))
+    fid_ms = host_median_ms(lambda: fid_lifecycle(fid))
+    for label, ms in [
+        ("WindowedBinaryAUROC 2^20 lifecycle (32 updates + compute, sort route)", win_ms),
+        ("WindowedBinaryAUROC (16, 2^17) rare positives (32 updates + compute, rank route)",
+         rare_ms),
+        ("the same, TORCHEVAL_TPU_TORCH_DISABLE_USTAT=1 (sort route)", rare_sort_ms),
+        ("click-prediction windows: NE + weighted calibration in one MetricCollection, CTR, "
+         "MSE (8 outputs), 250 updates of (8, 2^16) each + compute", cw_ms),
+        ("PeakSignalNoiseRatio (8 updates of (16, 3, 512, 512) + compute)", psnr_ms),
+        ("StructuralSimilarity (8 updates of (16, 3, 512, 512) + compute)", ssim_ms),
+        ("FrechetInceptionDistance D = 2048 (16 updates of 1250 + compute)", fid_ms),
+    ]:
+        print(f"time {card}: {label}: {ms:.3f} ms (median of 5)", flush=True)
+    # The window's two kernels on this run's operands.
+    win_auc_dev_ms = device_ms(torch, lambda: auc_from_sorted(win_th, win_hh))
+    win_auc_ms = median_ms(lambda: auc_from_sorted(win_th, win_hh))
+    win_auc_bound, win_auc_by = bound(win_w * 5 + 4, 3 * win_w)
+    rare_dev_ms = device_ms(torch, lambda: rank_sum_counts(rare.inputs, rare_tables, negate=True))
+    rare_k_ms = median_ms(lambda: rank_sum_counts(rare.inputs, rare_tables, negate=True))
+    rare_bound, rare_by = bound(
+        rare_tasks * rare_w * 4 + rare_tables.numel() * 4 + rare_tables.shape[0] * 4,
+        2 * rare_tasks * rare_w * rare_cap.bit_length())
+    rare_floor = issue_floor_ms(2 * rare_tasks * rare_w, rare_cap)
+    print(f"time {card}: auc_from_sorted a windowed compute, (1, 2^20): device "
+          f"{win_auc_dev_ms:.4f} ms, events {win_auc_ms:.4f} ms, bound {win_auc_bound:.4f} ms "
+          f"({win_auc_by})", flush=True)
+    print(f"time {card}: rank_sum_counts a windowed compute, (32, 2^17) queries, cap {rare_cap}: "
+          f"device {rare_dev_ms:.4f} ms, events {rare_k_ms:.4f} ms, bound {rare_bound:.4f} ms "
+          f"({rare_by}), issue floor {rare_floor:.4f} ms", flush=True)
+    ring_buf = win.inputs.clone()
+    ring_batch = win_s[:win_batch].view(1, -1)
+    ring_ms = device_ms(torch, lambda: _ring_insert(ring_buf, ring_batch, win_w - win_batch // 2))
+    ring_bound, _ = bound(2 * win_batch * 4, 0)
+    print(f"time {card}: ring insert of 2^16 f32 wrapping past the end of a 2^20 ring (two slice "
+          f"copies): device {ring_ms:.4f} ms, bound {ring_bound:.5f} ms (bytes)", flush=True)
+    x0, y0 = img_batches[0]
+    window = _gaussian_window(3, 11, 1.5, dev)
+    conv_ms = device_ms(torch, lambda: torch.nn.functional.conv2d(x0, window, groups=3))
+    conv_bound, conv_by = bound(x0.numel() * 4 * 2, 2 * 121 * x0.shape[0] * 3 * 502 * 502)
+    ssim_upd_ms = device_ms(torch, lambda: ssim.update(x0, y0), reps=5)
+    print(f"time {card}: SSIM's depthwise 11 x 11 conv2d on (16, 3, 512, 512) f32: device "
+          f"{conv_ms:.4f} ms a call (5 a update), bound {conv_bound:.4f} ms ({conv_by}); a whole "
+          f"SSIM update {ssim_upd_ms:.4f} ms device", flush=True)
+    feats0 = net(fid_real[:fid_batch])
+    cov0 = fid.real_cov_sum / fid_n
+    with full_f32():
+        fid_mm_ms = device_ms(torch, lambda: feats0.T @ feats0)
+        fid_mm_ev_ms = median_ms(lambda: feats0.T @ feats0)
+        fid_mm_split = device_split(torch, lambda: feats0.T @ feats0)
+    fid_mm_bound, fid_mm_by = bound((feats0.numel() + fid_dim**2) * 4, 2 * fid_batch * fid_dim**2)
+    eigh_ms = median_ms(lambda: torch.linalg.eigh(cov0), reps=5)
+    eigvalsh_ms = median_ms(lambda: torch.linalg.eigvalsh(cov0), reps=5)
+    eigh_dev_ms = device_ms(torch, lambda: torch.linalg.eigh(cov0), reps=5)
+    fid_compute_ms = median_ms(fid.compute, reps=5)
+    print(f"time {card}: FID at D = {fid_dim}: feats.T @ feats (1250 x 2048) device "
+          f"{fid_mm_ms:.4f} ms (events {fid_mm_ev_ms:.4f} ms; by kernel "
+          f"{ {k: round(v, 4) for k, v in fid_mm_split.items()} }), bound {fid_mm_bound:.4f} ms "
+          f"({fid_mm_by}); torch.linalg.eigh "
+          f"{eigh_ms:.3f} ms (device {eigh_dev_ms:.3f}), eigvalsh {eigvalsh_ms:.3f} ms; "
+          f"compute {fid_compute_ms:.3f} ms (events)", flush=True)
+
+    if profile_phase:
+        profile_lifecycle(torch, card, "WindowedBinaryAUROC 2^20 lifecycle",
+                          lambda: window_lifecycle(win_batches)(win), host_ops=True)
+        profile_lifecycle(torch, card, "WindowedBinaryAUROC (16, 2^17) rare positives, rank route",
+                          lambda: window_lifecycle(rare_batches)(rare), host_ops=True)
+        os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
+        try:
+            profile_lifecycle(torch, card, "the same, sort route",
+                              lambda: window_lifecycle(rare_batches)(rare), host_ops=True)
+        finally:
+            del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
+        profile_lifecycle(torch, card, "click-prediction windows (NE + WC collection, CTR, MSE; "
+                          "250 updates)", cw_lifecycle, repeats=1, host_ops=True)
+        profile_lifecycle(torch, card, "StructuralSimilarity lifecycle",
+                          lambda: image_lifecycle(ssim))
+        profile_lifecycle(torch, card, "PeakSignalNoiseRatio lifecycle",
+                          lambda: image_lifecycle(psnr))
+        profile_lifecycle(torch, card, "FrechetInceptionDistance D = 2048 lifecycle",
+                          lambda: fid_lifecycle(fid), host_ops=True)
+    del img_batches, fid_real, fid_fake, cw_batches
+
     # ------------------------------------------------------ the kernels line
     kernels = [
         {
@@ -2161,6 +2717,8 @@ def main(argv) -> int:
             "bound_ms": rank_bound,
             "bound_by": rank_by,
             "library_ms": rank_lib_ms,
+            "window_launches": rare_launches,
+            "window_device_ms": rare_dev_ms,
             "verdict": "bit-equal",
         },
         {
@@ -2179,6 +2737,8 @@ def main(argv) -> int:
             "one_row_ms": auc22_ms,
             "one_row_device_ms": auc22_dev_ms,
             "one_row_launches": binary_launches,
+            "window_launches": win_launches,
+            "window_device_ms": win_auc_dev_ms,
             "verdict": "bit-equal",
         },
         {

@@ -175,3 +175,24 @@ def test_multiclass_errors_match_jax(s_shape, y_shape, kwargs):
         jax_multiclass_auroc, multiclass_auroc,
         np.zeros(s_shape, np.float32), np.zeros(y_shape, np.int32), **kwargs,
     )
+
+
+def test_tied_infinite_scores_the_kept_divergence():
+    """Two tied +inf scores, one hit and one miss.  The port counts them as
+    one tie group: 0.625, the float64 Mann-Whitney value (and the JAX
+    package's own ``auc_from_sorted`` kernel's).  The JAX XLA path marks tie
+    boundaries with ``diff != 0``, and ``inf - inf`` is NaN, so it splits
+    the group: 0.75.  The port's value stays."""
+    s = np.array([np.inf, np.inf, 0.5, 0.2], np.float32)
+    t = np.array([1, 0, 1, 0], np.float32)
+    assert float(binary_auroc(torch.from_numpy(s), torch.from_numpy(t))) == 0.625
+    assert float(jax_binary_auroc(jnp.asarray(s), jnp.asarray(t))) == 0.75
+    # The same pair as one-vs-rest classes: each class takes the sort route.
+    scores = np.stack([s, -s], axis=1)
+    target = np.array([0, 1, 0, 1], np.int32)
+    got = multiclass_auroc(torch.from_numpy(scores), torch.from_numpy(target),
+                           num_classes=2, average=None)
+    np.testing.assert_array_equal(got.numpy(), [0.625, 0.625])
+    want = jax_multiclass_auroc(jnp.asarray(scores), jnp.asarray(target),
+                                num_classes=2, average=None)
+    np.testing.assert_array_equal(np.asarray(want), [0.75, 0.5])

@@ -250,3 +250,22 @@ def test_multiclass_errors_match_jax(args, kwargs):
 )
 def test_binary_errors_match_jax(args):
     _messages(jax_binary_cm, binary_confusion_matrix, args, {})
+
+
+def test_empty_labels_give_the_zero_matrix_the_kept_divergence():
+    """Zero-length int labels: the port returns the C x C int32 zero
+    matrix (upstream torcheval's answer), functional and class alike.  The
+    JAX package raises from its range check's ``min`` of an empty array
+    (``metrics/functional/_host_checks.py``), an artifact, not a contract.
+    The port's value stays."""
+    empty = np.zeros(0, np.int32)
+    got = multiclass_confusion_matrix(torch.from_numpy(empty), torch.from_numpy(empty),
+                                      num_classes=3)
+    assert got.dtype == torch.int32 and torch.equal(got, torch.zeros(3, 3, dtype=torch.int32))
+    metric = MulticlassConfusionMatrix(3, device="cpu")
+    metric.update(torch.from_numpy(empty), torch.from_numpy(empty))
+    assert torch.equal(metric.compute(), torch.zeros(3, 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="zero-size array"):
+        jax_multiclass_cm(jnp.asarray(empty), jnp.asarray(empty), num_classes=3)
+    with pytest.raises(ValueError, match="zero-size array"):
+        JaxMulticlassCM(3).update(jnp.asarray(empty), jnp.asarray(empty))

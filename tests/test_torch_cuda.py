@@ -1055,3 +1055,106 @@ def test_sharded_binary_route_under_skip_value_checks(weighted):
         assert dict(_build.LAUNCHES) == {kernel: 1}
     assert torch.equal(pinned, checked)
     assert abs(float(scattered) - float(checked)) <= 1e-6
+
+
+# --------------------------------------------------- windows and images
+def _window_batches(rng, tasks, n, updates, p, dev):
+    shape = (tasks, n) if tasks > 1 else (n,)
+    return [
+        (torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev),
+         torch.from_numpy((rng.random(shape) < p).astype(np.float32)).to(dev))
+        for _ in range(updates)
+    ]
+
+
+@pytest.mark.parametrize(
+    "tasks,window,n,p,route",
+    [(1, 2**16, 2**13, 0.5, "auc_from_sorted"), (4, 2**15, 2**12, 1 / 512, "rank_sum_counts")],
+    ids=["balanced-sort", "rare-rank"],
+)
+def test_windowed_auroc_launches_its_route_once_a_compute(tasks, window, n, p, route):
+    from torcheval_tpu_torch.metrics import WindowedBinaryAUROC
+
+    dev = _cuda()
+    batches = _window_batches(np.random.default_rng(tasks), tasks, n, 12, p, dev)
+    metric = WindowedBinaryAUROC(num_tasks=tasks, max_num_samples=window)
+    cpu = WindowedBinaryAUROC(num_tasks=tasks, max_num_samples=window, device="cpu")
+    for s, t in batches:
+        metric.update(s, t)
+        cpu.update(s.cpu(), t.cpu())
+    assert torch.equal(metric.inputs.cpu(), cpu.inputs)
+    _build.reset_counts()
+    got = metric.compute()
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {route: 1} and not _build.PLAIN_CALLS
+    # The same exact route on the CPU's plain versions: the same bits.
+    assert torch.equal(got.cpu(), cpu.compute())
+
+
+def _tf32(on):
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+
+
+def test_ssim_and_fid_give_the_same_bits_whatever_the_tf32_settings():
+    from torcheval_tpu_torch.metrics import FrechetInceptionDistance, StructuralSimilarity
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.random((4, 3, 128, 128), dtype=np.float32)).to(dev)
+    y = (x + 0.05 * torch.randn_like(x)).clamp(0, 1)
+    feats = [torch.from_numpy(rng.random((300, 256), dtype=np.float32)).to(dev) for _ in range(4)]
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    results = []
+    try:
+        for on in (False, True):
+            _tf32(on)
+            ssim = StructuralSimilarity().update(x, y).compute()
+            fid = FrechetInceptionDistance(lambda f: f, feature_dim=256)
+            for i, f in enumerate(feats):
+                fid.update(f, is_real=i % 2 == 0)
+            results.append((ssim, fid.compute()))
+            assert torch.backends.cuda.matmul.allow_tf32 is on
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    (ssim_off, fid_off), (ssim_on, fid_on) = results
+    assert torch.equal(ssim_off, ssim_on) and torch.equal(fid_off, fid_on)
+
+
+def test_ssim_in_two_threads_gives_the_single_thread_bits_with_tf32_on():
+    """Two threads (as LocalWorld's ranks are) run SSIM at once with TF32
+    on globally: one thread's exit from its full-f32 block must not turn
+    TF32 back on under the other's convolutions."""
+    import threading
+
+    from torcheval_tpu_torch.metrics import StructuralSimilarity
+
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    pairs = []
+    for _ in range(2):
+        x = torch.from_numpy(rng.random((4, 3, 256, 256), dtype=np.float32)).to(dev)
+        pairs.append((x, (x + 0.05 * torch.randn_like(x)).clamp(0, 1)))
+    want = [StructuralSimilarity().update(x, y).compute() for x, y in pairs]
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    got = [[], []]
+    start = threading.Barrier(2)
+
+    def rank(i):
+        x, y = pairs[i]
+        start.wait()
+        for _ in range(20):
+            got[i].append(StructuralSimilarity().update(x, y).compute())
+
+    try:
+        _tf32(True)
+        threads = [threading.Thread(target=rank, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    for i in range(2):
+        assert len(got[i]) == 20 and all(torch.equal(v, want[i]) for v in got[i])

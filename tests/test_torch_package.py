@@ -93,6 +93,18 @@ def test_sources_import_no_jax():
         "torcheval_tpu_torch/metrics/ranking/reciprocal_rank.py",
         "torcheval_tpu_torch/metrics/ranking/retrieval.py",
         "torcheval_tpu_torch/metrics/ranking/weighted_calibration.py",
+        "torcheval_tpu_torch/metrics/window/auroc.py",
+        "torcheval_tpu_torch/metrics/window/click_through_rate.py",
+        "torcheval_tpu_torch/metrics/window/mean_squared_error.py",
+        "torcheval_tpu_torch/metrics/window/normalized_entropy.py",
+        "torcheval_tpu_torch/metrics/window/weighted_calibration.py",
+        "torcheval_tpu_torch/metrics/functional/image/_precision.py",
+        "torcheval_tpu_torch/metrics/functional/image/fid.py",
+        "torcheval_tpu_torch/metrics/functional/image/psnr.py",
+        "torcheval_tpu_torch/metrics/functional/image/ssim.py",
+        "torcheval_tpu_torch/metrics/image/fid.py",
+        "torcheval_tpu_torch/metrics/image/psnr.py",
+        "torcheval_tpu_torch/metrics/image/ssim.py",
     } <= scanned
     assert _FORBIDDEN.search("from __graft_entry__ import entry")
     assert _FORBIDDEN.search("import jax.numpy as jnp")
@@ -146,6 +158,17 @@ text.update(rng.random((2, 5, 7)).astype(np.float32), rng.integers(0, 7, (2, 5))
 assert float(text.compute()["ppl"]) > 1.0
 assert float(BLEUScore(n_gram=2, device="cpu").update("a b c", "a b c").compute()) == 1.0
 assert float(Mean(device="cpu").update(torch.ones(3), 2.0).compute()) == 1.0
+from torcheval_tpu_torch.metrics import (
+    FrechetInceptionDistance, StructuralSimilarity, WindowedBinaryAUROC)
+win = WindowedBinaryAUROC(max_num_samples=8, device="cpu")
+for _ in range(3):
+    win.update(rng.random(5).astype(np.float32), rng.integers(0, 2, 5))
+assert win._num_valid == 8 and 0.0 <= float(win.compute()) <= 1.0
+img = torch.rand(2, 3, 16, 16)
+assert float(StructuralSimilarity(device="cpu").update(img, img).compute()) > 0.999
+fid = FrechetInceptionDistance(lambda x: x.flatten(1)[:, :4], feature_dim=4, device="cpu")
+fid.update(img, is_real=True).update(img.flip(0), is_real=False)
+assert abs(float(fid.compute())) < 1e-3
 assert not any(
     k.split(".")[0] in ("jax", "torcheval_tpu", "__graft_entry__") for k in sys.modules
 )
@@ -160,6 +183,24 @@ def test_port_imports_and_computes_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert 0.0 <= float(proc.stdout.strip().splitlines()[-1]) <= 1.0
+
+
+def test_ops_exports_the_jax_names_that_have_a_counterpart():
+    import torcheval_tpu.ops as jax_ops
+
+    import torcheval_tpu_torch.ops as port_ops
+
+    # No DISABLE_PALLAS and no wavefront switch in the port, so no
+    # availability flag and no route choice to export (the module's
+    # docstring says so).
+    absent = {"has_pallas", "pallas_binary_auroc", "wavefront_route"}
+    assert set(port_ops.__all__) == set(jax_ops.__all__) - absent
+    for name in port_ops.__all__:
+        assert callable(getattr(port_ops, name))
+    assert port_ops.has_fused() is True
+    thresholds = torch.tensor([[0.9, 0.8, 0.8, 0.1]])
+    hits = torch.tensor([[1, 0, 1, 0]], dtype=torch.int8)
+    assert float(port_ops.auc_from_sorted(thresholds, hits)[0]) == 0.875
 
 
 def test_default_device_without_a_gpu_raises(monkeypatch):

@@ -10,6 +10,11 @@ the JAX metric left them.
                    else np.asarray(v) for k, v in jax_metric.state_dict().items()}
     port_metric.load_state_dict(state_from_jax(numpy_state))
 
+A windowed metric's ``state_dict()`` carries its ring bookkeeping (capacity,
+cursor, fill level and counters) under ``"window_bookkeeping"`` as an int64
+array, in the same layout in both packages, so a JAX window continues
+mid-wrap in the port.
+
 A JAX ``MetricCollection.state_dict()`` is a flat mapping too, keyed
 ``"name/state"`` and, for slice clones, ``"name@k/state"``; it loads into
 the port's collection the same way:

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from torcheval_tpu_torch.metrics._bucket import DEFAULT_MIN_BUCKET, pad_to_bucket
+from torcheval_tpu_torch.metrics._buffer import RingWindowMixin
 from torcheval_tpu_torch.metrics.functional._host_checks import skip_value_checks
 from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.ops import _mega_plan, mega
@@ -263,6 +264,13 @@ class MetricCollection:
 
     def _check_fusable(self) -> None:
         for name, m in self._all_members.items():
+            if isinstance(m, RingWindowMixin):
+                raise ValueError(
+                    f"fused_update does not support windowed member {name!r}: "
+                    "its update writes a ring column at a cursor kept on the host "
+                    "and advanced by each call, not a count the collection folds. "
+                    "Use update() for windowed metrics."
+                )
             for s in m._state_name_to_default:
                 if not isinstance(getattr(m, s), torch.Tensor):
                     raise ValueError(

@@ -17,8 +17,17 @@ plain PyTorch version beside its wrapper.
 * :mod:`.fused_auc` — the approximate fused AUC (plain PyTorch).
 * :mod:`._build` — builds the kernels with ``nvcc`` at first use and
   counts their launches.
+
+The package exports the names of ``torcheval_tpu.ops`` that have a
+counterpart here.  ``has_pallas``, ``pallas_binary_auroc`` and
+``wavefront_route`` have none: the port has no switch that sends a GPU
+tensor to a kernel's plain version (no ``DISABLE_PALLAS``, no wavefront
+flag), so there is no availability to ask and no route to pick; the exact
+sort route is ``auc.binary_auroc_sorted_path``.
 """
 
+from torcheval_tpu_torch.ops.auc import auc_from_sorted
+from torcheval_tpu_torch.ops.fused_auc import fused_auc, has_fused
 from torcheval_tpu_torch.ops.wavefront import edit_distance_tokens
 
-__all__ = ["edit_distance_tokens"]
+__all__ = ["auc_from_sorted", "edit_distance_tokens", "fused_auc", "has_fused"]
