@@ -218,7 +218,41 @@ times kernels and lifecycle with CUDA events.  Phases:
     lifecycle (median of 5), the two kernels' device time a windowed
     compute beside their bounds, a wrapped ring insert, SSIM's
     convolution, and FID's product, ``eigh`` and ``eigvalsh`` (with
-    ``--profile``, phases 30-34 by operator, phase 31 on both routes).
+    ``--profile``, phases 30-34 by operator, phase 31 on both routes);
+36. ``sharded_multiclass_auroc_ustat`` at the repository's sharded exact
+    workload (numpy seed 8, (2^16, 1000) f32 scores, int32 targets) over
+    ``LocalWorld(4)``, each rank with its ``shard_batch`` block: with
+    defaults (the cap autotuned in the call: 64), pinned by
+    ``eager_ustat_pin``, per class, on the ring and on ``LocalWorld(1)``;
+    4 ``rank_sum_counts`` launches on the gather, 16 on the ring, no plain
+    call; every rank, both schedules, the pin and the world of one the same
+    bits; every class within 1e-6 of a float64 Mann-Whitney oracle; with
+    ``TORCHEVAL_TPU_TORCH_DISABLE_USTAT=1`` the searchsorted formulation,
+    no launch, within 1e-6; the kernel against its plain version on rank
+    1's block and the gathered table and a ring chunk, with its plan;
+37. the gather-exact functions: ``sharded_multiclass_auroc_exact`` on the
+    same data bit-equal to ``multiclass_auroc`` on the whole (one
+    ``rank_sum_counts`` launch a rank) and to the ustat, the binary AUROC / AP on phase 28's
+    data (AUROC: one ``auc_from_sorted`` launch a rank; AP: the sort route,
+    no kernel) and on its scores with 48 positives (``rank_sum_counts`` /
+    ``rank_hist_counts``), and the multitask pair on (16, 2^17) with
+    positives at 1/512, each bit-equal to the single-device functional on
+    the whole;
+38. ``sharded_binary_auroc_ustat`` / ``sharded_binary_auprc_ustat`` on
+    phase 28's data (whole blocks) and on the 48-positive variant (caps
+    64), gather and ring: no kernel, AUROC ring bit-equal to gather, within
+    1e-6 of the gather-exact result and of float64 oracles (AP ring within
+    1e-6); a cap one below a block's positives raises the same
+    ``ValueError`` on every rank;
+39. times of phases 36-38, tagged with the card and power limit: each
+    sharded call's wall clock (median of 5; the gather-exact multiclass, 3)
+    beside its collectives alone, ``rank_sum_counts``' device time a rank
+    against the gathered table and a ring chunk beside its bound and issue
+    floor, ``rank_sum_counts`` held against its plain version (with its
+    plan) and timed at the operands of phase 37's multiclass whole, and
+    ``rank_sum_counts`` / ``rank_hist_counts`` at those of its 48-positive
+    and multitask wholes (with ``--profile``, the multiclass ustat call by
+    operator).
 
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
@@ -1980,13 +2014,14 @@ def main(argv) -> int:
               f"LocalWorld({size}): every rank holds the same bits")
         return out[0]
 
-    def world_counted(label, size, fn, kernel):
+    def world_launches(label, size, fn, want):
+        """``world(size, fn)`` with the counters zeroed just before it;
+        fails unless it launched exactly ``want`` and no plain version."""
         _build.reset_counts()
         out = world(size, fn)
         launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
-        check(launches == {kernel: size} and not plain,
-              f"{label}: launches {launches}, no plain call")
-        return out, launches[kernel]
+        check(launches == want and not plain, f"{label}: launches {launches}, no plain call")
+        return out
 
     def hold_shard(label, s, h, w, grid):
         """Both binned kernels on one rank's block, as the sharded path
@@ -2090,11 +2125,12 @@ def main(argv) -> int:
         f"x {ns_bins}", sh_s.T, class_hits(sh_t, NUM_CLASSES), sh_w,
         torch.tensor(psync._grid_np(ns_bins), device=dev))]
     del sh_s, sh_t, sh_w
-    ns_auroc, ns_launches = world_counted(
+    ns_auroc = world_launches(
         f"sharded_multiclass_auroc_histogram ({NUM_SAMPLES}, {NUM_CLASSES}) x {ns_bins}, "
-        "LocalWorld(4), unweighted", 4, ns_call(), "binned_counts")
-    ns_wauroc, ns_wlaunches = world_counted(
-        "the same, weighted", 4, ns_call(ns_w), "binned_weighted_counts")
+        "LocalWorld(4), unweighted", 4, ns_call(), {"binned_counts": 4})
+    ns_wauroc = world_launches(
+        "the same, weighted", 4, ns_call(ns_w), {"binned_weighted_counts": 4})
+    ns_wlaunches = _build.LAUNCHES["binned_weighted_counts"]
     merged4, merged1 = world(4, ns_counts()), world(1, ns_counts())
     check(all(torch.equal(a, b) for a, b in zip(merged4, merged1)),
           "merged per-class counts over LocalWorld(4) bit-equal to LocalWorld(1) on the whole")
@@ -2139,10 +2175,10 @@ def main(argv) -> int:
     bs_out = {}
     for fn in (sharded_auroc_histogram, sharded_auprc_histogram):
         name = fn.__name__
-        bs_out[name] = world_counted(f"{name} 2^22 x {bs_bins}, LocalWorld(4), unweighted",
-                                     4, bs_call(fn), "binned_counts")[0]
-        bs_out[name + " weighted"] = world_counted(
-            f"{name}, weighted", 4, bs_call(fn, bs_w), "binned_weighted_counts")[0]
+        bs_out[name] = world_launches(f"{name} 2^22 x {bs_bins}, LocalWorld(4), unweighted",
+                                      4, bs_call(fn), {"binned_counts": 4})
+        bs_out[name + " weighted"] = world_launches(
+            f"{name}, weighted", 4, bs_call(fn, bs_w), {"binned_weighted_counts": 4})
         check(torch.equal(world(4, bs_call(fn, torch.ones_like(bs_w))), bs_out[name])
               and torch.equal(world(1, bs_call(fn)), bs_out[name]),
               f"{name}: unit weights bit-equal to unweighted; LocalWorld(1) bit-equal to (4)")
@@ -2703,6 +2739,312 @@ def main(argv) -> int:
                           lambda: fid_lifecycle(fid), host_ops=True)
     del img_batches, fid_real, fid_fake, cw_batches
 
+    # --------------- 36. the sharded multiclass ustat at the repository's workload
+    from torcheval_tpu_torch.metrics.functional import binary_auprc, binary_auroc, multiclass_auroc
+    from torcheval_tpu_torch.parallel import (
+        sharded_binary_auprc_exact,
+        sharded_binary_auprc_ustat,
+        sharded_binary_auroc_exact,
+        sharded_binary_auroc_ustat,
+        sharded_multiclass_auroc_exact,
+        sharded_multiclass_auroc_ustat,
+        sharded_multitask_auprc_exact,
+        sharded_multitask_auroc_exact,
+    )
+    from torcheval_tpu_torch.parallel.exact import (
+        _pack_class_runs,
+        _ring,
+        _ustat_kernel_table,
+        eager_ustat_pin,
+    )
+
+    ex_rng = np.random.default_rng(8)  # benchmarks/workloads.py's bench_sharded_multiclass_exact
+    ex_n, ex_c = 2**16, 1000
+    ex_s_np = ex_rng.random((ex_n, ex_c), dtype=np.float32)
+    ex_t_np = ex_rng.integers(0, ex_c, ex_n).astype(np.int32)
+    ex_s, ex_t = torch.from_numpy(ex_s_np).to(dev), torch.from_numpy(ex_t_np).to(dev)
+
+    def mc_ustat(**kw):
+        return lambda mesh: sharded_multiclass_auroc_ustat(
+            *shard_batch(mesh, ex_s, ex_t), mesh, num_classes=ex_c, **kw)
+
+    ex_label = f"sharded_multiclass_auroc_ustat ({ex_n}, {ex_c}), LocalWorld(4)"
+    ex_macro = world_launches(f"{ex_label}, defaults (cap autotuned in the call)", 4, mc_ustat(),
+                              {"rank_sum_counts": 4})
+    ex_launches = _build.LAUNCHES["rank_sum_counts"]
+    ex_pc = world_launches(f"{ex_label}, average=None", 4, mc_ustat(average=None),
+                           {"rank_sum_counts": 4})
+    check(torch.equal(ex_macro, ex_pc.mean()), "the macro AUROC is the mean of the per-class ones")
+    ex_most = max(int(np.bincount(b, minlength=ex_c).max()) for b in np.split(ex_t_np, 4))
+    ex_cap, ex_kernel = eager_ustat_pin(ex_s, ex_t, ex_c, 4)
+    check((ex_cap, ex_kernel, ex_most) == (64, "pallas", 31),
+          f"eager_ustat_pin: cap {ex_cap}, kernel {ex_kernel!r} (a block's largest class "
+          f"count {ex_most})")
+    pinned = world_launches(f"{ex_label}, pinned by eager_ustat_pin", 4,
+                            mc_ustat(average=None, max_class_count_per_shard=ex_cap,
+                                     _kernel=ex_kernel), {"rank_sum_counts": 4})
+    check(torch.equal(pinned, ex_pc), "pinned: bit-equal to the autotuned call, every class")
+    ring_pc = world_launches(f"{ex_label}, comm='ring'", 4, mc_ustat(average=None, comm="ring"),
+                             {"rank_sum_counts": 16})
+    check(torch.equal(ring_pc, ex_pc), "ring: bit-equal to the gather, every class")
+    one_pc = world_launches("the same on LocalWorld(1), the whole array", 1,
+                            mc_ustat(average=None), {"rank_sum_counts": 1})
+    check(torch.equal(one_pc, ex_pc),
+          "LocalWorld(4) bit-equal to LocalWorld(1) on the whole array, every class")
+    t0 = time.perf_counter()
+    ex_want = np.array([oracle_auc(ex_s_np[:, k], ex_t_np == k) for k in range(ex_c)])
+    ex_err = float(np.abs(ex_pc.cpu().numpy().astype(np.float64) - ex_want).max())
+    check(ex_err <= TOL, f"{ex_label}: all {ex_c} classes vs float64 Mann-Whitney, max err "
+          f"{ex_err:.3e} ({time.perf_counter() - t0:.1f} s of oracle on the host)")
+    os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
+    try:
+        ss_pc = world_launches(f"{ex_label}, TORCHEVAL_TPU_TORCH_DISABLE_USTAT=1 (searchsorted)",
+                               4, mc_ustat(average=None), {})
+    finally:
+        del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
+    ss_gap = float((ss_pc - ex_pc).abs().max())
+    check(ss_gap <= TOL, f"searchsorted within {ss_gap:.3e} of the rank-sum kernel, every class")
+    # rank_sum.cu on rank 1's own operands: its (1000, 16384) strided block
+    # against the gathered table and against a ring chunk.
+    ex_blocks = [(ex_s[r * ex_n // 4:(r + 1) * ex_n // 4], ex_t[r * ex_n // 4:(r + 1) * ex_n // 4])
+                 for r in range(4)]
+    ex_packs = [_pack_class_runs(s, t, ex_c, ex_cap) for s, t in ex_blocks]
+    ex_q = ex_blocks[1][0].T
+    ex_tables = {}
+    ex_rank_err = 0
+    for label, rows in [("the gathered table", _ustat_kernel_table(torch.cat(ex_packs, dim=1))),
+                        ("a ring chunk", _ustat_kernel_table(ex_packs[0]))]:
+        tabs = torch.cat([rows, -rows.flip(-1)])
+        got = rank_sum_counts(ex_q, tabs, negate=True)
+        torch.cuda.synchronize()
+        plain = _rank_sum_counts_plain(ex_q, tabs, negate=True)
+        ex_rank_err = max(ex_rank_err, int((got - plain).abs().max()))
+        check(torch.equal(got, plain),
+              f"rank_sum_counts bit-equal to plain on rank 1's {tuple(ex_q.shape)} strided block "
+              f"against {label} {tuple(tabs.shape)} "
+              f"[{rank_sum_plan(ex_q, tabs, negate=True).describe()}]")
+        ex_tables[label] = tabs
+    del ex_packs, ss_pc, one_pc, pinned
+
+    # ------------------------------------ 37. gather-exact at the same data
+    exact_pc = world_launches(
+        f"sharded_multiclass_auroc_exact ({ex_n}, {ex_c}), LocalWorld(4), average=None", 4,
+        lambda m: sharded_multiclass_auroc_exact(*shard_batch(m, ex_s, ex_t), m,
+                                                 num_classes=ex_c, average=None),
+        {"rank_sum_counts": 4})
+    _build.reset_counts()
+    whole_pc = multiclass_auroc(ex_s, ex_t, num_classes=ex_c, average=None)
+    torch.cuda.synchronize()
+    check(dict(_build.LAUNCHES) == {"rank_sum_counts": 1} and torch.equal(exact_pc, whole_pc),
+          "sharded_multiclass_auroc_exact bit-equal to multiclass_auroc on the whole array (one "
+          f"rank_sum_counts launch, cap {ustat_route_cap(ex_s, ex_t, ex_c)})")
+    check(torch.equal(exact_pc, ex_pc), "gather-exact bit-equal to the ustat, every class (the "
+          "same integer U, the same f32 cast and division)")
+    del whole_pc
+
+    def exact_call(fn, s, t, dim=0):
+        return lambda m: fn(*shard_batch(m, s, t, dim=dim), m)
+
+    br_t_np = np.zeros(bs_n, np.float32)  # phase 28's scores, 48 positives: a rare variant
+    br_t_np[np.random.default_rng(38).choice(bs_n, 48, replace=False)] = 1
+    br_t = torch.from_numpy(br_t_np).to(dev)
+    bx = {}
+    call_launches = {}  # each gather-exact call's launches, for the kernels line
+    for label, t_dev, routes in [
+        ("phase 28's 2^22 balanced", bs_t, ({"auc_from_sorted": 4}, {})),
+        ("phase 28's scores, 48 positives", br_t,
+         ({"rank_sum_counts": 4}, {"rank_hist_counts": 4})),
+    ]:
+        for fn, whole_fn, want in [(sharded_binary_auroc_exact, binary_auroc, routes[0]),
+                                   (sharded_binary_auprc_exact, binary_auprc, routes[1])]:
+            got = world_launches(f"{fn.__name__} on {label}, LocalWorld(4)", 4,
+                                 exact_call(fn, bs_s, t_dev), want)
+            call_launches[fn.__name__, label] = dict(_build.LAUNCHES)
+            check(torch.equal(got, whole_fn(bs_s, t_dev)),
+                  f"{fn.__name__} on {label}: bit-equal to {whole_fn.__name__} on the whole")
+            bx[fn.__name__, label] = got
+    mt_rng = np.random.default_rng(17)  # phase 31's shape: 16 tasks, positives at 1/512
+    mt_s = torch.from_numpy(mt_rng.random((16, 2**17), dtype=np.float32)).to(dev)
+    mt_t = torch.from_numpy((mt_rng.random((16, 2**17)) < 1 / 512).astype(np.float32)).to(dev)
+    for fn, whole_fn, want in [(sharded_multitask_auroc_exact, binary_auroc, "rank_sum_counts"),
+                               (sharded_multitask_auprc_exact, binary_auprc, "rank_hist_counts")]:
+        got = world_launches(f"{fn.__name__} (16, 2^17), positives 1/512, LocalWorld(4)", 4,
+                             exact_call(fn, mt_s, mt_t, dim=1), {want: 4})
+        call_launches[fn.__name__, "multitask"] = dict(_build.LAUNCHES)
+        check(torch.equal(got, whole_fn(mt_s, mt_t, num_tasks=16)),
+              f"{fn.__name__}: bit-equal to {whole_fn.__name__}(num_tasks=16) on the whole")
+
+    # ------------------------------- 38. the binary ustat at phase 28's data
+    for label, t_dev, t_np, cap in [("phase 28's 2^22 balanced", bs_t, bs_t_np, None),
+                                    ("phase 28's scores, 48 positives", br_t, br_t_np, 64)]:
+        hits = t_np == 1
+        want_auc = oracle_auc(bs_s_np, hits)
+        want_ap = float(oracle_ap(np.stack([bs_s_np, bs_s_np], 1), hits.astype(np.int64), 2)[1])
+        out = {}
+        for fn, kw in [(sharded_binary_auroc_ustat, "max_minority_count_per_shard"),
+                       (sharded_binary_auprc_ustat, "max_positive_count_per_shard")]:
+            for comm in ("gather", "ring"):
+                out[fn, comm] = world_launches(
+                    f"{fn.__name__} on {label}, {kw}={cap}, comm={comm!r}", 4,
+                    lambda m: fn(*shard_batch(m, bs_s, t_dev), m, comm=comm, **{kw: cap}), {})
+        auc_g, auc_r = (out[sharded_binary_auroc_ustat, comm] for comm in ("gather", "ring"))
+        ap_g, ap_r = (out[sharded_binary_auprc_ustat, comm] for comm in ("gather", "ring"))
+        exact_auc = float(bx["sharded_binary_auroc_exact", label])
+        exact_ap = float(bx["sharded_binary_auprc_exact", label])
+        errs = [abs(float(auc_g) - exact_auc), abs(float(auc_g) - want_auc),
+                abs(float(ap_g) - exact_ap), abs(float(ap_g) - want_ap),
+                abs(float(ap_r) - float(ap_g))]
+        check(torch.equal(auc_g, auc_r) and max(errs) <= TOL,
+              f"binary ustat on {label}: AUROC {float(auc_g)!r} (ring bit-equal), within "
+              f"{errs[0]:.3e} of gather-exact and {errs[1]:.3e} of float64; AP {float(ap_g)!r} "
+              f"within {errs[2]:.3e} / {errs[3]:.3e}, ring within {errs[4]:.3e}")
+    per_block = br_t_np.reshape(4, -1).sum(1).astype(int).tolist()
+    tight = max(per_block) - 1
+
+    def overflow(group, rank):
+        mesh = make_mesh(group=group)
+        try:
+            sharded_binary_auroc_ustat(*shard_batch(mesh, bs_s, br_t), mesh,
+                                       max_minority_count_per_shard=tight)
+        except ValueError as e:  # each rank's own error is the result checked below
+            return str(e)
+        return None
+
+    msgs = LocalWorld(4).run(overflow)
+    check(all(isinstance(m, str) for m in msgs) and len(set(msgs)) == 1
+          and "minority-class samples" in msgs[0],
+          f"max_minority_count_per_shard={tight} (blocks hold {per_block} positives): the same "
+          f"ValueError on every rank: {msgs[0]!r}")
+
+    # ------------------------------------------------ 39. times of phases 36-38
+    # Each call's collectives alone, in the shapes parallel/exact.py sends:
+    # the stats all-reduce (bounds, the block's shape row, sums, maxes and
+    # the ring's tag), the packs, the sums.
+    shape_row = torch.zeros(1, 10, dtype=torch.int64)
+    ex_stats = [torch.zeros(1, dtype=torch.float64), torch.zeros(1, dtype=torch.float64),
+                shape_row, torch.zeros(ex_c, dtype=torch.int64),
+                torch.zeros(2, dtype=torch.int64)]
+    stat_ops = ["min", "max", "concat", "sum", "max"]
+    ex_k = torch.zeros(2 * ex_c, dtype=torch.int32, device=dev)
+    ex_chunk = torch.zeros(ex_c, ex_cap, device=dev)
+
+    def mc_gather_collectives(m):
+        m.all_reduce_many(ex_stats, stat_ops, "dp")
+        m.all_reduce_many([ex_chunk.T], ["concat"], "dp")
+        return m.all_reduce_many([ex_k], ["sum"], "dp")
+
+    def mc_ring_collectives(m):
+        m.all_reduce_many(ex_stats, stat_ops, "dp")
+        _ring(m, "time", (ex_chunk,), lambda p: p)
+        return m.all_reduce_many([ex_k], ["sum"], "dp")
+
+    def exact_collective(s, t, dim=0):
+        return lambda m: m.group.all_gather_object([shape_row, *shard_batch(m, s, t, dim=dim)])
+
+    def ustat_collectives(run_len):
+        run = torch.zeros(run_len, device=dev)
+        u = torch.zeros((), device=dev)
+        return lambda m: (m.all_reduce_many(ex_stats[:3] + [torch.zeros(1, dtype=torch.int64),
+                                                             torch.zeros(3, dtype=torch.int64)],
+                                            stat_ops, "dp"),
+                          m.all_reduce_many([run], ["concat"], "dp"),
+                          m.all_reduce_many([u], ["sum"], "dp"))
+
+    for label, fn, alone, reps in [
+        (f"{ex_label}, defaults (gather)", mc_ustat(), mc_gather_collectives, 5),
+        (f"{ex_label}, comm='ring'", mc_ustat(comm="ring"), mc_ring_collectives, 5),
+        (f"sharded_multiclass_auroc_exact ({ex_n}, {ex_c}) (3 calls: 4 x 65.5 MB pickled a call)",
+         lambda m: sharded_multiclass_auroc_exact(*shard_batch(m, ex_s, ex_t), m, num_classes=ex_c),
+         exact_collective(ex_s, ex_t), 3),
+        ("sharded_binary_auroc_exact 2^22 balanced",
+         exact_call(sharded_binary_auroc_exact, bs_s, bs_t), exact_collective(bs_s, bs_t), 5),
+        ("sharded_binary_auroc_ustat 2^22 balanced (whole blocks)",
+         lambda m: sharded_binary_auroc_ustat(*shard_batch(m, bs_s, bs_t), m),
+         ustat_collectives(bs_n // 4), 5),
+        ("sharded_binary_auroc_ustat 48 positives, cap 64",
+         lambda m: sharded_binary_auroc_ustat(*shard_batch(m, bs_s, br_t), m,
+                                              max_minority_count_per_shard=64),
+         ustat_collectives(64), 5),
+        ("sharded_binary_auprc_ustat 48 positives, cap 64",
+         lambda m: sharded_binary_auprc_ustat(*shard_batch(m, bs_s, br_t), m,
+                                              max_positive_count_per_shard=64),
+         ustat_collectives(64), 5),
+    ]:
+        call_ms = host_median_ms(
+            lambda: LocalWorld(4).run(lambda g, r: fn(make_mesh(group=g))), reps)
+        coll_ms = host_median_ms(
+            lambda: LocalWorld(4).run(lambda g, r: alone(make_mesh(group=g))), reps)
+        print(f"time {card}: {label}, LocalWorld(4) on one card, wall clock of the call (median "
+              f"of {reps}): {call_ms:.3f} ms; its collectives alone (pickled through the CPU) "
+              f"{coll_ms:.3f} ms, {100 * coll_ms / call_ms:.0f} % of the call", flush=True)
+    ex_dev = {}
+    for label, tabs in ex_tables.items():
+        cap_t = tabs.shape[1]
+        dev_t = device_ms(torch, lambda: rank_sum_counts(ex_q, tabs, negate=True))
+        ev_t = median_ms(lambda: rank_sum_counts(ex_q, tabs, negate=True))
+        searches = 2 * ex_q.numel()
+        bnd, by = bound(ex_q.numel() * 4 + tabs.numel() * 4 + tabs.shape[0] * 4,
+                        searches * int(np.log2(cap_t)))
+        print(f"time {card}: rank_sum_counts a rank, {tuple(ex_q.shape)} strided queries against "
+              f"{label} {tuple(tabs.shape)}: device {dev_t:.4f} ms, events {ev_t:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by}), issue floor {issue_floor_ms(searches, cap_t):.4f} ms",
+              flush=True)
+        ex_dev[label] = dev_t
+    ex_dev_ms = ex_dev["the gathered table"]
+    # The rank kernels at the operands the gathered wholes of phase 37 give
+    # them (the single-device routes), held against their plain versions:
+    # first the multiclass whole, each rank's (1000, 65536) strided queries
+    # against the whole's own table at its route's cap.
+    whole_cap = ustat_route_cap(ex_s, ex_t, ex_c)
+    _, whole_tab = _pack_positive_tables(ex_s, ex_t, ex_c, whole_cap)
+    whole_tabs = torch.cat([whole_tab, -whole_tab.flip(1)])
+    whole_q = ex_s.T
+    got = rank_sum_counts(whole_q, whole_tabs, negate=True)
+    torch.cuda.synchronize()
+    plain = _rank_sum_counts_plain(whole_q, whole_tabs, negate=True)
+    ex_rank_err = max(ex_rank_err, int((got - plain).abs().max()))
+    check(torch.equal(got, plain),
+          f"rank_sum_counts bit-equal to plain on the multiclass whole: {tuple(whole_q.shape)} "
+          f"strided queries against {tuple(whole_tabs.shape)}, cap {whole_cap} "
+          f"[{rank_sum_plan(whole_q, whole_tabs, negate=True).describe()}]")
+    searches = 2 * whole_q.numel()
+    bnd, by = bound(whole_q.numel() * 4 + whole_tabs.numel() * 4 + got.numel() * 4,
+                    searches * int(np.log2(whole_cap)))
+    print(f"time {card}: rank_sum_counts on the multiclass whole, cap {whole_cap}: device "
+          f"{device_ms(torch, lambda: rank_sum_counts(whole_q, whole_tabs, negate=True)):.4f} "
+          f"ms, bound {bnd:.4f} ms ({by}), issue floor "
+          f"{issue_floor_ms(searches, whole_cap):.4f} ms", flush=True)
+    del whole_tab, whole_tabs, got, plain
+    mt_hist_dev_ms = None
+    for label, rows, hits in [("the 48-positive 2^22 whole", bs_s[None], (br_t == 1)[None]),
+                              ("the multitask whole", mt_s, mt_t == 1)]:
+        _, cap_r = binary_ustat_route(rows, hits.to(torch.int32), need_pos=True)
+        _, tab = _pack_row_tables(rows, hits, cap_r)
+        tabs = torch.cat([tab, -tab.flip(1)])
+        for name, call, plain_call, searches, extra in [
+            ("rank_sum_counts", lambda: rank_sum_counts(rows, tabs, negate=True),
+             lambda: _rank_sum_counts_plain(rows, tabs, negate=True), 2 * rows.numel(), 0),
+            ("rank_hist_counts", lambda: rank_hist_counts(rows, tab),
+             lambda: _rank_hist_counts_plain(rows, tab), rows.numel(), 2),
+        ]:
+            got = call()
+            torch.cuda.synchronize()
+            check(torch.equal(got, plain_call()),
+                  f"{name} bit-equal to plain on {label} {tuple(rows.shape)}, cap {cap_r}")
+            dev_t = device_ms(torch, call)
+            bnd, by = bound(rows.numel() * 4 + tabs.numel() * 4 + got.numel() * 4,
+                            searches * int(np.log2(cap_r)))
+            print(f"time {card}: {name} on {label} {tuple(rows.shape)}, cap {cap_r}: device "
+                  f"{dev_t:.4f} ms, bound {bnd:.4f} ms ({by}), issue floor "
+                  f"{issue_floor_ms(searches, cap_r, extra):.4f} ms", flush=True)
+            if name == "rank_hist_counts" and label == "the multitask whole":
+                mt_hist_dev_ms = dev_t
+    if profile_phase:
+        profile_lifecycle(torch, card, f"{ex_label}, defaults",
+                          lambda: LocalWorld(4).run(lambda g, r: mc_ustat()(make_mesh(group=g))),
+                          host_ops=True)
+    del ex_s, ex_t, ex_blocks, ex_q, ex_tables, mt_s, mt_t, whole_q
+
     # ------------------------------------------------------ the kernels line
     kernels = [
         {
@@ -2711,7 +3053,7 @@ def main(argv) -> int:
             "source": "torcheval_tpu_torch/ops/csrc/rank_sum.cu",
             "replaces": "torcheval_tpu/ops/pallas_ustat.py:176",
             "launches": headline_launches,
-            "max_abs_err": rank_err,
+            "max_abs_err": max(rank_err, ex_rank_err),
             "ms": rank_ms,
             "plain_ms": rank_plain_ms,
             "bound_ms": rank_bound,
@@ -2719,6 +3061,8 @@ def main(argv) -> int:
             "library_ms": rank_lib_ms,
             "window_launches": rare_launches,
             "window_device_ms": rare_dev_ms,
+            "sharded_launches": ex_launches,
+            "sharded_device_ms": ex_dev_ms,
             "verdict": "bit-equal",
         },
         {
@@ -2739,6 +3083,8 @@ def main(argv) -> int:
             "one_row_launches": binary_launches,
             "window_launches": win_launches,
             "window_device_ms": win_auc_dev_ms,
+            "sharded_launches": call_launches[
+                "sharded_binary_auroc_exact", "phase 28's 2^22 balanced"]["auc_from_sorted"],
             "verdict": "bit-equal",
         },
         {
@@ -2767,6 +3113,9 @@ def main(argv) -> int:
             "bound_ms": hist_bound,
             "bound_by": hist_by,
             "library_ms": None,
+            "sharded_launches": call_launches[
+                "sharded_multitask_auprc_exact", "multitask"]["rank_hist_counts"],
+            "sharded_device_ms": mt_hist_dev_ms,
             "verdict": "bit-equal",
         },
         {

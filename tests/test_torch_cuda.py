@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from torcheval_tpu_torch import convert
+from torcheval_tpu_torch.distributed import LocalWorld
 from torcheval_tpu_torch.flagship import FlagshipMLP, eval_step
 from torcheval_tpu_torch.metrics import (
     BinaryAUROC,
@@ -24,6 +26,12 @@ from torcheval_tpu_torch.metrics import (
     MulticlassPrecisionRecallCurve,
     MultilabelRecallAtFixedPrecision,
 )
+from torcheval_tpu_torch.metrics.functional import (
+    binary_auroc,
+    multiclass_accuracy,
+    multiclass_auroc,
+    multiclass_confusion_matrix,
+)
 from torcheval_tpu_torch.metrics.functional._host_checks import skip_value_checks
 from torcheval_tpu_torch.ops import _build, binned, cm, ustat
 from torcheval_tpu_torch.ops.auc import _auc_from_sorted_plain, auc_from_sorted, auc_plan
@@ -34,7 +42,13 @@ from torcheval_tpu_torch.ops.binned import (
     binned_weighted_counts,
 )
 from torcheval_tpu_torch.ops.cm import _confusion_slab_plain, confusion_slab
-from torcheval_tpu_torch.parallel import make_mesh, sharded_auroc_histogram
+from torcheval_tpu_torch.parallel import (
+    make_mesh,
+    shard_batch,
+    sharded_auroc_histogram,
+    sharded_binary_auroc_exact,
+    sharded_multiclass_auroc_ustat,
+)
 from torcheval_tpu_torch.parallel.sync import _grid_np
 
 pytestmark = pytest.mark.cuda
@@ -321,22 +335,82 @@ def test_counting_metrics_on_the_card_equal_the_cpu():
 
 
 def test_flagship_on_the_card_equals_the_cpu():
+    """The card's logits within 1e-5 of the CPU model's (TF32 off, weights
+    from numpy); the card's metrics against the same metrics on the CPU on
+    the card's OWN scores (logits 1e-5 apart can reorder near-tied
+    scores, so the two devices' AUROCs need not agree to 1e-6)."""
     dev = _cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(4)
     x = rng.standard_normal((1024, 32)).astype(np.float32)
     y = rng.integers(0, 8, 1024).astype(np.int32)
+    params = convert.params_from_jax({
+        "w1": (rng.standard_normal((32, 64)) / np.sqrt(32)).astype(np.float32),
+        "b1": np.zeros(64, np.float32),
+        "w2": (rng.standard_normal((64, 8)) / np.sqrt(64)).astype(np.float32),
+        "b2": np.zeros(8, np.float32),
+    })
     cpu_model = FlagshipMLP(device="cpu")
+    cpu_model.load_state_dict(params)
     card_model = FlagshipMLP(device=dev)
-    card_model.load_state_dict(cpu_model.state_dict())
+    card_model.load_state_dict(params)
     _build.reset_counts()
     got = eval_step(card_model, x, y)
     assert dict(_build.LAUNCHES) == {"auc_from_sorted": 1} and not _build.PLAIN_CALLS
     want = eval_step(cpu_model, x, y)
     torch.testing.assert_close(got["logits"].cpu(), want["logits"], rtol=0, atol=1e-5)
-    assert torch.equal(got["confusion_matrix"].cpu(), want["confusion_matrix"])
-    assert float(got["accuracy"]) == float(want["accuracy"])
-    assert abs(float(got["auroc"]) - float(want["auroc"])) <= 1e-6
+    scores = torch.softmax(got["logits"], dim=-1)  # eval_step's own scores, on the card
+    target = torch.from_numpy(y)
+    on_cpu = {
+        "accuracy": multiclass_accuracy(scores.cpu(), target),
+        "confusion_matrix": multiclass_confusion_matrix(
+            torch.argmax(scores.cpu(), dim=-1), target, num_classes=8),
+        "per_class": multiclass_auroc(scores.cpu(), target, num_classes=8, average=None),
+    }
+    assert float(got["accuracy"]) == float(on_cpu["accuracy"])
+    assert torch.equal(got["confusion_matrix"].cpu(), on_cpu["confusion_matrix"])
+    per_class = multiclass_auroc(scores, target.to(dev), num_classes=8, average=None)
+    assert torch.equal(per_class.cpu(), on_cpu["per_class"])
+    # The macro mean sums 8 floats in each device's own order.
+    assert abs(float(got["auroc"]) - float(on_cpu["per_class"].mean())) <= 1e-6
+
+
+def test_sharded_multiclass_ustat_on_the_card_equals_the_cpu():
+    """Over LocalWorld(2) on the card: one rank_sum_counts launch a rank on
+    the gather, one a ring step, and the same bits as the same call on CPU
+    tensors (the kernel's plain version)."""
+    dev = _cuda()
+    rng = np.random.default_rng(36)
+    s = (np.round(rng.random((4096, 64)) * 256) / 256).astype(np.float32)
+    t = rng.integers(0, 64, 4096).astype(np.int32)
+
+    def run(device, comm):
+        s_dev, t_dev = torch.from_numpy(s).to(device), torch.from_numpy(t).to(device)
+        _build.reset_counts()
+        out = LocalWorld(2).run(lambda g, r: sharded_multiclass_auroc_ustat(
+            *shard_batch(make_mesh(group=g), s_dev, t_dev), make_mesh(group=g),
+            num_classes=64, average=None, comm=comm))
+        assert torch.equal(out[0], out[1])
+        return out[0].cpu(), dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+
+    for comm, launches in (("gather", 2), ("ring", 4)):
+        card, card_launches, card_plain = run(dev, comm)
+        cpu, cpu_launches, cpu_plain = run("cpu", comm)
+        assert card_launches == {"rank_sum_counts": launches} and not card_plain
+        assert cpu_plain == {"rank_sum_counts": launches} and not cpu_launches
+        assert torch.equal(card, cpu), comm
+
+
+def test_sharded_binary_gather_exact_on_the_card_equals_binary_auroc():
+    dev = _cuda()
+    rng = np.random.default_rng(37)
+    s = torch.from_numpy(rng.random(2**16).astype(np.float32)).to(dev)
+    t = torch.from_numpy((rng.random(2**16) < 0.5).astype(np.int32)).to(dev)
+    _build.reset_counts()
+    out = LocalWorld(2).run(lambda g, r: sharded_binary_auroc_exact(
+        *shard_batch(make_mesh(group=g), s, t), make_mesh(group=g)))
+    assert dict(_build.LAUNCHES) == {"auc_from_sorted": 2} and not _build.PLAIN_CALLS
+    assert torch.equal(out[0], out[1]) and torch.equal(out[0], binary_auroc(s, t))
 
 
 # Tables and counts leave shared memory past cap 768 (G = 32) and 24 960

@@ -9,11 +9,31 @@
   binned curve metrics ``sharded_auroc_histogram``,
   ``sharded_auprc_histogram`` and ``sharded_multiclass_auroc_histogram``
   over the binned-count kernels.
+* :mod:`.exact`: the exact sharded AUROC / AUPRC, the gather-exact family
+  (``sharded_binary_auroc_exact``, ``sharded_binary_auprc_exact``,
+  ``sharded_multitask_auroc_exact``, ``sharded_multitask_auprc_exact``,
+  ``sharded_multiclass_auroc_exact``: bit for bit the single-device
+  functional on the concatenated blocks) and the ustat family
+  (``sharded_binary_auroc_ustat``, ``sharded_binary_auprc_ustat``,
+  ``sharded_multiclass_auroc_ustat``: only the minority class or the
+  positives travel; the multiclass one counts with the rank-sum kernel);
+  ``eager_ustat_pin`` stays in :mod:`.exact`, as in the JAX package.
 
-Not ported yet: the exact sharded family (``parallel/exact.py``, ROADMAP
-queue 1 item 3) and the fleet merge (``parallel/fleet_merge.py``, item 6).
+Not ported yet: the fleet merge (``parallel/fleet_merge.py``, ROADMAP
+queue 1 item 6).  ``spmd_cache_info`` / ``spmd_cache_clear`` (a JAX jit
+cache) have no counterpart.
 """
 
+from torcheval_tpu_torch.parallel.exact import (
+    sharded_binary_auprc_exact,
+    sharded_binary_auprc_ustat,
+    sharded_binary_auroc_exact,
+    sharded_binary_auroc_ustat,
+    sharded_multiclass_auroc_exact,
+    sharded_multiclass_auroc_ustat,
+    sharded_multitask_auprc_exact,
+    sharded_multitask_auroc_exact,
+)
 from torcheval_tpu_torch.parallel.mesh import (
     Mesh,
     bucket_shard_batch,
@@ -41,5 +61,13 @@ __all__ = [
     "shard_batch",
     "sharded_auprc_histogram",
     "sharded_auroc_histogram",
+    "sharded_binary_auprc_exact",
+    "sharded_binary_auprc_ustat",
+    "sharded_binary_auroc_exact",
+    "sharded_binary_auroc_ustat",
+    "sharded_multiclass_auroc_exact",
     "sharded_multiclass_auroc_histogram",
+    "sharded_multiclass_auroc_ustat",
+    "sharded_multitask_auprc_exact",
+    "sharded_multitask_auroc_exact",
 ]
