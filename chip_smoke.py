@@ -252,7 +252,39 @@ times kernels and lifecycle with CUDA events.  Phases:
     plan) and timed at the operands of phase 37's multiclass whole, and
     ``rank_sum_counts`` / ``rank_hist_counts`` at those of its 48-positive
     and multitask wholes (with ``--profile``, the multiclass ustat call by
-    operator).
+    operator);
+40. the data-health monitor on phase 17's lifecycle: with
+    ``health.enable()`` every state bit-equal to the monitor off, the same 8
+    ``mega_counts`` launches and no plain call, one read back an update; a
+    batch through ``faults.corrupt_batch`` (a clone on the card) with 3
+    labels set to 100 and 2 to -1 gives the ``nan`` / ``label_range``
+    findings numpy counts, one ``DataHealthEvent`` each;
+    ``raise_on_corrupt=True`` raises ``DataCorruptionError`` after the batch
+    is applied; the lifecycle's time with the monitor off and on (with
+    ``--profile``, both by operator);
+41. checkpoint and resume: ``CheckpointManager.save`` of the collection's
+    card states after update 4, a fresh card collection loaded from
+    ``load_latest()``, updates 5-8 (4 ``mega_counts`` launches): every
+    state and figure bit-equal to the uninterrupted run; a torn save
+    (``checkpoint.write``, ``action="tear"``) is quarantined and the
+    previous generation loads; save, load and restore times and bytes;
+42. retried collectives around kernels over ``LocalWorld(4)``:
+    ``make_synced_update(_confusion_matrix_update, retry=...)`` on phase 8's
+    steps with one rank's first ``sync.dispatch`` attempt failing (4 slab
+    launches a step and one for the retry, one ``RetryEvent``, the matrix
+    bit-equal to the fault-free call and to phase 8's oracle);
+    ``sharded_multiclass_auroc_ustat`` at phase 36's data over
+    ``ResilientGroup`` ranks whose first collective attempt fails (phase
+    36's bits, 4 ``rank_sum_counts`` launches); a rank that never joins cut
+    at a 1 s deadline on the other three; each retried call's wall clock
+    beside the fault-free call's;
+43. phase 3's headline lifecycle with the telemetry bus, tracing and the
+    flight recorder on: the same AUROC bits, every event traced, the
+    JSON-lines round trip, one Perfetto slice a timed event, Prometheus
+    text that parses, a fired fault's bundle that validates, the
+    lifecycle's time with the bus off and on (with ``--profile``, by
+    operator), and the spans by name in a ``torch.profiler`` trace beside
+    the rank-sum kernel.
 
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
@@ -3045,6 +3077,383 @@ def main(argv) -> int:
                           host_ops=True)
     del ex_s, ex_t, ex_blocks, ex_q, ex_tables, mt_s, mt_t, whole_q
 
+    # ------------------------------- 40. data health on the collection lifecycle
+    import io
+    import shutil
+    import tempfile
+    import threading
+
+    from torcheval_tpu_torch.convert import state_from_jax
+    from torcheval_tpu_torch.distributed import SingleProcessGroup
+    from torcheval_tpu_torch.metrics.functional.classification.confusion_matrix import (
+        _confusion_matrix_update,
+    )
+    from torcheval_tpu_torch.resilience import (
+        CheckpointManager,
+        CollectiveTimeoutError,
+        FaultPlan,
+        InjectedFault,
+        ResilientGroup,
+        RetryPolicy,
+        faults,
+    )
+    from torcheval_tpu_torch.telemetry import events as bus
+    from torcheval_tpu_torch.telemetry import export as bus_export
+    from torcheval_tpu_torch.telemetry import flightrec, health
+    from torcheval_tpu_torch.telemetry import trace as bus_trace
+
+    def states_equal(a, b):
+        sa, sb = a.state_dict(), b.state_dict()
+        return sa.keys() == sb.keys() and all(
+            sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k]) for k in sa)
+
+    def health_on(fn, raise_on_corrupt=False):
+        health.enable(raise_on_corrupt=raise_on_corrupt)
+        try:
+            return fn()
+        finally:
+            health.disable()
+            health.RAISE_ON_CORRUPT = False
+
+    def turns_ms(fns, reps=5):
+        """Host wall clock (ending in a device sync) of each of ``fns``, run
+        in turns, the order reversed every round (a b, b a, ...), after one
+        warm-up call each: the per-function lists in ms."""
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+        out = [[] for _ in fns]
+        for i in range(reps):
+            order = list(range(len(fns)))
+            for j in (order if i % 2 == 0 else order[::-1]):
+                t0 = time.perf_counter()
+                fns[j]()
+                torch.cuda.synchronize()
+                out[j].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def spread(ms):
+        return f"{statistics.median(ms):.3f} ms ({min(ms):.3f}-{max(ms):.3f})"
+
+    reads = []
+    real_to_host = health._to_host
+
+    def counting_to_host(t):
+        reads.append(1)
+        return real_to_host(t)
+
+    col_ref = MetricCollection(five(COL_CLASSES))
+    ref_out = fused_lifecycle(col_ref)
+    col_health = MetricCollection(five(COL_CLASSES))
+    bus.clear()
+    health._to_host = counting_to_host
+    try:
+        health_out, health_launches = health_on(lambda: counted(
+            "collection lifecycle (fused_update x 8) with the data-health monitor on",
+            fused_lifecycle, col_health, "mega_counts", times=NUM_UPDATES))
+    finally:
+        health._to_host = real_to_host
+    check(states_equal(col_health, col_ref)
+          and all(torch.equal(health_out[k], ref_out[k]) for k in ref_out),
+          "monitor on: every state and figure bit-equal to the monitor off")
+    check(len(reads) == NUM_UPDATES and bus.events("data_health") == [],
+          f"monitor on: {len(reads)} read backs for {NUM_UPDATES} updates, no finding on "
+          "clean data")
+    bad_rng = np.random.default_rng(40)
+    bad_x, bad_y = faults.corrupt_batch((col_x[0], col_y[0]))
+    bad_y = bad_y.clone()
+    bad_rows = bad_rng.choice(bad_y.numel(), 5, replace=False)
+    bad_y[torch.from_numpy(bad_rows[:3]).to(dev)] = COL_CLASSES
+    bad_y[torch.from_numpy(bad_rows[3:]).to(dev)] = -1
+    check(int(col_x[0].isnan().sum()) == 0 and bad_x.device == col_x[0].device,
+          "corrupt_batch: a clone on the card, the caller's batch left as it was")
+    bad_x_np, bad_y_np = bad_x.cpu().numpy(), bad_y.cpu().numpy()
+    want_findings = sorted(
+        [("nan", "", int(np.isnan(bad_x_np).sum())),
+         ("label_range", "", int((bad_y_np < 0).sum()))]
+        + [("label_range", name, int((bad_y_np >= COL_CLASSES).sum())) for name in col_ref])
+    col_bad = MetricCollection(five(COL_CLASSES))
+    bus.clear()
+    _build.reset_counts()
+    health_on(lambda: col_bad.fused_update(bad_x, bad_y))
+    torch.cuda.synchronize()
+    got_findings = sorted((e.check, e.metric, e.count) for e in bus.events("data_health"))
+    check(got_findings == want_findings and dict(_build.LAUNCHES) == {"mega_counts": 1},
+          f"a corrupt batch: findings {got_findings} equal numpy's, one DataHealthEvent each, "
+          "one mega launch")
+    col_raise = MetricCollection(five(COL_CLASSES))
+    try:
+        health_on(lambda: col_raise.fused_update(bad_x, bad_y), raise_on_corrupt=True)
+        fail("raise_on_corrupt=True did not raise on the corrupt batch")
+    except health.DataCorruptionError as exc:
+        raised = str(exc)
+    check(states_equal(col_raise, col_bad),
+          f"raise_on_corrupt: DataCorruptionError ({raised[:60]}...) after the batch was "
+          "applied, states equal to the un-raised run's")
+    bus.clear()
+    health_off, health_on_times = turns_ms(
+        [lambda: fused_lifecycle(col_ref), lambda: health_on(lambda: fused_lifecycle(col_health))])
+    print(f"times {card}: collection lifecycle (fused_update x {NUM_UPDATES}, {COL_SAMPLES} x "
+          f"{COL_CLASSES}), 5 turns each, median (min-max): health off {spread(health_off)}, "
+          f"on {spread(health_on_times)} ({NUM_UPDATES} read backs, one a update)", flush=True)
+    if profile_phase:
+        for label, fn in (("collection lifecycle, health off", lambda: fused_lifecycle(col_ref)),
+                          ("collection lifecycle, health on",
+                           lambda: health_on(lambda: fused_lifecycle(col_health)))):
+            profile_lifecycle(torch, card, label, fn, host_ops=True)
+    del col_health, col_bad, col_raise, bad_x, bad_y
+
+    # ------------------------------------- 41. checkpoint and resume on the card
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(ck_dir)
+        first = MetricCollection(five(COL_CLASSES))
+        for x, y in zip(col_x[:4], col_y[:4]):
+            first.fused_update(x, y)
+        ck_path = mgr.save(first.state_dict(), {"batches_seen": 4})
+        ckpt = mgr.load_latest()
+        check(ckpt.generation == 0 and ckpt.cursor == {"batches_seen": 4}
+              and all(isinstance(v, np.ndarray) for v in ckpt.state.values()),
+              f"checkpoint: generation 0, cursor 4, {ckpt.nbytes} bytes of host numpy")
+        resumed = MetricCollection(five(COL_CLASSES))
+        resumed.load_state_dict(state_from_jax(ckpt.state))
+        _build.reset_counts()
+        for x, y in zip(col_x[4:], col_y[4:]):
+            resumed.fused_update(x, y)
+        resumed_out = resumed.compute()
+        torch.cuda.synchronize()
+        ckpt_launches = _build.LAUNCHES["mega_counts"]
+        check(dict(_build.LAUNCHES) == {"mega_counts": NUM_UPDATES - 4} and not _build.PLAIN_CALLS,
+              f"resumed on the card: {ckpt_launches} mega launches after the restore")
+        check(states_equal(resumed, col_ref)
+              and all(torch.equal(resumed_out[k], ref_out[k]) for k in ref_out),
+              "resumed lifecycle bit-equal to the uninterrupted one, every state and figure")
+        bus.clear()
+        bus.enable()
+        with FaultPlan([{"site": "checkpoint.write", "action": "tear", "offset": 100}]):
+            try:
+                mgr.save(resumed.state_dict(), {"batches_seen": NUM_UPDATES})
+                fail("a tear rule on checkpoint.write did not raise")
+            except InjectedFault:
+                pass
+        torn = mgr.load_latest()
+        bus.disable()
+        quarantined = [(e.action, e.generation) for e in bus.events("checkpoint")]
+        check(torn.generation == 0 and torn.cursor == {"batches_seen": 4}
+              and quarantined == [("quarantine", 1), ("restore", 0)],
+              f"a torn generation 1 is quarantined and generation 0 loads: events {quarantined}")
+        bus.clear()
+        ck_bytes = os.path.getsize(ck_path)
+        state_bytes = sum(v.numel() * v.element_size() for v in first.state_dict().values())
+        save_ms = host_median_ms(lambda: mgr.save(first.state_dict(), {"batches_seen": 4}))
+        load_ms = host_median_ms(lambda: mgr.load_latest())
+        restore_ms = host_median_ms(
+            lambda: resumed.load_state_dict(state_from_jax(mgr.load_latest().state)))
+        print(f"times {card}: checkpoint of the collection ({state_bytes} state bytes on the "
+              f"card, {ck_bytes} bytes on disk): save {save_ms:.3f} ms, load {load_ms:.3f} ms, "
+              f"load and restore to the card {restore_ms:.3f} ms", flush=True)
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    del first, resumed, col_ref
+
+    # ------------------------------------ 42. retried collectives around kernels
+    policy = RetryPolicy(max_attempts=3, base_delay=0.001, jitter=0.0)
+
+    def cm_steps(retry):
+        def fn(g, r):
+            mesh = make_mesh(group=g)
+            step = make_synced_update(
+                lambda a, b: _confusion_matrix_update(a, b, CM_CLASSES), mesh, retry=retry)
+            total = None
+            for p, t in zip(p_chunks, y_chunks):
+                out = step(*shard_batch(mesh, p, t))
+                total = out if total is None else total + out
+            return total
+
+        out = LocalWorld(4).run(fn)
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, out[0]) for o in out[1:]):
+            fail("the ranks of LocalWorld(4) hold different bits")
+        return out[0]
+
+    def faulted_cm():
+        with FaultPlan([{"site": "sync.dispatch", "count": 1}]):
+            return cm_steps(policy)
+
+    _build.reset_counts()
+    cm_clean = cm_steps(policy)
+    clean_cm_launches = dict(_build.LAUNCHES)
+    bus.clear()
+    bus.enable()
+    _build.reset_counts()
+    cm_retried = faulted_cm()
+    cm_retry_launches = _build.LAUNCHES["confusion_slab"]
+    bus.disable()
+    retries = bus.events("retry")
+    check(clean_cm_launches == {"confusion_slab": 4 * NUM_UPDATES}
+          and dict(_build.LAUNCHES) == {"confusion_slab": 4 * NUM_UPDATES + 1}
+          and not _build.PLAIN_CALLS and len(retries) == 1,
+          f"make_synced_update(retry=) over LocalWorld(4), {NUM_UPDATES} steps: "
+          f"{cm_retry_launches} slab launches (4 a step and the failed rank's retry), "
+          f"one RetryEvent ({retries[0].error[:40] if retries else None})")
+    check(torch.equal(cm_retried, cm_clean) and np.array_equal(cm_retried.cpu().numpy(), cm_oracle),
+          "the retried matrix bit-equal to the fault-free call and to phase 8's np.add.at oracle")
+    bus.clear()
+
+    ex_s, ex_t = torch.from_numpy(ex_s_np).to(dev), torch.from_numpy(ex_t_np).to(dev)
+
+    def ustat_world(wrap):
+        def fn(g, r):
+            mesh = make_mesh(group=ResilientGroup(g, policy) if wrap else g)
+            return sharded_multiclass_auroc_ustat(
+                *shard_batch(mesh, ex_s, ex_t), mesh, num_classes=ex_c, average=None)
+
+        out = LocalWorld(4).run(fn)
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, out[0]) for o in out[1:]):
+            fail("the ranks of LocalWorld(4) hold different bits")
+        return out[0]
+
+    def faulted_ustat():
+        with FaultPlan([{"site": "collective", "on_attempt": 1, "count": 4}]) as plan:
+            out = ustat_world(True)
+        if len(plan.fired) != 4:
+            fail(f"the collective rule fired {len(plan.fired)} times, not once a rank")
+        return out
+
+    _build.reset_counts()
+    ustat_retried = faulted_ustat()
+    ustat_retry_launches = _build.LAUNCHES["rank_sum_counts"]
+    check(dict(_build.LAUNCHES) == {"rank_sum_counts": 4} and not _build.PLAIN_CALLS
+          and torch.equal(ustat_retried, ex_pc),
+          f"{ex_label} over ResilientGroup ranks, every rank's first attempt failing: "
+          f"phase 36's bits, {ustat_retry_launches} rank_sum_counts launches")
+
+    deadline = 1.0
+    lonely = LocalWorld(4)
+    timeouts = {}
+
+    def lonely_rank(r):
+        rg = ResilientGroup(lonely.group(r), RetryPolicy(max_attempts=3, base_delay=0.001,
+                                                         deadline=deadline))
+        t0 = time.perf_counter()
+        try:
+            rg.all_reduce(torch.ones(4, device=dev))
+        except CollectiveTimeoutError:
+            timeouts[r] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=lonely_rank, args=(r,), daemon=True) for r in range(3)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(deadline + 10)
+    lonely._barrier.abort()  # frees the abandoned attempts' threads
+    check(sorted(timeouts) == [0, 1, 2] and max(timeouts.values()) < deadline + 2,
+          f"a rank that never joins: CollectiveTimeoutError on the other three within "
+          f"{max(timeouts.values(), default=float('nan')):.3f} s (deadline {deadline} s)")
+
+    cm_plain, cm_clean_t, cm_retried_t = turns_ms(
+        [lambda: cm_steps(None), lambda: cm_steps(policy), faulted_cm])
+    print(f"times {card}: make_synced_update CM ({NUM_UPDATES} steps of 2^17 pairs, C = "
+          f"{CM_CLASSES}, LocalWorld(4)), 5 turns each, median (min-max): no retry "
+          f"{spread(cm_plain)}, retry fault-free {spread(cm_clean_t)}, one rank's attempt failed "
+          f"{spread(cm_retried_t)}", flush=True)
+    us_plain, us_wrapped, us_retried = turns_ms(
+        [lambda: ustat_world(False), lambda: ustat_world(True), faulted_ustat])
+    print(f"times {card}: {ex_label}, 5 turns each, median (min-max): plain group "
+          f"{spread(us_plain)}, ResilientGroup fault-free {spread(us_wrapped)}, every rank's "
+          f"first attempt failed {spread(us_retried)}", flush=True)
+    del ex_s, ex_t, cm_clean, cm_retried
+
+    # -------------------------- 43. the bus and the flight recorder on the headline
+    fr_dir = tempfile.mkdtemp(prefix="chip_smoke_flightrec_")
+    try:
+        bus.clear()
+        bus.enable()
+        bus_trace.enable()
+        flightrec.enable(dir=fr_dir, cooldown_s=0)
+        with bus_trace.activate(bus_trace.root("headline")):
+            bus_out, bus_launches = counted(
+                "headline MulticlassAUROC with the bus, tracing and the flight recorder on",
+                headline_lifecycle, headline, "rank_sum_counts")
+        check(torch.equal(bus_out, per_class), "bus on: the headline's AUROC bits unchanged")
+        evs = bus.events()
+        spans = bus.events("span")
+        check([(e.name, e.phase) for e in spans if e.name == "MulticlassAUROC"]
+              == [("MulticlassAUROC", "update")] * NUM_UPDATES + [("MulticlassAUROC", "compute")]
+              and all(e.trace_id for e in evs),
+              f"{len(evs)} events: {NUM_UPDATES} update spans and a compute span, every event "
+              "traced")
+        buf = io.StringIO()
+        bus_export.export_jsonl(buf)
+        buf.seek(0)
+        check(bus_export.read_jsonl(buf, strict=True) == evs,
+              "export_jsonl -> read_jsonl gives the same events")
+        perfetto = json.loads(json.dumps(bus_export.to_perfetto(evs)))
+        slices = [e for e in perfetto["traceEvents"] if e["ph"] == "X"]
+        check(len(slices) == len([e for e in evs if e.kind in ("span", "sync", "checkpoint")]),
+              f"to_perfetto: valid JSON, {len(slices)} slices, one a timed event")
+        prom = bus_export.prometheus_text()
+        for line in prom.splitlines():
+            if not line.startswith("#"):
+                float(line.rsplit(" ", 1)[1])
+        check("torcheval_tpu_span_seconds_count" in prom,
+              f"prometheus_text: {len(prom.splitlines())} lines, each parses")
+        with FaultPlan([{"site": "collective", "on_attempt": 1}]):
+            ResilientGroup(SingleProcessGroup(), policy).all_gather_object("probe")
+        bundle = flightrec.last_bundle()
+        problems = flightrec.validate_bundle(bundle) if bundle else ["no bundle"]
+        check(not problems, f"a fired fault wrote a bundle that validates: "
+                            f"{os.path.basename(bundle or '')}")
+        bus.disable()
+        bus_trace.disable()
+        flightrec.disable()
+        bus.clear()
+        flightrec.reset()
+        def bus_on_lifecycle():
+            bus.enable()
+            bus_trace.enable()
+            flightrec.enable(dir=fr_dir)
+            try:
+                with bus_trace.activate(bus_trace.root("headline")):
+                    return headline_lifecycle(headline)
+            finally:
+                bus.disable()
+                bus_trace.disable()
+                flightrec.disable()
+
+        bus_off, bus_on_times = turns_ms(
+            [lambda: headline_lifecycle(headline), bus_on_lifecycle])
+        print(f"times {card}: headline lifecycle, 5 turns each, median (min-max): bus off "
+              f"{spread(bus_off)}, bus + trace + flight recorder on {spread(bus_on_times)}",
+              flush=True)
+        if profile_phase:
+            profile_lifecycle(torch, card, "headline lifecycle, bus + trace + flight recorder on",
+                              bus_on_lifecycle, host_ops=True)
+        # The spans by name beside the kernels, under the profiler.
+        from torch.profiler import ProfilerActivity, profile
+
+        bus.enable(annotate=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            headline_lifecycle(headline)
+            torch.cuda.synchronize()
+        bus.enable(annotate=False)
+        bus.disable()
+        bus.clear()
+        named = sorted({e.key for e in prof.key_averages()
+                        if e.key.startswith("torcheval_tpu_torch.")})
+        kernel_rows = [(e.key, device_us(e)) for e in device_events(torch, prof)
+                       if "rank_sum" in e.key]
+        check(named == ["torcheval_tpu_torch.MulticlassAUROC.compute",
+                        "torcheval_tpu_torch.MulticlassAUROC.update"],
+              f"annotate: the spans by name in the profiler trace {named}, beside "
+              f"{[(k[:40], round(us, 1)) for k, us in kernel_rows]}")
+    finally:
+        shutil.rmtree(fr_dir, ignore_errors=True)
+        bus.disable()
+        bus_trace.disable()
+        flightrec.disable()
+
     # ------------------------------------------------------ the kernels line
     kernels = [
         {
@@ -3063,6 +3472,8 @@ def main(argv) -> int:
             "window_device_ms": rare_dev_ms,
             "sharded_launches": ex_launches,
             "sharded_device_ms": ex_dev_ms,
+            "retry_launches": ustat_retry_launches,
+            "bus_launches": bus_launches,
             "verdict": "bit-equal",
         },
         {
@@ -3099,6 +3510,7 @@ def main(argv) -> int:
             "bound_ms": slab_bound,
             "bound_by": slab_by,
             "library_ms": slab_lib_ms,
+            "retry_launches": cm_retry_launches,
             "verdict": "bit-equal",
         },
         {
@@ -3146,6 +3558,8 @@ def main(argv) -> int:
             "library_ms": None,
             "sliced_ms": sl_mega_ms,
             "sliced_launches": sliced_launches,
+            "health_launches": health_launches,
+            "checkpoint_launches": ckpt_launches,
             "verdict": "bit-equal",
         },
         {

@@ -65,8 +65,13 @@ def test_bucket_pads_are_recorded_when_telemetry_is_on(monkeypatch):
     events.clear()
     _bucket.pad_to_bucket(torch.zeros(77))
     _bucket.pad_to_bucket(torch.zeros(256))
-    assert events.bucket_pads() == [events.BucketPad(128, 77, 51), events.BucketPad(256, 256, 0)]
+    pads = events.events("bucket_pad")
+    assert [(e.bucket, e.rows_valid, e.rows_padded) for e in pads] == [(128, 77, 51), (256, 256, 0)]
+    assert events.aggregates()["bucket_pad"] == {
+        128: {"rows_valid": 77, "rows_padded": 51, "calls": 1},
+        256: {"rows_valid": 256, "rows_padded": 0, "calls": 1},
+    }
     events.clear()
     monkeypatch.setattr(events, "ENABLED", False)
     _bucket.pad_to_bucket(torch.zeros(77))
-    assert events.bucket_pads() == []
+    assert events.events("bucket_pad") == []

@@ -1232,3 +1232,108 @@ def test_ssim_in_two_threads_gives_the_single_thread_bits_with_tf32_on():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     for i in range(2):
         assert len(got[i]) == 20 and all(torch.equal(v, want[i]) for v in got[i])
+
+
+# ------------------------------------------- health, checkpoint and retry
+def test_health_on_equals_off_on_the_card(monkeypatch, tmp_path):
+    """The data-health monitor on a card ``fused_update``: the same states
+    bit for bit and the same launches as with it off, and its findings."""
+    from torcheval_tpu_torch.metrics import MetricCollection
+    from torcheval_tpu_torch.telemetry import events, health
+
+    dev = _cuda()
+    monkeypatch.setenv("TORCHEVAL_TPU_TORCH_MEGAKERNEL", "1")
+    rng = np.random.default_rng(40)
+    batches = [(rng.random((b, 20), dtype=np.float32), rng.integers(0, 20, b).astype(np.int32))
+               for b in (4096, 777, 5000)]
+    batches[1][0][3, 4] = np.nan
+    batches[1][1][:2] = [20, -1]
+
+    def run(on):
+        col = MetricCollection(_mega_members(20, dev), bucket=True)
+        if on:
+            health.enable()
+        _build.reset_counts()
+        try:
+            for x, y in batches:
+                col.fused_update(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+            torch.cuda.synchronize()
+        finally:
+            health.disable()
+        return col.state_dict(), dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+
+    events.clear()
+    off, off_launches, _ = run(False)
+    on, on_launches, on_plain = run(True)
+    assert on_launches == off_launches == {"mega_counts": len(batches)} and not on_plain
+    for k in off:
+        assert on[k].dtype == off[k].dtype and torch.equal(on[k], off[k]), k
+    found = sorted((e.check, e.metric, e.count) for e in events.events("data_health"))
+    events.clear()
+    assert ("nan", "", 1) in found and ("label_range", "", 1) in found
+    assert ("label_range", "cm", 1) in found
+
+
+def test_checkpoint_round_trip_of_card_states(monkeypatch, tmp_path):
+    """A card collection saved after two updates and loaded into a fresh
+    card collection finishes bit-equal to the uninterrupted run, and the
+    collection kernel launches again after the restore."""
+    from torcheval_tpu_torch.metrics import MetricCollection
+    from torcheval_tpu_torch.resilience import CheckpointManager
+
+    dev = _cuda()
+    monkeypatch.setenv("TORCHEVAL_TPU_TORCH_MEGAKERNEL", "1")
+    rng = np.random.default_rng(41)
+    batches = [(torch.from_numpy(rng.random((3000, 20), dtype=np.float32)).to(dev),
+                torch.from_numpy(rng.integers(0, 20, 3000).astype(np.int32)).to(dev))
+               for _ in range(4)]
+    whole = MetricCollection(_mega_members(20, dev))
+    for x, y in batches:
+        whole.fused_update(x, y)
+    first = MetricCollection(_mega_members(20, dev))
+    for x, y in batches[:2]:
+        first.fused_update(x, y)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(first.state_dict(), {"batches_seen": 2})
+    ckpt = mgr.load_latest()
+    assert all(isinstance(v, np.ndarray) for v in ckpt.state.values())
+    resumed = MetricCollection(_mega_members(20, dev))
+    resumed.load_state_dict(convert.state_from_jax(ckpt.state))
+    _build.reset_counts()
+    for x, y in batches[2:]:
+        resumed.fused_update(x, y)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"mega_counts": 2}
+    a, b = whole.state_dict(), resumed.state_dict()
+    for k in a:
+        assert b[k].device.type == "cuda" and torch.equal(a[k], b[k]), k
+
+
+def test_resilient_group_retries_around_the_rank_sum_kernel():
+    """``sharded_multiclass_auroc_ustat`` over ``ResilientGroup`` ranks with
+    every rank's first collective attempt failing: the fault-free bits and
+    one rank_sum_counts launch a rank."""
+    from torcheval_tpu_torch.resilience import FaultPlan, ResilientGroup, RetryPolicy
+
+    dev = _cuda()
+    rng = np.random.default_rng(42)
+    s = torch.from_numpy(rng.random((8192, 64), dtype=np.float32)).to(dev)
+    t = torch.from_numpy(rng.integers(0, 64, 8192).astype(np.int32)).to(dev)
+    policy = RetryPolicy(max_attempts=3, base_delay=0.001, jitter=0.0)
+
+    def run(wrap):
+        _build.reset_counts()
+        out = LocalWorld(4).run(lambda g, r: sharded_multiclass_auroc_ustat(
+            *shard_batch(make_mesh(group=g), s, t),
+            make_mesh(group=ResilientGroup(g, policy) if wrap else g),
+            num_classes=64, average=None))
+        torch.cuda.synchronize()
+        return out, dict(_build.LAUNCHES)
+
+    clean, clean_launches = run(False)
+    with FaultPlan([{"site": "collective", "on_attempt": 1, "count": 4}]) as plan:
+        retried, launches = run(True)
+    assert len(plan.fired) == 4
+    assert launches == clean_launches == {"rank_sum_counts": 4}
+    for a, b in zip(clean, retried):
+        assert torch.equal(a, b)

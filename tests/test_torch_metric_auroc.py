@@ -165,7 +165,8 @@ def test_telemetry_spans(monkeypatch):
     events.clear()
     m = _Counters(device=CPU).update([1.0, 2.0])
     m.compute()
-    spans = events.spans()
-    assert [(s.phase, s.metric) for s in spans] == [("update", "_Counters"), ("compute", "_Counters")]
-    assert spans[0].state_bytes > 0
+    spans = events.events("span")
+    assert [(s.phase, s.name) for s in spans] == [("update", "_Counters"), ("compute", "_Counters")]
+    assert spans[0].state_bytes > 0 and all(s.seconds >= 0 for s in spans)
+    assert set(events.aggregates()["spans"]) == {("_Counters", "update"), ("_Counters", "compute")}
     events.clear()

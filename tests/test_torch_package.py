@@ -58,6 +58,16 @@ def test_sources_import_no_jax():
         "torcheval_tpu_torch/metrics/_bucket.py",
         "torcheval_tpu_torch/metrics/collection.py",
         "torcheval_tpu_torch/metrics/toolkit.py",
+        "torcheval_tpu_torch/telemetry/events.py",
+        "torcheval_tpu_torch/telemetry/export.py",
+        "torcheval_tpu_torch/telemetry/flightrec.py",
+        "torcheval_tpu_torch/telemetry/health.py",
+        "torcheval_tpu_torch/telemetry/trace.py",
+        "torcheval_tpu_torch/telemetry/__main__.py",
+        "torcheval_tpu_torch/resilience/checkpoint.py",
+        "torcheval_tpu_torch/resilience/faults.py",
+        "torcheval_tpu_torch/resilience/membership.py",
+        "torcheval_tpu_torch/resilience/retry.py",
         "torcheval_tpu_torch/ops/_mega_plan.py",
         "torcheval_tpu_torch/ops/mega.py",
         "torcheval_tpu_torch/utils/test_utils/dummy_metric.py",
@@ -170,6 +180,21 @@ assert float(StructuralSimilarity(device="cpu").update(img, img).compute()) > 0.
 fid = FrechetInceptionDistance(lambda x: x.flatten(1)[:, :4], feature_dim=4, device="cpu")
 fid.update(img, is_real=True).update(img.flip(0), is_real=False)
 assert abs(float(fid.compute())) < 1e-3
+import tempfile
+from torcheval_tpu_torch import telemetry
+from torcheval_tpu_torch.resilience import CheckpointManager, FaultPlan, ResilientGroup, RetryPolicy
+telemetry.enable()
+telemetry.health.enable()
+col.fused_update(rng.random((64, 4)).astype(np.float32), np.full(64, 9))
+assert telemetry.report()["data_health"]["checks"]["label_range:cm"]["count"] == 64
+with FaultPlan([{"site": "collective", "on_attempt": 1, "count": 2}]):
+    got = LocalWorld(2).run(
+        lambda g, r: ResilientGroup(g, RetryPolicy(base_delay=0.001)).all_gather_object(r))
+assert got == [[0, 1], [0, 1]] and len(telemetry.events_snapshot("retry")) == 2
+with tempfile.TemporaryDirectory() as d:
+    CheckpointManager(d).save(col.state_dict(), {"batches_seen": 2})
+    assert CheckpointManager(d).load_latest().cursor == {"batches_seen": 2}
+assert "local_all_gather_object" in telemetry.prometheus_text()
 assert not any(
     k.split(".")[0] in ("jax", "torcheval_tpu", "__graft_entry__") for k in sys.modules
 )
@@ -221,6 +246,28 @@ def test_parallel_exports_the_jax_names_that_have_a_counterpart():
     for name in port_parallel.__all__:
         assert getattr(port_parallel, name) is not None
     assert callable(port_exact.eager_ustat_pin) and callable(jax_exact.eager_ustat_pin)
+
+
+def test_telemetry_and_resilience_export_the_jax_names_of_the_ported_modules():
+    import torcheval_tpu.resilience as jax_resilience
+    import torcheval_tpu.telemetry as jax_telemetry
+
+    import torcheval_tpu_torch.resilience as port_resilience
+    import torcheval_tpu_torch.telemetry as port_telemetry
+
+    assert port_resilience.__all__ == jax_resilience.__all__
+    # perfscope and aggregate (and the formatters and tenants module that
+    # read them) wait: ROADMAP queue 1 item 4's remainder and the serve layer.
+    waiting = {"SloRule", "default_rules", "explain_perf", "profile", "perfscope",
+               "aggregate", "fleet_report", "host_snapshot", "merge_snapshots",
+               "fleet_to_perfetto", "format_explain_perf", "format_fleet_report", "tenants"}
+    assert set(port_telemetry.__all__) == set(jax_telemetry.__all__) - waiting
+    for mod in (port_telemetry, port_resilience):
+        for name in mod.__all__:
+            assert getattr(mod, name) is not None
+    from torcheval_tpu_torch.telemetry import export
+
+    assert callable(export.fleet_to_perfetto) and callable(export.format_fleet_report)
 
 
 def test_default_device_without_a_gpu_raises(monkeypatch):

@@ -373,8 +373,14 @@ def test_sub_axis_and_retry_raise():
         return torch.ones(1)
 
     _run(4, (2, 2), ("dp", "sp"), fn)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tpar.make_synced_update(lambda x: x, tpar.make_mesh(), retry=object())
+    # retry= no longer raises: a retried synced update gives the bits of
+    # the plain one (tests/test_torch_resilience.py drives its faults).
+    from torcheval_tpu_torch.resilience import RetryPolicy
+
+    x = torch.arange(6.0)
+    plain = tpar.make_synced_update(lambda v: v * 2, tpar.make_mesh())(x)
+    retried = tpar.make_synced_update(lambda v: v * 2, tpar.make_mesh(), retry=RetryPolicy())(x)
+    assert torch.equal(retried, plain)
 
 
 def test_shard_batch_and_bucket_shard_batch():

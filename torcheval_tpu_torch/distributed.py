@@ -15,7 +15,10 @@
 * :class:`LocalWorld` / :class:`LocalGroup`: an N-rank world in one
   process, one thread per rank, with barrier-synchronized collectives.
   It stands in for the reference's multi-process gloo harness and runs
-  the same protocol: every object a rank ships is pickled.
+  the same protocol: every object a rank ships is pickled.  With the
+  telemetry bus on, its gathers emit one ``sync`` event each, as the JAX
+  package's do (``local_all_gather_object``: the rank's pickle times the
+  world size; ``local_gather_object``: the rank's pickle).
 
 Every tensor an object carries travels through the CPU: a metric pickles
 its states to the CPU (``Metric.__getstate__``) and comes back on its own
@@ -41,6 +44,7 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 
 from torcheval_tpu_torch.metrics.metric import _to_cpu_tree
+from torcheval_tpu_torch.telemetry import events as _telemetry
 
 REDUCE_OPS = ("sum", "max", "min", "mean", "concat")
 
@@ -257,10 +261,18 @@ class LocalGroup(CollectiveGroup):
         return self._world.world_size
 
     def all_gather_object(self, obj: Any) -> List[Any]:
-        self._world._slots[self._rank] = _dumps(obj)
+        t0 = time.monotonic()
+        payload = _dumps(obj)
+        self._world._slots[self._rank] = payload
         self._world._barrier.wait()
         result = [pickle.loads(p) for p in self._world._slots]
         self._world._barrier.wait()
+        if _telemetry.ENABLED:
+            _telemetry.record_sync(
+                "local_all_gather_object",
+                time.monotonic() - t0,
+                len(payload) * self.world_size,
+            )
         return result
 
     def broadcast_object(self, obj: Any, src: int) -> Any:
@@ -276,7 +288,9 @@ class LocalGroup(CollectiveGroup):
         # so the others' peak memory stays that of their own payload.
         if not 0 <= dst < self.world_size:
             raise ValueError(f"dst must be a rank in [0, {self.world_size}), got {dst}.")
-        self._world._slots[self._rank] = _dumps(obj)
+        t0 = time.monotonic()
+        payload = _dumps(obj)
+        self._world._slots[self._rank] = payload
         self._world._barrier.wait()
         result = (
             [pickle.loads(p) for p in self._world._slots]
@@ -284,6 +298,8 @@ class LocalGroup(CollectiveGroup):
             else None
         )
         self._world._barrier.wait()
+        if _telemetry.ENABLED:
+            _telemetry.record_sync("local_gather_object", time.monotonic() - t0, len(payload))
         return result
 
     @property

@@ -5,12 +5,17 @@ The JAX package folds a metric's kernel and every ``state + delta`` into
 one jitted program, with the states donated.  PyTorch runs eagerly, so
 here it is what it says: run the kernel, then add each delta into its
 state.  The sums are new tensors that the caller rebinds, so no state is
-written in place (``metric.py``).
+written in place (``metric.py``).  With the telemetry bus on, each call is
+a ``dispatch`` span named after the kernel, as in the JAX package: host
+time, no device synchronisation.
 """
 
+import time
 from typing import Tuple
 
 import torch
+
+from torcheval_tpu_torch.telemetry import events as _telemetry
 
 
 def accumulate(
@@ -27,6 +32,20 @@ def accumulate(
     not broadcast into it (the first 2-D update).  ``mask`` (a validity
     tensor, or ``None``) is passed to the kernel as a trailing ``mask=``
     keyword; only pass it to mask-aware kernels."""
+    if not _telemetry.ENABLED:
+        return _accumulate(kernel, states, args, statics, grow, mask)
+    t0 = time.monotonic()
+    out = _accumulate(kernel, states, args, statics, grow, mask)
+    _telemetry.record_span(
+        "dispatch",
+        getattr(kernel, "__name__", str(kernel)),
+        time.monotonic() - t0,
+        sum(s.numel() * s.element_size() for s in out),
+    )
+    return out
+
+
+def _accumulate(kernel, states, args, statics, grow, mask) -> Tuple[torch.Tensor, ...]:
     if mask is None:
         deltas = kernel(*args, *statics)
     else:

@@ -11,9 +11,13 @@ traces every member's update into one jitted program; PyTorch runs
 eagerly, so here the gain comes from the one-pass collection kernel
 (``ops/mega.py``): every member whose update it supports
 (``ops/_mega_plan.py``) is counted in ONE read of the batch, slice clones
-included, and only the others run their own update.  Left out of the JAX
-method, because they serve the JAX program cache or parts not ported
-yet: the health monitor and perfscope hooks, the call-signature cache
+included, and only the others run their own update.  With the telemetry
+bus on, each call is one ``update`` span named ``MetricCollection.fused``;
+with the data-health monitor on (``telemetry/health.py``), the batch is
+screened on its device and the screen read back once, after the states
+are installed (a flagged batch is then counted exactly).  Left out of the
+JAX method, because they serve the JAX program cache or a module not
+ported yet: the perfscope hook, the call-signature cache
 (``_call_signature`` / ``_fused_seen``) and the compilation-cache bypass
 around donated programs.
 """
@@ -21,6 +25,7 @@ around donated programs.
 from __future__ import annotations
 
 import copy
+import time
 from typing import Any, Dict, Iterable, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,6 +36,8 @@ from torcheval_tpu_torch.metrics._buffer import RingWindowMixin
 from torcheval_tpu_torch.metrics.functional._host_checks import skip_value_checks
 from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.ops import _mega_plan, mega
+from torcheval_tpu_torch.telemetry import events as _telemetry
+from torcheval_tpu_torch.telemetry import health as _health
 
 
 class MetricCollection:
@@ -129,6 +136,9 @@ class MetricCollection:
         # its state_dict namespace key.
         self._all_members: Dict[str, Metric] = dict(self._metrics)
         self._all_members.update(self._slice_members)
+        # The health monitor's (member, num_classes) pairs: taken once, at
+        # the first fused_update with the monitor on (the members are fixed).
+        self._health_bounds: Optional[Tuple[Tuple[str, int], ...]] = None
 
     # ------------------------------------------------------------- container
     def __getitem__(self, name: str) -> Metric:
@@ -249,9 +259,17 @@ class MetricCollection:
         members (list states) take :meth:`update`.
 
         Abort-safe: every delta is computed before any state is written,
-        and if anything raises, every state is put back as it was."""
+        and if anything raises, every state is put back as it was.  Under
+        ``health.enable(raise_on_corrupt=True)`` a corrupt batch raises
+        ``DataCorruptionError`` after it was applied."""
         self._check_fusable()
         args, kwargs = self._prepare(args, kwargs)
+        t0 = time.monotonic() if _telemetry.ENABLED else 0.0
+        health_stats = None
+        if _health.ENABLED:
+            if self._health_bounds is None:
+                self._health_bounds = _health.label_bounds(self._metrics)
+            health_stats = _health.stats_for_update(args, kwargs, self._health_bounds)
         before = self._read_states()
         try:
             with skip_value_checks():
@@ -260,6 +278,17 @@ class MetricCollection:
         except BaseException:
             self._install_states(before)
             raise
+        if _telemetry.ENABLED:
+            _telemetry.record_span(
+                "update",
+                "MetricCollection.fused",
+                time.monotonic() - t0,
+                sum(_telemetry.state_nbytes(m) for m in self._all_members.values()),
+            )
+        if health_stats is not None:
+            # After the states are installed: a raise-on-corrupt escalation
+            # leaves the applied batch in place; the monitor only reports.
+            _health.inspect(health_stats, source="fused_update", bounds=self._health_bounds)
         return self
 
     def _check_fusable(self) -> None:

@@ -45,13 +45,14 @@ Dropped as TPU artifacts:
   eagerly; ``assume_01_targets=`` still pins the gate);
 * ``shard_map``, ``compiled_spmd``, ``spmd_cache_info`` and
   ``spmd_cache_clear`` (a jit cache);
-* ``_timed_dispatch``'s perfscope pricing.  The ``record_sync`` telemetry
-  event and ``make_synced_update(retry=)`` come with the resilience and
-  telemetry slice (ROADMAP queue 1 item 4).
+* ``_timed_dispatch``'s perfscope pricing (perfscope is not ported yet,
+  ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
 
+import random
+import time
 from functools import lru_cache
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
@@ -65,6 +66,8 @@ from torcheval_tpu_torch.metrics.functional._host_checks import (
 from torcheval_tpu_torch.metrics.functional.classification._sort_scan import class_hits
 from torcheval_tpu_torch.ops.binned import binned_counts, binned_weighted_counts
 from torcheval_tpu_torch.parallel.mesh import AxisSpec, Mesh, _check_full_axis
+from torcheval_tpu_torch.resilience import faults as _faults
+from torcheval_tpu_torch.telemetry import events as _telemetry
 
 Reduction = Union[str, Any]  # 'sum' | 'max' | 'min' | 'mean' | 'concat' | tree
 
@@ -124,16 +127,49 @@ def make_synced_update(
 
     ``in_specs`` is accepted and ignored: each rank passes its own shard of
     a sharded input and the whole of a replicated one, so the specs carry
-    nothing here.  ``retry=`` comes with the resilience slice."""
-    if retry is not None:
-        raise NotImplementedError(
-            "make_synced_update(retry=...) needs the resilience slice of the port "
-            "(resilience/retry.py; ROADMAP queue 1 item 4)."
-        )
+    nothing here.
+
+    ``retry`` (a :class:`torcheval_tpu_torch.resilience.RetryPolicy`)
+    re-runs a failed attempt with backoff, raising
+    :class:`~torcheval_tpu_torch.resilience.CollectiveTimeoutError` on
+    exhaustion.  An attempt is the rank's kernel, the fault site
+    ``sync.dispatch``, then the collective: a rank that fails before the
+    collective retries into the same round its peers wait in.  Each failed
+    attempt emits a ``retry`` telemetry event when the bus is on, and each
+    call a ``sync`` event: its host wall clock and the merged states'
+    bytes."""
     _check_full_axis(mesh, axis)
+    op = f"synced_update:{getattr(kernel, '__name__', str(kernel))}"
+
+    def attempt_call(*batch):
+        states = kernel(*batch)
+        if _faults.ENABLED:
+            _faults.fire("sync.dispatch", op=op)
+        return mesh_merge_states(states, axis, reductions, mesh=mesh)
+
+    if retry is not None:
+        from torcheval_tpu_torch.resilience.retry import retry_call
+
+        rng = random.Random(retry.seed)
+
+        def dispatch(*batch):
+            return retry_call(op, lambda: attempt_call(*batch), retry, rng=rng)
+
+    else:
+        dispatch = attempt_call
 
     def synced(*batch):
-        return mesh_merge_states(kernel(*batch), axis, reductions, mesh=mesh)
+        if not _telemetry.ENABLED:
+            return dispatch(*batch)
+        t0 = time.monotonic()
+        out = dispatch(*batch)
+        # The merged states are the collective's payload (every rank ends
+        # up holding them), as the JAX package counts it.
+        leaves: List[torch.Tensor] = []
+        _flatten(out, "sum", leaves, [])
+        payload = sum(leaf.numel() * leaf.element_size() for leaf in leaves)
+        _telemetry.record_sync(op, time.monotonic() - t0, payload)
+        return out
 
     return synced
 
