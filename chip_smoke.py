@@ -284,7 +284,34 @@ times kernels and lifecycle with CUDA events.  Phases:
     text that parses, a fired fault's bundle that validates, the
     lifecycle's time with the bus off and on (with ``--profile``, by
     operator), and the spans by name in a ``torch.profiler`` trace beside
-    the rank-sum kernel.
+    the rank-sum kernel;
+44. the scan stream through the streaming engine (``benchmarks/workloads.py``'s
+    ``bench_collection_scan_stream``, numpy seed 16: C = 100, the five
+    counting members, 32 ragged host batches, ``bucket=True``, block 8):
+    one CUDA graph captured a distinct bucket (3), 4 replays, 0.125
+    dispatches a batch, ``mega.cu`` launched 32 times inside the replays
+    (the launch counters and the profiler), every state and figure
+    bit-equal to the per-batch ``fused_update`` loop and the ``np.add.at``
+    oracle; the warmed lifecycle timed beside the loop;
+45. phase 18's sliced stream (C = 20, 16 slices, 96 batches) through the
+    engine, 12 replays: ``compute_slices()`` and every state bit-equal to
+    phase 18's loop; timed from CUDA tensors and from host numpy;
+46. the collection workload at full width (8 x (65536, 100), one 210 MB
+    block) from numpy (pinned ring, copy stream) and from CUDA tensors:
+    bit-equal to phase 17's loop and its oracles; timed (with
+    ``--profile``, by operator and busy share);
+47. phase 8's CM + F1 at C = 1000 through the engine (one unbucketed
+    block): ``cm_slab.cu`` 16 times a replay (counters and profiler), the
+    matrix bit-equal to the ``np.add.at`` oracle, F1 within 1e-6; timed;
+48. the engine under the telemetry and resilience layer at phase 44's
+    data: the health monitor reading back once a block and finding an
+    ``engine.batch`` corrupt rule's NaN with its count, a kill at
+    ``engine.scan`` resumed from ``checkpoint_dir`` bit-identically, and
+    prefetch on and off with the same bits and their ``prefetch_stall``
+    counts;
+49. ``aot.warmup`` of an ``Evaluator`` over phase 44's buckets: the stream
+    then adds zero captures, builds and loads nothing, and launches only
+    the replays' kernels.
 
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
@@ -3454,6 +3481,311 @@ def main(argv) -> int:
         bus_trace.disable()
         flightrec.disable()
 
+    # ------------------------------------------- 44. the scan stream, engine
+    from torcheval_tpu_torch import _stats, aot
+    from torcheval_tpu_torch.engine import Evaluator
+    from torcheval_tpu_torch.telemetry import report as bus_report
+
+    def engine_lifecycle(ev, stream, sliced=False):
+        ev.collection.reset()
+        ev.run(stream)
+        return ev.collection.compute_slices() if sliced else ev.result()
+
+    def per_batch(col_, stream, sliced=False):
+        col_.reset()
+        for b in stream:
+            if sliced:
+                col_.fused_update(*b[:-1], slice_ids=b[-1])
+            else:
+                col_.fused_update(*b)
+        return col_.compute_slices() if sliced else col_.compute()
+
+    def kernel_launches(fn, key):
+        """Device launches of the kernel named ``key`` in one call of
+        ``fn``, from the profiler (``None`` where no trace had device rows)."""
+        rows = profiled_device_events(torch, fn, 1)
+        if not rows:
+            return None, None
+        mine = [e for e in rows if key in e.key]
+        return sum(e.count for e in mine), sum(device_us(e) for e in mine) / 1e3
+
+    def oracle_figures(cm):
+        tp_ = np.diag(cm).astype(np.float64)
+        lab, prd = cm.sum(1).astype(np.float64), cm.sum(0).astype(np.float64)
+        seen_ = (lab != 0) | (prd != 0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            pc = np.nan_to_num(tp_ / prd)
+            rc = np.nan_to_num(tp_ / lab)
+            fc = np.nan_to_num(2 * pc * rc / (pc + rc))
+        return {"acc": np.mean(tp_[lab != 0] / lab[lab != 0]), "prec": pc[seen_].mean(),
+                "rec": rc[seen_].mean(), "f1": fc[seen_].mean()}
+
+    def check_figures(out, cm, label):
+        check(np.array_equal(out["cm"].cpu().numpy(), cm),
+              f"{label}: confusion matrix bit-equal to the np.add.at oracle")
+        for name, want in oracle_figures(cm).items():
+            err = abs(float(out[name]) - want)
+            check(err <= TOL, f"{label}: macro {name} vs float64 oracle: err {err:.3e}")
+
+    scan_rng = np.random.default_rng(16)  # benchmarks/workloads.py's scan stream
+    scan_sizes = sorted([160, 96, 224, 130, 313, 200, 256, 77] * 4)
+    scan_batches = [(scan_rng.random((b, COL_CLASSES), dtype=np.float32),
+                     scan_rng.integers(0, COL_CLASSES, b).astype(np.int32))
+                    for b in scan_sizes]
+    scan_cm = np.zeros((COL_CLASSES, COL_CLASSES), np.int64)
+    for x, y in scan_batches:
+        np.add.at(scan_cm, (y, x.argmax(1)), 1)
+    scan_dev = [tuple(torch.from_numpy(a).to(dev) for a in b) for b in scan_batches]
+    scan_ref = MetricCollection(five(COL_CLASSES), bucket=True)
+    scan_ref_out = per_batch(scan_ref, scan_dev)
+    scan_col = MetricCollection(five(COL_CLASSES), bucket=True)
+    scan_ev = Evaluator(scan_col, block_size=8)
+    bus.clear()
+    bus.enable()
+    captures0 = _stats.trace_count()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    scan_out = engine_lifecycle(scan_ev, scan_batches)
+    torch.cuda.synchronize()
+    scan_cold_ms = (time.perf_counter() - t0) * 1e3
+    bus.disable()
+    scan_captures = _stats.trace_count() - captures0
+    scan_report = bus_report()["engine"]
+    bus.clear()
+    scan_cold_launches = dict(_build.LAUNCHES)
+    buckets = len({bucket_size(max(scan_sizes[i:i + 8])) for i in range(0, 32, 8)})
+    print(f"scan stream (32 host batches, C={COL_CLASSES}, bucket=True, block 8), cold: "
+          f"{scan_captures} graphs captured for {buckets} distinct buckets, "
+          f"{scan_ev.runner.replays} replays, launches {scan_cold_launches}, plain "
+          f"{dict(_build.PLAIN_CALLS)}, dispatches_per_batch "
+          f"{scan_report['dispatches_per_batch']}, {scan_cold_ms:.3f} ms", flush=True)
+    check(scan_captures == scan_ev.runner.captures == buckets == 3
+          and scan_ev.runner.replays == 4 and scan_report["dispatches_per_batch"] == 0.125
+          and scan_cold_launches == {"mega_counts": 32 + scan_captures}
+          and not _build.PLAIN_CALLS,
+          "scan stream: one capture a bucket, 4 replays, 0.125 dispatches a batch, one mega "
+          "launch a step (and one eager warm-up step a capture), no plain version")
+    check(states_equal(scan_col, scan_ref)
+          and all(torch.equal(scan_out[k], scan_ref_out[k]) for k in scan_ref_out),
+          "scan stream: every state and figure bit-equal to the per-batch fused_update loop")
+    check_figures(scan_out, scan_cm, "scan stream")
+    _build.reset_counts()
+    captures0 = _stats.trace_count()
+    engine_lifecycle(scan_ev, scan_batches)
+    torch.cuda.synchronize()
+    scan_launches = _build.LAUNCHES["mega_counts"]
+    check(dict(_build.LAUNCHES) == {"mega_counts": 32} and _stats.trace_count() == captures0,
+          "scan stream, warmed: 32 mega launches counted over the 4 replays, no capture")
+    scan_prof, scan_mega_ms = kernel_launches(
+        lambda: engine_lifecycle(scan_ev, scan_batches), "mega_kernel")
+    print(f"profiler: mega.cu device launches in one warmed scan-stream lifecycle: "
+          f"{scan_prof}, {scan_mega_ms} ms of device time", flush=True)
+    check(scan_prof == 32, "the profiler sees mega.cu launched 32 times inside the 4 replays")
+    scan_eng_ms, scan_loop_ms = turns_ms(
+        [lambda: engine_lifecycle(scan_ev, scan_batches),
+         lambda: per_batch(scan_ref, scan_batches)])
+    print(f"times {card}: scan stream (32 host batches, C={COL_CLASSES}), 5 turns, median "
+          f"(min-max): engine {spread(scan_eng_ms)}, per-batch fused_update loop "
+          f"{spread(scan_loop_ms)}; cold first run {scan_cold_ms:.3f} ms", flush=True)
+    if profile_phase:
+        profile_lifecycle(torch, card, "scan stream through the engine",
+                          lambda: engine_lifecycle(scan_ev, scan_batches), host_ops=True)
+        profile_lifecycle(torch, card, "scan stream, per-batch fused_update loop",
+                          lambda: per_batch(scan_ref, scan_batches), host_ops=True)
+
+    # ------------------------------- 45. the sliced stream through the engine
+    sl_col = MetricCollection(five(SLICED_CLASSES), bucket=True, slices=SLICES)
+    sl_ev = Evaluator(sl_col, block_size=8)
+    sl_ref = MetricCollection(five(SLICED_CLASSES), bucket=True, slices=SLICES)
+    sl_ref_out = per_batch(sl_ref, sliced_batches, sliced=True)
+    _build.reset_counts()
+    sl_eng_out = engine_lifecycle(sl_ev, sliced_batches, sliced=True)
+    torch.cuda.synchronize()
+    print(f"sliced stream through the engine ({len(sliced_batches)} batches, {SLICES} slices, "
+          f"block 8): {sl_ev.runner.captures} captures, {sl_ev.runner.replays} replays, "
+          f"launches {dict(_build.LAUNCHES)}", flush=True)
+    check(sl_ev.runner.replays == 12 and not _build.PLAIN_CALLS
+          and _build.LAUNCHES["mega_counts"] == len(sliced_batches) + sl_ev.runner.captures,
+          "sliced stream: 12 replays, one mega launch a step")
+    check(states_equal(sl_col, sl_ref)
+          and all(torch.equal(sl_eng_out[lab][k], sl_ref_out[lab][k])
+                  for lab in sl_ref_out for k in sl_ref_out[lab])
+          and all(torch.equal(sl_eng_out[lab][k], sl_out[lab][k])
+                  for lab in sl_out for k in sl_out[lab]),
+          f"sliced stream: compute_slices() and all {len(sl_col.state_dict())} states bit-equal "
+          "to phase 18's fused_update loop")
+    sl_host = [tuple(t.cpu().numpy() for t in b) for b in sliced_batches]
+    _build.reset_counts()
+    engine_lifecycle(sl_ev, sliced_batches, sliced=True)
+    torch.cuda.synchronize()
+    sl_engine_launches = _build.LAUNCHES["mega_counts"]
+    sl_eng_ms, sl_host_ms, sl_loop_ms = turns_ms(
+        [lambda: engine_lifecycle(sl_ev, sliced_batches, sliced=True),
+         lambda: engine_lifecycle(sl_ev, sl_host, sliced=True),
+         lambda: per_batch(sl_ref, sliced_batches, sliced=True)], reps=3)
+    print(f"times {card}: sliced stream ({len(sliced_batches)} batches, {SLICES} slices), "
+          f"3 turns, median (min-max): engine from CUDA tensors {spread(sl_eng_ms)}, from host "
+          f"numpy {spread(sl_host_ms)}, per-batch fused_update loop {spread(sl_loop_ms)} "
+          f"(phase 20 in this run: {sliced_ms:.3f} ms)", flush=True)
+    if profile_phase:
+        profile_lifecycle(torch, card, "sliced stream through the engine, from CUDA tensors",
+                          lambda: engine_lifecycle(sl_ev, sliced_batches, sliced=True), 1, True)
+        profile_lifecycle(torch, card, "sliced stream through the engine, from host numpy",
+                          lambda: engine_lifecycle(sl_ev, sl_host, sliced=True), 1, True)
+
+    # -------------------------------------------------- 46. full width, one block
+    fw_host = list(zip(np.split(col_scores, NUM_UPDATES), np.split(col_target, NUM_UPDATES)))
+    fw_dev = list(zip(col_x, col_y))
+    fw_col = MetricCollection(five(COL_CLASSES))
+    fw_ev = Evaluator(fw_col, block_size=NUM_UPDATES)
+    fw_ref = MetricCollection(five(COL_CLASSES))
+    fw_ref_out = per_batch(fw_ref, fw_dev)
+    for label, stream in (("numpy", fw_host), ("CUDA tensors", fw_dev)):
+        _build.reset_counts()
+        fw_out = engine_lifecycle(fw_ev, stream)
+        torch.cuda.synchronize()
+        check(dict(_build.LAUNCHES) in ({"mega_counts": NUM_UPDATES},
+                                        {"mega_counts": NUM_UPDATES + 1})
+              and states_equal(fw_col, fw_ref)
+              and all(torch.equal(fw_out[k], fw_ref_out[k]) for k in fw_ref_out),
+              f"full width from {label} (8 x (65536, 100), one 210 MB block): one replay, "
+              f"{dict(_build.LAUNCHES)}, every state and figure bit-equal to phase 17's loop")
+        check_figures(fw_out, col_cm, f"full width from {label}")
+    fw_np_ms, fw_dev_ms, fw_loop_ms = turns_ms(
+        [lambda: engine_lifecycle(fw_ev, fw_host), lambda: engine_lifecycle(fw_ev, fw_dev),
+         lambda: per_batch(fw_ref, fw_dev)])
+    print(f"times {card}: full width (2^19 x 100, 8 batches, one block), 5 turns, median "
+          f"(min-max): engine from numpy {spread(fw_np_ms)}, from CUDA tensors "
+          f"{spread(fw_dev_ms)}, per-batch fused_update loop {spread(fw_loop_ms)} "
+          f"(phase 20 in this run: {col_ms:.3f} ms)", flush=True)
+    _, fw_mega_ms = kernel_launches(lambda: engine_lifecycle(fw_ev, fw_dev), "mega_kernel")
+    if profile_phase:
+        profile_lifecycle(torch, card, "full width through the engine, from CUDA tensors",
+                          lambda: engine_lifecycle(fw_ev, fw_dev), host_ops=True)
+        profile_lifecycle(torch, card, "full width through the engine, from numpy",
+                          lambda: engine_lifecycle(fw_ev, fw_host), host_ops=True)
+
+    # -------------------------- 47. CM + F1 at C = 1000 through the engine
+    cm_members = lambda: {"cm": MulticlassConfusionMatrix(num_classes=CM_CLASSES),  # noqa: E731
+                          "f1": MulticlassF1Score(num_classes=CM_CLASSES, average="macro")}
+    cm_stream = list(zip(p_chunks, y_chunks))
+    cm_col = MetricCollection(cm_members())
+    cm_ev = Evaluator(cm_col, block_size=NUM_UPDATES, bucket=False)
+    cm_ref = MetricCollection(cm_members())
+    cm_ref_out = per_batch(cm_ref, cm_stream)
+    _build.reset_counts()
+    cm_eng_out = engine_lifecycle(cm_ev, cm_stream)
+    torch.cuda.synchronize()
+    cm_cold = dict(_build.LAUNCHES)
+    _build.reset_counts()
+    engine_lifecycle(cm_ev, cm_stream)
+    torch.cuda.synchronize()
+    cm_engine_launches = _build.LAUNCHES["confusion_slab"]
+    check(cm_cold == {"confusion_slab": 2 * NUM_UPDATES + 2}
+          and dict(_build.LAUNCHES) == {"confusion_slab": 2 * NUM_UPDATES}
+          and not _build.PLAIN_CALLS,
+          f"CM + F1 at C = {CM_CLASSES} through the engine: 16 slab launches a replay "
+          f"(cold {cm_cold}: and 2 of the eager warm-up step)")
+    check(np.array_equal(cm_eng_out["cm"].cpu().numpy(), cm_oracle)
+          and torch.equal(cm_eng_out["cm"], cm_out) and states_equal(cm_col, cm_ref)
+          and all(torch.equal(cm_eng_out[k], cm_ref_out[k]) for k in cm_ref_out),
+          "CM + F1 through the engine: the matrix bit-equal to the np.add.at oracle and to "
+          "phase 8's, every state bit-equal to the per-batch fused_update loop")
+    f1_eng_err = abs(float(cm_eng_out["f1"]) - f1_oracle)
+    check(f1_eng_err <= TOL, f"CM + F1 through the engine: macro F1 err {f1_eng_err:.3e}")
+    cm_prof, cm_slab_dev_ms = kernel_launches(lambda: engine_lifecycle(cm_ev, cm_stream),
+                                              "cm_slab_kernel")
+    print(f"profiler: cm_slab.cu device launches in one warmed CM + F1 engine lifecycle: "
+          f"{cm_prof}, {cm_slab_dev_ms} ms of device time", flush=True)
+    check(cm_prof == 2 * NUM_UPDATES, "the profiler sees cm_slab.cu 16 times inside the replay")
+    cm_eng_ms, cm_loop_ms = turns_ms([lambda: engine_lifecycle(cm_ev, cm_stream),
+                                      lambda: per_batch(cm_ref, cm_stream)])
+    print(f"times {card}: CM + F1 at C = {CM_CLASSES} (8 x 2^17 int32 pairs, one block), 5 "
+          f"turns, median (min-max): engine {spread(cm_eng_ms)}, per-batch fused_update loop "
+          f"{spread(cm_loop_ms)} (phase 10 in this run, update() with checks: "
+          f"{cm_life_ms:.3f} ms)", flush=True)
+    if profile_phase:
+        profile_lifecycle(torch, card, "CM + F1 at C = 1000 through the engine",
+                          lambda: engine_lifecycle(cm_ev, cm_stream), host_ops=True)
+
+    # -------------- 48. the engine under the telemetry and resilience layer
+    reads48 = []
+    real_to_host48 = health._to_host
+    health._to_host = lambda t: reads48.append(1) or real_to_host48(t)
+    bus.clear()
+    try:
+        health.enable()
+        h_col = MetricCollection(five(COL_CLASSES), bucket=True)
+        h_ev = Evaluator(h_col, block_size=8)
+        engine_lifecycle(h_ev, scan_batches)
+        clean_reads = len(reads48)
+        check(clean_reads == 4 and not bus.events("data_health") and states_equal(h_col, scan_col),
+              f"health on: {clean_reads} read backs for 4 blocks, no finding, states bit-equal")
+        with FaultPlan([{"site": "engine.batch", "action": "corrupt", "after": 10,
+                         "count": 1}]):
+            engine_lifecycle(h_ev, scan_batches)
+        found = [(e.check, e.count, e.source) for e in bus.events("data_health")]
+        check(found == [("nan", 1, "engine_block")],
+              f"health on: the engine.batch corrupt rule's NaN found with its exact count: "
+              f"{found}")
+    finally:
+        health._to_host = real_to_host48
+        health.disable()
+        bus.clear()
+    ck48 = tempfile.mkdtemp(prefix="chip_smoke_engine_ckpt_")
+    try:
+        k_first = Evaluator(MetricCollection(five(COL_CLASSES), bucket=True), block_size=8,
+                            checkpoint_dir=ck48, checkpoint_every_blocks=1)
+        with FaultPlan([{"site": "engine.scan", "after": 2, "count": 1}]):
+            try:
+                k_first.run(scan_batches)
+                fail("the engine.scan kill rule did not raise")
+            except InjectedFault:
+                pass
+        k_second = Evaluator(MetricCollection(five(COL_CLASSES), bucket=True), block_size=8,
+                             checkpoint_dir=ck48, checkpoint_every_blocks=1)
+        k_out = k_second.run(scan_batches).result()
+        check(k_second.resumed_from is not None and k_second.batches_seen == 32
+              and states_equal(k_second.collection, scan_col)
+              and all(torch.equal(k_out[k], scan_out[k]) for k in scan_out),
+              f"killed at engine.scan after 2 blocks, resumed in a new Evaluator from "
+              f"{os.path.basename(k_second.resumed_from or '')}: bit-identical to the "
+              "uninterrupted run")
+    finally:
+        shutil.rmtree(ck48, ignore_errors=True)
+    stalls = {}
+    for prefetch in (True, False):
+        p_col = MetricCollection(five(COL_CLASSES), bucket=True)
+        bus.clear()
+        bus.enable()
+        Evaluator(p_col, block_size=8, prefetch=prefetch).run(scan_batches)
+        torch.cuda.synchronize()
+        bus.disable()
+        stalls[prefetch] = len(bus.events("prefetch_stall"))
+        check(states_equal(p_col, scan_col), f"prefetch={prefetch}: the same bits")
+    bus.clear()
+    print(f"prefetch_stall events over the scan stream: prefetch on {stalls[True]}, off "
+          f"{stalls[False]}", flush=True)
+
+    # ------------------------------------------------------ 49. aot.warmup
+    w_col = MetricCollection(five(COL_CLASSES), bucket=True)
+    w_ev = Evaluator(w_col, block_size=8)
+    captures0 = aot.trace_count()
+    sweep = aot.warmup(w_ev, scan_batches[0], max_batch=max(scan_sizes))
+    warm_captures = aot.trace_count() - captures0
+    check(w_ev.blocks_dispatched == 0 and all(int(v.abs().sum()) == 0
+                                              for v in w_col.state_dict().values()),
+          f"aot.warmup over buckets {sweep}: {warm_captures} captures, states untouched")
+    captures0 = aot.trace_count()
+    builds0 = _build._load.cache_info().misses
+    _build.reset_counts()
+    engine_lifecycle(w_ev, scan_batches)
+    torch.cuda.synchronize()
+    check(aot.trace_count() == captures0 and _build._load.cache_info().misses == builds0
+          and dict(_build.LAUNCHES) == {"mega_counts": 32} and states_equal(w_col, scan_col),
+          "after aot.warmup the stream adds zero captures, builds and loads nothing, launches "
+          "32 mega counts and gives the same bits")
+
     # ------------------------------------------------------ the kernels line
     kernels = [
         {
@@ -3511,6 +3843,8 @@ def main(argv) -> int:
             "bound_by": slab_by,
             "library_ms": slab_lib_ms,
             "retry_launches": cm_retry_launches,
+            "engine_launches": cm_engine_launches,
+            "engine_device_ms": cm_slab_dev_ms / cm_prof,
             "verdict": "bit-equal",
         },
         {
@@ -3560,6 +3894,11 @@ def main(argv) -> int:
             "sliced_launches": sliced_launches,
             "health_launches": health_launches,
             "checkpoint_launches": ckpt_launches,
+            "engine_launches": scan_launches,
+            "engine_device_ms": scan_mega_ms / scan_prof,
+            "sliced_engine_launches": sl_engine_launches,
+            "full_width_engine_device_ms": (None if fw_mega_ms is None
+                                            else fw_mega_ms / NUM_UPDATES),
             "verdict": "bit-equal",
         },
         {

@@ -1337,3 +1337,215 @@ def test_resilient_group_retries_around_the_rank_sum_kernel():
     assert launches == clean_launches == {"rank_sum_counts": 4}
     for a, b in zip(clean, retried):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------ the engine
+def _five(c, device):
+    """The collection workload's five counting members."""
+    from torcheval_tpu_torch import metrics as M
+
+    return {
+        "acc": M.MulticlassAccuracy(num_classes=c, average="macro", device=device),
+        "f1": M.MulticlassF1Score(num_classes=c, average="macro", device=device),
+        "prec": M.MulticlassPrecision(num_classes=c, average="macro", device=device),
+        "rec": M.MulticlassRecall(num_classes=c, average="macro", device=device),
+        "cm": M.MulticlassConfusionMatrix(num_classes=c, device=device),
+    }
+
+
+def _engine_case(case):
+    """(members factory, collection kwargs, evaluator kwargs, host batches,
+    the kernel a step launches and how often) at phases 44, 45 and 47's
+    shapes, cut to a few blocks."""
+    from torcheval_tpu_torch import metrics as M
+
+    rng = np.random.default_rng({"scan": 16, "sliced": 23, "cm1000": 3}[case])
+    if case == "scan":
+        sizes = sorted([160, 96, 224, 130, 313, 200, 256, 77] * 2)
+        batches = [(rng.random((b, 100), dtype=np.float32),
+                    rng.integers(0, 100, b).astype(np.int32)) for b in sizes]
+        return (lambda d: _five(100, d)), {"bucket": True}, {"block_size": 8}, batches, \
+            ("mega_counts", 1)
+    if case == "sliced":
+        sizes = sorted([160, 96, 224, 130, 313, 200, 256, 77] * 3)
+        batches = [(rng.random((b, 20), dtype=np.float32),
+                    rng.integers(0, 20, b).astype(np.int32),
+                    rng.integers(0, 16, b).astype(np.int32)) for b in sizes]
+        return (lambda d: _five(20, d)), {"bucket": True, "slices": 16}, {"block_size": 8}, \
+            batches, ("mega_counts", 1)
+    batches = [(rng.integers(0, 1000, 2**14).astype(np.int32),
+                rng.integers(0, 1000, 2**14).astype(np.int32)) for _ in range(8)]
+
+    def cm_f1(d):
+        return {"cm": M.MulticlassConfusionMatrix(num_classes=1000, device=d),
+                "f1": M.MulticlassF1Score(num_classes=1000, average="macro", device=d)}
+
+    return cm_f1, {}, {"block_size": 4, "bucket": False}, batches, ("confusion_slab", 2)
+
+
+def _per_batch(col, batches, sliced):
+    for b in batches:
+        if sliced:
+            col.fused_update(*b[:-1], slice_ids=b[-1])
+        else:
+            col.fused_update(*b)
+
+
+@pytest.mark.parametrize("case", ["scan", "sliced", "cm1000"])
+@pytest.mark.parametrize("on_card", [False, True])
+def test_engine_graph_equals_the_per_batch_loop_and_the_eager_loop(case, on_card):
+    """Every block one graph replay: the states bit-equal to per-batch
+    ``fused_update`` on the card and to the engine's eager loop on the CPU,
+    one capture a bucket, and the recorded launches counted a replay."""
+    from torcheval_tpu_torch import _stats
+    from torcheval_tpu_torch.engine import Evaluator
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    dev = _cuda()
+    members, col_kw, ev_kw, batches, (kernel, per_step) = _engine_case(case)
+    sliced = "slices" in col_kw
+    stream = ([tuple(torch.from_numpy(a).to(dev) for a in b) for b in batches]
+              if on_card else batches)
+    ref = MetricCollection(members(dev), **col_kw)
+    _per_batch(ref, [tuple(torch.from_numpy(a).to(dev) for a in b) for b in batches], sliced)
+    cpu = MetricCollection(members("cpu"), **col_kw)
+    Evaluator(cpu, **ev_kw).run(batches)
+    col = MetricCollection(members(dev), **col_kw)
+    ev = Evaluator(col, **ev_kw)
+    captures = _stats.trace_count()
+    _build.reset_counts()
+    ev.run(stream)
+    torch.cuda.synchronize()
+    block = ev_kw["block_size"]
+    assert ev.blocks_dispatched == ev.runner.replays == -(-len(batches) // block)
+    assert _stats.trace_count() - captures == ev.runner.captures
+    # One eager warm-up step before each capture, then the replays.
+    assert dict(_build.LAUNCHES) == {
+        kernel: per_step * (ev.runner.captures + block * ev.runner.replays)}
+    assert not _build.PLAIN_CALLS
+    for k, v in ref.state_dict().items():
+        got = col.state_dict()[k]
+        assert got.device.type == "cuda" and torch.equal(got, v), k
+        assert torch.equal(got.cpu(), cpu.state_dict()[k]), k
+    if sliced:
+        want, got = ref.compute_slices(), col.compute_slices()
+        assert all(torch.equal(got[s][m], want[s][m]) for s in want for m in want[s])
+
+
+def test_engine_captures_once_a_bucket_and_nothing_after_warmup():
+    from torcheval_tpu_torch import aot
+    from torcheval_tpu_torch.engine import Evaluator
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    dev = _cuda()
+    members, col_kw, ev_kw, batches, _ = _engine_case("scan")
+    col = MetricCollection(members(dev), **col_kw)
+    ev = Evaluator(col, **ev_kw)
+    before = aot.trace_count()
+    sweep = aot.warmup(ev, batches[0], max_batch=max(b[0].shape[0] for b in batches))
+    assert aot.trace_count() - before == len(sweep) == ev.runner.captures
+    assert ev.blocks_dispatched == 0 and all(
+        int(v.abs().sum()) == 0 for v in col.state_dict().values())
+    before = aot.trace_count()
+    _build.reset_counts()
+    ev.run(batches)
+    torch.cuda.synchronize()
+    assert aot.trace_count() == before
+    assert dict(_build.LAUNCHES) == {"mega_counts": 8 * ev.blocks_dispatched}
+    ref = MetricCollection(members(dev), **col_kw)
+    _per_batch(ref, [tuple(torch.from_numpy(a).to(dev) for a in b) for b in batches], False)
+    assert all(torch.equal(col.state_dict()[k], v) for k, v in ref.state_dict().items())
+
+
+def test_engine_donation_keeps_the_state_tensors_across_blocks():
+    from torcheval_tpu_torch.engine import Evaluator
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    dev = _cuda()
+    members, col_kw, _, batches, _ = _engine_case("scan")
+    col = MetricCollection(members(dev), donate=True, **col_kw)
+    ev = Evaluator(col, block_size=4, prefetch=False)
+    ev.run(batches[:4])
+    ptr = col["cm"].confusion_matrix.data_ptr()
+    ev.run(batches[4:])
+    assert col["cm"].confusion_matrix.data_ptr() == ptr
+    plain = MetricCollection(members(dev), **col_kw)
+    Evaluator(plain, block_size=4, prefetch=False).run(batches)
+    assert all(torch.equal(col.state_dict()[k], v) for k, v in plain.state_dict().items())
+    assert plain["cm"].confusion_matrix.data_ptr() != ptr
+
+
+def test_engine_replays_are_device_launches_of_the_kernel():
+    """The profiler sees ``mega.cu`` once a step inside the replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torcheval_tpu_torch.engine import Evaluator
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    dev = _cuda()
+    members, col_kw, ev_kw, batches, _ = _engine_case("scan")
+    col = MetricCollection(members(dev), **col_kw)
+    ev = Evaluator(col, **ev_kw)
+    ev.run(batches)
+    col.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev.run(batches)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if "mega_kernel" in e.key
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    if rows:  # the profiler now and then drops device rows
+        assert sum(e.count for e in rows) == len(batches)
+
+
+def test_engine_failed_capture_raises_and_keeps_the_states():
+    """A member that reads the card back inside its update cannot be
+    captured: the dispatch raises, the states are as they were, and no
+    eager or CPU path ran in its place."""
+    from torcheval_tpu_torch.engine import Evaluator
+    from torcheval_tpu_torch.metrics import MetricCollection, Sum
+
+    class _Reads(Sum):
+        def update(self, input, *, weight=1.0):
+            float(input.sum())  # a host read: illegal while capturing
+            return super().update(input, weight=weight)
+
+    dev = _cuda()
+    col = MetricCollection({"s": _Reads(device=dev)})
+    ev = Evaluator(col, block_size=2, bucket=False, prefetch=False)
+    _build.reset_counts()
+    with pytest.raises(RuntimeError):
+        ev.run([np.ones(64, np.float32), np.ones(64, np.float32)])
+    assert float(col["s"].weighted_sum) == 0.0 and not _build.PLAIN_CALLS
+    ok = MetricCollection({"s": Sum(device=dev)})
+    assert float(Evaluator(ok, block_size=2, bucket=False).run(
+        [np.ones(64, np.float32)] * 4).result()["s"]) == 256.0
+
+
+def test_engine_health_reads_back_once_a_block_on_the_card(monkeypatch):
+    from torcheval_tpu_torch.engine import Evaluator
+    from torcheval_tpu_torch.metrics import MetricCollection
+    from torcheval_tpu_torch.telemetry import events as port_events
+    from torcheval_tpu_torch.telemetry import health
+
+    dev = _cuda()
+    members, col_kw, ev_kw, batches, _ = _engine_case("scan")
+    batches = [tuple(a.copy() for a in b) for b in batches]
+    batches[5][0][3, 7] = np.nan
+    batches[5][0][4, 1] = np.inf
+    reads = []
+    real = health._to_host
+    monkeypatch.setattr(health, "_to_host", lambda t: reads.append(1) or real(t))
+    port_events.clear()
+    health.enable()
+    try:
+        col = MetricCollection(members(dev), **col_kw)
+        ev = Evaluator(col, **ev_kw).run(batches)
+    finally:
+        health.disable()
+    found = sorted((e.check, e.count, e.source) for e in port_events.events("data_health"))
+    assert found == [("inf", 1, "engine_block"), ("nan", 1, "engine_block")]
+    assert len(reads) == ev.blocks_dispatched
+    off = MetricCollection(members(dev), **col_kw)
+    Evaluator(off, **ev_kw).run(batches)
+    assert all(torch.equal(col.state_dict()[k], v) for k, v in off.state_dict().items())

@@ -70,6 +70,14 @@ def test_sources_import_no_jax():
         "torcheval_tpu_torch/resilience/retry.py",
         "torcheval_tpu_torch/ops/_mega_plan.py",
         "torcheval_tpu_torch/ops/mega.py",
+        "torcheval_tpu_torch/engine/__init__.py",
+        "torcheval_tpu_torch/engine/scan.py",
+        "torcheval_tpu_torch/engine/prefetch.py",
+        "torcheval_tpu_torch/aot.py",
+        "torcheval_tpu_torch/_stats.py",
+        "torcheval_tpu_torch/parallel/_compile_cache.py",
+        "torcheval_tpu_torch/monitor/__init__.py",
+        "torcheval_tpu_torch/monitor/quality.py",
         "torcheval_tpu_torch/utils/test_utils/dummy_metric.py",
         "torcheval_tpu_torch/utils/test_utils/metric_class_tester.py",
         "torcheval_tpu_torch/native/edit_distance.py",

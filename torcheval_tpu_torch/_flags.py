@@ -82,6 +82,13 @@ INT_FLAGS: Dict[str, Tuple[int, str, str]] = {
         "How many of the newest events the flight recorder keeps for a "
         "bundle (read at import).",
     ),
+    "COMPILE_CACHE_CAP": (
+        256,
+        "positive",
+        "Capacity of each LRU program cache (parallel/_compile_cache.py), "
+        "e.g. the engine's captured CUDA graphs, one a block signature "
+        "(read when a cache is built).",
+    ),
 }
 
 

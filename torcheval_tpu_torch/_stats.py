@@ -1,0 +1,57 @@
+"""Hot-path instrumentation: a process-wide capture counter (the port of
+``torcheval_tpu/_stats.py``).
+
+In the JAX package a "trace" is one build of a jitted update program.
+PyTorch runs eagerly, so the port's counterpart of a compiled program is
+a captured CUDA graph: the engine (``engine/scan.py``) bumps a counter
+once a capture, from the Python body that runs only while capturing, and
+never on a replay.  On the CPU, where nothing is captured, the engine
+bumps it where a capture would have been: once a block signature.
+``aot.warmup`` uses the delta to check its contract: after a warmup, the
+stream adds zero captures.
+
+Mutation is lock-guarded (captures may run in several threads), and
+``bump_trace`` is also the ``retrace`` hook of the telemetry bus: one
+branch on the bus's module flag, taken only at capture time.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional
+
+from torcheval_tpu_torch.telemetry import events as _telemetry
+
+_trace_counts: Dict[str, int] = {}
+_lock = threading.Lock()
+
+
+def bump_trace(kind: str) -> None:
+    """Record one capture of the ``kind`` program (``"mega_scan"`` or
+    ``"engine_scan"``)."""
+    with _lock:
+        _trace_counts[kind] = _trace_counts.get(kind, 0) + 1
+    if _telemetry.ENABLED:
+        _telemetry.record_retrace(kind)
+
+
+def trace_count(kind: Optional[str] = None) -> int:
+    """Captures recorded since process start (or the last reset): one
+    ``kind`` or the total across all kinds."""
+    with _lock:
+        if kind is not None:
+            return _trace_counts.get(kind, 0)
+        return sum(_trace_counts.values())
+
+
+def trace_counts() -> Dict[str, int]:
+    """Per-kind snapshot (copy; safe to hold)."""
+    with _lock:
+        return dict(_trace_counts)
+
+
+def reset_trace_count() -> None:
+    """Zero every counter (test/benchmark hook).  Drops no captured graph:
+    a signature already captured still replays without a capture."""
+    with _lock:
+        _trace_counts.clear()

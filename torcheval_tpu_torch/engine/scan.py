@@ -1,0 +1,419 @@
+"""Multi-batch stepping: ``block_size`` batches through every member's
+fused update in ONE host dispatch (the port of
+``torcheval_tpu/engine/scan.py``).
+
+The JAX package folds a block's stacked batches through the collection's
+update body as a :func:`jax.lax.scan` inside one jitted program.  PyTorch
+runs eagerly, so here the counterpart of that program is a captured CUDA
+graph: the first block of a signature (stacked shapes and dtypes, mask or
+none, the member states' layout; a runner is built for one donate,
+health and route-token setting) is captured once, ``block_size`` steps of
+:meth:`MetricCollection._scan_step` over static slot views of a static
+block buffer, and every block of that signature is one
+``CUDAGraph.replay()``.  The collection kernel (``mega.cu``) and, for
+members past its plan, their own kernels (``cm_slab.cu``) run inside the
+graph; each step's result is bit-equal to a ``fused_update`` of the same
+padded batch, since it is the same body on the same tensors.
+
+A graph replays the addresses it captured, so the runner owns the states
+the graph reads and writes: every member state is a view of one flat
+buffer of its dtype (:class:`_StateBuffer`), one set a runner, which
+every graph of the runner reads and writes.  Before a replay the members' states are
+copied in (one copy, skipped when the members hold the buffer's own
+views); the graph adds each step's counts in place and, at its end,
+copies in any state a member rebound; after the replay the members get
+the buffer's views (``donate``: the same tensors every block) or one
+clone of the buffer (no donation: new tensors every block, as in JAX).
+
+A capture runs the first step once eagerly on a side stream first, on
+scratch copies of the states (PyTorch's capture recipe), so every kernel
+is built, loaded and configured before the capture.  It captures in
+``"thread_local"`` mode, so the prefetch thread's pinned allocations and
+copies on its own stream stay legal.  A failed capture or replay raises;
+it never falls back to the eager loop.  Launch counters: a capture
+records its launches (``_build.recording``) and each replay adds them
+(``_build.count_replay``).
+
+On the CPU the same steps run eagerly, one by one: the plain version the
+tests hold against the JAX engine.  There the capture counter
+(``_stats``) counts what a capture would have been, once a signature.
+With the data-health monitor on, each step's
+:func:`~torcheval_tpu_torch.telemetry.health.batch_stats` is stacked as a
+side output (JAX's scan ``ys``), read back once a block.
+"""
+
+from __future__ import annotations
+
+import math
+from collections import Counter
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from torcheval_tpu_torch._stats import bump_trace
+from torcheval_tpu_torch.metrics.collection import MetricCollection, _call_signature
+from torcheval_tpu_torch.metrics.functional._host_checks import skip_value_checks
+from torcheval_tpu_torch.ops import _build, _mega_plan
+from torcheval_tpu_torch.parallel import _compile_cache
+from torcheval_tpu_torch.resilience import faults as _faults
+from torcheval_tpu_torch.telemetry import events as _telemetry
+from torcheval_tpu_torch.telemetry import health as _health
+
+States = Dict[str, Dict[str, torch.Tensor]]
+
+# Byte alignment of each state's view in its flat state buffer.
+_ALIGN = 16
+
+
+def _program_name(
+    collection: MetricCollection,
+    stacked_args: Tuple[torch.Tensor, ...],
+    stacked_mask: Optional[torch.Tensor],
+) -> str:
+    """``"mega_scan"`` when a step's update routes through the collection
+    kernel, else ``"engine_scan"``: the plan reads shapes and dtypes only,
+    so step 0's slot views give every step's answer."""
+    elems = tuple(a[0] for a in stacked_args)
+    kw: Dict[str, Any] = {}
+    if collection._slices is not None:
+        elems, kw["slice_ids"] = elems[:-1], elems[-1]
+    if stacked_mask is not None:
+        kw["mask"] = stacked_mask[0]
+    plan = _mega_plan.plan_for(collection._metrics, elems, kw, collection._slices)
+    return "mega_scan" if plan is not None else "engine_scan"
+
+
+def _stack(values: List[Any]) -> Any:
+    """Stack one figure of :func:`health.batch_stats` across steps."""
+    first = values[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(values)
+    if isinstance(first, tuple):
+        return tuple(_stack([v[j] for v in values]) for j in range(len(first)))
+    if isinstance(first, dict):
+        return {k: _stack([v[k] for v in values]) for k in first}
+    return first
+
+
+def _run_steps(
+    collection: MetricCollection,
+    stacked_args: Tuple[torch.Tensor, ...],
+    stacked_mask: Optional[torch.Tensor],
+    steps: int,
+    donate: bool,
+    health: bool,
+    bounds: Tuple[Tuple[str, int], ...],
+) -> Optional[Dict[str, Any]]:
+    """Fold the first ``steps`` steps of a block through the collection's
+    step body; returns the step-stacked health figures (or ``None``).  For
+    a sliced collection the last stacked positional is the slice ids."""
+    sliced = collection._slices is not None
+    per_step = []
+    with skip_value_checks():
+        for i in range(steps):
+            step_args = tuple(a[i] for a in stacked_args)
+            kw: Dict[str, Any] = {}
+            if sliced:
+                step_args, kw["slice_ids"] = step_args[:-1], step_args[-1]
+            step_mask = None if stacked_mask is None else stacked_mask[i]
+            if step_mask is not None:
+                kw["mask"] = step_mask
+            collection._scan_step(step_args, kw, donate)
+            if health:
+                per_step.append(_health.batch_stats(step_args, step_mask, bounds))
+    return _stack(per_step) if health else None
+
+
+def _states_signature(states: States) -> Tuple[Any, ...]:
+    return tuple(
+        (name, s, tuple(v.shape), str(v.dtype), str(v.device))
+        for name, per in states.items()
+        for s, v in per.items()
+    )
+
+
+def _pairs(dst: States, src: States) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The (destination, source) tensors of ``src`` that are not already
+    the tensors of ``dst``."""
+    d, s = [], []
+    for name, per in src.items():
+        for state, v in per.items():
+            target = dst[name][state]
+            if v is not target:
+                d.append(target)
+                s.append(v)
+    return d, s
+
+
+class _StateBuffer:
+    """A runner's static states: every member state is a view of one flat
+    buffer of its dtype, so copying them in and cloning them out are one
+    copy a dtype, and a clone's views are one ``as_strided`` a state."""
+
+    def __init__(self, states: States, device: torch.device) -> None:
+        self._layout = []
+        used: Dict[torch.dtype, int] = {}
+        for name, per in states.items():
+            for s, v in per.items():
+                at = used.get(v.dtype, 0)
+                shape = tuple(v.shape)
+                stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+                self._layout.append((name, s, v.dtype, shape, stride, at))
+                step = max(_ALIGN // v.element_size(), 1)
+                used[v.dtype] = at + -(-v.numel() // step) * step
+        self.flats = {dt: torch.empty(max(n, 1), dtype=dt, device=device) for dt, n in used.items()}
+        self.views = self._views(self.flats)
+        # The clone the members got after the last replay (no donation).
+        self._clone_flats: Optional[Dict[torch.dtype, torch.Tensor]] = None
+        self._clone_views: Optional[States] = None
+
+    def _views(self, flats: Dict[torch.dtype, torch.Tensor]) -> States:
+        out: States = {}
+        for name, s, dtype, shape, stride, at in self._layout:
+            out.setdefault(name, {})[s] = flats[dtype].as_strided(shape, stride, at)
+        return out
+
+    def _all_are(self, current: States, views: Optional[States]) -> bool:
+        return views is not None and all(
+            v is views[name][s] for name, per in current.items() for s, v in per.items()
+        )
+
+    def holds(self, current: States) -> bool:
+        """Whether ``current`` are this buffer's views or its last clone's
+        (then they have the buffer's layout)."""
+        return self._all_are(current, self.views) or self._all_are(current, self._clone_views)
+
+    def copy_in(self, current: States) -> None:
+        """Make the buffer hold ``current``: nothing to do when the members
+        hold its own views, one copy a dtype when they hold the last clone,
+        else one multi-tensor copy of every state."""
+        if self._all_are(current, self.views):
+            return
+        if self._all_are(current, self._clone_views):
+            for dtype, flat in self.flats.items():
+                flat.copy_(self._clone_flats[dtype])
+            return
+        dst, src = _pairs(self.views, current)
+        torch._foreach_copy_(dst, src)
+
+    def write_back(self, current: States) -> None:
+        """Copy into the buffer every state a member rebound (inside the
+        capture: the graph ends with the buffer holding its result)."""
+        dst, src = _pairs(self.views, current)
+        if dst:
+            torch._foreach_copy_(dst, src)
+
+    def cloned(self) -> States:
+        self._clone_flats = {dtype: flat.clone() for dtype, flat in self.flats.items()}
+        self._clone_views = self._views(self._clone_flats)
+        return self._clone_views
+
+
+class _Captured(NamedTuple):
+    """One captured block program and the static tensors it replays on."""
+
+    graph: Any  # torch.cuda.CUDAGraph
+    block: Tuple[torch.Tensor, ...]
+    mask: Optional[torch.Tensor]
+    states: _StateBuffer
+    stats: Optional[Dict[str, Any]]
+    launches: Counter
+
+
+def _copy_block(dst, dst_mask, src, src_mask) -> None:
+    d = list(dst) + ([dst_mask] if dst_mask is not None else [])
+    s = list(src) + ([src_mask] if src_mask is not None else [])
+    torch._foreach_copy_(d, s)
+
+
+def _clone_states(states: States) -> States:
+    return {name: {s: v.clone() for s, v in per.items()} for name, per in states.items()}
+
+
+class ScanRunner:
+    """Owns the captured block programs of one (collection, donate, health)
+    triple and dispatches stacked blocks through them, with the
+    collection's abort-safe state install and restore."""
+
+    def __init__(
+        self,
+        collection: MetricCollection,
+        donate: bool,
+        health: bool = False,
+    ) -> None:
+        self._collection = collection
+        self._donate = bool(donate)
+        self._health = bool(health)
+        # Route inputs at build time; the engine rebuilds the runner when
+        # this drifts (a flag flipped mid-lifecycle).
+        self._token = _mega_plan.route_token()
+        self.bounds: Tuple[Tuple[str, int], ...] = (
+            _health.label_bounds(collection._metrics) if health else ()
+        )
+        # Signature -> captured graph (on the card) or True (on the CPU).
+        # Bounded (TORCHEVAL_TPU_TORCH_COMPILE_CACHE_CAP); an evicted
+        # graph's memory pool goes with it.
+        self._programs = _compile_cache.LruCache(name="engine_scan")
+        # The static states every graph of this runner replays on, for
+        # the states' layout it was made for.
+        self._states: Optional[_StateBuffer] = None
+        self._states_key: Optional[Tuple[Any, ...]] = None
+        self.replays = 0
+
+    @property
+    def donate(self) -> bool:
+        return self._donate
+
+    @property
+    def health(self) -> bool:
+        return self._health
+
+    @property
+    def token(self) -> Tuple[Any, ...]:
+        """Route token the runner's programs were built under."""
+        return self._token
+
+    @property
+    def captures(self) -> int:
+        """Signatures this runner holds a program for."""
+        return len(self._programs)
+
+    def dispatch(
+        self,
+        stacked_args: Tuple[torch.Tensor, ...],
+        stacked_mask: Optional[torch.Tensor],
+    ) -> Optional[Dict[str, Any]]:
+        """Run one block and install the resulting member states.  Returns
+        the step-stacked health figures when the runner was built with
+        health (read them before the next dispatch), else ``None``."""
+        col = self._collection
+        before = col._read_states()
+        states_key = (
+            self._states_key
+            if self._states is not None and self._states.holds(before)
+            else _states_signature(before)
+        )
+        key = (_call_signature(stacked_args, {"mask": stacked_mask}), states_key)
+        if _faults.ENABLED:
+            # Chaos site "engine.scan": a mid-stream abort BETWEEN blocks
+            # (before any state is read), the kill checkpoint/resume
+            # recovers from.
+            _faults.fire("engine.scan", signature=hash(key))
+        device = stacked_args[0].device
+        if device.type != col.device.type:
+            raise ValueError(
+                f"the block is on {device} but the collection's states are on "
+                f"{col.device}."
+            )
+        program = self._programs.get(key)
+        if device.type == "cuda":
+            if program is None:
+                col._check_fusable()
+                if states_key != self._states_key:
+                    self._states = _StateBuffer(before, device)
+                    self._states_key = states_key
+                program = self._capture(stacked_args, stacked_mask, before, self._states)
+                self._programs.put(key, program)
+            return self._replay(program, stacked_args, stacked_mask)
+        if device.type != "cpu":
+            raise ValueError(f"the engine runs on cuda or cpu, not {device}.")
+        if program is None:
+            col._check_fusable()
+            bump_trace(_program_name(col, stacked_args, stacked_mask))
+            self._programs.put(key, True)
+        return self._run_eager(stacked_args, stacked_mask, before)
+
+    # ----------------------------------------------------------------- CPU
+    def _run_eager(self, stacked_args, stacked_mask, before: States):
+        col = self._collection
+        try:
+            stats = _run_steps(
+                col, stacked_args, stacked_mask, stacked_args[0].shape[0],
+                False, self._health, self.bounds,
+            )
+        except BaseException:
+            if _telemetry.ENABLED and self._donate:
+                _telemetry.record_donation("abort")
+            col._install_states(before)
+            raise
+        if self._donate:
+            # Donated: the results go into the states' own tensors.
+            dst, src = _pairs(before, col._read_states())
+            if dst:
+                torch._foreach_copy_(dst, src)
+            col._install_states(before)
+        self.replays += 1
+        return stats
+
+    # ---------------------------------------------------------------- card
+    def _capture(
+        self, stacked_args, stacked_mask, before: States, states: _StateBuffer
+    ) -> _Captured:
+        col = self._collection
+        device = stacked_args[0].device
+        block = tuple(torch.empty_like(a) for a in stacked_args)
+        mask = None if stacked_mask is None else torch.empty_like(stacked_mask)
+        _copy_block(block, mask, stacked_args, stacked_mask)
+        name = _program_name(col, stacked_args, stacked_mask)
+        graph = torch.cuda.CUDAGraph()
+        current = torch.cuda.current_stream(device)
+        try:
+            side = torch.cuda.Stream(device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                col._install_states(_clone_states(before))
+                _run_steps(col, block, mask, 1, True, self._health, self.bounds)
+            current.wait_stream(side)
+            col._install_states(states.views)
+            with _build.recording() as launches:
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    bump_trace(name)
+                    stats = _run_steps(
+                        col, block, mask, stacked_args[0].shape[0],
+                        True, self._health, self.bounds,
+                    )
+                    states.write_back(col._read_states())
+        finally:
+            # The members hold capture-time tensors of the graph's pool
+            # (or scratch); put the caller's states back.
+            col._install_states(before)
+        return _Captured(graph, block, mask, states, stats, launches)
+
+    def _replay(self, program: _Captured, stacked_args, stacked_mask):
+        col = self._collection
+        current = col._read_states()
+        try:
+            _copy_block(program.block, program.mask, stacked_args, stacked_mask)
+            program.states.copy_in(current)
+            program.graph.replay()
+        except BaseException:
+            if _telemetry.ENABLED and self._donate:
+                _telemetry.record_donation("abort")
+            col._install_states(current)
+            raise
+        _build.count_replay(program.launches)
+        self.replays += 1
+        col._install_states(program.states.views if self._donate else program.states.cloned())
+        return program.stats
+
+
+def resolve_donate(collection: MetricCollection, donate: Optional[bool]) -> bool:
+    """Engine-level donation default: the explicit flag, else the
+    collection's, else off (the port has no global donation flag)."""
+    if donate is not None:
+        return bool(donate)
+    return bool(collection._donate)
+
+
+def states_nbytes(collection: MetricCollection) -> int:
+    """Total member state bytes (the payload of ``engine_block`` spans),
+    slice clones included."""
+    return sum(_telemetry.state_nbytes(m) for m in collection._all_members.values())
+
+
+def read_state_arrays(collection: MetricCollection) -> States:
+    """The member states, for parity and debug inspection."""
+    return collection._read_states()
+
+
+__all__ = ["ScanRunner", "read_state_arrays", "resolve_donate", "states_nbytes"]

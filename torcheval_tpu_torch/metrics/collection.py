@@ -17,9 +17,11 @@ with the data-health monitor on (``telemetry/health.py``), the batch is
 screened on its device and the screen read back once, after the states
 are installed (a flagged batch is then counted exactly).  Left out of the
 JAX method, because they serve the JAX program cache or a module not
-ported yet: the perfscope hook, the call-signature cache
-(``_call_signature`` / ``_fused_seen``) and the compilation-cache bypass
-around donated programs.
+ported yet: the perfscope hook, the per-collection signature set
+(``_fused_seen``) and the compilation-cache bypass around donated
+programs.  :func:`_call_signature` keys the engine's captured graphs
+(``engine/scan.py``), and :meth:`MetricCollection._scan_step` is the body
+each step of an engine block runs.
 """
 
 from __future__ import annotations
@@ -38,6 +40,22 @@ from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.ops import _mega_plan, mega
 from torcheval_tpu_torch.telemetry import events as _telemetry
 from torcheval_tpu_torch.telemetry import health as _health
+
+
+def _call_signature(args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> Any:
+    """Hashable structure, shape, dtype and device signature of one call:
+    equal signatures can replay one captured graph (the JAX package's
+    counterpart mirrors its jit cache key)."""
+
+    def leaf(v: Any) -> Any:
+        if isinstance(v, torch.Tensor):
+            return (tuple(v.shape), str(v.dtype), str(v.device))
+        return (type(v).__name__,)
+
+    return (
+        tuple(leaf(a) for a in args),
+        tuple((k, leaf(v)) for k, v in sorted(kwargs.items())),
+    )
 
 
 class MetricCollection:
@@ -290,6 +308,18 @@ class MetricCollection:
             # leaves the applied batch in place; the monitor only reports.
             _health.inspect(health_stats, source="fused_update", bounds=self._health_bounds)
         return self
+
+    def _scan_step(
+        self, args: Tuple[Any, ...], kwargs: Dict[str, Any], donate: bool
+    ) -> None:
+        """One step of an engine block (the counterpart of the JAX scan
+        body's ``_trace_update`` call): the update body of
+        :meth:`fused_update` on a batch already on the collection's device
+        and already padded, so no ``_prepare``.  The caller runs it under
+        ``skip_value_checks`` and owns abort safety; ``donate`` adds the
+        collection kernel's counts in place."""
+        folds = self._update_members(args, kwargs, fused=True)
+        mega.apply_folds(folds, donate=donate)
 
     def _check_fusable(self) -> None:
         for name, m in self._all_members.items():

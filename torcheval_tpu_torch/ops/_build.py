@@ -17,7 +17,9 @@ one to ``PLAIN_CALLS[name]`` (:func:`count_plain`), so a run can show
 which path it took.  Both take a lock: the ranks of a ``LocalWorld`` are
 threads that launch at once, and no increment may be lost.  The first
 build is serialised the same way, so ranks that reach it together build
-the library once.
+the library once.  A CUDA graph capture records launches and runs none:
+under :func:`recording` the capturing thread's launches go to the
+capture's own counter, and each replay adds them (:func:`count_replay`).
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ import subprocess
 import tempfile
 import threading
 from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterator
 
 import torch
 
@@ -105,10 +108,38 @@ def reset_counts() -> None:
         PLAIN_CALLS.clear()
 
 
+_RECORDING = threading.local()
+
+
 def count_launch(name: str) -> None:
-    """One launch of kernel ``name``."""
+    """One launch of kernel ``name`` (recorded, not counted, while this
+    thread captures a CUDA graph under :func:`recording`)."""
+    recorder = getattr(_RECORDING, "counter", None)
+    if recorder is not None:
+        recorder[name] += 1
+        return
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+
+
+@contextmanager
+def recording() -> Iterator[Counter]:
+    """Divert this thread's :func:`count_launch` calls into a fresh
+    ``Counter`` for the duration: a CUDA graph capture runs no kernel, so
+    its launches count when the graph replays (:func:`count_replay`)."""
+    recorder: Counter = Counter()
+    previous = getattr(_RECORDING, "counter", None)
+    _RECORDING.counter = recorder
+    try:
+        yield recorder
+    finally:
+        _RECORDING.counter = previous
+
+
+def count_replay(launches: Counter) -> None:
+    """One replay of a captured graph: the launches its capture recorded."""
+    with _COUNT_LOCK:
+        LAUNCHES.update(launches)
 
 
 def count_plain(name: str) -> None:

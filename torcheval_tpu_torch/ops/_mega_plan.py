@@ -275,6 +275,19 @@ def counters(mp: MemberPlan, a: int) -> int:
     return size
 
 
+def route_token() -> Tuple[Any, ...]:
+    """The call-time flags the collection's routes depend on (the
+    collection kernel's mode, the matmul confusion-matrix row chunk and
+    the rank-sum switch).  The engine keys its captured graphs under it,
+    so a flag flipped mid-stream captures anew instead of replaying a
+    stale route."""
+    return (
+        _oflags.megakernel_mode(),
+        _oflags.cm_row_chunk(),
+        _oflags.ustat_disabled(),
+    )
+
+
 def _same_device(metrics: Dict[str, Any]) -> Optional[torch.device]:
     devices = {m.device for m in metrics.values()}
     return devices.pop() if len(devices) == 1 else None
