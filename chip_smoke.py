@@ -311,7 +311,46 @@ times kernels and lifecycle with CUDA events.  Phases:
     counts;
 49. ``aot.warmup`` of an ``Evaluator`` over phase 44's buckets: the stream
     then adds zero captures, builds and loads nothing, and launches only
-    the replays' kernels.
+    the replays' kernels;
+50. the binary sketch stream (``benchmarks/workloads.py``'s
+    ``bench_binary_auroc_sketch_stream``: numpy seed 1, 2^22 f32 scores in
+    8 updates, 512 bins): ``rank_counts_rows`` at the update's (1, 2^19)
+    held against both plain versions on the card and a numpy oracle;
+    ``BinaryAUROC(sketch=True)`` and ``BinaryAUPRC(sketch=True)``, 8
+    ``binned_count.cu`` launches each, their counts bit-equal to the
+    numpy oracle, each within ``rank_error_bound(512)`` of the exact
+    metric; ``sketch_payload_reduction_x`` at world 8; the lifecycle beside
+    the exact one, the kernel's device time beside its bound;
+51. the headline sketch: ``MulticlassAUROC(num_classes=1000, sketch=True)``
+    on the headline batches, 8 launches at the strided (1000, 16384) x 512,
+    every class's counts bit-equal to the numpy oracle, the macro value
+    within 1/511 of phase 3's exact one; the kernel held against both plain
+    versions there, its device time (and with a contiguous copy first)
+    beside its bound, the lifecycle beside the exact headline's;
+52. the collection fold (numpy seed 52, 8 x 2^16 binary batches): two
+    sketch members, ``BinaryBinnedAUROC(threshold=512)`` and
+    ``BinaryAccuracy`` in one ``fused_update``, one ``mega.cu`` launch an
+    update and no ``binned_count.cu``, every state bit-equal to the
+    standalone members, and again through the engine (one replay); a
+    ``MulticlassAUROC(100, sketch=True)`` member, which the plan declines,
+    runs ``binned_count.cu`` inside the graph beside ``mega.cu``;
+53. the monitor wrappers: ``Decayed(MulticlassConfusionMatrix(1000),
+    half_life_updates=4)`` over phase 8's data (8 slab launches, bit-equal
+    to a numpy float32 recurrence, and to itself through the engine);
+    ``SlidingWindow(BinaryBinnedAUROC(512), buckets=4)`` through the engine
+    with ``advance()`` every block, bit-equal to the per-batch path, and
+    to an oracle over the last 3 epochs' batches (a fresh metric, and
+    numpy's counts at the 512 edges);
+    ``StreamDigest`` over 2^22 lognormal latencies (numpy seed 53) as 4
+    shards merged in all 24 orders, the same counts, p50 / p90 / p99 within
+    1/64 relative of ``np.quantile``;
+54. the flat sketch sync over ``LocalWorld(4)``: ``sketch="rank"`` of
+    sketch-mode ``MulticlassAUROC(1000)`` ranks (2^15 of the headline each)
+    bit-equal to phase 51's single metric on every rank; ``"histogram"``,
+    ``"reservoir"`` and ``"count"`` of buffer ``BinaryAUROC`` ranks (phase
+    50's data), each rank's payload equal to the sketch built from the same
+    numpy data, the value the merged host sketches' and within the
+    documented bound of the exact value.
 
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
@@ -321,6 +360,7 @@ the last is ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before it.  With no GPU the script exits 1 and prints no result.
 """
 
+import itertools
 import json
 import os
 import statistics
@@ -593,13 +633,13 @@ def main(argv) -> int:
     dev = torch.device("cuda")
 
     # ---------------------------------------------------------------- 1. card
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     card = f"[{smi}]"
-    print(f"device: {kind} (count {torch.cuda.device_count()}), torch "
+    print(f"device: {device_kind} (count {torch.cuda.device_count()}), torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     print(smi, flush=True)
     t0 = time.perf_counter()
@@ -3786,6 +3826,360 @@ def main(argv) -> int:
           "after aot.warmup the stream adds zero captures, builds and loads nothing, launches "
           "32 mega counts and gives the same bits")
 
+    # ------------------------------------------- 50. the binary sketch stream
+    from torcheval_tpu_torch.metrics import BinaryAUPRC
+    from torcheval_tpu_torch.metrics import _sketch as sketches
+    from torcheval_tpu_torch.monitor import Decayed, SlidingWindow, StreamDigest
+    from torcheval_tpu_torch.ops.rank_sketch import (
+        DEFAULT_BINS,
+        _rank_counts_bincount,
+        rank_counts_rows,
+        rank_error_bound,
+        uniform_edges,
+    )
+
+    eps = rank_error_bound(DEFAULT_BINS)
+    edges_np = uniform_edges(DEFAULT_BINS).numpy()
+    edges = uniform_edges(DEFAULT_BINS, dev)
+
+    def suffix(cells):
+        return np.cumsum(cells[..., ::-1], axis=-1)[..., ::-1][..., 1:]
+
+    def held(label, rows, hits):
+        """``rank_counts_rows`` on the card against the sketch's plain version
+        and the binned kernel's plain version, both run on the card."""
+        got = rank_counts_rows(rows, hits, edges)
+        torch.cuda.synchronize()
+        plain = _rank_counts_bincount(rows, hits, edges)
+        ok = all(torch.equal(g, p) and torch.equal(g, q) for g, p, q in zip(
+            got, plain, _binned_counts_plain(rows, hits, edges)))
+        err = max(int((g - p).abs().max()) for g, p in zip(got[:2], plain[:2]))
+        check(ok, f"rank_counts_rows ({label}) bit-equal to _rank_counts_bincount and to "
+                  f"_binned_counts_plain on the card "
+                  f"[{binned_count_plan(rows, hits, DEFAULT_BINS, sms).describe()}]")
+        return got, err
+
+    sk_rng = np.random.default_rng(1)  # benchmarks/workloads.py's sketch stream
+    sk_scores = sk_rng.random(BINNED_SAMPLES, dtype=np.float32)
+    sk_target = (sk_rng.random(BINNED_SAMPLES) > 0.5).astype(np.float32)
+    sk_s = [torch.from_numpy(a).to(dev) for a in np.split(sk_scores, NUM_UPDATES)]
+    sk_t = [torch.from_numpy(a).to(dev) for a in np.split(sk_target, NUM_UPDATES)]
+
+    def stream_lifecycle(metric):
+        metric.reset()
+        for s, t in zip(sk_s, sk_t):
+            metric.update(s, t)
+        return metric.compute()
+
+    s0, h0 = sk_s[0][None], (sk_t[0] == 1)[None]
+    got0, sketch_err = held(f"(1, {s0.shape[1]}) x {DEFAULT_BINS}", s0, h0)
+    idx0 = np.searchsorted(edges_np, sk_scores[: s0.shape[1]], side="right")
+    hit0 = sk_target[: s0.shape[1]] == 1
+    ge0 = suffix(np.bincount(idx0, minlength=DEFAULT_BINS + 1))
+    tp0 = suffix(np.bincount(idx0[hit0], minlength=DEFAULT_BINS + 1))
+    check(np.array_equal(got0[0][0].cpu().numpy(), tp0)
+          and np.array_equal(got0[1][0].cpu().numpy(), ge0 - tp0),
+          "rank_counts_rows at the update's shape bit-equal to a numpy searchsorted + bincount "
+          "+ suffix-sum oracle")
+    sk_roc, sk_prc = BinaryAUROC(sketch=True), BinaryAUPRC(sketch=True)
+    roc_val, sketch_launches = counted("BinaryAUROC(sketch=True), 2^22 in 8 updates",
+                                       stream_lifecycle, sk_roc, "binned_counts", NUM_UPDATES)
+    prc_val, _ = counted("BinaryAUPRC(sketch=True), 2^22 in 8 updates", stream_lifecycle,
+                         sk_prc, "binned_counts", NUM_UPDATES)
+    idx_all = np.searchsorted(edges_np, sk_scores, side="right")
+    hit_all = sk_target == 1
+    ge_all = suffix(np.bincount(idx_all, minlength=DEFAULT_BINS + 1))
+    tp_all = suffix(np.bincount(idx_all[hit_all], minlength=DEFAULT_BINS + 1))
+    for m in (sk_roc, sk_prc):
+        check(np.array_equal(m.num_tp.cpu().numpy()[0], tp_all)
+              and np.array_equal(m.num_fp.cpu().numpy()[0], ge_all - tp_all)
+              and int(m.num_pos[0]) == int(hit_all.sum())
+              and int(m.num_total[0]) == BINNED_SAMPLES,
+              f"{type(m).__name__}(sketch=True): the stream's counts bit-equal to the numpy oracle")
+    ex_roc, ex_prc = BinaryAUROC(), BinaryAUPRC()
+    ex_roc_val, ex_prc_val = stream_lifecycle(ex_roc), stream_lifecycle(ex_prc)
+    roc_gap = abs(float(roc_val) - float(ex_roc_val))
+    prc_gap = abs(float(prc_val) - float(ex_prc_val))
+    check(roc_gap <= eps and prc_gap <= eps,
+          f"sketch within rank_error_bound(512) = {eps:.6f} of exact: AUROC {float(roc_val)!r} "
+          f"vs {float(ex_roc_val)!r} (gap {roc_gap:.3e}), AUPRC {float(prc_val)!r} vs "
+          f"{float(ex_prc_val)!r} (gap {prc_gap:.3e})")
+    payload_x = 8 * (sk_scores.nbytes + sk_target.nbytes) / (8 * sk_roc.sketch_state("rank").nbytes())
+    print(f"sketch_payload_reduction_x at world 8: {payload_x:.1f} "
+          f"({sk_roc.sketch_state('rank').nbytes()} bytes a rank against "
+          f"{sk_scores.nbytes + sk_target.nbytes})", flush=True)
+    sk_life, ex_life = turns_ms([lambda: stream_lifecycle(sk_roc), lambda: stream_lifecycle(ex_roc)])
+    sketch_ms = median_ms(lambda: rank_counts_rows(s0, h0, edges))
+    sketch_plain_ms = median_ms(lambda: _rank_counts_bincount(s0, h0, edges))
+    sketch_dev_ms = device_ms(torch, lambda: rank_counts_rows(s0, h0, edges))
+    sketch_bound, sketch_by = bound(s0.numel() * 5 + DEFAULT_BINS * 4 + (2 * DEFAULT_BINS + 2) * 4,
+                                    s0.numel() * 9)
+    print(f"times {card}: sketch stream (2^22 in 8 updates, 512 bins), 5 turns, median "
+          f"(min-max): BinaryAUROC(sketch=True) {spread(sk_life)}, exact BinaryAUROC "
+          f"{spread(ex_life)}; binned_count.cu at (1, 2^19) x 512: device {sketch_dev_ms:.4f} "
+          f"ms a call, events {sketch_ms:.4f} ms, plain (_rank_counts_bincount on the card) "
+          f"{sketch_plain_ms:.4f} ms, bound {sketch_bound:.4f} ms ({sketch_by})", flush=True)
+
+    # ---------------------------------------------- 51. the headline sketch
+    hs = MulticlassAUROC(num_classes=NUM_CLASSES, sketch=True)
+    hs_val, hs_launches = counted("headline MulticlassAUROC(sketch=True)", headline_lifecycle,
+                                  hs, "binned_counts", NUM_UPDATES)
+    cells = np.zeros((NUM_CLASSES, DEFAULT_BINS + 1), np.int64)
+    tp_cells = np.zeros_like(cells)
+    row_base = np.arange(NUM_CLASSES)[None, :] * (DEFAULT_BINS + 1)
+    for chunk, lab in zip(np.split(scores, NUM_UPDATES), np.split(target, NUM_UPDATES)):
+        idx = np.searchsorted(edges_np, chunk, side="right")
+        cells += np.bincount((idx + row_base).ravel(),
+                             minlength=cells.size).reshape(cells.shape)
+        own = idx[np.arange(lab.size), lab]
+        tp_cells += np.bincount(lab * (DEFAULT_BINS + 1) + own,
+                                minlength=cells.size).reshape(cells.shape)
+    hs_tp, hs_ge = suffix(tp_cells), suffix(cells)
+    check(np.array_equal(hs.num_tp.cpu().numpy(), hs_tp)
+          and np.array_equal(hs.num_fp.cpu().numpy(), hs_ge - hs_tp)
+          and np.array_equal(hs.num_pos.cpu().numpy(), np.bincount(target, minlength=NUM_CLASSES))
+          and bool((hs.num_total == NUM_SAMPLES).all()),
+          "headline sketch: every class's counts bit-equal to the numpy oracle")
+    hs_gap = abs(float(hs_val) - float(per_class.mean()))
+    check(hs_gap <= eps, f"headline sketch macro AUROC {float(hs_val)!r} within {eps:.6f} of the "
+                         f"exact {float(per_class.mean())!r}: gap {hs_gap:.3e}")
+    rows51, hits51 = s_chunks[0].T, class_hits(t_chunks[0], NUM_CLASSES)
+    _, strided_err = held(f"({NUM_CLASSES}, {rows51.shape[1]}) strided x {DEFAULT_BINS}",
+                          rows51, hits51)
+    strided_dev_ms = device_ms(torch, lambda: rank_counts_rows(rows51, hits51, edges))
+    copied_dev_ms = device_ms(torch, lambda: rank_counts_rows(rows51.contiguous(), hits51, edges))
+    strided_plain_ms = median_ms(lambda: _rank_counts_bincount(rows51, hits51, edges))
+    strided_ms = median_ms(lambda: rank_counts_rows(rows51, hits51, edges))
+    strided_bound, strided_by = bound(
+        rows51.numel() * 5 + DEFAULT_BINS * 4 + NUM_CLASSES * (2 * DEFAULT_BINS + 2) * 4,
+        rows51.numel() * 9)
+    hs_life, ex_head_life = turns_ms([lambda: headline_lifecycle(hs),
+                                      lambda: headline_lifecycle(headline)])
+    print(f"times {card}: headline sketch (8 x (16384, 1000), 512 bins), 5 turns, median "
+          f"(min-max): MulticlassAUROC(sketch=True) {spread(hs_life)}, exact headline "
+          f"(rank-sum route) {spread(ex_head_life)}; binned_count.cu at ({NUM_CLASSES}, "
+          f"{rows51.shape[1]}) strided x 512: device {strided_dev_ms:.4f} ms a call (with a "
+          f"contiguous copy first {copied_dev_ms:.4f}), events {strided_ms:.4f} ms, plain "
+          f"{strided_plain_ms:.4f} ms, bound {strided_bound:.4f} ms ({strided_by})", flush=True)
+
+    # --------------------------------------------- 52. the collection fold
+    c52_rng = np.random.default_rng(52)
+    c52 = [tuple(torch.from_numpy(a).to(dev) for a in (
+        c52_rng.random(2**16, dtype=np.float32),
+        (c52_rng.random(2**16) < 0.5).astype(np.int32))) for _ in range(NUM_UPDATES)]
+
+    def sketch_members():
+        return {"roc": BinaryAUROC(sketch=True), "prc": BinaryAUPRC(sketch=True),
+                "binned": BinaryBinnedAUROC(threshold=512), "acc": BinaryAccuracy()}
+
+    fold_col = MetricCollection(sketch_members())
+    fold_plan = plan_for(fold_col._metrics, c52[0], {}, None)
+    check(fold_plan is not None and [mp.kind for mp in fold_plan.members]
+          == ["binned", "binned", "binned", "moment"],
+          "the plan takes both sketch members as mega.cu's binned kind")
+    _build.reset_counts()
+    fold_out = per_batch(fold_col, c52)
+    torch.cuda.synchronize()
+    fold_launches = _build.LAUNCHES["mega_counts"]
+    check(dict(_build.LAUNCHES) == {"mega_counts": NUM_UPDATES} and not _build.PLAIN_CALLS,
+          f"collection fold: one mega.cu launch an update, no binned_count.cu "
+          f"({dict(_build.LAUNCHES)})")
+    solo = sketch_members()
+    for b in c52:
+        for m in solo.values():
+            m.update(*b)
+    check(all(states_equal(fold_col[k], m) for k, m in solo.items()),
+          "collection fold: every state bit-equal to the standalone members")
+    fold_ev = Evaluator(MetricCollection(sketch_members()), block_size=NUM_UPDATES, bucket=False)
+    engine_lifecycle(fold_ev, c52)
+    _build.reset_counts()
+    fold_eng_out = engine_lifecycle(fold_ev, c52)
+    torch.cuda.synchronize()
+    def same_outputs(a, b):
+        return all(all(torch.equal(x, y) for x, y in zip(
+            a[k] if isinstance(a[k], tuple) else (a[k],),
+            b[k] if isinstance(b[k], tuple) else (b[k],))) for k in b)
+
+    check(dict(_build.LAUNCHES) == {"mega_counts": NUM_UPDATES}
+          and all(states_equal(fold_ev.collection[k], m) for k, m in solo.items())
+          and same_outputs(fold_eng_out, fold_out),
+          "collection fold through the engine (block 8, one replay): 8 mega.cu launches, the "
+          "same bits")
+    mcs = lambda: {"mc": MulticlassAUROC(num_classes=COL_CLASSES, sketch=True),  # noqa: E731
+                   "acc": MulticlassAccuracy(num_classes=COL_CLASSES, average="macro"),
+                   "cm": MulticlassConfusionMatrix(num_classes=COL_CLASSES)}
+    mc_stream = list(zip(col_x, col_y))
+    mc_ref = MetricCollection(mcs())
+    mc_ref_out = per_batch(mc_ref, mc_stream)
+    mc_ev = Evaluator(MetricCollection(mcs()), block_size=NUM_UPDATES, bucket=False)
+    engine_lifecycle(mc_ev, mc_stream)
+    _build.reset_counts()
+    mc_eng_out = engine_lifecycle(mc_ev, mc_stream)
+    torch.cuda.synchronize()
+    engine_sketch_launches = _build.LAUNCHES["binned_counts"]
+    check(dict(_build.LAUNCHES) == {"mega_counts": NUM_UPDATES, "binned_counts": NUM_UPDATES}
+          and states_equal(mc_ev.collection, mc_ref) and same_outputs(mc_eng_out, mc_ref_out),
+          f"MulticlassAUROC({COL_CLASSES}, sketch=True), declined by the plan, runs "
+          f"binned_count.cu inside the graph: {dict(_build.LAUNCHES)}, the per-batch bits")
+    fold_prof, fold_mega_ms = kernel_launches(lambda: per_batch(fold_col, c52), "mega_kernel")
+    fold_life, fold_eng_life = turns_ms([lambda: per_batch(fold_col, c52),
+                                         lambda: engine_lifecycle(fold_ev, c52)])
+    print(f"times {card}: collection fold (8 x 2^16, two sketch members, binned 512, "
+          f"accuracy), 5 turns, median (min-max): fused_update loop {spread(fold_life)}, "
+          f"engine {spread(fold_eng_life)}; mega.cu {fold_prof} launches, "
+          f"{None if fold_mega_ms is None else fold_mega_ms / fold_prof} ms of device time a "
+          "launch", flush=True)
+
+    # ------------------------------------------------ 53. the monitor wrappers
+    dec_stream = list(zip(p_chunks, y_chunks))
+
+    def decayed():
+        return Decayed(MulticlassConfusionMatrix(num_classes=CM_CLASSES), half_life_updates=4)
+
+    def dec_lifecycle(metric):
+        metric.reset()
+        for p, t in dec_stream:
+            metric.update(p, t)
+        return metric.compute()
+
+    dec = decayed()
+    dec_out, dec_launches = counted("Decayed(MulticlassConfusionMatrix(1000)), eager",
+                                    dec_lifecycle, dec, "confusion_slab", NUM_UPDATES)
+    d32 = np.float32(dec.decay)
+    want53 = np.zeros((CM_CLASSES, CM_CLASSES), np.float32)
+    for p_np, t_np in zip(np.split(pred_np, NUM_UPDATES), np.split(target_np, NUM_UPDATES)):
+        x = np.zeros((CM_CLASSES, CM_CLASSES), np.int64)
+        np.add.at(x, (t_np, p_np), 1)
+        want53 = want53 * d32 + x.astype(np.float32)
+    check(dec_out.dtype == torch.float32 and np.array_equal(dec_out.cpu().numpy(), want53),
+          "Decayed CM bit-equal to the numpy float32 recurrence s = s * d + x")
+    dec_ev = Evaluator(MetricCollection({"cm": decayed()}), block_size=NUM_UPDATES, bucket=False)
+    engine_lifecycle(dec_ev, dec_stream)
+    _build.reset_counts()
+    dec_eng = engine_lifecycle(dec_ev, dec_stream)
+    torch.cuda.synchronize()
+    dec_engine_launches = _build.LAUNCHES["confusion_slab"]
+    check(dict(_build.LAUNCHES) == {"confusion_slab": NUM_UPDATES}
+          and torch.equal(dec_eng["cm"], dec_out),
+          "Decayed CM through the engine (one replay, 8 slab launches): the eager bits")
+    win_members = lambda: {"w": SlidingWindow(BinaryBinnedAUROC(threshold=512),  # noqa: E731
+                                              buckets=4)}
+    win_col = MetricCollection(win_members())
+    win_ev = Evaluator(win_col, block_size=2, bucket=False)
+    win_ref = SlidingWindow(BinaryBinnedAUROC(threshold=512), buckets=4)
+    _build.reset_counts()
+    for lo in range(0, NUM_UPDATES, 2):  # advance() every block: 4 epochs
+        win_ev.run(c52[lo:lo + 2])
+        for b in c52[lo:lo + 2]:
+            win_ref.update(*b)
+        win_col["w"].advance()
+        win_ref.advance()
+    torch.cuda.synchronize()
+    sw_launches = dict(_build.LAUNCHES)
+    win_out = win_col["w"].compute()
+    check(states_equal(win_col["w"], win_ref) and win_ref.epochs_advanced == 4
+          and all(torch.equal(a, b) for a, b in zip(win_out, win_ref.compute())),
+          f"SlidingWindow(BinaryBinnedAUROC(512), buckets=4) through the engine, advance() "
+          f"every block: bit-equal to the per-batch path ({sw_launches})")
+    # The oracle: after the last advance() the window holds epochs 2-4
+    # (batches 2-7), and epoch 1 has dropped out.  A fresh metric over those
+    # batches, and numpy's `score >= edge` counts at the window's edges.
+    win_fresh = BinaryBinnedAUROC(threshold=512)
+    for b in c52[2:]:
+        win_fresh.update(*b)
+    win_edges = win_out[1].cpu().numpy()
+    win_x = np.concatenate([b[0].cpu().numpy() for b in c52[2:]])
+    win_y = np.concatenate([b[1].cpu().numpy() for b in c52[2:]])
+    win_pos, win_neg = np.sort(win_x[win_y == 1]), np.sort(win_x[win_y == 0])
+    win_tp = win_pos.size - np.searchsorted(win_pos, win_edges, side="left")
+    win_fp = win_neg.size - np.searchsorted(win_neg, win_edges, side="left")
+    check(np.allclose(win_edges, np.linspace(0, 1, 512), rtol=0, atol=1e-6)
+          and all(torch.equal(a, b) for a, b in zip(win_out, win_fresh.compute()))
+          and np.array_equal(win_col["w"].num_tp.sum(0)[0].cpu().numpy(), win_tp)
+          and np.array_equal(win_col["w"].num_fp.sum(0)[0].cpu().numpy(), win_fp),
+          f"SlidingWindow over the last 4 epochs: the 512 edges (within 1e-6 of linspace), a fresh BinaryBinnedAUROC(512) "
+          f"over batches 2-7 (AUROC {float(win_out[0])}) and numpy's counts at every edge")
+    lat = np.random.default_rng(53).lognormal(-4.0, 1.5, BINNED_SAMPLES).astype(np.float32)
+    shards = [StreamDigest().update(torch.from_numpy(a).to(dev)) for a in np.split(lat, 4)]
+    merged_counts = []
+    for order in itertools.permutations(range(4)):
+        root = StreamDigest()
+        for i in order:
+            root.merge_state([shards[i]])
+        merged_counts.append(root.counts)
+    whole = StreamDigest().update(torch.from_numpy(lat).to(dev))
+    check(all(torch.equal(c, whole.counts) for c in merged_counts),
+          "StreamDigest: 4 shards merged in all 24 orders give the whole stream's counts")
+    q53 = whole.compute().cpu().numpy()
+    rel53 = np.abs(q53 - np.quantile(lat, (0.5, 0.9, 0.99))) / np.quantile(lat, (0.5, 0.9, 0.99))
+    check(bool((rel53 <= 1 / 64).all()),
+          f"StreamDigest p50 / p90 / p99 {q53.tolist()} within 1/64 relative of np.quantile: "
+          f"{rel53.tolist()}")
+    dec_life, dec_eng_life = turns_ms([lambda: dec_lifecycle(dec),
+                                       lambda: engine_lifecycle(dec_ev, dec_stream)])
+    lat_dev = torch.from_numpy(lat).to(dev)
+    digest_ms = statistics.median(turns_ms([lambda: StreamDigest().update(lat_dev).compute()])[0])
+    print(f"times {card}: Decayed CM at C = 1000 (8 x 2^17), 5 turns, median (min-max): eager "
+          f"update() {spread(dec_life)}, engine {spread(dec_eng_life)}; StreamDigest over 2^22 "
+          f"values, update + compute {digest_ms:.3f} ms", flush=True)
+
+    # ------------------------------------------------ 54. the flat sketch sync
+    quarter = NUM_SAMPLES // 4
+
+    def rank_sketch_sync(group, rank):
+        m = MulticlassAUROC(num_classes=NUM_CLASSES, sketch=True)
+        lo = rank * quarter
+        for s, t in zip(s_all[lo:lo + quarter].split(2**14), t_all[lo:lo + quarter].split(2**14)):
+            m.update(s, t)
+        return sync_and_compute(m, group, "all", sketch="rank")
+
+    _build.reset_counts()
+    synced54 = LocalWorld(4).run(rank_sketch_sync)
+    torch.cuda.synchronize()
+    sync_sketch_launches = _build.LAUNCHES["binned_counts"]
+    check(dict(_build.LAUNCHES) == {"binned_counts": 8}
+          and all(torch.equal(v, hs_val) for v in synced54),
+          "sync_and_compute(sketch='rank') over LocalWorld(4), 2^15 of the headline a rank: "
+          "every rank bit-equal to the single metric over the whole stream")
+    kinds54 = (("histogram", {"bins": 1024}, 1 / 1023),
+               ("reservoir", {"capacity": 4096}, 4 / 4096 ** 0.5),
+               ("count", {"width": 8192, "depth": 5}, 0.05))
+    classes54 = {"histogram": sketches.HistogramSketch, "reservoir": sketches.ReservoirSketch,
+                 "count": sketches.CountSketchState}
+    fields54 = {"histogram": ("pos", "neg"), "reservoir": ("keys", "scores", "targets"),
+                "count": ("pos", "neg")}
+    sync54_ms = {}
+    for sk_kind, opts, bound54 in kinds54:
+        def rank_fn(group, rank, sk_kind=sk_kind, opts=opts):
+            m = BinaryAUROC()
+            for i in (2 * rank, 2 * rank + 1):
+                m.update(sk_s[i], sk_t[i])
+            own = dict(opts, salt=rank) if sk_kind == "reservoir" else opts
+            payload = m.sketch_state(sk_kind, **own)
+            lo, hi = 2 * rank * (BINNED_SAMPLES // 8), (2 * rank + 2) * (BINNED_SAMPLES // 8)
+            host = classes54[sk_kind].from_samples("binary_auroc", sk_scores[lo:hi],
+                                                sk_target[lo:hi], **own)
+            same = all(np.array_equal(getattr(payload, f), getattr(host, f))
+                       for f in fields54[sk_kind])
+            t0 = time.perf_counter()
+            value = sync_and_compute(m, group, 0, sketch=sk_kind, sketch_options=opts)
+            return value, same, host, (time.perf_counter() - t0) * 1e3
+
+        out54 = LocalWorld(4).run(rank_fn)
+        merged54 = sketches.merge_sketches(out54[0][2], [o[2] for o in out54[1:]])
+        merged54.device = dev
+        value54 = float(out54[0][0])
+        gap54 = abs(value54 - float(ex_roc_val))
+        sync54_ms[sk_kind] = max(o[3] for o in out54)
+        check(all(o[1] for o in out54) and all(o[0] is None for o in out54[1:])
+              and value54 == float(merged54.compute()) and gap54 <= bound54,
+              f"flat sketch sync, {sk_kind} {opts}: every rank's payload equal to the sketch built "
+              f"from the same numpy data, the value {value54!r} the merged host sketches', "
+              f"within {bound54:.4f} of the exact {float(ex_roc_val)!r} (gap {gap54:.3e})")
+    print(f"times {card}: flat sketch sync of 4 ranks of 2^20 (wall clock of the slowest "
+          f"rank's call): " + ", ".join(f"{k} {v:.3f} ms" for k, v in sync54_ms.items()),
+          flush=True)
+
     # ------------------------------------------------------ the kernels line
     kernels = [
         {
@@ -3845,6 +4239,8 @@ def main(argv) -> int:
             "retry_launches": cm_retry_launches,
             "engine_launches": cm_engine_launches,
             "engine_device_ms": cm_slab_dev_ms / cm_prof,
+            "decayed_launches": dec_launches,
+            "decayed_engine_launches": dec_engine_launches,
             "verdict": "bit-equal",
         },
         {
@@ -3870,12 +4266,25 @@ def main(argv) -> int:
             "source": "torcheval_tpu_torch/ops/csrc/binned_count.cu",
             "replaces": "torcheval_tpu/ops/pallas_binned.py:191",
             "launches": binned_launches,
-            "max_abs_err": bin_err,
+            "max_abs_err": max(bin_err, sketch_err, strided_err),
             "ms": bin_ms,
             "plain_ms": bin_plain_ms,
             "bound_ms": bin_bound,
             "bound_by": bin_by,
             "library_ms": None,
+            "sketch_launches": sketch_launches,
+            "sketch_ms": sketch_ms,
+            "sketch_device_ms": sketch_dev_ms,
+            "sketch_plain_ms": sketch_plain_ms,
+            "sketch_bound_ms": sketch_bound,
+            "headline_sketch_launches": hs_launches,
+            "headline_sketch_ms": strided_ms,
+            "headline_sketch_device_ms": strided_dev_ms,
+            "headline_sketch_copy_device_ms": copied_dev_ms,
+            "headline_sketch_plain_ms": strided_plain_ms,
+            "headline_sketch_bound_ms": strided_bound,
+            "engine_sketch_launches": engine_sketch_launches,
+            "sync_sketch_launches": sync_sketch_launches,
             "verdict": "bit-equal",
         },
         {
@@ -3899,6 +4308,9 @@ def main(argv) -> int:
             "sliced_engine_launches": sl_engine_launches,
             "full_width_engine_device_ms": (None if fw_mega_ms is None
                                             else fw_mega_ms / NUM_UPDATES),
+            "sketch_fold_launches": fold_launches,
+            "sketch_fold_device_ms": (None if fold_mega_ms is None
+                                      else fold_mega_ms / fold_prof),
             "verdict": "bit-equal",
         },
         {
@@ -3934,7 +4346,7 @@ def main(argv) -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,
-        "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},
+        "device": {"platform": "gpu", "kind": device_kind, "count": torch.cuda.device_count()},
     }), flush=True)
     return 0
 

@@ -231,5 +231,14 @@ def test_multilabel_class_matches_jax():
 
 
 def test_sketch_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="sketch"):
-        BinaryAUPRC(device=CPU, sketch=True)
+    # The sketch tier is ported: BinaryAUPRC(sketch=True) keeps the JAX
+    # package's rank-sketch counts and value.
+    rng = np.random.default_rng(13)
+    s = rng.random(600).astype(np.float32)
+    y = (rng.random(600) < s).astype(np.int32)
+    port = BinaryAUPRC(device=CPU, sketch=True, sketch_bins=64).update(s, y)
+    ref = JaxBinaryAUPRC(sketch=True, sketch_bins=64)
+    ref.update(jnp.asarray(s), jnp.asarray(y))
+    for name in ("num_tp", "num_fp", "num_pos", "num_total"):
+        np.testing.assert_array_equal(getattr(port, name).numpy(), np.asarray(getattr(ref, name)))
+    _close(port.compute(), ref.compute())

@@ -1549,3 +1549,239 @@ def test_engine_health_reads_back_once_a_block_on_the_card(monkeypatch):
     off = MetricCollection(members(dev), **col_kw)
     Evaluator(off, **ev_kw).run(batches)
     assert all(torch.equal(col.state_dict()[k], v) for k, v in off.state_dict().items())
+
+
+# ----------------------------------------------------------- the sketch tier
+@pytest.mark.parametrize("masked", [False, True])
+def test_rank_counts_kernel_bit_equal_to_both_plain_versions_strided(masked):
+    """``rank_counts_rows`` on the card at phase 51's strided multiclass
+    layout, reduced: the (N, C) batch read as (C, N) in place, 512 edges,
+    ties with the edges, NaN and +-inf: one ``binned_count.cu`` launch,
+    bit-equal to ``_rank_counts_bincount`` on the CPU and to the binned
+    kernel's plain version on the card."""
+    from torcheval_tpu_torch.metrics.functional.classification._sort_scan import class_hits
+    from torcheval_tpu_torch.ops import rank_sketch
+
+    dev = _cuda()
+    rng = np.random.default_rng(51)
+    edges = rank_sketch.uniform_edges(512, dev)
+    scores = rng.random((4096, 100)).astype(np.float32)
+    scores[:64, 3] = edges.cpu().numpy()[:64]
+    scores[5, :4] = [np.nan, np.inf, -np.inf, 1.0]
+    target = rng.integers(0, 100, 4096).astype(np.int32)
+    mask = (rng.random(4096) < 0.75).astype(np.int32) if masked else None
+    s = torch.from_numpy(scores).to(dev)
+    hits = class_hits(torch.from_numpy(target).to(dev), 100)
+    m = None if mask is None else torch.from_numpy(mask).to(dev)
+    _build.reset_counts()
+    got = rank_sketch.rank_counts_rows(s.T, hits, edges, mask=m)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"binned_counts": 1} and not _build.PLAIN_CALLS
+    cpu = rank_sketch._rank_counts_bincount(
+        s.T.cpu(), hits.cpu(), edges.cpu(), mask=None if m is None else m.cpu())
+    sv, hv = s.T, hits
+    if m is not None:
+        sv = torch.where(m.bool()[None, :], sv, float("-inf"))
+        hv = hits & m.bool()[None, :]
+    card_plain = _binned_counts_plain(sv, hv, edges)
+    for g, c, p in zip(got, cpu, card_plain[:3]):
+        assert torch.equal(g.cpu(), c) and torch.equal(g, p)
+    assert torch.equal(got[3].cpu(), cpu[3])
+
+
+def test_rank_counts_on_a_cuda_tensor_never_runs_the_plain_version(monkeypatch):
+    from torcheval_tpu_torch.metrics import BinaryAUPRC
+    from torcheval_tpu_torch.ops import rank_sketch
+
+    dev = _cuda()
+
+    def refuse(*_, **__):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(rank_sketch, "_rank_counts_bincount", refuse)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.random((2048, 20)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 20, 2048).astype(np.int32)).to(dev)
+    _build.reset_counts()
+    MulticlassAUROC(num_classes=20, sketch=True, device=dev).update(x, y)
+    BinaryAUROC(sketch=True, device=dev).update(x[:, 0], (y % 2).int(), mask=(y > 3).int())
+    BinaryAUPRC(sketch=True, device=dev).update(x[:, 1], (y % 2).int())
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"binned_counts": 3} and not _build.PLAIN_CALLS
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        rank_sketch.rank_counts_rows(x.T, y[None].bool().expand(20, -1),
+                                     rank_sketch.uniform_edges(64, dev), route="bincount")
+
+
+def _sketch_members(d, multiclass=False):
+    from torcheval_tpu_torch.metrics import BinaryAccuracy, BinaryAUPRC
+
+    out = {"roc": BinaryAUROC(sketch=True, device=d),
+           "prc": BinaryAUPRC(sketch=True, device=d),
+           "binned": BinaryBinnedAUROC(threshold=512, device=d),
+           "acc": BinaryAccuracy(device=d)}
+    if multiclass:
+        out["mc"] = MulticlassAUROC(num_classes=100, sketch=True, device=d)
+    return out
+
+
+def test_sketch_members_in_a_collection_launch_mega_not_binned_count():
+    """Phase 52, reduced: the sketch-mode binary members plan as
+    ``mega.cu``'s binned kind (one launch an update, no ``binned_count.cu``)
+    and fold the bits of their standalone updates; a multiclass sketch
+    member is declined and launches ``binned_count.cu`` itself."""
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    dev = _cuda()
+    rng = np.random.default_rng(52)
+    s = torch.from_numpy(rng.random(8192).astype(np.float32)).to(dev)
+    y = torch.from_numpy((rng.random(8192) < 0.3).astype(np.int32)).to(dev)
+    col = MetricCollection(_sketch_members(dev))
+    _build.reset_counts()
+    col.fused_update(s, y)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"mega_counts": 1} and not _build.PLAIN_CALLS
+    solo = _sketch_members(dev)
+    for name, m in solo.items():
+        m.update(s, y)
+        for k, v in m.state_dict().items():
+            assert torch.equal(col[name].state_dict()[k], v), (name, k)
+    scores = torch.from_numpy(rng.random((8192, 100)).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 100, 8192).astype(np.int32)).to(dev)
+    mc = MetricCollection({"mc": MulticlassAUROC(num_classes=100, sketch=True, device=dev),
+                           "acc": MulticlassAccuracy(num_classes=100, device=dev)})
+    _build.reset_counts()
+    mc.fused_update(scores, labels)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["binned_counts"] == 1
+
+
+@pytest.mark.parametrize("case", ["sketch", "sketch_multiclass", "decayed", "window", "digest"])
+def test_monitor_and_sketch_members_graph_replay_equals_eager(case):
+    """Phases 52-53, reduced: the engine's graph replays bit-equal to the
+    eager per-batch ``fused_update`` loop on the card and to the engine's
+    eager loop on the CPU, for sketch members (``binned_count.cu`` inside
+    the graph for the declined multiclass one), ``Decayed`` around the
+    confusion slab, ``SlidingWindow`` with ``advance()`` between runs (and
+    against a fresh metric over the window's epochs and numpy's counts),
+    and ``StreamDigest``."""
+    from torcheval_tpu_torch.engine import Evaluator
+    from torcheval_tpu_torch.metrics import BinaryBinnedAUROC as Binned
+    from torcheval_tpu_torch.metrics import MetricCollection
+    from torcheval_tpu_torch.monitor import Decayed, SlidingWindow, StreamDigest
+
+    dev = _cuda()
+    rng = np.random.default_rng(53)
+    if case == "sketch":
+        members = _sketch_members
+        batches = [(rng.random(n).astype(np.float32),
+                    (rng.random(n) < 0.4).astype(np.int32)) for n in (2048, 700, 2048, 31)]
+        col_kw, ev_kw = {"bucket": True}, {"block_size": 2}
+    elif case == "sketch_multiclass":
+        members = lambda d: {"mc": MulticlassAUROC(num_classes=100, sketch=True,  # noqa: E731
+                                                   device=d),
+                             "acc": MulticlassAccuracy(num_classes=100, average="macro",
+                                                       device=d),
+                             "cm": MulticlassConfusionMatrix(num_classes=100, device=d)}
+        batches = [(rng.random((2048, 100)).astype(np.float32),
+                    rng.integers(0, 100, 2048).astype(np.int32)) for _ in range(8)]
+        col_kw, ev_kw = {}, {"block_size": 8, "bucket": False}
+    elif case == "decayed":
+        members = lambda d: {"cm": Decayed(MulticlassConfusionMatrix(  # noqa: E731
+            num_classes=1000, device=d), half_life_updates=4)}
+        batches = [(rng.integers(0, 1000, 2**14).astype(np.int32),
+                    rng.integers(0, 1000, 2**14).astype(np.int32)) for _ in range(8)]
+        col_kw, ev_kw = {}, {"block_size": 8, "bucket": False}
+    elif case == "window":
+        members = lambda d: {"w": SlidingWindow(Binned(threshold=512, device=d),  # noqa: E731
+                                                buckets=4)}
+        batches = [(rng.random(4096).astype(np.float32),
+                    (rng.random(4096) < 0.3).astype(np.int32)) for _ in range(16)]
+        col_kw, ev_kw = {}, {"block_size": 4, "bucket": False}
+    else:
+        members = lambda d: {"lat": StreamDigest(device=d)}  # noqa: E731
+        batches = [(rng.lognormal(-4.0, 1.5, n).astype(np.float32),) for n in
+                   (300, 1000, 77, 513, 64, 900)]
+        col_kw, ev_kw = {"bucket": True}, {"block_size": 2}
+    cuda_batches = [tuple(torch.from_numpy(a).to(dev) for a in b) for b in batches]
+    cols = [MetricCollection(members(d), **col_kw) for d in (dev, dev, "cpu")]
+    eng, ref, cpu = cols
+    ev, cpu_ev = Evaluator(eng, **ev_kw), Evaluator(cpu, **ev_kw)
+    step = ev_kw["block_size"] * (1 if case == "window" else len(batches))
+    for lo in range(0, len(batches), step):
+        ev.run(cuda_batches[lo:lo + step])
+        cpu_ev.run(batches[lo:lo + step])
+        _per_batch(ref, cuda_batches[lo:lo + step], False)
+        if case == "window":
+            for c in cols:
+                c["w"].advance()
+    torch.cuda.synchronize()
+    assert ev.runner.replays >= 1
+    want = ref.state_dict()
+    for k, v in want.items():
+        assert torch.equal(eng.state_dict()[k], v), k
+        assert torch.equal(cpu.state_dict()[k], v.cpu()), k
+    if case == "window":
+        # The oracle: four epochs through buckets=4, so after the last
+        # advance() the window holds epochs 2-4 (batches 4-15).  A fresh
+        # metric over them, and numpy's `score >= edge` counts.
+        fresh = Binned(threshold=512, device=dev)
+        for b in cuda_batches[4:]:
+            fresh.update(*b)
+        got, oracle = eng["w"].compute(), fresh.compute()
+        assert torch.equal(got[0], oracle[0]) and torch.equal(got[1], oracle[1])
+        edges = got[1].cpu().numpy()
+        np.testing.assert_allclose(edges, np.linspace(0, 1, 512), rtol=0, atol=1e-6)
+        x = np.concatenate([b[0] for b in batches[4:]])
+        y = np.concatenate([b[1] for b in batches[4:]])
+        pos, neg = np.sort(x[y == 1]), np.sort(x[y == 0])
+        tp = pos.size - np.searchsorted(pos, edges, side="left")
+        fp = neg.size - np.searchsorted(neg, edges, side="left")
+        np.testing.assert_array_equal(eng["w"].num_tp.sum(0)[0].cpu().numpy(), tp)
+        np.testing.assert_array_equal(eng["w"].num_fp.sum(0)[0].cpu().numpy(), fp)
+
+
+@pytest.mark.parametrize("case", ["accuracy", "binary_accuracy", "precision", "regression",
+                                  "mean"])
+def test_engine_captures_members_that_build_scalars(case):
+    """A member the collection kernel does not take runs its own update
+    inside the engine's graph; an update that builds a scalar on the card
+    (a count, a zero, a weight) builds it with a fill, not a host copy, so
+    the capture holds and the replays give the per-batch bits."""
+    from torcheval_tpu_torch.engine import Evaluator
+    from torcheval_tpu_torch.metrics import (
+        BinaryAccuracy,
+        Mean,
+        MeanSquaredError,
+        MetricCollection,
+        MulticlassPrecision,
+        R2Score,
+    )
+
+    dev = _cuda()
+    rng = np.random.default_rng(60)
+    if case in ("accuracy", "precision"):
+        cls = MulticlassAccuracy if case == "accuracy" else MulticlassPrecision
+        members = lambda d: {"m": cls(device=d)}  # noqa: E731  (micro: one member)
+        batches = [(rng.random((512, 10)).astype(np.float32),
+                    rng.integers(0, 10, 512).astype(np.int32)) for _ in range(4)]
+    elif case == "binary_accuracy":
+        members = lambda d: {"m": BinaryAccuracy(device=d)}  # noqa: E731
+        batches = [(rng.random(512).astype(np.float32),
+                    rng.integers(0, 2, 512).astype(np.int32)) for _ in range(4)]
+    elif case == "regression":
+        members = lambda d: {"mse": MeanSquaredError(device=d),  # noqa: E731
+                             "r2": R2Score(device=d)}
+        batches = [(rng.random(512).astype(np.float32),
+                    rng.random(512).astype(np.float32)) for _ in range(4)]
+    else:
+        members = lambda d: {"m": Mean(device=d)}  # noqa: E731
+        batches = [(rng.random(512).astype(np.float32),) for _ in range(4)]
+    eng, ref = (MetricCollection(members(dev)) for _ in range(2))
+    Evaluator(eng, block_size=4, bucket=False).run(
+        [tuple(torch.from_numpy(a).to(dev) for a in b) for b in batches])
+    for b in batches:
+        ref.update(*(torch.from_numpy(a).to(dev) for a in b))
+    torch.cuda.synchronize()
+    for k, v in ref.state_dict().items():
+        assert torch.equal(eng.state_dict()[k], v), k

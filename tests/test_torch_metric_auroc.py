@@ -112,10 +112,19 @@ def test_binary_lifecycle_matches_jax(num_tasks):
 
 
 def test_sketch_mode_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="sketch"):
-        MulticlassAUROC(num_classes=4, device=CPU, sketch=True)
-    with pytest.raises(NotImplementedError, match="sketch"):
-        BinaryAUROC(device=CPU, sketch=True)
+    # The sketch tier is ported: sketch=True constructs the rank-sketch
+    # states and they match the JAX package's on the same batches.
+    rng = np.random.default_rng(12)
+    s = rng.random((500, 4)).astype(np.float32)
+    y = rng.integers(0, 4, 500).astype(np.int32)
+    port = MulticlassAUROC(num_classes=4, device=CPU, sketch=True, sketch_bins=32).update(s, y)
+    ref = JaxMulticlassAUROC(num_classes=4, sketch=True, sketch_bins=32)
+    ref.update(jnp.asarray(s), jnp.asarray(y))
+    for name in ("threshold", "num_tp", "num_fp", "num_pos", "num_total"):
+        np.testing.assert_array_equal(getattr(port, name).numpy(), np.asarray(getattr(ref, name)))
+    _close(port.compute(), ref.compute())
+    binary = BinaryAUROC(device=CPU, sketch=True)
+    assert binary._sketch_mode and binary.num_tp.shape == (1, 512)
 
 
 class _Counters(Metric[torch.Tensor]):

@@ -78,6 +78,12 @@ def test_sources_import_no_jax():
         "torcheval_tpu_torch/parallel/_compile_cache.py",
         "torcheval_tpu_torch/monitor/__init__.py",
         "torcheval_tpu_torch/monitor/quality.py",
+        "torcheval_tpu_torch/monitor/decay.py",
+        "torcheval_tpu_torch/monitor/window.py",
+        "torcheval_tpu_torch/monitor/digest.py",
+        "torcheval_tpu_torch/ops/rank_sketch.py",
+        "torcheval_tpu_torch/metrics/_rank_state.py",
+        "torcheval_tpu_torch/metrics/_sketch.py",
         "torcheval_tpu_torch/utils/test_utils/dummy_metric.py",
         "torcheval_tpu_torch/utils/test_utils/metric_class_tester.py",
         "torcheval_tpu_torch/native/edit_distance.py",
@@ -203,6 +209,15 @@ with tempfile.TemporaryDirectory() as d:
     CheckpointManager(d).save(col.state_dict(), {"batches_seen": 2})
     assert CheckpointManager(d).load_latest().cursor == {"batches_seen": 2}
 assert "local_all_gather_object" in telemetry.prometheus_text()
+from torcheval_tpu_torch.metrics import BinaryAUROC
+from torcheval_tpu_torch.monitor import Decayed, SlidingWindow, StreamDigest
+sk = BinaryAUROC(sketch=True, device="cpu").update(rng.random(64), rng.integers(0, 2, 64))
+assert 0.0 <= float(LocalWorld(2).run(lambda g, r: sync_and_compute(sk, g, "all", sketch="rank"))[0]) <= 1.0
+assert Decayed(MulticlassConfusionMatrix(4, device="cpu"), decay=0.5).update(
+    rng.integers(0, 4, 64), rng.integers(0, 4, 64)).compute().dtype == torch.float32
+assert SlidingWindow(MulticlassConfusionMatrix(4, device="cpu"), buckets=2).update(
+    rng.integers(0, 4, 64), rng.integers(0, 4, 64)).advance().epochs_advanced == 1
+assert StreamDigest(device="cpu").update(rng.random(64)).compute().shape == (3,)
 assert not any(
     k.split(".")[0] in ("jax", "torcheval_tpu", "__graft_entry__") for k in sys.modules
 )

@@ -424,5 +424,7 @@ def test_toolkit_names_the_right_roadmap_items():
     metric = BinaryAUROC(device="cpu")
     with pytest.raises(NotImplementedError, match=r"fleet-merge slice \(ROADMAP queue 1, item 6\)"):
         toolkit.sync_and_compute(metric, topology="tree")
-    with pytest.raises(NotImplementedError, match=r"sketch tier \(ROADMAP queue 1, item 7\)"):
-        toolkit.sync_and_compute(metric, sketch="histogram")
+    # The sketch tier (item 7) is ported: the flat sketch sync returns the
+    # merged value; a world of one computes its own sketch.
+    metric.update(torch.tensor([0.1, 0.9, 0.4, 0.7]), torch.tensor([0, 1, 0, 1]))
+    assert float(toolkit.sync_and_compute(metric, sketch="histogram")) == 1.0

@@ -152,9 +152,23 @@ def test_sync_leaves_the_callers_metric_alone_and_ships_cpu_states():
 def test_flat_only():
     m = counter(P, device="cpu")
     group = distributed.SingleProcessGroup()
-    for kw in ({"topology": "tree"}, {"topology": "ring"}, {"sketch": "histogram"}):
+    for kw in ({"topology": "tree"}, {"topology": "ring"}):
         with pytest.raises(NotImplementedError):
             toolkit.sync_and_compute(m, group, **kw)
+    # The flat sketch sync is ported: each rank's histogram sketch of a
+    # BinaryAUROC rides the flat gather and rank 0 returns the merged value.
+    def sketch_rank(g, rank):
+        rng = np.random.default_rng(40 + rank)
+        s = rng.random(300).astype(np.float32)
+        auroc = P.BinaryAUROC(device="cpu").update(s, (rng.random(300) < s).astype(np.int32))
+        return toolkit.sync_and_compute(auroc, g, sketch="histogram",
+                                        sketch_options={"bins": 4096}), auroc
+    out = distributed.LocalWorld(WORLD).run(sketch_rank)
+    whole = out[0][1].merge_state([a for _, a in out[1:]])
+    assert all(v is None for v, _ in out[1:])
+    assert abs(float(out[0][0]) - float(whole.compute())) < 0.02
+    with pytest.raises(ValueError, match="only kind='exact'"):
+        toolkit.sync_and_compute(m, group, sketch="histogram")
     with pytest.raises(ValueError, match="topology"):
         toolkit.sync_and_compute(m, group, topology="star")
     with pytest.raises(ValueError, match="recipient_rank"):

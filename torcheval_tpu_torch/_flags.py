@@ -120,6 +120,13 @@ TRISTATE_FLAGS: Dict[str, str] = {
         "kernel when the states live on a GPU and at least two members are "
         "supported (read per call)."
     ),
+    "RANK_SKETCH": (
+        "State layout of BinaryAUROC, BinaryAUPRC and MulticlassAUROC built "
+        "without sketch=: truthy gives the fixed-size rank-sketch counts, "
+        "anything else the exact sample buffers (read at construction; the "
+        "engine's route token carries it). It chooses a layout, never a "
+        "plain version for a GPU tensor."
+    ),
 }
 
 

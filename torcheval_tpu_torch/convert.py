@@ -15,6 +15,15 @@ cursor, fill level and counters) under ``"window_bookkeeping"`` as an int64
 array, in the same layout in both packages, so a JAX window continues
 mid-wrap in the port.
 
+The sketch tier and the monitor wrappers carry across the same way, every
+leaf as it is: a ``sketch=True`` curve metric's ``threshold`` edges (f32)
+and four int32 count arrays; ``monitor.Decayed``'s states (float32, the
+wrapper's cast of integer counters); ``monitor.SlidingWindow``'s states
+with their leading bucket axis and ``"window_epochs"`` (int64 ``[buckets,
+epochs]``, checked against the port window's ``buckets`` on load); and
+``monitor.StreamDigest``'s ladder ``edges`` and int32 ``counts``.  After
+the load the JAX metric continues in the port bit for bit.
+
 A JAX ``MetricCollection.state_dict()`` is a flat mapping too, keyed
 ``"name/state"`` and, for slice clones, ``"name@k/state"``; it loads into
 the port's collection the same way:

@@ -1,10 +1,10 @@
 """AUPRC metrics — the port of
-``torcheval_tpu/metrics/classification/auprc.py`` in buffer mode.
+``torcheval_tpu/metrics/classification/auprc.py``.
 
 Average precision over buffered samples, the same buffer-state design as
 the AUROC classes: ``inputs``/``targets`` lists, concat merge, pre-concat
-for the sync wire.  The rank-sketch state (``sketch=True``) comes with the
-sketch tier in a later slice of the port."""
+for the sync wire.  ``BinaryAUPRC(sketch=True)`` keeps the rank-sketch
+counts instead (:mod:`torcheval_tpu_torch.metrics._rank_state`)."""
 
 from typing import Iterable, Optional
 
@@ -14,7 +14,15 @@ from torcheval_tpu_torch.metrics._buffer import (
     merge_concat_buffers,
     prepare_concat_buffers,
 )
-from torcheval_tpu_torch.metrics.classification.auroc import _no_sketch
+from torcheval_tpu_torch.metrics._fuse import on_device
+from torcheval_tpu_torch.metrics._rank_state import (
+    _rank_binary_kernel,
+    install_rank_states,
+    rank_accumulate,
+    rank_merge_state,
+    rank_sketch_state,
+)
+from torcheval_tpu_torch.metrics.classification.auroc import _MASK_NEEDS_SKETCH
 from torcheval_tpu_torch.metrics.functional.classification.auprc import (
     _binary_auprc_compute,
     _multiclass_auprc_compute,
@@ -27,7 +35,11 @@ from torcheval_tpu_torch.metrics.functional.classification.auroc import (
     _binary_auroc_update_input_check,
     _multiclass_auroc_update_input_check,
 )
+from torcheval_tpu_torch.metrics.functional.classification.binned_auc import (
+    _binned_auprc_from_counts,
+)
 from torcheval_tpu_torch.metrics.metric import Metric
+from torcheval_tpu_torch.ops._flags import rank_sketch_enabled
 
 
 def _empty_average(average: Optional[str], rows: int, device: torch.device) -> torch.Tensor:
@@ -35,8 +47,11 @@ def _empty_average(average: Optional[str], rows: int, device: torch.device) -> t
 
 
 class BinaryAUPRC(Metric[torch.Tensor]):
-    """Binary average precision with multi-task support (buffered,
-    exact)."""
+    """Binary average precision with multi-task support (buffered, exact).
+
+    ``sketch=True`` (default: ``TORCHEVAL_TPU_TORCH_RANK_SKETCH``, else
+    off) replaces the sample buffers with the mergeable rank-sketch counts
+    over ``sketch_bins`` edges (default 512)."""
 
     def __init__(
         self,
@@ -44,8 +59,8 @@ class BinaryAUPRC(Metric[torch.Tensor]):
         num_tasks: int = 1,
         device=None,
         sketch: Optional[bool] = None,
+        sketch_bins: Optional[int] = None,
     ) -> None:
-        _no_sketch(sketch)
         super().__init__(device=device)
         if num_tasks < 1:
             raise ValueError(
@@ -53,23 +68,35 @@ class BinaryAUPRC(Metric[torch.Tensor]):
                 f"but received {num_tasks}. "
             )
         self.num_tasks = num_tasks
-        self._add_state("inputs", [])
-        self._add_state("targets", [])
+        self._sketch_mode = rank_sketch_enabled() if sketch is None else bool(sketch)
+        if self._sketch_mode:
+            install_rank_states(self, num_tasks, sketch_bins)
+        else:
+            self._add_state("inputs", [])
+            self._add_state("targets", [])
 
     def update(self, input, target, *, mask=None) -> "BinaryAUPRC":
         input, target = torch.as_tensor(input), torch.as_tensor(target)
         _binary_auroc_update_input_check(input, target, self.num_tasks)
+        if self._sketch_mode:
+            input, target, mask = on_device(self.device, input, target, mask)
+            rank_accumulate(self, _rank_binary_kernel, input, target, mask=mask)
+            return self
         if mask is not None:
-            raise ValueError(
-                "mask= requires the rank-sketch state (sketch=True); the "
-                "exact sample buffers do not fold masked updates."
-            )
+            raise ValueError(_MASK_NEEDS_SKETCH)
         self.inputs.append(input.to(self.device))
         self.targets.append(target.to(self.device))
         return self
 
     def compute(self) -> torch.Tensor:
         """Average precision per task; an empty tensor before any update."""
+        if self._sketch_mode:
+            if int(self.num_total.sum()) == 0:
+                return torch.zeros(0, device=self.device)
+            score = _binned_auprc_from_counts(
+                self.num_tp, self.num_fp, self.num_pos, self.num_total
+            )
+            return score[0] if self.num_tasks == 1 else score
         if not self.inputs:
             return torch.zeros(0, device=self.device)
         input = torch.cat(self.inputs, dim=-1)
@@ -78,11 +105,25 @@ class BinaryAUPRC(Metric[torch.Tensor]):
         return _binary_auprc_compute(input, torch.cat(self.targets, dim=-1))
 
     def merge_state(self, metrics: Iterable["BinaryAUPRC"]) -> "BinaryAUPRC":
+        if self._sketch_mode:
+            rank_merge_state(self, metrics)
+            return self
         merge_concat_buffers(self, metrics, "inputs", "targets", dim=-1)
         return self
 
     def _prepare_for_merge_state(self) -> None:
+        if self._sketch_mode:
+            return  # the counts are flat tensors on the sync wire already
         prepare_concat_buffers(self, "inputs", "targets", dim=-1)
+
+    def sketch_state(self, kind: str = "exact", **options):
+        """An O(bins) mergeable summary of the sample buffers, the kinds and
+        bounds of :meth:`BinaryAUROC.sketch_state`."""
+        if self._sketch_mode:
+            return rank_sketch_state(self, "binary_auprc", kind, **options)
+        from torcheval_tpu_torch.metrics._sketch import sketch_from_buffers
+
+        return sketch_from_buffers(self, "binary_auprc", kind, **options)
 
 
 class MulticlassAUPRC(Metric[torch.Tensor]):

@@ -57,6 +57,7 @@ class _BinnedCountsBase(Metric):
 
     # Every concrete update() below takes mask=, folded exactly.
     _supports_mask = True
+    _fixed_states = ("threshold",)
     _score_fn = None
 
     def __init__(self, num_rows: int, threshold, device=None) -> None:

@@ -35,6 +35,8 @@ class BinaryBinnedPrecisionRecallCurve(
     vectors (reference ``binned_precision_recall_curve.py:64-80``); merge:
     add counts (reference ``:121-133``)."""
 
+    _fixed_states = ("threshold",)
+
     def __init__(self, *, threshold: Threshold = 100, device=None) -> None:
         super().__init__(device=device)
         threshold = _create_threshold_tensor(threshold, self.device)
@@ -73,6 +75,8 @@ class MulticlassBinnedPrecisionRecallCurve(
 ):
     """States: ``threshold`` + ``(n_thresholds, n_classes)`` count matrices
     (reference ``binned_precision_recall_curve.py:167-194``); merge: add."""
+
+    _fixed_states = ("threshold",)
 
     def __init__(
         self,

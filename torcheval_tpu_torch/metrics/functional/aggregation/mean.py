@@ -41,7 +41,7 @@ def _mean_update(input: torch.Tensor, weight) -> Tuple[torch.Tensor, torch.Tenso
 def _scalar_weighted(input: torch.Tensor, weight: float) -> Tuple[torch.Tensor, torch.Tensor]:
     # The weight rounds to float32 before it multiplies the count, as the
     # JAX package's traced scalar does.
-    w = torch.tensor(weight, dtype=torch.float32, device=input.device)
+    w = torch.full((), weight, dtype=torch.float32, device=input.device)
     return w * torch.sum(input), w * input.numel()
 
 

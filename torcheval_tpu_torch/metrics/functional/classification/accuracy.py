@@ -133,7 +133,7 @@ def _multiclass_accuracy_update_kernel(
         correct = correct * mask.to(correct.dtype)
     if average == "micro":
         total = (
-            torch.tensor(target.shape[0], dtype=torch.int32, device=target.device)
+            torch.full((), target.shape[0], dtype=torch.int32, device=target.device)
             if mask is None
             else mask.to(torch.int32).sum(dtype=torch.int32)
         )
@@ -198,7 +198,7 @@ def _binary_accuracy_update_kernel(
     pred = torch.where(input < threshold, 0, 1)
     correct = (pred == target).to(torch.int32)
     if mask is None:
-        n = torch.tensor(target.shape[0], dtype=torch.int32, device=target.device)
+        n = torch.full((), target.shape[0], dtype=torch.int32, device=target.device)
         return correct.sum(dtype=torch.int32), n
     m = mask.to(torch.int32)
     return (correct * m).sum(dtype=torch.int32), m.sum(dtype=torch.int32)
@@ -223,7 +223,7 @@ def _multilabel_update(
     ``mask.sum() * num_labels``)."""
     if mask is None:
         per_row = torch.ones(target.shape[0], dtype=torch.int32, device=target.device)
-        n = torch.tensor(target.shape[0], dtype=torch.int32, device=target.device)
+        n = torch.full((), target.shape[0], dtype=torch.int32, device=target.device)
     else:
         per_row = mask.to(torch.int32)
         n = per_row.sum(dtype=torch.int32)

@@ -110,7 +110,7 @@ def _precision_update_kernel(
         input = torch.argmax(input, dim=1)
     if average == "micro":
         num_tp, num_fp, _ = _micro_counts(input, target, mask)
-        return num_tp, num_fp, torch.tensor(0.0, device=input.device)
+        return num_tp, num_fp, torch.zeros((), device=input.device)
     # One routed slab instead of three label scatters; the false
     # positives are the prediction marginal minus the diagonal.
     num_tp, num_label, num_prediction = _class_counts(
@@ -209,7 +209,7 @@ def _binary_precision_update_kernel(
         target_b = target_b & valid
     num_fp = (pred_b & ~target_b).sum(dtype=torch.int32)
     num_tp = (pred_b & target_b).sum(dtype=torch.int32)
-    return num_tp, num_fp, torch.tensor(0.0, device=input.device)
+    return num_tp, num_fp, torch.zeros((), device=input.device)
 
 
 def _binary_precision_update_input_check(

@@ -34,7 +34,7 @@ def _wc_scalar_kernel(
     input: torch.Tensor, target: torch.Tensor, weight: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     # The weight rounds to float32 first, as the JAX package's traced scalar.
-    w = torch.tensor(weight, dtype=torch.float32, device=input.device)
+    w = torch.full((), weight, dtype=torch.float32, device=input.device)
     return w * torch.sum(input, dim=-1), w * torch.sum(target, dim=-1)
 
 

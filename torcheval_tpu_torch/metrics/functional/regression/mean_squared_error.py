@@ -47,7 +47,7 @@ def _update_unweighted(
     input: torch.Tensor, target: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     squared_error = torch.square(target - input)
-    return squared_error.sum(dim=0), torch.tensor(target.shape[0], device=target.device)
+    return squared_error.sum(dim=0), torch.full((), target.shape[0], device=target.device)
 
 
 def _update_weighted(

@@ -48,7 +48,7 @@ def _update(
     sum_squared_obs = torch.sum(torch.square(target), dim=0)
     sum_obs = torch.sum(target, dim=0)
     sum_squared_residual = torch.sum(torch.square(target - input), dim=0)
-    num_obs = torch.tensor(target.shape[0], device=target.device)
+    num_obs = torch.full((), target.shape[0], device=target.device)
     return sum_squared_obs, sum_obs, sum_squared_residual, num_obs
 
 

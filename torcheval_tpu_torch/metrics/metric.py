@@ -21,7 +21,7 @@ import functools
 import logging
 from abc import ABC, abstractmethod
 from collections import defaultdict, deque
-from typing import Any, Deque, Dict, Generic, Iterable, List, TypeVar, Union
+from typing import Any, Deque, Dict, Generic, Iterable, List, Tuple, TypeVar, Union
 
 import torch
 
@@ -129,6 +129,12 @@ class Metric(Generic[TComputeReturn], ABC):
     # nothing); MetricCollection's bucket= and slices= need it.
     _supports_mask: bool = False
 
+    # States fixed at construction that configure the metric rather than
+    # count what it saw (the binned family's ``threshold`` edges): merge
+    # never adds them, and the monitor wrappers neither decay them nor
+    # give them a bucket axis.
+    _fixed_states: Tuple[str, ...] = ()
+
     def __init_subclass__(cls, **kwargs: Any) -> None:
         super().__init_subclass__(**kwargs)
         # Every concrete update/compute a subclass defines is wrapped ONCE
@@ -185,6 +191,31 @@ class Metric(Generic[TComputeReturn], ABC):
     def _prepare_for_merge_state(self) -> None:
         """Optional pre-sync hook: canonicalize list-states to a single
         tensor so a cross-process gather ships one buffer."""
+
+    # ---------------------------------------------------------------- sketch
+    def sketch_state(self, kind: str = "exact", **options: Any) -> Any:
+        """This metric's state as a mergeable sketch
+        (:mod:`torcheval_tpu_torch.metrics._sketch`).  The base class
+        supports only ``kind="exact"``: the whole prepared metric, lossless,
+        payload O(samples).  ``BinaryAUROC`` / ``BinaryAUPRC`` also offer
+        ``"reservoir"`` / ``"histogram"`` / ``"count"`` / ``"rank"``, and a
+        ``sketch=True`` curve metric ships its counts as ``"rank"``."""
+        from torcheval_tpu_torch.metrics._sketch import ExactSketch
+
+        if kind != "exact":
+            raise ValueError(
+                f"{type(self).__name__} supports only kind='exact' "
+                f"sketches, got {kind!r}"
+            )
+        return ExactSketch.from_metric(self)
+
+    def merge_sketch(self: TSelf, sketch: Any) -> TSelf:
+        """Absorb a (merged) sketch into this metric, so that ``compute()``
+        reflects the fleet.  Sample-domain sketches (exact, reservoir)
+        restore; bin-domain ones (histogram, count, rank) raise: read their
+        value from ``sketch.compute()``."""
+        sketch.merge_into(self)
+        return self
 
     def reset(self: TSelf) -> TSelf:
         """Re-initialize every state from its default on the current device."""

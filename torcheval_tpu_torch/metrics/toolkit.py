@@ -18,10 +18,16 @@ iterable entry points (``reset_metrics``, ``to_device``,
 ``clone_metrics``) take iterables of metrics: a collection iterates its
 member names, so call its own ``reset()`` / ``to()`` instead.
 
+``sketch=`` (``"reservoir"`` / ``"histogram"`` / ``"count"``, or
+``"rank"`` for a ``sketch=True`` curve metric) ships each rank's O(bins)
+sketch (``metrics/_sketch.py``) through the same flat collective instead
+of its states; the recipient merges them in rank order and returns the
+merged sketch's value.
+
 Not ported yet: ``topology="tree"`` / ``"ring"`` (the elastic
-hierarchical merge, with the fleet-merge slice, ROADMAP queue 1 item 6)
-and ``sketch=`` (the sketch tier, item 7).  Both raise ``NotImplementedError``; neither falls back to
-the flat gather.
+hierarchical merge, with the fleet-merge slice, ROADMAP queue 1 item 6).
+It raises ``NotImplementedError`` and does not fall back to the flat
+gather.
 """
 
 from __future__ import annotations
@@ -45,9 +51,13 @@ def sync_and_compute(
     *,
     topology: Literal["flat", "tree", "ring"] = "flat",
     sketch: Optional[str] = None,
+    sketch_options: Optional[Dict[str, Any]] = None,
 ) -> Optional[Any]:
     """Sync metric states and return ``compute()`` of the synced metric on
-    the recipient rank(s); ``None`` on the others."""
+    the recipient rank(s); ``None`` on the others.  With ``sketch=`` (a
+    kind of ``metric.sketch_state``, options in ``sketch_options``), each
+    rank ships its sketch instead and the recipient returns the merged
+    sketch's ``compute()``."""
     if topology not in ("flat", "tree", "ring"):
         raise ValueError(f"topology must be 'flat', 'tree' or 'ring', got {topology!r}")
     if topology != "flat":
@@ -56,12 +66,51 @@ def sync_and_compute(
             "fleet-merge slice (ROADMAP queue 1, item 6); use topology='flat'."
         )
     if sketch is not None and sketch != "exact":
-        raise NotImplementedError(
-            f"sketch={sketch!r} comes with the port's sketch tier (ROADMAP queue 1, "
-            "item 7); the flat sync ships the exact states."
-        )
+        group = process_group if process_group is not None else default_group()
+        return _flat_sketch_compute(metric, group, recipient_rank, sketch, sketch_options)
     synced_metric = get_synced_metric(metric, process_group, recipient_rank)
     return synced_metric.compute() if synced_metric is not None else None
+
+
+def _flat_sketch_compute(
+    metric: Metric,
+    group: CollectiveGroup,
+    recipient_rank: Union[int, Literal["all"]],
+    kind: str,
+    sketch_options: Optional[Dict[str, Any]],
+) -> Optional[Any]:
+    """The flat sketch sync: every rank builds its O(bins) sketch (a
+    reservoir salted with the rank, so the ranks' key streams differ),
+    the sketches ride the object collective, and the recipient merges
+    them in rank order and computes."""
+    if not (isinstance(recipient_rank, int) or recipient_rank == "all"):
+        raise ValueError(
+            "recipient_rank accepts a rank index or the string 'all'; "
+            f"got {recipient_rank!r}."
+        )
+    world_size = group.world_size
+    opts = dict(sketch_options or {})
+    if kind == "reservoir":
+        opts.setdefault("salt", group.rank if world_size > 1 else 0)
+    local = metric.sketch_state(kind, **opts)
+    if world_size == 1:
+        return local.compute()
+    if world_size == -1:
+        log.warning(
+            "collective group reports world size -1 (this process appears to be "
+            "outside the group); sync_and_compute() yields None."
+        )
+        return None
+    if recipient_rank == "all":
+        gathered = group.all_gather_object(local)
+    else:
+        gathered = group.gather_object(local, dst=recipient_rank)
+    if gathered is None:
+        return None
+    base = gathered[0]
+    for other in gathered[1:]:
+        base.merge(other)
+    return base.compute()
 
 
 def get_synced_state_dict(

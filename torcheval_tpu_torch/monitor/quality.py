@@ -18,16 +18,22 @@ import torch
 
 from torcheval_tpu_torch.metrics.collection import MetricCollection
 from torcheval_tpu_torch.metrics.metric import Metric
+from torcheval_tpu_torch.monitor.decay import Decayed
+from torcheval_tpu_torch.monitor.window import SlidingWindow
 from torcheval_tpu_torch.telemetry import events as _telemetry
 
 __all__ = ["publish", "window_kind"]
 
 
 def window_kind(metric: Metric) -> str:
-    """The ``window`` label a member's readings carry.  The JAX package
-    says ``"decayed"`` for ``monitor.Decayed`` and ``"window"`` for
-    ``monitor.SlidingWindow``; the port has neither wrapper yet (ROADMAP
-    queue 1 item 7), so every member it has reads ``"lifetime"``."""
+    """The ``window`` label a member's readings carry: ``"decayed"`` for
+    :class:`~torcheval_tpu_torch.monitor.Decayed`, ``"window"`` for
+    :class:`~torcheval_tpu_torch.monitor.SlidingWindow`, else
+    ``"lifetime"``."""
+    if isinstance(metric, Decayed):
+        return "decayed"
+    if isinstance(metric, SlidingWindow):
+        return "window"
     return "lifetime"
 
 

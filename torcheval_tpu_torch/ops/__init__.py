@@ -14,6 +14,10 @@ plain PyTorch version beside its wrapper.
   the batch, planned by :mod:`._mega_plan`.
 * :mod:`.wavefront` — batched token-level edit distance by an
   anti-diagonal sweep (``csrc/wavefront.cu``), under the text metrics.
+* :mod:`.rank_sketch` — the rank-sketch counts of ``sketch=True`` curve
+  metrics (``binned_count.cu`` on the GPU, a ``bincount`` plain version on
+  the CPU) and the dyadic ladder of ``monitor.StreamDigest`` (plain
+  PyTorch).
 * :mod:`.fused_auc` — the approximate fused AUC (plain PyTorch).
 * :mod:`._build` — builds the kernels with ``nvcc`` at first use and
   counts their launches.

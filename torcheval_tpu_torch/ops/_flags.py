@@ -28,3 +28,23 @@ def megakernel_mode() -> Optional[bool]:
     the CPU its plain version runs), False keeps every member on its own
     path, None is auto (see ``ops/_mega_plan.plan_for``)."""
     return _flags.get_tristate("MEGAKERNEL")
+
+
+def rank_sketch_mode() -> Optional[bool]:
+    """Call-time tri-state read of ``TORCHEVAL_TPU_TORCH_RANK_SKETCH`` (the
+    counterpart of the JAX package's ``rank_sketch_mode``): True makes
+    ``BinaryAUROC`` / ``BinaryAUPRC`` / ``MulticlassAUROC`` built without
+    ``sketch=`` carry the rank-sketch count states
+    (``metrics/_rank_state.py``); False or None keeps the exact sample
+    buffers.  Resolved at a metric's construction; the engine keys its
+    captured graphs under ``_mega_plan.route_token()``, which carries it.
+    It picks a state layout only: a sketch update of a GPU tensor launches
+    ``binned_count.cu`` whatever the flag says."""
+    return _flags.get_tristate("RANK_SKETCH")
+
+
+def rank_sketch_enabled() -> bool:
+    """Construction-time resolution of :func:`rank_sketch_mode` for a metric
+    built with ``sketch=None``: only an explicit truthy flag engages the
+    sketch states (auto means off)."""
+    return rank_sketch_mode() is True

@@ -13,7 +13,9 @@ over the batch:
   members' own wrap-then-drop treatment of out-of-range labels;
 * **cm**: the (C, C) confusion-matrix slab (``_wrap_labels`` semantics);
 * **binned**: the binary binned-AUC threshold counts (``pred = score >=
-  t``).
+  t``), and a sketch-mode ``BinaryAUROC`` / ``BinaryAUPRC``
+  (``metrics/_rank_state.py``), whose states are the same edges and four
+  count arrays.
 
 Classification is exact-type (``type(m) is``), the payload specs, the
 moment slots and the member order are the JAX package's, so the two
@@ -33,11 +35,9 @@ Left out of the JAX module, each for a reason:
   is infeasible for want of on-chip memory.
 * the ``routing_autotune`` branch of auto mode: the measured-cost layer
   is not ported yet.
-* ``route_token``: it keys the JAX package's jit caches, and the port has
-  none.
-* the sketch-mode ``BinaryAUROC`` / ``BinaryAUPRC`` members: the port has
-  no sketch tier yet (its ``sketch=True`` raises), so that branch cannot
-  be reached.
+* the wavefront mode, the Pallas switch and the backend in
+  :func:`route_token`: the port has no such switches, and its graphs are
+  keyed by device already.
 
 The bounds, re-derived for the H100 (``PERF.md``): ``_MAX_SAMPLES`` is
 2^31 because the counts are int32 (the JAX package's 2^24 came from its
@@ -173,6 +173,8 @@ def _label_input_ok(f: int, idt, num_classes: Optional[int]) -> bool:
 def _classify(name: str, m, f: int, idt) -> Optional[MemberPlan]:
     from torcheval_tpu_torch.metrics.classification import (
         BinaryAccuracy,
+        BinaryAUPRC,
+        BinaryAUROC,
         BinaryBinnedAUPRC,
         BinaryBinnedAUROC,
         BinaryConfusionMatrix,
@@ -246,7 +248,12 @@ def _classify(name: str, m, f: int, idt) -> Optional[MemberPlan]:
         return MemberPlan(
             name, "cm", "binary_cm", threshold=float(m.threshold), num_classes=2
         )
-    if t in (BinaryBinnedAUROC, BinaryBinnedAUPRC):
+    if t in (BinaryBinnedAUROC, BinaryBinnedAUPRC) or (
+        t in (BinaryAUROC, BinaryAUPRC) and getattr(m, "_sketch_mode", False)
+    ):
+        # A sketch-mode exact-rank member carries the binned family's state
+        # layout (threshold edges and the four count arrays), so the one
+        # binned accumulation shape covers both.
         if not binaryish or m.num_tasks != 1:
             return None
         thr = getattr(m, "threshold", None)
@@ -277,14 +284,15 @@ def counters(mp: MemberPlan, a: int) -> int:
 
 def route_token() -> Tuple[Any, ...]:
     """The call-time flags the collection's routes depend on (the
-    collection kernel's mode, the matmul confusion-matrix row chunk and
-    the rank-sum switch).  The engine keys its captured graphs under it,
-    so a flag flipped mid-stream captures anew instead of replaying a
-    stale route."""
+    collection kernel's mode, the matmul confusion-matrix row chunk, the
+    rank-sum switch and the rank-sketch state layout).  The engine keys
+    its captured graphs under it, so a flag flipped mid-stream captures
+    anew instead of replaying a stale route."""
     return (
         _oflags.megakernel_mode(),
         _oflags.cm_row_chunk(),
         _oflags.ustat_disabled(),
+        _oflags.rank_sketch_mode(),
     )
 
 
