@@ -352,6 +352,33 @@ times kernels and lifecycle with CUDA events.  Phases:
     numpy data, the value the merged host sketches' and within the
     documented bound of the exact value.
 
+55. the exact fleet merge: ``MulticlassAUROC(1000)`` over ``LocalWorld(4)``
+    on the card, 2^15 of the headline a rank; ``fleet_merge`` tree and
+    ring, ``dst`` 0 and 2, ``recipient="all"``: every rank's value
+    bit-equal to the flat ``sync_and_compute`` of the same ranks and to
+    phase 3's single-metric headline, ``rank_sum.cu`` once (at the root);
+    the slowest rank's call timed beside the flat call's;
+56. the rank-sketch fleet merge: tree and ring of sketch-mode
+    ``MulticlassAUROC(1000)`` ranks (``binned_count.cu`` on each update),
+    bit-equal to phase 54's flat rank sketch; the payload at the root
+    beside the exact merge's;
+57. rank loss: a ``drop_rank`` fault plan on an inner node and on a leaf
+    of a tree over ``LocalWorld(8)`` of binary exact ``BinaryAUROC`` (phase
+    50's 2^22 scores, 2^19 a rank, ``auc_scan.cu`` at the root): partial,
+    the lost rank named, the value bit-equal to the flat merge of the
+    survivors, inside ``MergePolicy``'s budget, no exception on any rank
+    and no thread left;
+58. ``Evaluator.start_fleet_merge`` over four engines, one a rank of
+    ``LocalWorld(4)`` (phase 44's stream), each stepping on while its merge
+    runs: the outcome bit-equal to the flat sync of the snapshots, the
+    engines' later states bit-equal to the per-batch loop;
+59. a real ``torch.distributed`` world: this script spawns 2 gloo
+    processes on localhost under one deadline (``--gloo-child``), each on
+    cuda:0 with half of the headline; ``initialize_multihost``, then
+    ``sync_and_compute(topology="tree")``: the root's value bit-equal to
+    the single-process headline, ``rank_sum.cu`` once at the root.  A child
+    that fails fails the run.
+
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
 
@@ -363,6 +390,7 @@ non-zero before it.  With no GPU the script exits 1 and prints no result.
 import itertools
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -3034,7 +3062,7 @@ def main(argv) -> int:
 
     def mc_ring_collectives(m):
         m.all_reduce_many(ex_stats, stat_ops, "dp")
-        _ring(m, "time", (ex_chunk,), lambda p: p)
+        _ring(m.axis_group("dp"), "time", (ex_chunk,), lambda p: p)
         return m.all_reduce_many([ex_k], ["sum"], "dp")
 
     def exact_collective(s, t, dim=0):
@@ -4180,6 +4208,232 @@ def main(argv) -> int:
           f"rank's call): " + ", ".join(f"{k} {v:.3f} ms" for k, v in sync54_ms.items()),
           flush=True)
 
+    # ------------------------------- 55. the exact fleet merge, tree and ring
+    import threading
+
+    fleet_t0 = time.perf_counter()
+
+    from torcheval_tpu_torch.parallel import MergeOutcome, MergePolicy, fleet_merge
+
+    # Budgets far past a clean hop's time on the card: a clean merge never
+    # waits on one.
+    card_policy = MergePolicy(level_deadline=30.0)
+    head_macro = headline_lifecycle(MulticlassAUROC(num_classes=NUM_CLASSES))
+
+    def quarter_metric(rank, **kw):
+        m = MulticlassAUROC(num_classes=NUM_CLASSES, **kw)
+        lo = rank * quarter
+        for s, t in zip(s_all[lo:lo + quarter].split(2**14), t_all[lo:lo + quarter].split(2**14)):
+            m.update(s, t)
+        return m
+
+    def over_world(world, make, call):
+        """``call(metric, group)`` on every rank of ``LocalWorld(world)``, the
+        rank's metric built by ``make`` (its updates counted too), with the
+        counters zeroed just before: (results, launches, slowest rank's ms)."""
+        torch.cuda.synchronize()
+        _build.reset_counts()
+
+        def rank_fn(group, rank):
+            metric = make(rank)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(metric, group)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        res = LocalWorld(world).run(rank_fn)
+        check(not _build.PLAIN_CALLS, "a merge on the card takes no plain version")
+        return [o for o, _ in res], dict(_build.LAUNCHES), max(ms for _, ms in res)
+
+    def on_card(value):
+        return value.to(dev) if isinstance(value, torch.Tensor) else value
+
+    flat55, flat55_launches, flat55_ms = over_world(
+        4, quarter_metric, lambda m, g: sync_and_compute(m, g, "all"))
+    check(all(torch.equal(v, head_macro) for v in flat55)
+          and flat55_launches == {"rank_sum_counts": 4},
+          "flat sync_and_compute of 4 ranks (2^15 of the headline each, 'all'): every rank "
+          "bit-equal to the single-metric headline, rank_sum.cu once a rank")
+    merge55_ms, exact_root_bytes = {}, None
+    for topology in ("tree", "ring"):
+        for dst in (0, 2):
+            outs, launches, ms = over_world(4, quarter_metric, lambda m, g: fleet_merge(
+                m, g, topology=topology, dst=dst, recipient="all", policy=card_policy))
+            merge55_ms[topology, dst] = ms
+            exact_root_bytes = outs[dst].payload_bytes_at_root
+            fleet_rank_launches = launches.get("rank_sum_counts")
+            check(all(not o.partial and o.world_effective == 4 and o.lost_ranks == ()
+                      and torch.equal(on_card(o.value), flat55[0]) for o in outs)
+                  and launches == {"rank_sum_counts": 1},
+                  f"fleet_merge {topology}, dst {dst}, recipient 'all', LocalWorld(4): every "
+                  f"rank's value bit-equal to the flat sync and the headline "
+                  f"{float(head_macro)!r}, rank_sum.cu launched once (at the root)")
+    print(f"times {card}: exact MulticlassAUROC(1000) over LocalWorld(4), 2^15 a rank, "
+          f"recipient 'all', wall clock of the slowest rank's call: flat {flat55_ms:.3f} ms; "
+          + ", ".join(f"{t} dst {d} {v:.3f} ms" for (t, d), v in merge55_ms.items())
+          + f"; payload at the root {exact_root_bytes} B", flush=True)
+
+    # ------------------------------------- 56. the rank-sketch fleet merge
+    merge56_ms = {}
+    for topology in ("tree", "ring"):
+        outs, launches, ms = over_world(
+            4, lambda r: quarter_metric(r, sketch=True), lambda m, g: fleet_merge(
+                m, g, topology=topology, sketch="rank", recipient="all", policy=card_policy))
+        merge56_ms[topology] = ms
+        sketch_root_bytes = outs[0].payload_bytes_at_root
+        fleet_sketch_launches = launches.get("binned_counts")
+        check(all(not o.partial and torch.equal(on_card(o.value), synced54[0]) for o in outs)
+              and launches == {"binned_counts": 8},
+              f"fleet_merge {topology}, sketch='rank', LocalWorld(4): every rank bit-equal to "
+              f"phase 54's flat rank-sketch sync, binned_count.cu on each of the 8 updates")
+    print(f"times {card}: rank-sketch MulticlassAUROC(1000) merge over LocalWorld(4) (the 8 "
+          f"updates included), slowest rank: " + ", ".join(
+              f"{t} {v:.3f} ms" for t, v in merge56_ms.items())
+          + f"; payload at the root {sketch_root_bytes} B against the exact merge's "
+          f"{exact_root_bytes} B ({exact_root_bytes / sketch_root_bytes:.1f}x)", flush=True)
+
+    # --------------------------------- 57. rank loss in a binary exact merge
+    drop_policy = MergePolicy(level_deadline=0.25, poll_slice=0.01)
+    unit = drop_policy.ack() + drop_policy.grace()
+    drop_budget = drop_policy.poll_window(3) + drop_policy.ack_wait(4) + 16 * unit
+
+    def binary_rank(rank):
+        return BinaryAUROC().update(sk_s[rank], sk_t[rank])
+
+    def flat_of(ranks):
+        ms = [binary_rank(r) for r in ranks]
+        for m in ms:
+            m._prepare_for_merge_state()
+        return ms[0].merge_state(ms[1:]).compute()
+
+    drop57 = {}
+    for label, lost_rank, role in (("inner node", 1, "recv"), ("leaf", 7, "start")):
+        threads_before = set(threading.enumerate())
+        rule = {"site": "merge.level", "action": "drop_rank",
+                "match": {"rank": lost_rank, "role": role}}
+        t0 = time.perf_counter()
+        with FaultPlan([rule]):
+            outs, launches, _ = over_world(8, binary_rank, lambda m, g: fleet_merge(
+                m, g, topology="tree", policy=drop_policy))
+        drop57[label] = time.perf_counter() - t0
+        fleet_auc_launches = launches.get("auc_from_sorted")
+        join_by = time.monotonic() + 15.0
+        for t in set(threading.enumerate()) - threads_before:
+            t.join(max(0.0, join_by - time.monotonic()))
+        left = [t.name for t in set(threading.enumerate()) - threads_before if t.is_alive()]
+        root = outs[0]
+        want = flat_of([r for r in range(8) if r != lost_rank])
+        check(all(isinstance(o, MergeOutcome) for o in outs) and root.partial
+              and root.lost_ranks == (lost_rank,) and root.world_effective == 7
+              and torch.equal(root.value, want) and drop57[label] < drop_budget and not left
+              and launches == {"auc_from_sorted": 1},
+              f"drop_rank on the {label} (rank {lost_rank}, role {role}) of a tree over "
+              f"LocalWorld(8), BinaryAUROC on 2^19 a rank: partial, lost (rank {lost_rank},), "
+              f"the value bit-equal to the flat merge of the 7 survivors, auc_scan.cu once at "
+              f"the root, {drop57[label]:.3f} s of a {drop_budget:.3f} s budget, no exception "
+              f"on any rank, no thread left")
+    print(f"times {card}: tree merge over LocalWorld(8) with a rank dropped (whole round): "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in drop57.items()), flush=True)
+
+    # ----------------------------------- 58. start_fleet_merge beside the engine
+    halves = [scan_batches[8 * r:8 * r + 8] for r in range(4)]
+    engines58 = []
+    for _ in range(4):  # every bucket captured here, so the ranks capture nothing
+        ev58 = Evaluator(MetricCollection(five(COL_CLASSES), bucket=True), block_size=4)
+        aot.warmup(ev58, scan_batches[0], max_batch=max(scan_sizes))
+        engines58.append(ev58)
+
+    def engine_rank(group, rank):
+        ev = engines58[rank]
+        ev.run(halves[rank][:4])
+        t0 = time.perf_counter()
+        pending = ev.start_fleet_merge(group, topology="tree", recipient="all",
+                                       policy=card_policy)
+        ev.run(halves[rank][4:])  # the merge runs on its own thread meanwhile
+        torch.cuda.synchronize()
+        stepped = time.perf_counter() - t0
+        outcome = pending.result(timeout=300)
+        torch.cuda.synchronize()
+        return outcome, stepped * 1e3, (time.perf_counter() - t0) * 1e3
+
+    _build.reset_counts()
+    timed58 = LocalWorld(4).run(engine_rank)
+    engine_fleet_launches = dict(_build.LAUNCHES)
+    outs58 = [o for o, _, _ in timed58]
+
+    def snapshot_rank(group, rank):
+        ref = MetricCollection(five(COL_CLASSES), bucket=True)
+        per_batch(ref, [tuple(torch.from_numpy(a).to(dev) for a in b) for b in halves[rank][:4]])
+        return sync_and_compute(ref, group, "all")
+
+    flat58 = LocalWorld(4).run(snapshot_rank)
+    loops58 = []
+    for rank in range(4):
+        loop = MetricCollection(five(COL_CLASSES), bucket=True)
+        per_batch(loop, [tuple(torch.from_numpy(a).to(dev) for a in b) for b in halves[rank]])
+        loops58.append(states_equal(engines58[rank].collection, loop))
+    check(all(not o.partial and o.world_effective == 4 for o in outs58)
+          and all(torch.equal(on_card(o.value[k]), f[k]) for o, f in zip(outs58, flat58)
+                  for k in f)
+          and all(loops58) and engine_fleet_launches == {"mega_counts": 32},
+          "Evaluator.start_fleet_merge over 4 engines of LocalWorld(4) (phase 44's stream, "
+          "4 + 4 batches a rank, the second block stepped while the merge runs): every rank's "
+          "outcome bit-equal to the flat sync of the snapshots, every engine's later states "
+          "bit-equal to the per-batch loop, 32 mega.cu launches counted in the 8 replays")
+    fleet_engine_launches = engine_fleet_launches["mega_counts"]
+    print(f"times {card}: start_fleet_merge over 4 engines, the slowest rank: the second "
+          f"block stepped in {max(t[1] for t in timed58):.3f} ms after the merge started, "
+          f"the merge's result {max(t[2] for t in timed58):.3f} ms after it started",
+          flush=True)
+
+    # ------------------------------------ 59. a real torch.distributed world
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port59 = sock.getsockname()[1]
+    env59 = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gloo-child", str(r), "2", str(port59)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env59)
+        for r in range(2)]
+    deadline59 = time.monotonic() + 300.0
+    outs59 = []
+    try:
+        for proc in procs:
+            try:
+                out, _ = proc.communicate(timeout=max(1.0, deadline59 - time.monotonic()))
+                outs59.append((proc.returncode, out))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+                outs59.append(("timeout", out))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall59 = time.perf_counter() - t0
+    res59 = []
+    for rank, (rc, out) in enumerate(outs59):
+        lines = [ln for ln in out.splitlines() if ln.startswith("GLOO ")]
+        if rc != 0 or not lines:
+            print(f"--- gloo rank {rank} exited {rc}:\n{out[-4000:]}", file=sys.stderr)
+        check(rc == 0 and bool(lines), f"gloo rank {rank} of 2 ran to its end (exit {rc})")
+        res59.append(json.loads(lines[-1][len("GLOO "):]))
+    check(res59[0]["value"] == float(head_macro) and res59[1]["value"] is None
+          and res59[0]["launches"] == {"rank_sum_counts": 1} and res59[1]["launches"] == {}
+          and all(not r["partial"] and r["world_effective"] == 2 for r in res59),
+          f"2 gloo processes on localhost, each on cuda:0 with 2^16 of the headline: "
+          f"initialize_multihost, then sync_and_compute(topology='tree'): rank 0's value "
+          f"{res59[0]['value']!r} bit-equal to the single-process headline, rank_sum.cu once "
+          f"at the root")
+    print(f"times {card}: the 2-process gloo world: tree merge {res59[0]['ms']:.3f} ms at the "
+          f"root, {res59[1]['ms']:.3f} ms at the leaf (payload {res59[0]['root_bytes']} B); "
+          f"whole phase {wall59:.3f} s with the processes' start", flush=True)
+    print(f"times {card}: phases 55-59 together {time.perf_counter() - fleet_t0:.3f} s",
+          flush=True)
+
     # ------------------------------------------------------ the kernels line
     kernels = [
         {
@@ -4200,6 +4454,8 @@ def main(argv) -> int:
             "sharded_device_ms": ex_dev_ms,
             "retry_launches": ustat_retry_launches,
             "bus_launches": bus_launches,
+            "fleet_merge_launches": fleet_rank_launches,
+            "gloo_merge_launches": res59[0]["launches"]["rank_sum_counts"],
             "verdict": "bit-equal",
         },
         {
@@ -4222,6 +4478,7 @@ def main(argv) -> int:
             "window_device_ms": win_auc_dev_ms,
             "sharded_launches": call_launches[
                 "sharded_binary_auroc_exact", "phase 28's 2^22 balanced"]["auc_from_sorted"],
+            "fleet_merge_launches": fleet_auc_launches,
             "verdict": "bit-equal",
         },
         {
@@ -4285,6 +4542,7 @@ def main(argv) -> int:
             "headline_sketch_bound_ms": strided_bound,
             "engine_sketch_launches": engine_sketch_launches,
             "sync_sketch_launches": sync_sketch_launches,
+            "fleet_sketch_launches": fleet_sketch_launches,
             "verdict": "bit-equal",
         },
         {
@@ -4311,6 +4569,7 @@ def main(argv) -> int:
             "sketch_fold_launches": fold_launches,
             "sketch_fold_device_ms": (None if fold_mega_ms is None
                                       else fold_mega_ms / fold_prof),
+            "fleet_engine_launches": fleet_engine_launches,
             "verdict": "bit-equal",
         },
         {
@@ -4351,5 +4610,54 @@ def main(argv) -> int:
     return 0
 
 
+def gloo_child(rank: int, world: int, port: int) -> int:
+    """One process of phase 59's world: its slice of the headline on
+    cuda:0, ``initialize_multihost``, then a tree merge to rank 0.  Prints
+    one ``GLOO {...}`` line; any failure raises (a non-zero exit)."""
+    import torch
+    import torch.distributed as dist
+
+    from torcheval_tpu_torch.distributed import TorchProcessGroup, initialize_multihost
+    from torcheval_tpu_torch.metrics import MulticlassAUROC
+    from torcheval_tpu_torch.metrics.toolkit import sync_and_compute
+    from torcheval_tpu_torch.ops import _build
+    from torcheval_tpu_torch.parallel import MergePolicy
+
+    dev = torch.device("cuda", 0)
+    scores, target = headline_data()
+    part = NUM_SAMPLES // world
+    metric = MulticlassAUROC(num_classes=NUM_CLASSES, device=dev)
+    for lo in range(rank * part, (rank + 1) * part, 2**14):
+        metric.update(torch.from_numpy(scores[lo:lo + 2**14]).to(dev),
+                      torch.from_numpy(target[lo:lo + 2**14]).to(dev))
+    group = initialize_multihost(f"localhost:{port}", world, rank)
+    check(isinstance(group, TorchProcessGroup) and group.supports_p2p
+          and (group.rank, group.world_size) == (rank, world), "a gloo world with a store")
+    dist.barrier()
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    outcome = sync_and_compute(metric, group, topology="tree",
+                               merge_policy=MergePolicy(level_deadline=60.0))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.LAUNCHES)
+    check(not _build.PLAIN_CALLS, "the gloo merge takes no plain version")
+    dist.barrier()
+    dist.destroy_process_group()
+    print("GLOO " + json.dumps({
+        "rank": rank,
+        "value": None if outcome.value is None else float(outcome.value),
+        "launches": launches,
+        "partial": outcome.partial,
+        "world_effective": outcome.world_effective,
+        "root_bytes": outcome.payload_bytes_at_root,
+        "ms": ms,
+    }), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-child"]:
+        sys.exit(gloo_child(*(int(a) for a in sys.argv[2:5])))
     sys.exit(main(sys.argv[1:]))

@@ -1785,3 +1785,77 @@ def test_engine_captures_members_that_build_scalars(case):
     torch.cuda.synchronize()
     for k, v in ref.state_dict().items():
         assert torch.equal(eng.state_dict()[k], v), k
+
+
+def _fleet_run(world, make, call):
+    """``call(metric, group)`` on every rank of ``LocalWorld(world)`` with
+    the counters zeroed first (the ranks' updates counted too)."""
+    _build.reset_counts()
+    out = LocalWorld(world).run(lambda g, r: call(make(r), g))
+    torch.cuda.synchronize()
+    return out, dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+
+
+def test_exact_fleet_merge_on_the_card_equals_flat_and_the_cpu():
+    """Phase 55 at a small size: tree and ring merges of an exact
+    MulticlassAUROC over LocalWorld(4) give the flat sync's bits on every
+    rank, with one rank_sum.cu launch at the root, and the CPU's bits."""
+    from torcheval_tpu_torch.metrics.toolkit import sync_and_compute
+    from torcheval_tpu_torch.parallel import MergePolicy, fleet_merge
+
+    dev = _cuda()
+    rng = np.random.default_rng(55)
+    s = rng.random((2**15, 200)).astype(np.float32)  # per-class counts <= N / 128
+    t = rng.integers(0, 200, 2**15).astype(np.int32)
+
+    def make(device):
+        def build(rank):
+            lo, hi = rank * 2**13, (rank + 1) * 2**13
+            # average=None: the card's macro mean adds in another order.
+            return MulticlassAUROC(num_classes=200, average=None, device=device).update(
+                torch.from_numpy(s[lo:hi]).to(device), torch.from_numpy(t[lo:hi]).to(device))
+        return build
+
+    policy = MergePolicy(level_deadline=30.0)
+    flat, launches, plain = _fleet_run(4, make(dev), lambda m, g: sync_and_compute(m, g, "all"))
+    assert launches == {"rank_sum_counts": 4} and not plain
+    for topology in ("tree", "ring"):
+        for dst in (0, 2):
+            outs, launches, plain = _fleet_run(4, make(dev), lambda m, g: fleet_merge(
+                m, g, topology=topology, dst=dst, recipient="all", policy=policy))
+            assert launches == {"rank_sum_counts": 1} and not plain, (topology, dst)
+            for o in outs:
+                assert not o.partial and torch.equal(o.value.to(dev), flat[0])
+    cpu, launches, plain = _fleet_run(4, make("cpu"), lambda m, g: fleet_merge(
+        m, g, topology="tree", policy=policy))
+    assert plain == {"rank_sum_counts": 1} and not launches
+    assert torch.equal(cpu[0].value, flat[0].cpu())
+
+
+def test_rank_sketch_fleet_merge_on_the_card_equals_the_flat_sketch_sync():
+    """Phase 56 at a small size: sketch='rank' tree and ring merges of
+    sketch-mode MulticlassAUROC ranks, binned_count.cu on every update,
+    bit-equal to the flat rank-sketch sync."""
+    from torcheval_tpu_torch.metrics.toolkit import sync_and_compute
+    from torcheval_tpu_torch.parallel import MergePolicy, fleet_merge
+
+    dev = _cuda()
+    rng = np.random.default_rng(56)
+    s = torch.from_numpy(rng.random((8192, 16)).astype(np.float32)).to(dev)
+    t = torch.from_numpy(rng.integers(0, 16, 8192).astype(np.int32)).to(dev)
+
+    def make(rank):
+        m = MulticlassAUROC(num_classes=16, sketch=True, device=dev)
+        for i in (2 * rank, 2 * rank + 1):
+            m.update(s[i * 1024:(i + 1) * 1024], t[i * 1024:(i + 1) * 1024])
+        return m
+
+    flat, launches, _ = _fleet_run(4, make, lambda m, g: sync_and_compute(
+        m, g, "all", sketch="rank"))
+    assert launches == {"binned_counts": 8}
+    for topology in ("tree", "ring"):
+        outs, launches, plain = _fleet_run(4, make, lambda m, g: fleet_merge(
+            m, g, topology=topology, sketch="rank", recipient="all",
+            policy=MergePolicy(level_deadline=30.0)))
+        assert launches == {"binned_counts": 8} and not plain
+        assert all(torch.equal(o.value.to(dev), flat[0]) for o in outs), topology

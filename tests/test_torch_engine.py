@@ -345,8 +345,35 @@ def test_exploding_member_restores_states(donate):
 
 
 def test_start_fleet_merge_waits_for_the_fleet_merge():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Evaluator(_col()).start_fleet_merge(None)
+    # Over a LocalWorld of two engines, each still stepping after the
+    # merge starts: the outcome is the flat merge of the snapshots, and
+    # the engines' later states are the per-batch loop's.
+    from torcheval_tpu_torch.distributed import LocalWorld
+    from torcheval_tpu_torch.metrics.toolkit import get_synced_metric
+    from torcheval_tpu_torch.parallel import MergePolicy
+
+    vals = _stream((64, 48, 64, 32), seed=23)
+
+    def rank_fn(g, rank):
+        ev = Evaluator(_col(), block_size=2, prefetch=False)
+        ev.run(vals[2 * rank:2 * rank + 1])
+        snapshot = _col()
+        snapshot.fused_update(*vals[2 * rank])
+        pending = ev.start_fleet_merge(g, topology="tree", recipient="all",
+                                       policy=MergePolicy(level_deadline=0.25, poll_slice=0.01))
+        ev.step(*vals[2 * rank + 1])
+        outcome = pending.result(timeout=30)
+        flat = get_synced_metric(snapshot, g, "all").compute()
+        loop = _col()
+        for v in vals[2 * rank:2 * rank + 2]:
+            loop.fused_update(*v)
+        return outcome, flat, ev.result(), loop.compute()
+
+    for outcome, flat, later, loop in LocalWorld(2).run(rank_fn):
+        assert not outcome.partial and outcome.world_effective == 2
+        for name in flat:
+            np.testing.assert_array_equal(np.asarray(outcome.value[name]), flat[name].numpy())
+            assert torch.equal(later[name], loop[name])
 
 
 @pytest.mark.parametrize(

@@ -516,10 +516,16 @@ def test_ring_needs_a_single_axis_and_a_point_to_point_group():
     assert {str(e) for e in errors} == {str(errors[0])} and "single mesh axis" in str(errors[0])
     errors = _rank_errors(4, (4,), ("dp",), lambda m, r: ring(m, r, ("dp",)), group_type=_NoP2P)
     assert all(isinstance(e, ValueError) and "_NoP2P" in str(e) for e in errors), errors
-    # A sub-axis of a 2-D mesh needs a sub-group: NotImplementedError everywhere.
-    errors = _rank_errors(8, (4, 2), ("dp", "sp"), lambda m, r: texact.sharded_binary_auroc_exact(
-        *_blocks(m, ("dp",), _S, _T), m, axis="dp"))
-    assert all(isinstance(e, NotImplementedError) for e in errors), errors
+    # A sub-axis of a 2-D mesh runs in the sub-group of the ranks along it:
+    # the JAX shard_map result over that axis, on every rank.  The ring
+    # over one sub-axis gives the gather's bits.
+    want = _jax((4, 2), ("dp", "sp"), lambda s, t, m: jexact.sharded_binary_auroc_exact(
+        s, t, m, axis="dp"), _S, _T)
+    got = _run(8, (4, 2), ("dp", "sp"), lambda m: [texact.sharded_binary_auroc_exact(
+        *_blocks(m, ("dp",), _S, _T), m, axis="dp")] + [texact.sharded_binary_auroc_ustat(
+            *_blocks(m, ("sp",), _S, _T), m, axis="sp", comm=c) for c in ("gather", "ring")])
+    np.testing.assert_array_equal(got[0].numpy(), want)
+    assert torch.equal(got[1], got[2])
     # A world of one sends nothing, so it needs no point-to-point channel.
     got = _run(1, (1,), ("dp",), lambda m: texact.sharded_multiclass_auroc_ustat(
         torch.from_numpy(_MS), torch.from_numpy(_MT), m, num_classes=4, comm="ring"))

@@ -342,6 +342,34 @@ def test_window_rejects_buffer_state_metrics():
         SlidingWindow(P.BinaryAUROC(device=CPU), buckets=2)
 
 
+def test_window_refuses_extremum_states_the_kept_divergence():
+    # A window sums its buckets and opens each at zero: neither holds for
+    # a max / min state.  ROADMAP's smallest input: the window of the last
+    # two epochs holds [-2, 1] and [4], so its max is 4.0.
+    jax_window = jmon.SlidingWindow(J.Max(), buckets=2)
+    for epoch, xs in enumerate(([3.0, 5.0], [-2.0, 1.0], [4.0])):
+        if epoch:
+            jax_window.advance()
+        jax_window.update(jnp.asarray(xs))
+    assert float(jax_window.compute()) == 5.0  # the JAX package: 1 + 4
+    for inner in (P.Max(device=CPU), P.Min(device=CPU),
+                  P.PeakSignalNoiseRatio(device=CPU)):
+        with pytest.raises(TypeError, match="merges by max / min"):
+            SlidingWindow(inner, buckets=2)
+    # With a data_range PSNR never reads its target extrema: its window
+    # is a sum of counts, as JAX's, and stays allowed.
+    w = SlidingWindow(P.PeakSignalNoiseRatio(data_range=1.0, device=CPU), buckets=2)
+    jw = jmon.SlidingWindow(J.PeakSignalNoiseRatio(data_range=1.0), buckets=2)
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        a, b = rng.random((2, 4, 4)).astype(np.float32)
+        w.update(torch.from_numpy(a), torch.from_numpy(b))
+        jw.update(jnp.asarray(a), jnp.asarray(b))
+        w.advance()
+        jw.advance()
+    np.testing.assert_allclose(float(w.compute()), float(jw.compute()), rtol=1e-6)
+
+
 def test_tumbling_window_forgets_on_advance():
     rng = np.random.default_rng(1)
     w = SlidingWindow(_acc(), buckets=1)

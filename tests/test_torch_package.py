@@ -234,6 +234,53 @@ def test_port_imports_and_computes_with_jax_blocked():
     assert 0.0 <= float(proc.stdout.strip().splitlines()[-1]) <= 1.0
 
 
+_TOP_LEVEL = """
+import sys
+import torcheval_tpu_torch
+from torcheval_tpu_torch.ops import _build
+assert not any(k.split(".")[0] in ("jax", "jaxlib", "torcheval_tpu") for k in sys.modules)
+assert _build._load.cache_info().currsize == 0  # no kernel library built or loaded
+for name in torcheval_tpu_torch.__all__:
+    assert getattr(torcheval_tpu_torch, name) is not None
+print(" ".join(torcheval_tpu_torch.__all__))
+"""
+
+
+def test_top_level_exports_the_jax_layers_less_tools():
+    import torcheval_tpu
+
+    # tools/ is still to port (ROADMAP queue 1).
+    assert set(torcheval_tpu_torch.__all__) == set(torcheval_tpu.__all__) - {"tools"}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _TOP_LEVEL], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == torcheval_tpu_torch.__all__
+
+
+def test_kv_timeout_flag_raises_on_a_bad_value(monkeypatch):
+    from torcheval_tpu_torch.distributed import kv_timeout_ms
+
+    monkeypatch.delenv("TORCHEVAL_TPU_TORCH_KV_TIMEOUT_MS", raising=False)
+    assert kv_timeout_ms() == 600_000 and "TORCHEVAL_TPU_TORCH_KV_TIMEOUT_MS" not in (
+        _flags.snapshot_non_default())
+    monkeypatch.setenv("TORCHEVAL_TPU_TORCH_KV_TIMEOUT_MS", "2500")
+    assert kv_timeout_ms() == 2500
+    assert _flags.snapshot_non_default()["TORCHEVAL_TPU_TORCH_KV_TIMEOUT_MS"] == 2500
+    monkeypatch.setenv("TORCHEVAL_TPU_TORCH_KV_TIMEOUT_MS", " ")  # blank: unset, as in JAX
+    assert kv_timeout_ms() == 600_000
+    for bad in ("0", "-5", "1.5", "soon"):
+        monkeypatch.setenv("TORCHEVAL_TPU_TORCH_KV_TIMEOUT_MS", bad)
+        with pytest.raises(ValueError, match="KV_TIMEOUT_MS must be a positive integer"):
+            kv_timeout_ms()
+        assert _flags.snapshot_non_default()["TORCHEVAL_TPU_TORCH_KV_TIMEOUT_MS"] == {
+            "raw": bad, "invalid": True}
+    # The JAX package's variable does not reach the port.
+    monkeypatch.delenv("TORCHEVAL_TPU_TORCH_KV_TIMEOUT_MS")
+    monkeypatch.setenv("TORCHEVAL_TPU_KV_TIMEOUT_MS", "7")
+    assert kv_timeout_ms() == 600_000
+
+
 def test_ops_exports_the_jax_names_that_have_a_counterpart():
     import torcheval_tpu.ops as jax_ops
 
@@ -259,10 +306,8 @@ def test_parallel_exports_the_jax_names_that_have_a_counterpart():
     import torcheval_tpu_torch.parallel as port_parallel
     from torcheval_tpu_torch.parallel import exact as port_exact
 
-    # The fleet merge is still to port (ROADMAP queue 1 item 6); the jit
-    # cache's introspection has no counterpart.
-    missing = {"MergeOutcome", "MergePolicy", "PendingMerge", "fleet_merge",
-               "spmd_cache_clear", "spmd_cache_info"}
+    # The jit cache's introspection has no counterpart.
+    missing = {"spmd_cache_clear", "spmd_cache_info"}
     # The port's own Mesh class stands where the JAX package takes
     # jax.sharding.Mesh.
     assert set(port_parallel.__all__) - {"Mesh"} == set(jax_parallel.__all__) - missing

@@ -363,16 +363,40 @@ def test_mesh_merge_states_trees_and_jax_shard_map():
 
 
 def test_sub_axis_and_retry_raise():
-    def fn(mesh):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            tpar.make_synced_update(lambda x: x.sum(), mesh, axis="dp")
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            tpar.sharded_auroc_histogram(torch.rand(8), torch.ones(8), mesh, axis="sp")
-        with pytest.raises(NotImplementedError, match="mesh order"):
-            tpar.mesh_merge_states(torch.ones(1), ("sp", "dp"), mesh=mesh)
-        return torch.ones(1)
+    # A reduction over one axis of a 2-D mesh runs in the sub-group of the
+    # ranks that share the other coordinate, as a JAX collective over that
+    # axis does inside shard_map: each slice merges the whole batch.
+    rng = np.random.default_rng(5)
+    scores = rng.random((64, 5)).astype(np.float32)
+    target = rng.integers(0, 5, 64).astype(np.int32)
+    s, t, _ = _binary_data(9, 2048)
+    jm = _jax_mesh((4, 2), ("dp", "sp"))
+    for axis in ("dp", "sp"):
+        jstep = jpar.make_synced_update(
+            lambda a, b: jax_accuracy_update(a, b, "macro", 5, 1), jm, axis=axis)
+        want = jstep(*jpar.shard_batch(jm, jnp.asarray(scores), jnp.asarray(target), axis=axis))
+        js, jt = jpar.shard_batch(jm, jnp.asarray(s), jnp.asarray(t), axis=axis)
+        want_auc = float(jpar.sharded_auroc_histogram(js, jt, jm, axis=axis, num_bins=512))
 
-    _run(4, (2, 2), ("dp", "sp"), fn)
+        def fn(mesh):
+            step = tpar.make_synced_update(
+                lambda a, b: _multiclass_accuracy_update_kernel(a, b, "macro", 5, 1), mesh,
+                axis=axis)
+            ps, pt = _shards(mesh, (axis,), s, t)
+            return [*step(*_shards(mesh, (axis,), scores, target)),
+                    tpar.sharded_auroc_histogram(ps, pt, mesh, axis=axis, num_bins=512)]
+
+        got = _run(8, (4, 2), ("dp", "sp"), fn)
+        for g, x in zip(got[:-1], want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+        assert abs(float(got[-1]) - want_auc) <= TOL, (float(got[-1]), want_auc)
+
+    # The names in another order: every rank, ranked by the ("sp", "dp")
+    # block index, so the concatenation puts the blocks back in order.
+    data = torch.arange(8.0)
+    got = _run(4, (2, 2), ("dp", "sp"), lambda mesh: tpar.mesh_merge_states(
+        tpar.shard_batch(mesh, data, axis=("sp", "dp")), ("sp", "dp"), "concat", mesh=mesh))
+    assert torch.equal(got, data)
     # retry= no longer raises: a retried synced update gives the bits of
     # the plain one (tests/test_torch_resilience.py drives its faults).
     from torcheval_tpu_torch.resilience import RetryPolicy
@@ -422,9 +446,11 @@ def test_shard_batch_and_bucket_shard_batch():
 
 def test_toolkit_names_the_right_roadmap_items():
     metric = BinaryAUROC(device="cpu")
-    with pytest.raises(NotImplementedError, match=r"fleet-merge slice \(ROADMAP queue 1, item 6\)"):
-        toolkit.sync_and_compute(metric, topology="tree")
+    # The fleet merge (item 6) is ported: a world of one returns its own
+    # outcome, computed locally.
+    metric.update(torch.tensor([0.1, 0.9, 0.4, 0.7]), torch.tensor([0, 1, 0, 1]))
+    outcome = toolkit.sync_and_compute(metric, topology="tree")
+    assert float(outcome.value) == 1.0 and outcome.world_effective == 1 and outcome.levels == 0
     # The sketch tier (item 7) is ported: the flat sketch sync returns the
     # merged value; a world of one computes its own sketch.
-    metric.update(torch.tensor([0.1, 0.9, 0.4, 0.7]), torch.tensor([0, 1, 0, 1]))
     assert float(toolkit.sync_and_compute(metric, sketch="histogram")) == 1.0

@@ -22,6 +22,7 @@ import torcheval_tpu.metrics as jm
 import torcheval_tpu.telemetry as jax_telemetry
 from torcheval_tpu.distributed import LocalWorld as JaxLocalWorld
 from torcheval_tpu.resilience import faults as jax_faults
+from torcheval_tpu.serve import metering as jax_metering
 from torcheval_tpu.telemetry import events as jax_events
 from torcheval_tpu.telemetry import export as jax_export
 from torcheval_tpu.telemetry import flightrec as jax_flightrec
@@ -59,7 +60,8 @@ JAX_ONLY_KINDS = frozenset(
 
 
 def reset_all():
-    """Every switch of both packages off, every ring and journal empty."""
+    """Every switch of both packages off, every ring, journal and ledger
+    empty."""
     for ev, tr, fr, he, fa in (
         (jax_events, jax_trace, jax_flightrec, jax_health, jax_faults),
         (port_events, port_trace, port_flightrec, port_health, port_faults),
@@ -76,6 +78,10 @@ def reset_all():
         plan = fa.active()
         if plan is not None:
             plan.uninstall()
+    # The JAX serve plane's tenant ledger: a JAX serve test that built an
+    # EvalService earlier in this process turns metering on and fills it,
+    # and the JAX report and Prometheus text then carry its tenants.
+    jax_metering.reset()
 
 
 def stream(events, drop_kinds=JAX_ONLY_KINDS, volatile=VOLATILE):

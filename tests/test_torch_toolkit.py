@@ -4,7 +4,7 @@ toolkit on the same shards: ``sync_and_compute`` (recipient 0 and
 ``clone_metric(s)``, ``reset_metrics`` and ``to_device``, for a counter
 metric, a buffer metric (``MulticlassAUROC``) and a collection.  Counts
 and buffers are bit-equal; computed values agree within 1e-6 relative.
-The topologies and sketches that are not ported raise, and one
+A tree and a ring merge give the flat bits, and one
 ``MetricClassTester`` run covers a ported class end to end."""
 
 import pickle
@@ -152,9 +152,32 @@ def test_sync_leaves_the_callers_metric_alone_and_ships_cpu_states():
 def test_flat_only():
     m = counter(P, device="cpu")
     group = distributed.SingleProcessGroup()
-    for kw in ({"topology": "tree"}, {"topology": "ring"}):
-        with pytest.raises(NotImplementedError):
-            toolkit.sync_and_compute(m, group, **kw)
+    # The fleet merge is ported: over a LocalWorld a tree or a ring of the
+    # collection gives the flat sync's bits at the recipient, as JAX's does.
+    data = shards(31)
+
+    def merge_rank(g, rank):
+        col = collection(P, device="cpu").update(*(torch.from_numpy(a) for a in data[rank]))
+        return [toolkit.sync_and_compute(col, g, recipient_rank=1, topology=t)
+                for t in ("flat", "tree", "ring")]
+
+    out = distributed.LocalWorld(WORLD).run(merge_rank)
+    flat, tree, ring = out[1]
+    for outcome in (tree, ring):
+        assert not outcome.partial and outcome.world_effective == WORLD
+        for name in flat:
+            assert torch.equal(outcome.value[name], flat[name])
+    assert all(o.value is None for r in (0, 2, 3) for o in out[r][1:])
+
+    def jax_rank(g, rank):
+        col = collection(J).update(*(jnp.asarray(a) for a in data[rank]))
+        return jax_toolkit.sync_and_compute(col, g, recipient_rank=1, topology="tree")
+
+    jax_tree = JaxLocalWorld(WORLD).run(jax_rank)[1]
+    for name in flat:
+        np.testing.assert_allclose(tree.value[name].numpy(), np.asarray(jax_tree.value[name]),
+                                   rtol=RTOL)
+    assert toolkit.sync_and_compute(m, group, topology="ring").world_effective == 1
     # The flat sketch sync is ported: each rank's histogram sketch of a
     # BinaryAUROC rides the flat gather and rank 0 returns the merged value.
     def sketch_rank(g, rank):

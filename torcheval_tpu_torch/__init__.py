@@ -10,10 +10,18 @@ plain PyTorch version beside it, taken only for tensors on the CPU.
 Metrics live on the GPU unless the caller asks for the CPU
 (``device="cpu"``); functional metrics run where their input tensors
 live and place numpy arrays and lists on the GPU.  ``flagship`` holds the
-torch twin of the JAX package's flagship eval step.
+torch twin of the JAX package's flagship eval step.  The top level
+exports the JAX package's layers less ``tools``, which is still to port.
 """
 
-from torcheval_tpu_torch import metrics
+from torcheval_tpu_torch import aot, engine, metrics, resilience, telemetry
 from torcheval_tpu_torch.version import __version__
 
-__all__ = ["metrics", "__version__"]
+__all__ = [
+    "aot",
+    "engine",
+    "metrics",
+    "resilience",
+    "telemetry",
+    "__version__",
+]

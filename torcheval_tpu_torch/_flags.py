@@ -63,7 +63,7 @@ FLAGS: Dict[str, str] = {
 
 # name -> (default, rule, one-line doc); a value that does not parse as an
 # integer, or breaks its rule ("power_of_two" or "positive"), reads as the
-# default.
+# default, except under the rule "strict_positive", where it raises.
 INT_FLAGS: Dict[str, Tuple[int, str, str]] = {
     "CM_ROW_CHUNK": (
         4096,
@@ -88,6 +88,14 @@ INT_FLAGS: Dict[str, Tuple[int, str, str]] = {
         "Capacity of each LRU program cache (parallel/_compile_cache.py), "
         "e.g. the engine's captured CUDA graphs, one a block signature "
         "(read when a cache is built).",
+    ),
+    "KV_TIMEOUT_MS": (
+        600_000,
+        "strict_positive",
+        "Per-message wait budget (milliseconds) of the torch.distributed "
+        "group's store collectives and point-to-point receives; anything but "
+        "a positive integer raises, so a mistyped deployment fails loudly "
+        "(read per call).",
     ),
 }
 
@@ -138,8 +146,9 @@ def get(name: str) -> bool:
 
 
 def get_int(name: str) -> int:
-    """Read the integer flag ``TORCHEVAL_TPU_TORCH_<name>`` now; unset or
-    invalid (not a power of two) gives its default."""
+    """Read the integer flag ``TORCHEVAL_TPU_TORCH_<name>`` now; unset gives
+    its default, and so does an invalid value, except under the rule
+    ``"strict_positive"``, where it raises ``ValueError``."""
     if name not in INT_FLAGS:
         raise KeyError(f"unknown integer flag {name!r}; known: {sorted(INT_FLAGS)}")
     return _parse_int(name, os.environ.get(PREFIX + name))
@@ -147,11 +156,17 @@ def get_int(name: str) -> int:
 
 def _parse_int(name: str, raw: Optional[str]) -> int:
     default, rule, _ = INT_FLAGS[name]
-    try:
-        value = int((raw or "").strip())
-    except ValueError:
+    if raw is None or not raw.strip():
         return default
+    try:
+        value = int(raw.strip())
+    except ValueError:
+        value = 0
     if value <= 0 or (rule == "power_of_two" and value & (value - 1)):
+        if rule == "strict_positive":
+            raise ValueError(
+                f"{PREFIX}{name} must be a positive integer, got {raw!r}"
+            )
         return default
     return value
 
@@ -210,7 +225,12 @@ def snapshot_non_default() -> Dict[str, Any]:
         if name in FLAGS:
             value, default = raw.strip().lower() in TRUTHY, False
         elif name in INT_FLAGS:
-            value, default = _parse_int(name, raw), INT_FLAGS[name][0]
+            try:
+                value = _parse_int(name, raw)
+            except ValueError:
+                out[env] = {"raw": raw, "invalid": True}
+                continue
+            default = INT_FLAGS[name][0]
         elif name in TRISTATE_FLAGS:
             value, default = get_tristate(name), None
         elif name in STR_FLAGS:

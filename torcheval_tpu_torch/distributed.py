@@ -12,6 +12,15 @@
   ``all_gather``).
 * :class:`SingleProcessGroup` and :class:`NullGroup`: the world of one,
   and a group this process is not part of.
+* :class:`TorchProcessGroup` and :func:`initialize_multihost`: a real
+  world of processes over ``torch.distributed`` (gloo), the counterpart
+  of JAX's ``JaxProcessGroup`` / ``initialize_multihost``.  Its object
+  collectives are torch's (``all_gather_object``,
+  ``broadcast_object_list``, ``gather_object``); its point-to-point
+  channel rides the c10d store the process group already holds, as
+  JAX's rides the coordination service's KV store.
+  :func:`default_group` is this group whenever a ``torch.distributed``
+  world of more than one process is up.
 * :class:`LocalWorld` / :class:`LocalGroup`: an N-rank world in one
   process, one thread per rank, with barrier-synchronized collectives.
   It stands in for the reference's multi-process gloo harness and runs
@@ -19,6 +28,8 @@
   telemetry bus on, its gathers emit one ``sync`` event each, as the JAX
   package's do (``local_all_gather_object``: the rank's pickle times the
   world size; ``local_gather_object``: the rank's pickle).
+* :meth:`CollectiveGroup.split`: the sub-group of this rank's part of a
+  partition of the ranks (a mesh's reduction over a sub-axis).
 
 Every tensor an object carries travels through the CPU: a metric pickles
 its states to the CPU (``Metric.__getstate__``) and comes back on its own
@@ -26,11 +37,10 @@ device (``Metric.__setstate__``), and a bare tensor is moved to the CPU
 before it is pickled, so a payload never names a device the receiver
 must have.
 
-Not ported yet: ``JaxProcessGroup`` and ``initialize_multihost`` (their
-counterpart is a ``torch.distributed`` group, which comes with the
-process-group slice, ROADMAP queue 1 item 6) and ``pack_frames`` /
-``unpack_frames`` (with the fleet merge).  :func:`default_group` is therefore the single-process
-group.
+NCCL is not the transport: it runs one rank a GPU, and the object
+collectives travel through the CPU anyway.  Not ported yet:
+``pack_frames``, ``unpack_frames`` and ``serve_tag``, which only the
+serve plane uses (ROADMAP queue 1, with serve).
 """
 
 from __future__ import annotations
@@ -39,10 +49,11 @@ import pickle
 import threading
 import time
 from abc import ABC, abstractmethod
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from torcheval_tpu_torch import _flags
 from torcheval_tpu_torch.metrics.metric import _to_cpu_tree
 from torcheval_tpu_torch.telemetry import events as _telemetry
 
@@ -51,6 +62,14 @@ REDUCE_OPS = ("sum", "max", "min", "mean", "concat")
 
 def _dumps(obj: Any) -> bytes:
     return pickle.dumps(_to_cpu_tree(obj))
+
+
+def kv_timeout_ms() -> int:
+    """The wait budget (ms) of a :class:`TorchProcessGroup` receive given
+    no timeout: ``TORCHEVAL_TPU_TORCH_KV_TIMEOUT_MS`` when set (a positive
+    integer; anything else raises, so a mistyped deployment fails loudly
+    instead of waiting ten minutes), else 600 000.  Read at call time."""
+    return _flags.get_int("KV_TIMEOUT_MS")
 
 
 class PeerTimeoutError(TimeoutError):
@@ -108,9 +127,27 @@ class CollectiveGroup(ABC):
         """Gather one picklable object from every rank to rank ``dst``: the
         world-size list there, ``None`` elsewhere.  This base version
         all-gathers and drops (right results, not the memory bound);
-        :class:`LocalGroup` overrides it with a true gather."""
+        :class:`LocalGroup` and :class:`TorchProcessGroup` override it
+        with a true gather."""
         gathered = self.all_gather_object(obj)
         return gathered if self.rank == dst else None
+
+    def split(self, parts: Sequence[Sequence[int]]) -> "CollectiveGroup":
+        """The sub-group of the part of ``parts`` (a partition of this
+        group's ranks, each part in the order its sub-group ranks them)
+        that holds this rank.  Every rank calls it with the same
+        partition, in the same order: a ``torch.distributed`` sub-group is
+        made by every rank of the world, members or not."""
+        parts = [tuple(int(r) for r in part) for part in parts]
+        mine = [part for part in parts if self.rank in part]
+        if len(mine) != 1 or sorted(r for p in parts for r in p) != list(range(self.world_size)):
+            raise ValueError(f"{parts} is not a partition of the {self.world_size} ranks")
+        if mine[0] == tuple(range(self.world_size)):
+            return self
+        return self._split(parts, mine[0])
+
+    def _split(self, parts: List[tuple], mine: tuple) -> "CollectiveGroup":
+        raise NotImplementedError(f"{type(self).__name__} has no sub-groups.")
 
     def all_reduce(self, tensor: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Every rank's ``tensor`` reduced with ``op``: ``"sum"``,
@@ -201,10 +238,32 @@ class LocalWorld:
         # out instead.
         self._mail: dict = {}
         self._mail_cv = threading.Condition()
+        # Sub-worlds of a split, by their ranks in order: each rank of a part
+        # finds the same one, with its own barrier and mailboxes.
+        self._children: Dict[tuple, "LocalWorld"] = {}
+        self._children_lock = threading.Lock()
 
     @property
     def world_size(self) -> int:
         return self._world_size
+
+    def subworld(self, ranks: tuple) -> "LocalWorld":
+        """The world of ``ranks`` (in that order) inside this one; the same
+        object for every rank that asks."""
+        with self._children_lock:
+            child = self._children.get(ranks)
+            if child is None:
+                child = self._children[ranks] = LocalWorld(len(ranks))
+            return child
+
+    def abort(self) -> None:
+        """Break this world's barrier and every sub-world's, so that no
+        rank stays in a collective its peers left."""
+        self._barrier.abort()
+        with self._children_lock:
+            children = list(self._children.values())
+        for child in children:
+            child.abort()
 
     def group(self, rank: int) -> "LocalGroup":
         return LocalGroup(self, rank)
@@ -221,7 +280,7 @@ class LocalWorld:
                 results[rank] = fn(self.group(rank), rank)
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 errors[rank] = e
-                self._barrier.abort()
+                self.abort()
 
         threads = [
             threading.Thread(target=target, args=(r,), daemon=True)
@@ -330,6 +389,11 @@ class LocalGroup(CollectiveGroup):
             payload = self._world._mail.pop(key)
         return pickle.loads(payload)
 
+    def _split(self, parts: List[tuple], mine: tuple) -> "LocalGroup":
+        # A view over this rank's part: a LocalWorld of its own (barrier,
+        # slots, mailboxes) that every member finds under the same key.
+        return LocalGroup(self._world.subworld(mine), mine.index(self._rank))
+
 
 def check_reduce_op(op: str) -> None:
     """Raise unless ``op`` is one of :data:`REDUCE_OPS` (before a
@@ -357,10 +421,214 @@ def reduce_gathered(
     return out / len(parts) if op == "mean" else out
 
 
+def initialize_multihost(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    **kwargs: Any,
+) -> "TorchProcessGroup":
+    """Start this process's part of a ``torch.distributed`` world and
+    return the world group: ``init_process_group("gloo",
+    init_method="tcp://<coordinator_address>", world_size=num_processes,
+    rank=process_id, **kwargs)``.  With no address, torch reads
+    ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK`` from the
+    environment.  Idempotent: a repeat call returns a new group over the
+    world that is already up instead of raising."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        init_method = None
+        if coordinator_address is not None:
+            init_method = (
+                coordinator_address
+                if "://" in coordinator_address
+                else f"tcp://{coordinator_address}"
+            )
+        dist.init_process_group(
+            "gloo",
+            init_method=init_method,
+            world_size=-1 if num_processes is None else int(num_processes),
+            rank=-1 if process_id is None else int(process_id),
+            **kwargs,
+        )
+    return TorchProcessGroup()
+
+
+# torch.distributed sub-groups by their global ranks (a set): every rank
+# makes each one once, in the order the meshes ask for them.
+_TORCH_SUBGROUPS: Dict[frozenset, Any] = {}
+_TORCH_SUBGROUPS_LOCK = threading.Lock()
+
+# One store value may hold 8 MiB (c10d's libuv store); payloads go in 4 MiB
+# chunks, and the chunk count is written last.
+_STORE_CHUNK = 4 << 20
+
+
+class TorchProcessGroup(CollectiveGroup):
+    """A world of processes over ``torch.distributed`` (the counterpart of
+    JAX's ``JaxProcessGroup``): the default group, or with ``pg`` one of
+    its sub-groups, whose members are the global ``ranks`` in the order
+    this group ranks them.
+
+    Object collectives pickle the object here (its tensors on the CPU) and
+    ship the bytes with torch's own ``all_gather_object`` /
+    ``broadcast_object_list`` / ``gather_object``.  Tensor reductions keep
+    the base class's fold in rank order (never gloo's ``all_reduce``,
+    whose order of addition is not the ranks'), so a float sum has the
+    same bits as over a :class:`LocalWorld`.
+
+    Point-to-point messages go through the c10d store of the default group
+    (a ``TCPStore`` under ``init_method="tcp://..."``): one key a chunk
+    plus a count key for each tag and direction, read and deleted by the
+    receiver.  A receive polls the store with ``check``: a ``wait`` that
+    runs out logs a c10d warning every time and holds the store client's
+    lock for its whole budget, which would stall the merge's other
+    threads.  A message never claimed leaves its keys behind, so tags must
+    be unique per logical message (the fleet merge's carry a round id)."""
+
+    def __init__(self, pg: Any = None, ranks: Optional[Sequence[int]] = None) -> None:
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "TorchProcessGroup needs a torch.distributed world: call "
+                "initialize_multihost() or torch.distributed.init_process_group() first."
+            )
+        self._dist = dist
+        self._pg = pg
+        if ranks is None:
+            ranks = range(dist.get_world_size())
+        self._ranks = tuple(int(r) for r in ranks)
+        # The order torch's collectives return a group's objects in.
+        self._torch_order = tuple(
+            dist.get_process_group_ranks(pg) if pg is not None else range(dist.get_world_size())
+        )
+        self._me = dist.get_rank()
+        if self._me not in self._ranks:
+            raise ValueError(f"global rank {self._me} is not in {self._ranks}")
+        # A sub-group's (or a reordered world's) messages live apart from
+        # the world's, under its members in order.
+        whole = self._ranks == tuple(range(dist.get_world_size()))
+        self._ns = "" if whole else "/".join(map(str, self._ranks)) + "/"
+
+    @property
+    def rank(self) -> int:
+        return self._ranks.index(self._me)
+
+    @property
+    def world_size(self) -> int:
+        return len(self._ranks)
+
+    def _in_order(self, by_torch: Sequence[Any]) -> List[Any]:
+        placed = dict(zip(self._torch_order, by_torch))
+        return [placed[r] for r in self._ranks]
+
+    def all_gather_object(self, obj: Any) -> List[Any]:
+        t0 = time.monotonic()
+        out: List[Any] = [None] * self.world_size
+        self._dist.all_gather_object(out, _dumps(obj), group=self._pg)
+        payloads = self._in_order(out)
+        if _telemetry.ENABLED:
+            _telemetry.record_sync(
+                "all_gather_bytes", time.monotonic() - t0, sum(len(p) for p in payloads)
+            )
+        return [pickle.loads(p) for p in payloads]
+
+    def broadcast_object(self, obj: Any, src: int) -> Any:
+        box = [_dumps(obj) if self.rank == src else None]
+        self._dist.broadcast_object_list(box, src=self._ranks[src], group=self._pg)
+        return pickle.loads(box[0])
+
+    def gather_object(self, obj: Any, dst: int = 0) -> Optional[List[Any]]:
+        if not 0 <= dst < self.world_size:
+            raise ValueError(f"dst must be a rank in [0, {self.world_size}), got {dst}.")
+        t0 = time.monotonic()
+        payload = _dumps(obj)
+        out = [None] * self.world_size if self.rank == dst else None
+        self._dist.gather_object(payload, out, dst=self._ranks[dst], group=self._pg)
+        if _telemetry.ENABLED:
+            _telemetry.record_sync("gather_object", time.monotonic() - t0, len(payload))
+        if out is None:
+            return None
+        return [pickle.loads(p) for p in self._in_order(out)]
+
+    # ------------------------------------------------------------ p2p
+    def _store(self) -> Any:
+        from torch.distributed import distributed_c10d
+
+        return distributed_c10d._get_default_store()
+
+    @property
+    def supports_p2p(self) -> bool:
+        return True  # every torch.distributed world holds a store
+
+    def _key(self, tag: str, src: int, dst: int) -> str:
+        return f"torcheval_tpu_torch/p2p/{self._ns}{tag}/{self._ranks[src]}->{self._ranks[dst]}"
+
+    def send_object(self, obj: Any, dst: int, tag: str) -> None:
+        if not 0 <= dst < self.world_size:
+            raise ValueError(f"dst must be a rank in [0, {self.world_size}), got {dst}.")
+        store = self._store()
+        prefix = self._key(tag, self.rank, dst)
+        payload = _dumps(obj)
+        chunks = [payload[i : i + _STORE_CHUNK] for i in range(0, max(len(payload), 1), _STORE_CHUNK)]
+        for i, chunk in enumerate(chunks):
+            store.set(f"{prefix}/{i}", chunk)
+        store.set(f"{prefix}/n", str(len(chunks)))
+
+    def recv_object(self, src: int, tag: str, timeout: Optional[float] = None) -> Any:
+        """The object rank ``src`` sent under ``tag``; ``timeout=None``
+        waits :func:`kv_timeout_ms`.  Raises :class:`PeerTimeoutError`
+        when nothing arrives in time."""
+        store = self._store()
+        prefix = self._key(tag, src, self.rank)
+        budget = kv_timeout_ms() / 1e3 if timeout is None else float(timeout)
+        deadline = time.monotonic() + budget
+        pause = 0.0005
+        try:
+            while not store.check([f"{prefix}/n"]):
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise PeerTimeoutError(src, tag, timeout)
+                time.sleep(min(pause, remaining))
+                pause = min(2 * pause, 0.005)
+            n = int(store.get(f"{prefix}/n"))
+            payload = b"".join(store.get(f"{prefix}/{i}") for i in range(n))
+        except PeerTimeoutError:
+            raise
+        except Exception as exc:  # noqa: BLE001 - the store's errors, attributed to src
+            raise PeerTimeoutError(src, tag, timeout) from exc
+        for i in range(n):
+            store.delete_key(f"{prefix}/{i}")
+        store.delete_key(f"{prefix}/n")
+        return pickle.loads(payload)
+
+    def _split(self, parts: List[tuple], mine: tuple) -> "TorchProcessGroup":
+        # Every rank of the world enters new_group for every part, in order.
+        for part in parts:
+            members = tuple(self._ranks[r] for r in part)
+            if len(part) == self.world_size:
+                pg = self._pg
+            else:
+                with _TORCH_SUBGROUPS_LOCK:
+                    pg = _TORCH_SUBGROUPS.get(frozenset(members))
+                    if pg is None:
+                        pg = self._dist.new_group(sorted(members))
+                        _TORCH_SUBGROUPS[frozenset(members)] = pg
+            if part == mine:
+                sub = TorchProcessGroup(pg, members)
+        return sub
+
+
 def default_group() -> CollectiveGroup:
-    """The world group.  Until the port's ``torch.distributed`` group
-    lands, that is the single-process group; pass a :class:`LocalGroup`
-    (or any :class:`CollectiveGroup`) to sync across ranks."""
+    """The world group: a :class:`TorchProcessGroup` when a
+    ``torch.distributed`` world of more than one process is up, else the
+    single-process group.  Pass a :class:`LocalGroup` (or any
+    :class:`CollectiveGroup`) to sync across the ranks of one process."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return TorchProcessGroup()
     return SingleProcessGroup()
 
 
@@ -372,5 +640,8 @@ __all__ = (
     "NullGroup",
     "PeerTimeoutError",
     "SingleProcessGroup",
+    "TorchProcessGroup",
     "default_group",
+    "initialize_multihost",
+    "kv_timeout_ms",
 )

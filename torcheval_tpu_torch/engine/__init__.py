@@ -35,9 +35,10 @@ Telemetry (when enabled): an ``Evaluator.engine_block`` span and an
 ``Evaluator.prefetch_wait`` span per consumed block, and a
 ``prefetch_stall`` counter when the dispatch loop outran the prefetch
 thread, all in ``telemetry.report()``'s ``engine`` section
-(``dispatches_per_batch`` is the O(N / block) claim, measured).  Left out
-until their modules are ported: the perfscope hooks (ROADMAP queue 1 item
-4's remainder) and :meth:`Evaluator.start_fleet_merge` (item 6).
+(``dispatches_per_batch`` is the O(N / block) claim, measured).
+:meth:`Evaluator.start_fleet_merge` runs a fleet merge of a snapshot
+beside further blocks.  Left out until its module is ported: the perfscope
+hooks (ROADMAP queue 1 item 4's remainder).
 """
 
 import time
@@ -346,13 +347,60 @@ class Evaluator:
         self.flush()
         return self._collection.compute()
 
-    def start_fleet_merge(self, group: Any, **kwargs: Any) -> Any:
-        """Overlap a cross-host fleet merge with further eval work.  Not
-        ported yet: the fleet merge is ROADMAP queue 1 item 6."""
-        raise NotImplementedError(
-            "Evaluator.start_fleet_merge needs parallel/fleet_merge.py, which the "
-            "port does not have yet (ROADMAP queue 1 item 6)."
-        )
+    def start_fleet_merge(
+        self,
+        group: Any,
+        *,
+        topology: str = "tree",
+        sketch: Optional[str] = None,
+        sketch_options: Optional[Dict[str, Any]] = None,
+        recipient: Any = None,
+        policy: Any = None,
+        membership: Any = None,
+    ) -> Any:
+        """Overlap a fleet merge with further eval work.
+
+        Flushes any buffered partial block, snapshots the collection, and
+        runs :func:`torcheval_tpu_torch.parallel.fleet_merge.fleet_merge`
+        over the snapshot on a daemon thread, while the caller keeps
+        feeding :meth:`step` / :meth:`run`.  Returns a
+        :class:`~torcheval_tpu_torch.parallel.fleet_merge.PendingMerge`;
+        ``.result()`` joins and gives the ``MergeOutcome`` (a lost rank
+        makes it partial; it never raises into the eval loop).
+
+        On the card the snapshot is taken on this thread: its copies wait
+        for the engine's last replay on the dispatching stream and are
+        finished before the merge thread starts, so the merge never reads
+        a state that a later block is still writing."""
+        from copy import deepcopy
+
+        from torcheval_tpu_torch.parallel.fleet_merge import PendingMerge, fleet_merge
+
+        self.flush()
+        on_card = self._device.type == "cuda"
+        if on_card and self._dispatch_stream is not None:
+            torch.cuda.current_stream(self._device).wait_stream(self._dispatch_stream)
+        snapshot = deepcopy(self._collection)
+        if on_card:
+            torch.cuda.current_stream(self._device).synchronize()
+        kwargs = {
+            "topology": topology,
+            "sketch": sketch,
+            "sketch_options": sketch_options,
+            "recipient": recipient,
+            "policy": policy,
+            "membership": membership,
+        }
+        if _trace.ENABLED:
+            # Parent the merge's trace on the engine block that dispatched
+            # last: the link from "a merge level degraded" back to the
+            # block that scheduled it.
+            base = _trace.current() or self._trace_root()
+            if self._last_block_span:
+                base = _trace.TraceContext(trace_id=base.trace_id, span_id=self._last_block_span)
+            with _trace.activate(base):
+                return PendingMerge(fleet_merge, (snapshot, group), kwargs)
+        return PendingMerge(fleet_merge, (snapshot, group), kwargs)
 
     def warmup(
         self,

@@ -12,6 +12,8 @@ from torcheval_tpu_torch.metrics.metric import Metric
 
 
 class Min(Metric[torch.Tensor]):
+    _extremum_states = ("min",)
+
     def __init__(self, *, device=None) -> None:
         super().__init__(device=device)
         self._add_state("min", torch.tensor(float("inf")))

@@ -32,6 +32,9 @@ class PeakSignalNoiseRatio(Metric[torch.Tensor]):
         self._add_state("num_observations", torch.tensor(0.0))
         self._add_state("target_min", torch.tensor(float("inf")))
         self._add_state("target_max", torch.tensor(float("-inf")))
+        if data_range is None:
+            # Read by compute only without a data_range.
+            self._extremum_states = ("target_min", "target_max")
 
     def update(self, input, target) -> "PeakSignalNoiseRatio":
         input, target = x64_off(*on_device(self.device, input, target))

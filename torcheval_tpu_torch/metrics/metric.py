@@ -135,6 +135,11 @@ class Metric(Generic[TComputeReturn], ABC):
     # give them a bucket axis.
     _fixed_states: Tuple[str, ...] = ()
 
+    # States that merge by max or min (an extremum seen so far, e.g.
+    # ``Max.max``): zero is no identity for them and their buckets do not
+    # add, so ``monitor.SlidingWindow`` refuses a metric that has one.
+    _extremum_states: Tuple[str, ...] = ()
+
     def __init_subclass__(cls, **kwargs: Any) -> None:
         super().__init_subclass__(**kwargs)
         # Every concrete update/compute a subclass defines is wrapped ONCE

@@ -24,15 +24,17 @@ sketch (``metrics/_sketch.py``) through the same flat collective instead
 of its states; the recipient merges them in rank order and returns the
 merged sketch's value.
 
-Not ported yet: ``topology="tree"`` / ``"ring"`` (the elastic
-hierarchical merge, with the fleet-merge slice, ROADMAP queue 1 item 6).
-It raises ``NotImplementedError`` and does not fall back to the flat
-gather.
+``topology="tree"`` / ``"ring"`` run the elastic hierarchical merge
+(:func:`torcheval_tpu_torch.parallel.fleet_merge.fleet_merge`) and return
+a :class:`~torcheval_tpu_torch.parallel.fleet_merge.MergeOutcome` on every
+rank.  A group with no point-to-point channel and more than one rank warns
+and takes the flat path, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import logging
+import warnings
 from copy import deepcopy
 from typing import Any, Dict, Iterable, List, Literal, Optional, TypeVar, Union
 
@@ -52,23 +54,49 @@ def sync_and_compute(
     topology: Literal["flat", "tree", "ring"] = "flat",
     sketch: Optional[str] = None,
     sketch_options: Optional[Dict[str, Any]] = None,
+    merge_policy: Optional[Any] = None,
+    membership: Optional[Any] = None,
 ) -> Optional[Any]:
     """Sync metric states and return ``compute()`` of the synced metric on
     the recipient rank(s); ``None`` on the others.  With ``sketch=`` (a
     kind of ``metric.sketch_state``, options in ``sketch_options``), each
     rank ships its sketch instead and the recipient returns the merged
-    sketch's ``compute()``."""
+    sketch's ``compute()``.
+
+    ``topology="tree"`` / ``"ring"`` run the fleet merge instead (rooted
+    at ``recipient_rank``, at rank 0 for ``"all"``, with ``merge_policy``
+    and ``membership``) and return its ``MergeOutcome`` on every rank:
+    ``outcome.value`` on the recipient(s), ``outcome.partial`` /
+    ``world_effective`` / ``lost_ranks`` for lost ranks.  On a clean run
+    the value is bit-identical to the flat one."""
     if topology not in ("flat", "tree", "ring"):
         raise ValueError(f"topology must be 'flat', 'tree' or 'ring', got {topology!r}")
+    group = process_group if process_group is not None else default_group()
     if topology != "flat":
-        raise NotImplementedError(
-            f"topology={topology!r} (the hierarchical merge) comes with the port's "
-            "fleet-merge slice (ROADMAP queue 1, item 6); use topology='flat'."
-        )
+        if group.world_size > 1 and not group.supports_p2p:
+            warnings.warn(
+                f"collective group {type(group).__name__} has no "
+                "point-to-point transport; falling back to topology='flat'",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+        else:
+            from torcheval_tpu_torch.parallel.fleet_merge import fleet_merge
+
+            return fleet_merge(
+                metric,
+                group,
+                topology=topology,
+                sketch=sketch,
+                sketch_options=sketch_options,
+                dst=0 if recipient_rank == "all" else recipient_rank,
+                recipient=recipient_rank,
+                policy=merge_policy,
+                membership=membership,
+            )
     if sketch is not None and sketch != "exact":
-        group = process_group if process_group is not None else default_group()
         return _flat_sketch_compute(metric, group, recipient_rank, sketch, sketch_options)
-    synced_metric = get_synced_metric(metric, process_group, recipient_rank)
+    synced_metric = get_synced_metric(metric, group, recipient_rank)
     return synced_metric.compute() if synced_metric is not None else None
 
 

@@ -14,7 +14,10 @@ replay, so a rotation between blocks reaches the next replay.
 ``compute()`` sums the buckets and evaluates the inner metric on the sum,
 so the reading covers the last ``buckets`` epochs; ``buckets=1`` is a
 tumbling window.  The inner states must be additive (``merge_state`` adds
-them), as every counter and binned metric's are.
+them), as every counter and binned metric's are: an inner metric with a
+max / min state (``Metric._extremum_states``: ``Max``, ``Min``, PSNR
+without a ``data_range``) is refused, where the JAX package sums its
+buckets' extrema (ROADMAP queue 3, kept divergences).
 
 Fixed states (``Metric._fixed_states``: the ``threshold`` edges of the
 binned and sketch-mode curve metrics, a digest's ladder ``edges``) are
@@ -60,6 +63,11 @@ class SlidingWindow(Metric):
                     "SlidingWindow requires fixed-shape array states; "
                     f"{type(metric).__name__}.{name} is a {type(default).__name__}."
                 )
+        if metric._extremum_states:
+            raise TypeError(
+                "SlidingWindow sums its buckets, so it needs additive states; "
+                f"{type(metric).__name__}.{metric._extremum_states[0]} merges by max / min."
+            )
         super().__init__(device=metric.device if device is None else device)
         self._inner = metric
         self.buckets = int(buckets)

@@ -19,9 +19,13 @@
   positives travel; the multiclass one counts with the rank-sum kernel);
   ``eager_ustat_pin`` stays in :mod:`.exact`, as in the JAX package.
 
-Not ported yet: the fleet merge (``parallel/fleet_merge.py``, ROADMAP
-queue 1 item 6).  ``spmd_cache_info`` / ``spmd_cache_clear`` (a JAX jit
-cache) have no counterpart.
+* :mod:`.fleet_merge`: the elastic hierarchical merge of a metric's state
+  over a group's point-to-point channel (``fleet_merge``, tree or ring,
+  exact or sketch payloads; ``MergePolicy``, ``MergeOutcome``, and
+  ``PendingMerge`` for a merge that runs beside further eval work).
+
+``spmd_cache_info`` / ``spmd_cache_clear`` (a JAX jit cache) have no
+counterpart.
 """
 
 from torcheval_tpu_torch.parallel.exact import (
@@ -33,6 +37,12 @@ from torcheval_tpu_torch.parallel.exact import (
     sharded_multiclass_auroc_ustat,
     sharded_multitask_auprc_exact,
     sharded_multitask_auroc_exact,
+)
+from torcheval_tpu_torch.parallel.fleet_merge import (
+    MergeOutcome,
+    MergePolicy,
+    PendingMerge,
+    fleet_merge,
 )
 from torcheval_tpu_torch.parallel.mesh import (
     Mesh,
@@ -51,9 +61,13 @@ from torcheval_tpu_torch.parallel.sync import (
 )
 
 __all__ = [
+    "MergeOutcome",
+    "MergePolicy",
     "Mesh",
+    "PendingMerge",
     "bucket_shard_batch",
     "device_count",
+    "fleet_merge",
     "make_mesh",
     "make_synced_update",
     "mesh_merge_states",

@@ -89,7 +89,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from torcheval_tpu_torch.distributed import reduce_gathered
+from torcheval_tpu_torch.distributed import CollectiveGroup, reduce_gathered
 from torcheval_tpu_torch.metrics.functional._host_checks import (
     place_inputs,
     to_host,
@@ -105,7 +105,7 @@ from torcheval_tpu_torch.metrics.functional.classification.auroc import (
 )
 from torcheval_tpu_torch.ops._flags import ustat_disabled
 from torcheval_tpu_torch.ops.ustat import _BIG, _FW, _index_counts, rank_sum_counts
-from torcheval_tpu_torch.parallel.mesh import AxisSpec, Mesh, _axis_size, _check_full_axis
+from torcheval_tpu_torch.parallel.mesh import AxisSpec, Mesh, _axis_size
 
 _COMMS = ("auto", "gather", "ring")
 _KERNELS = ("auto", "pallas", "searchsorted")
@@ -147,9 +147,8 @@ def _check_comm(comm: str, axis: AxisSpec) -> str:
 
 
 def _sharded_axis(mesh: Mesh, axis: AxisSpec) -> int:
-    """The ranks along ``axis``, which must be every axis of the mesh (the
-    port's collectives reduce over the whole world)."""
-    _check_full_axis(mesh, axis)
+    """The ranks along ``axis`` (their collectives run in
+    ``mesh.axis_group(axis)``)."""
     return _axis_size(mesh, axis)
 
 
@@ -349,13 +348,15 @@ def _choose_ustat_comm(num_rows: int, cap: int, size: int) -> str:
     return "ring" if pack_bytes > _RING_PACK_BYTES else "gather"
 
 
-def _resolve_comm(comm: str, mesh: Mesh, num_rows: int, cap: int, size: int) -> str:
+def _resolve_comm(
+    comm: str, group: CollectiveGroup, num_rows: int, cap: int, size: int
+) -> str:
     if comm == "auto":
         comm = _choose_ustat_comm(num_rows, cap, size)
-    if comm == "ring" and size > 1 and not mesh.group.supports_p2p:
+    if comm == "ring" and size > 1 and not group.supports_p2p:
         raise ValueError(
             f"comm='ring' sends each rank's pack to the next rank, and the group "
-            f"{type(mesh.group).__name__} has no point-to-point channel "
+            f"{type(group).__name__} has no point-to-point channel "
             "(supports_p2p is False); pass comm='gather'."
         )
     return comm
@@ -369,7 +370,7 @@ def _gather(mesh: Mesh, axis: AxisSpec, x: torch.Tensor, dim: int = 0) -> torch.
 
 
 def _ring(
-    mesh: Mesh,
+    group: CollectiveGroup,
     tag: str,
     payload: Tuple[torch.Tensor, ...],
     step: Callable[[Tuple[torch.Tensor, ...]], Tuple[torch.Tensor, ...]],
@@ -379,7 +380,6 @@ def _ring(
     to rank + 1 after its step, and the last stays (the sum over the mesh
     that follows does not care where a count lies).  Returns the last
     payload after its step."""
-    group = mesh.group
     size, rank = group.world_size, group.rank
     device = payload[0].device
     for i in range(size - 1):
@@ -406,7 +406,7 @@ def _gather_exact(
     blocks' shape rows riding with them, so a malformed block or blocks
     of unequal shapes raise on every rank before anything is joined."""
     size = _sharded_axis(mesh, axis)
-    parts = mesh.group.all_gather_object([_shape_row(scores, targets), scores, targets])
+    parts = mesh.axis_group(axis).all_gather_object([_shape_row(scores, targets), scores, targets])
     _raise_on_bad_blocks(torch.cat([p[0] for p in parts]).numpy(), check, sample_dim, axis, size)
     return tuple(
         reduce_gathered([p[i].movedim(sample_dim, 0) for p in parts], "concat", scores.device)
@@ -543,7 +543,7 @@ def sharded_binary_auroc_ustat(
         "max_minority_count_per_shard",
         "minority-class samples",
     )
-    comm = _resolve_comm(comm, mesh, 1, cap, size)
+    comm = _resolve_comm(comm, mesh.axis_group(axis), 1, cap, size)
 
     chosen = pos_mask if pick_pos else ~pos_mask
     # +inf pads sort past every real score, so the slice keeps every
@@ -561,7 +561,7 @@ def sharded_binary_auroc_ustat(
             hi = hi + torch.searchsorted(chunk, s, right=True)
             return payload
 
-        _ring(mesh, stats.tag, (run,), count)
+        _ring(mesh.axis_group(axis), stats.tag, (run,), count)
     else:
         gathered = torch.sort(_gather(mesh, axis, run)).values
         lo = torch.searchsorted(gathered, s)
@@ -629,7 +629,7 @@ def sharded_binary_auprc_ustat(
         "max_positive_count_per_shard",
         "positive samples",
     )
-    comm = _resolve_comm(comm, mesh, 1, cap, size)
+    comm = _resolve_comm(comm, mesh.axis_group(axis), 1, cap, size)
 
     run = torch.sort(torch.where(pos_mask, s, torch.inf)).values[:cap]
     neg_sorted = torch.sort(torch.where(pos_mask, torch.inf, s)).values
@@ -643,7 +643,7 @@ def sharded_binary_auprc_ustat(
             return entries, lo_a, fp_a
 
         zeros = torch.zeros(run.shape, dtype=torch.int64, device=s.device)
-        entries, lo_self, fp_i = _ring(mesh, stats.tag, (run, zeros, zeros), count)
+        entries, lo_self, fp_i = _ring(mesh.axis_group(axis), stats.tag, (run, zeros, zeros), count)
         tp = (n_pos - lo_self).to(acc)
         fp = fp_i.to(acc)
         precision = torch.where(torch.isfinite(entries), tp / torch.clamp(tp + fp, min=1.0), 0.0)
@@ -745,7 +745,7 @@ def _mc_ustat_plan(
             "max_class_count_per_shard",
             "samples of one class",
         )
-    comm = _resolve_comm(comm, mesh, num_classes, cap, size)
+    comm = _resolve_comm(comm, mesh.axis_group(axis), num_classes, cap, size)
     if kernel == "auto":
         # The one read back holds the scores' domain whatever the value
         # checks, so the gate reads it.  The U identity needs every
@@ -824,7 +824,7 @@ def sharded_multiclass_auroc_ustat(
                 k = k + _stacked_rank_sums(s, chunk)
                 return payload
 
-            _ring(mesh, stats.tag, (rows,), count)
+            _ring(mesh.axis_group(axis), stats.tag, (rows,), count)
         else:
             rows = _ustat_kernel_table(_gather(mesh, axis, packed, dim=1))
             cap_tot = rows.shape[-1]
@@ -844,7 +844,7 @@ def sharded_multiclass_auroc_ustat(
                 return payload
 
             # Sorted once: sortedness survives the rotation.
-            _ring(mesh, stats.tag, (torch.sort(packed, dim=-1).values,), count)
+            _ring(mesh.axis_group(axis), stats.tag, (torch.sort(packed, dim=-1).values,), count)
         else:
             rows = torch.sort(_gather(mesh, axis, packed, dim=1), dim=-1).values
             above, ties = _searchsorted_above_ties(rows, queries)

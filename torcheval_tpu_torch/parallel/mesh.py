@@ -13,16 +13,21 @@ returns the block of the global array that a JAX ``NamedSharding`` puts
 on device ``rank``.  With the default single-process group the mesh has
 one rank, and the shard is the whole array.
 
-A collective over the mesh reduces over every one of its axes (one name on
-a 1-D mesh, the tuple of all names in mesh order on an n-D one).  A
-reduction over a strict sub-axis needs a sub-group of the world, which
-comes with the process-group slice (ROADMAP queue 1 item 6): it raises
-``NotImplementedError`` and never falls back to the whole world.
+A collective over ``axis`` runs in :meth:`Mesh.axis_group`: the ranks that
+share this rank's coordinates on the other axes, ranked by their block
+index along ``axis``.  Over every axis in mesh order that is the group
+itself; over a strict sub-axis (``"dp"`` of a ``("dp", "sp")`` mesh) it is
+a sub-group (:meth:`~torcheval_tpu_torch.distributed.CollectiveGroup.split`),
+so each ``sp`` slice reduces over ``dp`` alone, as a JAX collective named
+``"dp"`` does inside ``shard_map``.  The mesh makes the sub-groups of
+every strict subset of its axes when it is built: a ``torch.distributed``
+sub-group is made by every rank of the world, in the same order.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple, Union
+import itertools
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,6 +61,10 @@ class Mesh:
         self.group = group
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, shape))
+        self._axis_groups: Dict[Tuple[str, ...], CollectiveGroup] = {axis_names: group}
+        for k in range(1, len(axis_names)):
+            for names in itertools.combinations(axis_names, k):
+                self._axis_groups[names] = self._split(names)
 
     @property
     def rank(self) -> int:
@@ -74,13 +83,30 @@ class Mesh:
         return int(np.ravel_multi_index(tuple(c[a] for a in names),
                                         tuple(self.shape[a] for a in names)))
 
+    def axis_group(self, axis: AxisSpec) -> CollectiveGroup:
+        """The group a collective over ``axis`` runs in: the ranks that
+        share this rank's coordinates off ``axis``, ranked by
+        :meth:`block_index` along it."""
+        names = _names(self, axis)
+        if names not in self._axis_groups:  # the names in another order
+            self._axis_groups[names] = self._split(names)
+        return self._axis_groups[names]
+
+    def _split(self, names: Tuple[str, ...]) -> CollectiveGroup:
+        # Ranks laid out on the mesh, the other axes first and ``names``
+        # last: each row is one part, in block-index order.
+        others = [a for a in self.axis_names if a not in names]
+        order = [self.axis_names.index(a) for a in (*others, *names)]
+        ranks = np.arange(self.group.world_size).reshape(tuple(self.shape.values()))
+        parts = ranks.transpose(order).reshape(-1, _axis_size(self, names))
+        return self.group.split(parts.tolist())
+
     def all_reduce_many(self, tensors: Sequence[torch.Tensor], ops: Sequence[str],
                         axis: AxisSpec) -> list:
-        """Each tensor reduced with its op over ``axis``, which must be
-        every axis of the mesh (see the module docstring): the group's
-        ``CollectiveGroup.all_reduce_many``, one collective for all."""
-        _check_full_axis(self, axis)
-        return self.group.all_reduce_many(tensors, ops)
+        """Each tensor reduced with its op over ``axis``: the
+        ``CollectiveGroup.all_reduce_many`` of :meth:`axis_group`, one
+        collective for all."""
+        return self.axis_group(axis).all_reduce_many(tensors, ops)
 
     def __repr__(self) -> str:
         return f"Mesh(shape={self.shape}, rank={self.rank})"
@@ -92,17 +118,6 @@ def _names(mesh: Mesh, axis: AxisSpec) -> Tuple[str, ...]:
     if unknown or len(set(names)) != len(names):
         raise ValueError(f"axis {axis!r} is not a set of the mesh's axes {mesh.axis_names}")
     return names
-
-
-def _check_full_axis(mesh: Mesh, axis: AxisSpec) -> None:
-    names = _names(mesh, axis)
-    if names != mesh.axis_names:
-        raise NotImplementedError(
-            f"a reduction over {axis!r} on a mesh with axes {mesh.axis_names}: the port "
-            "reduces over every axis of the mesh, in mesh order; a sub-axis needs a "
-            "sub-group of the world, which comes with the process-group slice "
-            "(ROADMAP queue 1 item 6)."
-        )
 
 
 def _axis_size(mesh: Mesh, axis: AxisSpec) -> int:

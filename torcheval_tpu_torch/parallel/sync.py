@@ -65,7 +65,7 @@ from torcheval_tpu_torch.metrics.functional._host_checks import (
 )
 from torcheval_tpu_torch.metrics.functional.classification._sort_scan import class_hits
 from torcheval_tpu_torch.ops.binned import binned_counts, binned_weighted_counts
-from torcheval_tpu_torch.parallel.mesh import AxisSpec, Mesh, _check_full_axis
+from torcheval_tpu_torch.parallel.mesh import AxisSpec, Mesh
 from torcheval_tpu_torch.resilience import faults as _faults
 from torcheval_tpu_torch.telemetry import events as _telemetry
 
@@ -138,7 +138,7 @@ def make_synced_update(
     attempt emits a ``retry`` telemetry event when the bus is on, and each
     call a ``sync`` event: its host wall clock and the merged states'
     bytes."""
-    _check_full_axis(mesh, axis)
+    mesh.axis_group(axis)  # an unknown axis raises here, not at the first call
     op = f"synced_update:{getattr(kernel, '__name__', str(kernel))}"
 
     def attempt_call(*batch):
@@ -275,8 +275,7 @@ def _world_stats(
         (stats,) = to_host(local)
     else:
         stats = np.array([np.inf, -np.inf, 0.0])
-    _check_full_axis(mesh, axis)
-    world = mesh.group.all_gather_object((stats, n))
+    world = mesh.axis_group(axis).all_gather_object((stats, n))
     return (
         min(float(s[0]) for s, _ in world),
         max(float(s[1]) for s, _ in world),

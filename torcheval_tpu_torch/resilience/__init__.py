@@ -12,7 +12,7 @@ port of ``torcheval_tpu/resilience``).
 - :mod:`.faults`: :class:`FaultPlan`, seeded, site-named fault injection
   behind the same one-branch guards as the telemetry bus.
 - :mod:`.membership`: :class:`MembershipView`, live-rank tracking for the
-  hierarchical fleet merge (which comes with ROADMAP queue 1 item 6).
+  hierarchical fleet merge (``parallel/fleet_merge.py``).
 """
 
 from torcheval_tpu_torch.resilience import checkpoint, faults, membership, retry

@@ -1,6 +1,6 @@
 """Live-rank membership for the elastic fleet merge (the port of
-``torcheval_tpu/resilience/membership.py``; the fleet merge that feeds it
-comes with ROADMAP queue 1 item 6).
+``torcheval_tpu/resilience/membership.py``; the merge that feeds it is
+``parallel/fleet_merge.py``).
 
 A :class:`MembershipView` is one rank's picture of which peers are still
 alive.  There is no separate failure detector and no extra heartbeat
