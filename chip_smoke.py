@@ -378,6 +378,31 @@ times kernels and lifecycle with CUDA events.  Phases:
     ``sync_and_compute(topology="tree")``: the root's value bit-equal to
     the single-process headline, ``rank_sum.cu`` once at the root.  A child
     that fails fails the run.
+60. tools: the H100 row of ``tools.roofline`` read back for this card,
+    ``tools.flops_of`` on the flagship forward equal to the hand count and
+    its module summary with peak card memory, ``device_seconds`` of the
+    rank-sum kernel at the headline beside phase 5's CUDA-event time and
+    its roofline share (100 % or less), and ``ProfiledMetric`` around three
+    headline lifecycles (the same bits) beside phase 5's lifecycle time;
+61. routing: ``explain_route`` / ``route_kernel`` at the headline shapes
+    of phases 3, 4, 8, 12 and 13, each explained kernel the one
+    ``_build.LAUNCHES`` counts when the call then runs;
+62. ``aot.warmup(autotune=True)`` on the headline AUROC (sketch against
+    exact twins), on phase 8's CM + F1 at C = 1000, 200 and 64, on a lone
+    CM at C = 200 and on a binned + accuracy fold: the race rows with
+    their seconds, the states bit-equal to a warmup without autotune, no
+    plain version in a race or a decided run; then the measured crossovers
+    of the thresholds that came from TPU timings (the CM route's matmul
+    against the slab at C = 16-512, the rank route against the sort route
+    around ``_win_cap``), and why ``_RING_PACK_BYTES`` cannot be placed on
+    one card;
+63. text through the engine: phase 22's corpus WER (WER + WIP + WIL) and
+    phase 24's LM logits (+ WIP + WIL, ``Perplexity(ignore_index=-1)``)
+    through ``Evaluator``: one captured graph each, ``wavefront.cu``
+    launched 24 times inside the replay (the counters and the profiler),
+    every state bit-equal to the per-batch loop, the figures within 1e-6
+    (WER / WIP / WIL) and 1e-5 (perplexity) of phases 22 and 24's float64
+    oracles; timed beside the loop and phase 25's eager times.
 
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
@@ -4434,6 +4459,322 @@ def main(argv) -> int:
     print(f"times {card}: phases 55-59 together {time.perf_counter() - fleet_t0:.3f} s",
           flush=True)
 
+    # ------------------------------------------------------------ 60. tools
+    from torcheval_tpu_torch import routing, tools
+    from torcheval_tpu_torch import routing_autotune as autotune
+    from torcheval_tpu_torch.tools import profiling, roofline
+
+    late_t0 = time.perf_counter()
+    peaks = roofline.device_peaks()
+    print(f"roofline peak row for this card: {peaks}", flush=True)
+    check(peaks["exact"] and peaks["device_kind"] == device_kind
+          and peaks["hbm_gbps"] * 1e9 == HBM_BYTES_PER_S,
+          f"the H100 peak row read back for {device_kind!r}: {peaks['hbm_gbps']} GB/s, "
+          f"{peaks['flops']:.4g} FLOP/s dense BF16")
+    fl_model = FlagshipMLP(device=dev)
+    fl_x = torch.randn(1024, 32, device=dev, generator=gen)
+    fl_flops = tools.flops_of(fl_model, fl_x)
+    fl_hand = 2 * 1024 * (32 * 64 + 64 * 8)
+    fl_summary = tools.get_module_summary(fl_model, (fl_x,))
+    print(tools.get_summary_table(fl_summary), flush=True)
+    check(fl_flops == fl_hand == fl_summary.flops_forward and fl_summary.peak_memory_bytes > 0,
+          f"flops_of on the flagship forward {fl_flops} equals the hand count 2 x 1024 x "
+          f"(32 x 64 + 64 x 8) = {fl_hand}; the summary's peak card memory "
+          f"{fl_summary.peak_memory_bytes} B")
+    rank_dev_s = profiling.device_seconds(
+        lambda q, tb, i: rank_sum_counts(q, tb, negate=True), (s_all.T, tables2))
+    rank_bytes = n * c * 4 + tables2.numel() * 4 + tables2.shape[0] * 4
+    roof = roofline.roofline(flops=0.0, bytes_accessed=rank_bytes, seconds=rank_dev_s)
+    print(f"time {card}: rank_sum_counts at the headline, device_seconds {rank_dev_s * 1e3:.4f} "
+          f"ms a call (phase 5's CUDA events around one call: {rank_ms:.4f} ms); roofline "
+          f"{roof['achieved_gbps']:.1f} GB/s, {roof['hbm_pct']:.2f} % of {peaks['hbm_gbps']:.0f} "
+          f"GB/s, floor {roof['device_seconds_floor'] * 1e3:.4f} ms", flush=True)
+    check(0.0 < roof["hbm_pct"] <= 100.0,
+          f"the rank-sum kernel's roofline share at the headline reads {roof['hbm_pct']:.2f} % "
+          "(100 % or less)")
+    prof_metric = tools.ProfiledMetric(
+        MulticlassAUROC(num_classes=NUM_CLASSES, average=None), sync=True)
+    for _ in range(3):
+        prof_out = headline_lifecycle(prof_metric)
+    prof_rep = prof_metric.report()
+    check(torch.equal(prof_out, per_class) and prof_rep["update"]["calls"] == 3 * NUM_UPDATES
+          and prof_rep["compute"]["calls"] == 3 and prof_rep["reset"]["calls"] == 3,
+          "ProfiledMetric around 3 headline lifecycles: the same per-class bits, 24 updates, "
+          "3 computes, 3 resets")
+    print(tools.profile_summary_table([prof_metric]), flush=True)
+    prof_ms = (NUM_UPDATES * prof_rep["update"]["mean_ms"] + prof_rep["compute"]["mean_ms"]
+               + prof_rep["reset"]["mean_ms"])
+    print(f"time {card}: headline lifecycle under ProfiledMetric(sync=True): update "
+          f"{prof_rep['update']['mean_ms']:.4f} ms a call, compute "
+          f"{prof_rep['compute']['mean_ms']:.4f} ms, reset {prof_rep['reset']['mean_ms']:.4f} ms; "
+          f"a lifecycle {prof_ms:.3f} ms against phase 5's {life_ms:.3f} ms", flush=True)
+
+    # ---------------------------------------------------------- 61. routing
+    import torcheval_tpu_torch.metrics.functional as TF
+
+    routes61 = [
+        ("phase 3: the headline MulticlassAUROC", TF.multiclass_auroc, (s_all, t_all),
+         {"num_classes": NUM_CLASSES}, None),
+        ("phase 13: the headline MulticlassAUPRC", TF.multiclass_auprc, (s_all, t_all),
+         {"num_classes": NUM_CLASSES}, None),
+        ("phase 4: BinaryAUROC on 2^22", TF.binary_auroc, (xb_dev, yb_dev), {}, None),
+        ("phase 4: the headline, rank route off", TF.multiclass_auroc, (s_all, t_all),
+         {"num_classes": NUM_CLASSES}, "TORCHEVAL_TPU_TORCH_DISABLE_USTAT"),
+        ("phase 8: the confusion matrix at C = 1000", TF.multiclass_confusion_matrix,
+         (p_chunks[0], y_chunks[0]), {"num_classes": CM_CLASSES}, None),
+        ("phase 8: macro F1 at C = 1000", TF.multiclass_f1_score, (p_chunks[0], y_chunks[0]),
+         {"num_classes": CM_CLASSES, "average": "macro"}, None),
+        (f"phase 12: the binned update (1, 2^19) x {BINNED_THRESHOLDS}", TF.binary_binned_auroc,
+         (b_s_chunks[0], b_t_chunks[0]), {"threshold": BINNED_THRESHOLDS}, None),
+    ]
+    for label, fn, args61, kw61, flag in routes61:
+        if flag:
+            os.environ[flag] = "1"
+        try:
+            text61 = routing.explain_route(fn, *args61, **kw61)
+            key61 = routing.route_kernel(fn, *args61, **kw61)
+            _build.reset_counts()
+            fn(*args61, **kw61)
+            torch.cuda.synchronize()
+            launched61 = dict(_build.LAUNCHES)
+            plain61 = dict(_build.PLAIN_CALLS)
+        finally:
+            if flag:
+                del os.environ[flag]
+        print(f"explain_route, {label}: {text61}", flush=True)
+        check(key61 is not None and launched61 == {key61: 1} and not plain61,
+              f"{label}: the explained kernel {key61} is the one the call launched "
+              f"({launched61})")
+
+    # --------------------------------------------------------- 62. autotune
+    store62 = tempfile.mkdtemp(prefix="chip_smoke_route_costs_")
+    os.environ["TORCHEVAL_TPU_TORCH_AUTOTUNE_DIR"] = store62
+    autotune.clear()
+    race_launches = {}
+
+    def same_states(a, b):
+        """Bit-equal states, sample-buffer lists included."""
+        def eq(x, y):
+            if isinstance(x, torch.Tensor):
+                return isinstance(y, torch.Tensor) and x.dtype == y.dtype and torch.equal(x, y)
+            if isinstance(x, (list, tuple)):
+                return len(x) == len(y) and all(eq(u, v) for u, v in zip(x, y))
+            return x == y
+
+        sa, sb = a.state_dict(), b.state_dict()
+        return sa.keys() == sb.keys() and all(eq(sa[k], sb[k]) for k in sa)
+
+    try:
+        def race_pair(label, make, batch, first):
+            """aot.warmup(autotune=True) on one of two twins, plain warmup on
+            the other, each after the same first update: the states stay
+            bit-equal, and no candidate takes a plain version."""
+            raced, plain_twin = make(), make()
+            for m in (raced, plain_twin):
+                m.update(*first)
+            keys0 = {(r["decision"], r["signature"], r["choice"]) for r in autotune.store_rows()}
+            _build.reset_counts()
+            t0 = time.perf_counter()
+            aot.warmup(raced, batch, autotune=True)
+            torch.cuda.synchronize()
+            race_s = time.perf_counter() - t0
+            launched = dict(_build.LAUNCHES)
+            check(not _build.PLAIN_CALLS, f"{label}: the race took no plain version")
+            aot.warmup(plain_twin, batch)
+            check(same_states(raced, plain_twin),
+                  f"{label}: states bit-equal to a warmup without autotune")
+            new_rows = [r for r in autotune.store_rows()
+                        if (r["decision"], r["signature"], r["choice"]) not in keys0]
+            print(f"race {card}: {label}: {len(new_rows)} new rows in {race_s:.3f} s, "
+                  f"launches {launched}", flush=True)
+            for row in sorted(new_rows, key=lambda r: (r["decision"], r["choice"])):
+                print(f"race row {card}: {label}: {row['decision']} [{row['signature']}] "
+                      f"{row['choice']}: {row['seconds'] * 1e3:.4f} ms ({row['site']}, "
+                      f"{row['device_kind']})", flush=True)
+            for decision, sig in sorted({(r["decision"], r["signature"]) for r in new_rows}):
+                pref = autotune.preference(decision, sig)
+                print(f"measured {card}: {label}: {decision} picks {pref['choice']} "
+                      f"{pref['seconds'] * 1e3:.4f} ms over {pref['alt_choice']} "
+                      f"{pref['alt_seconds'] * 1e3:.4f} ms", flush=True)
+            for key, count in launched.items():
+                race_launches[key] = race_launches.get(key, 0) + count
+
+        race_pair("the headline MulticlassAUROC(1000) (sketch vs exact twins)",
+                  lambda: MulticlassAUROC(num_classes=NUM_CLASSES), (s_all, t_all),
+                  (s_chunks[0], t_chunks[0]))
+
+        def cm_f1(cls):
+            return lambda: MetricCollection({
+                "cm": MulticlassConfusionMatrix(num_classes=cls),
+                "f1": MulticlassF1Score(num_classes=cls, average="macro")})
+
+        for cls in (CM_CLASSES, 200, 64):
+            pb, yb62 = p_chunks[0] % cls, y_chunks[0] % cls
+            race_pair(f"CM + F1 at C = {cls} (2^17 int32 pairs)", cm_f1(cls), (pb, yb62),
+                      (pb, yb62))
+        # A batch of 2^16, so its signature is its own: the store keys a
+        # decision on the batch's shapes, not on the members.
+        one_p, one_y = p_chunks[0][:2**16] % 200, y_chunks[0][:2**16] % 200
+        race_pair("CM alone at C = 200, 2^16 pairs (one member: the auto rule declines)",
+                  lambda: MetricCollection({"cm": MulticlassConfusionMatrix(num_classes=200)}),
+                  (one_p, one_y), (one_p, one_y))
+        fold_s, fold_t = b_s_chunks[0][:2**16], b_t_chunks[0][:2**16].to(torch.int32)
+        race_pair("BinaryBinnedAUROC(512) + BinaryAccuracy at 2^16",
+                  lambda: MetricCollection({"binned": BinaryBinnedAUROC(threshold=512),
+                                            "acc": BinaryAccuracy()}),
+                  (fold_s, fold_t), (fold_s, fold_t))
+        rows62 = autotune.store_rows()
+        decided = {r["decision"] for r in rows62}
+        check(decided == {"megakernel", "cm_row_chunk", "rank_sketch"}
+              and all(r["device_kind"] == device_kind and r["site"] == "race" for r in rows62)
+              and os.path.exists(autotune.store_path()),
+              f"race rows for {sorted(decided)} stamped with this card, persisted")
+        # A decided run: the measured picks route, and still no plain version.
+        for cls in (200, 64):
+            decided_col = cm_f1(cls)()
+            _build.reset_counts()
+            decided_col.fused_update(p_chunks[0] % cls, y_chunks[0] % cls)
+            torch.cuda.synchronize()
+            check(not _build.PLAIN_CALLS,
+                  f"C = {cls}: a fused_update decided by the store takes no plain version "
+                  f"({dict(_build.LAUNCHES)})")
+
+        # Crossovers of the thresholds that came from TPU timings.
+        from torcheval_tpu_torch.metrics.functional.classification.confusion_matrix import (
+            _confusion_matrix_update_kernel,
+        )
+        from torcheval_tpu_torch.ops.ustat import _win_cap
+
+        cm_cross = []
+        for cls in (16, 32, 64, 128, 256, 512):
+            pb, yb62 = p_chunks[0] % cls, y_chunks[0] % cls
+            mm = _confusion_matrix_update_kernel(pb, yb62, cls, "matmul")
+            sl = _confusion_matrix_update_kernel(pb, yb62, cls, "pallas")
+            check(torch.equal(mm, sl), f"C = {cls}: the matmul and slab routes' matrices equal")
+            mm_ms = median_ms(lambda: _confusion_matrix_update_kernel(pb, yb62, cls, "matmul"))
+            sl_ms = median_ms(lambda: _confusion_matrix_update_kernel(pb, yb62, cls, "pallas"))
+            cm_cross.append((cls, mm_ms, sl_ms))
+            print(f"crossover {card}: CM route at N = 2^17, C = {cls}: one-hot matmul "
+                  f"{mm_ms:.4f} ms, cm_slab.cu {sl_ms:.4f} ms (static rule: "
+                  f"{'matmul' if cls <= 64 else 'slab'})", flush=True)
+        slab_wins = [cls for cls, mm_ms, sl_ms in cm_cross if sl_ms < mm_ms]
+        print(f"crossover {card}: the slab is faster from C = "
+              f"{min(slab_wins) if slab_wins else 'none of 16-512'}; the static rule keeps the "
+              "matmul to C = 64", flush=True)
+
+        ustat_cross = []
+        u_rng = torch.Generator(device=dev).manual_seed(62)
+        for un, uc in ((2**15, 1000), (2**15, 200), (2**15, 100), (2**17, 1000), (2**18, 1000),
+                       (2**18, 300)):
+            us = torch.rand(un, uc, device=dev, generator=u_rng)
+            ut = torch.randint(0, uc, (un,), device=dev, generator=u_rng)
+            most = int(torch.bincount(ut, minlength=uc).max())
+            cap = 16
+            while cap < most:
+                cap *= 2
+            static = _win_cap(most, un)
+            rank_val = TF.multiclass_auroc(us, ut, num_classes=uc, ustat_cap=cap)
+            r_ms = host_median_ms(lambda: TF.multiclass_auroc(us, ut, num_classes=uc,
+                                                              ustat_cap=cap))
+            os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
+            try:
+                sort_val = TF.multiclass_auroc(us, ut, num_classes=uc)
+                s_ms = host_median_ms(lambda: TF.multiclass_auroc(us, ut, num_classes=uc))
+            finally:
+                del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
+            gap = abs(float(rank_val) - float(sort_val))
+            check(gap <= TOL, f"N = {un}, C = {uc}: rank and sort routes within {TOL} ({gap:.2e})")
+            ustat_cross.append((un, uc, cap, static, r_ms, s_ms))
+            print(f"crossover {card}: rank vs sort at N = {un}, C = {uc} (largest class {most}, "
+                  f"cap {cap}; _win_cap {'takes the rank route' if static else 'keeps the sort'}"
+                  f"): rank {r_ms:.3f} ms, sort {s_ms:.3f} ms a call", flush=True)
+            del us, ut
+        print(f"crossover {card}: parallel/exact.py's _RING_PACK_BYTES (1 GiB) not decided: "
+              "the ring bounds a rank's peak memory, not its time, and one card's LocalWorld "
+              "ranks share one device and pass packs through host pickles, so no run here "
+              "can place the crossover", flush=True)
+    finally:
+        autotune.disable()
+        autotune.clear()
+        del os.environ["TORCHEVAL_TPU_TORCH_AUTOTUNE_DIR"]
+        shutil.rmtree(store62, ignore_errors=True)
+
+    # ------------------------------------------ 63. text through the engine
+    def word_members():
+        return {"wer": WordErrorRate(), "wip": WordInformationPreserved(),
+                "wil": WordInformationLost()}
+
+    def text_engine(label, make, stream, steps_launches, capture_launches):
+        """One engine and one per-batch loop over ``stream``: the cold run
+        captures once (one eager warm-up step first), the warm run replays;
+        returns (engine, collection, result, warm launches)."""
+        eng_col, loop_col = make(), make()
+        ev63 = Evaluator(eng_col, block_size=NUM_UPDATES)
+        loop_out = per_batch(loop_col, stream)
+        captures0 = _stats.trace_count()
+        _build.reset_counts()
+        engine_lifecycle(ev63, stream)
+        torch.cuda.synchronize()
+        cold63 = dict(_build.LAUNCHES)
+        _build.reset_counts()
+        out63 = engine_lifecycle(ev63, stream)
+        torch.cuda.synchronize()
+        warm63 = dict(_build.LAUNCHES)
+        check(_stats.trace_count() - captures0 == ev63.runner.captures == 1
+              and cold63 == {"edit_distance_tokens": capture_launches + steps_launches}
+              and warm63 == {"edit_distance_tokens": steps_launches} and not _build.PLAIN_CALLS,
+              f"{label} through the engine: one captured graph, edit_distance_tokens "
+              f"{steps_launches} times a replay (cold {cold63}: and {capture_launches} of the "
+              "eager warm-up step), no plain version")
+        check(states_equal(eng_col, loop_col)
+              and all(torch.equal(out63[k], loop_out[k]) for k in loop_out),
+              f"{label}: every state and figure bit-equal to the per-batch fused_update loop")
+        prof63, dev63 = kernel_launches(lambda: engine_lifecycle(ev63, stream), "wavefront_kernel")
+        print(f"profiler: wavefront.cu device launches in one warmed {label} engine lifecycle: "
+              f"{prof63}, {dev63} ms of device time", flush=True)
+        check(prof63 in (None, steps_launches),
+              f"the profiler sees wavefront.cu {steps_launches} times inside the replay")
+        return ev63, eng_col, out63, warm63["edit_distance_tokens"], prof63, dev63
+
+    wer63_ev, wer63_col, wer63_out, wer63_launches, _, _ = text_engine(
+        "corpus WER (WER + WIP + WIL, 8 x (8192, 256))",
+        lambda: MetricCollection(word_members(), bucket=True), wer_batches,
+        3 * NUM_UPDATES, 3)
+    check(all(float(getattr(wer63_col[m], "errors")) == n_err
+              and float(getattr(wer63_col[m], "target_total")) == n_ref
+              and float(getattr(wer63_col[m], "input_total")) == n_hyp
+              for m in ("wer", "wip", "wil")),
+          "corpus WER through the engine: the three counters equal the native DP's sums")
+    for name, want in (("wer", n_err / n_ref), ("wip", wip64), ("wil", 1.0 - wip64)):
+        err = abs(float(wer63_out[name]) - want) / want
+        check(err <= TOL, f"engine corpus {name} vs float64: relative err {err:.3e}")
+    lm63_ev, lm63_col, lm63_out, lm63_launches, lm63_prof, lm63_dev = text_engine(
+        "LM logits (WER + WIP + WIL + Perplexity(ignore_index=-1), 8 x (2, 256, 8192))",
+        lambda: MetricCollection({**word_members(), "ppl": Perplexity(ignore_index=-1)},
+                                 bucket=True, min_bucket=2),
+        lm_batches, 3 * NUM_UPDATES, 3)
+    ppl63_err = abs(float(lm63_out["ppl"]) - ppl64) / ppl64
+    check(ppl63_err <= PPL_TOL and float(lm63_col["wer"].errors) == lm_native
+          and float(lm63_col["ppl"].num_total) == lm_target.size,
+          f"engine perplexity {float(lm63_out['ppl'])!r} vs float64 {ppl64!r}: relative err "
+          f"{ppl63_err:.3e}; token error counters equal the native DP's {lm_native}")
+    wer63_ms, wer63_loop_ms = turns_ms([lambda: engine_lifecycle(wer63_ev, wer_batches),
+                                        lambda: per_batch(MetricCollection(word_members()),
+                                                          wer_batches)])
+    lm63_ms, lm63_loop_ms = turns_ms([lambda: engine_lifecycle(lm63_ev, lm_batches),
+                                      lambda: per_batch(MetricCollection(
+                                          {**word_members(), "ppl": Perplexity(ignore_index=-1)}),
+                                          lm_batches)])
+    print(f"times {card}: corpus WER through the engine, 5 turns, median (min-max): engine "
+          f"{spread(wer63_ms)}, per-batch fused_update loop {spread(wer63_loop_ms)} (phase 25 in "
+          f"this run, update() with checks: {wer_life_ms:.3f} ms)", flush=True)
+    print(f"times {card}: LM logits (+ WIP + WIL) through the engine, 5 turns, median "
+          f"(min-max): engine {spread(lm63_ms)}, per-batch fused_update loop "
+          f"{spread(lm63_loop_ms)} (phase 25 in this run, Perplexity + WordErrorRate with "
+          f"update(): {lm_ms:.3f} ms)", flush=True)
+    print(f"times {card}: phases 60-63 together {time.perf_counter() - late_t0:.3f} s",
+          flush=True)
+
     # ------------------------------------------------------ the kernels line
     kernels = [
         {
@@ -4570,6 +4911,7 @@ def main(argv) -> int:
             "sketch_fold_device_ms": (None if fold_mega_ms is None
                                       else fold_mega_ms / fold_prof),
             "fleet_engine_launches": fleet_engine_launches,
+            "race_launches": race_launches.get("mega_counts", 0),
             "verdict": "bit-equal",
         },
         {
@@ -4584,6 +4926,10 @@ def main(argv) -> int:
             "bound_ms": wave_bound,
             "bound_by": wave_by,
             "library_ms": None,
+            "engine_launches": wer63_launches,
+            "lm_engine_launches": lm63_launches,
+            "lm_engine_device_ms": (None if lm63_dev is None
+                                    else lm63_dev / (lm63_prof or 1)),
             "verdict": "bit-equal",
         },
         {

@@ -84,9 +84,27 @@ def test_tile_to_cycles_real_rows():
     assert aot._tile_to(t, 3) is t
 
 
-def test_autotune_waits_for_routing_autotune():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        aot.warmup(_col(), _batch(8), autotune=True)
+def test_autotune_waits_for_routing_autotune(monkeypatch):
+    # routing_autotune is ported: autotune=True races the collection
+    # kernel and the one-hot row height instead of raising, and leaves
+    # the states as they were.
+    from torcheval_tpu_torch import routing_autotune as ra
+
+    for flag in ("AUTOTUNE", "AUTOTUNE_DIR", "MEGAKERNEL", "CM_ROW_CHUNK"):
+        monkeypatch.delenv("TORCHEVAL_TPU_TORCH_" + flag, raising=False)
+    ra.clear()
+    try:
+        col = _col()
+        col.update(*_batch(8))
+        before = {k: v.clone() for k, v in col.state_dict().items()}
+        assert aot.warmup(col, _batch(8), autotune=True) == (128,)
+        assert all(torch.equal(before[k], v) for k, v in col.state_dict().items())
+        assert ra.ENABLED
+        assert {(r["decision"], r["site"]) for r in ra.store_rows()} == {
+            ("megakernel", "race"), ("cm_row_chunk", "race")}
+    finally:
+        ra.disable()
+        ra.clear()
 
 
 def test_empty_example_raises():

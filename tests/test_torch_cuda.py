@@ -6,6 +6,8 @@ a GPU.  This file imports no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1859,3 +1861,103 @@ def test_rank_sketch_fleet_merge_on_the_card_equals_the_flat_sketch_sync():
             policy=MergePolicy(level_deadline=30.0)))
         assert launches == {"binned_counts": 8} and not plain
         assert all(torch.equal(o.value.to(dev), flat[0]) for o in outs), topology
+
+
+def _text_family_card(dev, seq=12, vocab=9):
+    from torcheval_tpu_torch.metrics import (
+        MetricCollection,
+        Perplexity,
+        WordErrorRate,
+        WordInformationLost,
+        WordInformationPreserved,
+    )
+
+    return MetricCollection(
+        {"wer": WordErrorRate(device=dev), "wip": WordInformationPreserved(device=dev),
+         "wil": WordInformationLost(device=dev), "ppl": Perplexity(ignore_index=-1, device=dev)},
+        bucket=True,
+    )
+
+
+def test_text_family_replay_launches_the_wavefront_kernel_inside_the_graph():
+    """Phase 63 at a small size: WER + WIP + WIL + Perplexity through the
+    engine, one capture a bucket, edit_distance_tokens launched inside
+    every replay (one a member a step), the states bit-equal to the
+    per-batch loop."""
+    from torcheval_tpu_torch import _stats
+    from torcheval_tpu_torch.engine import Evaluator
+
+    dev = _cuda()
+    rng = np.random.default_rng(63)
+    batches = []
+    for b in (16, 16, 9, 16, 5, 16, 16, 12):
+        x = rng.normal(size=(b, 12, 9)).astype(np.float32)
+        t = rng.integers(0, 9, (b, 12)).astype(np.int32)
+        t[np.arange(12)[None, :] >= rng.integers(1, 13, b)[:, None]] = -1
+        batches.append((torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev)))
+    ref = _text_family_card(dev)
+    for b in batches:
+        ref.fused_update(*b)
+    col = _text_family_card(dev)
+    ev = Evaluator(col, block_size=4)
+    captures = _stats.trace_count()
+    _build.reset_counts()
+    ev.run(batches)
+    torch.cuda.synchronize()
+    assert _stats.trace_count() - captures == ev.runner.captures == 1
+    assert ev.runner.replays == 2
+    # Three word members a step: the eager warm-up step, then 4 steps a replay.
+    assert dict(_build.LAUNCHES) == {"edit_distance_tokens": 3 * (1 + 4 * 2)}
+    assert not _build.PLAIN_CALLS
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        col.reset()
+        ev.run(batches)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if "wavefront" in e.key]
+    if kernels:  # the profiler's device rows, where the sandbox gives them
+        assert sum(e.count for e in kernels) == 3 * 4 * 2
+    for k, v in ref.state_dict().items():
+        assert torch.equal(col.state_dict()[k], v), k
+
+
+def test_autotune_race_on_the_card_writes_rows_keeps_states_and_takes_no_plain_version(
+        monkeypatch, tmp_path):
+    """aot.warmup(autotune=True) on the card: race rows for the collection
+    kernel (mega.cu against cm_slab.cu) and the one-hot row height, the
+    states as they were, and neither the race nor a decided run sends a
+    CUDA tensor to a plain version."""
+    from torcheval_tpu_torch import aot
+    from torcheval_tpu_torch import routing_autotune as ra
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    dev = _cuda()
+    monkeypatch.setenv("TORCHEVAL_TPU_TORCH_AUTOTUNE_DIR", str(tmp_path))
+    for flag in ("MEGAKERNEL", "CM_ROW_CHUNK", "AUTOTUNE"):
+        monkeypatch.delenv("TORCHEVAL_TPU_TORCH_" + flag, raising=False)
+    ra.clear()
+    try:
+        rng = np.random.default_rng(17)
+        for c in (200, 32):
+            col = MetricCollection({
+                "cm": MulticlassConfusionMatrix(num_classes=c, device=dev),
+                "f1": MulticlassF1Score(num_classes=c, average="macro", device=dev)})
+            p = torch.from_numpy(rng.integers(0, c, 2**15)).to(dev)
+            y = torch.from_numpy(rng.integers(0, c, 2**15)).to(dev)
+            col.update(p, y)
+            before = {k: v.clone() for k, v in col.state_dict().items()}
+            _build.reset_counts()
+            aot.warmup(col, (p, y), autotune=True)
+            torch.cuda.synchronize()
+            assert not _build.PLAIN_CALLS and _build.LAUNCHES
+            assert all(torch.equal(before[k], v) for k, v in col.state_dict().items())
+            _build.reset_counts()
+            col.fused_update(p, y)  # decided by the measured pick
+            torch.cuda.synchronize()
+            assert not _build.PLAIN_CALLS
+        rows = ra.store_rows()
+        assert {r["decision"] for r in rows} == {"megakernel", "cm_row_chunk"}
+        assert all(r["device_kind"] == torch.cuda.get_device_name(0) for r in rows)
+        assert os.path.exists(ra.store_path())
+    finally:
+        ra.disable()
+        ra.clear()

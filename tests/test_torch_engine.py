@@ -645,3 +645,125 @@ def test_capture_counter_counts_once_a_signature():
     after = _stats.trace_counts()
     assert sum(after.values()) - sum(before.values()) == 2  # buckets 128 and 256
     assert after.get("mega_scan", 0) - before.get("mega_scan", 0) == 2
+
+
+# ------------------------------------------------- the text family (engine)
+# Ported from tests/metrics/test_text.py::TestTextFusionOneProgram: WER,
+# WIL and Perplexity ride one engine block program (on the card, one
+# captured graph with wavefront.cu inside; here the eager steps).
+_SEQ, _VOCAB = 12, 9
+
+
+def _logits_stream(sizes, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in sizes:
+        logits = rng.normal(size=(b, _SEQ, _VOCAB)).astype(np.float32)
+        lens = rng.integers(1, _SEQ + 1, b)
+        target = rng.integers(0, _VOCAB, (b, _SEQ)).astype(np.int32)
+        target[np.arange(_SEQ)[None, :] >= lens[:, None]] = -1
+        out.append((logits, target))
+    return out
+
+
+def _text_family(ns, ppl_only=False):
+    members = {"ppl": ns.Perplexity(ignore_index=-1, **_cpu(ns))}
+    if not ppl_only:
+        members = {"wer": ns.WordErrorRate(**_cpu(ns)),
+                   "wil": ns.WordInformationLost(**_cpu(ns)), **members}
+    kw = {"donate": False} if ns is jm else {}
+    return ns.MetricCollection(members, bucket=True, **kw)
+
+
+def _cpu(ns):
+    return {"device": "cpu"} if ns is tm else {}
+
+
+def test_text_family_is_one_block_program_and_matches_jax(monkeypatch):
+    from torcheval_tpu import _stats as jax_stats
+    from torcheval_tpu import telemetry as jax_telemetry
+
+    batches = _logits_stream((16,) * 8, seed=2)
+    before = _stats.trace_counts()
+    telemetry.enable()
+    col = _text_family(tm)
+    Evaluator(col, block_size=4).run(batches)
+    after = _stats.trace_counts()
+    # One program (one capture on the card) for the one bucket signature.
+    assert sum(after.values()) - sum(before.values()) == 1
+    assert after.get("engine_scan", 0) - before.get("engine_scan", 0) == 1
+    family = telemetry.report()["engine"]
+    assert family["blocks"] == 2
+    reset_all()
+    telemetry.enable()
+    Evaluator(_text_family(tm, ppl_only=True), block_size=4).run(batches)
+    ppl_only = telemetry.report()["engine"]
+    assert family["blocks"] == ppl_only["blocks"]
+    assert family["dispatches_per_batch"] == ppl_only["dispatches_per_batch"]
+    # The JAX engine on the same stream: the same block counts, the word
+    # counters bit-equal, perplexity within float32 summation order.
+    jax_telemetry.disable()
+    jax_telemetry.clear()
+    jax_telemetry.enable()
+    base = jax_stats.trace_count("engine_scan")
+    jcol = _text_family(jm)
+    JaxEvaluator(jcol, block_size=4).run(_jax_stream(batches))
+    assert jax_stats.trace_count("engine_scan") - base == 1
+    assert jax_telemetry.report()["engine"]["blocks"] == family["blocks"]
+    jax_telemetry.disable()
+    jax_telemetry.clear()
+    for name in ("wer", "wil"):
+        for state in ("errors", "target_total", "input_total"):
+            assert np.asarray(getattr(col[name], state)).tobytes() == np.asarray(
+                getattr(jcol[name], state)).tobytes(), f"{name}.{state}"
+    got, want = col.compute(), jcol.compute()
+    assert float(got["wer"]) == float(want["wer"]) and float(got["wil"]) == float(want["wil"])
+    assert float(got["ppl"]) == pytest.approx(float(want["ppl"]), rel=1e-6)
+    assert col["ppl"].num_total.item() == float(jcol["ppl"].num_total)
+
+
+def test_text_family_blocks_are_bit_equal_to_the_per_batch_loop():
+    batches = _logits_stream((5, 9, 3, 16, 7), seed=1)
+    col = _text_family(tm)
+    Evaluator(col, block_size=4).run(batches)
+    ref = _text_family(tm)
+    for b in batches:
+        ref.fused_update(*(torch.from_numpy(a) for a in b))
+    _assert_bitwise(col, ref)
+
+
+def test_text_engine_counters_bit_equal_to_host_strings_and_jax():
+    from torcheval_tpu.metrics.text._tokens import WordInterner as JaxInterner
+    from torcheval_tpu.metrics.text._tokens import tokenize_pairs as jax_tokenize
+
+    from torcheval_tpu_torch.metrics.text._tokens import WordInterner, tokenize_pairs
+
+    rng = np.random.default_rng(3)
+    words = [f"w{k}" for k in range(11)]
+
+    def sentence():
+        return " ".join(rng.choice(words, rng.integers(0, 9)))
+
+    string_batches = [([sentence() for _ in range(b)], [sentence() for _ in range(b)])
+                      for b in (6, 11, 4, 9, 7, 3)]
+    it, jit_ = WordInterner(), JaxInterner()
+    token_batches = [tokenize_pairs(h, r, interner=it) for h, r in string_batches]
+    jax_batches = [tuple(map(jnp.asarray, jax_tokenize(h, r, interner=jit_)))
+                   for h, r in string_batches]
+
+    def members(ns):
+        return {"wer": ns.WordErrorRate(**_cpu(ns)), "wip": ns.WordInformationPreserved(**_cpu(ns)),
+                "wil": ns.WordInformationLost(**_cpu(ns))}
+
+    col = tm.MetricCollection(members(tm), bucket=True)
+    Evaluator(col, block_size=3).run(token_batches)
+    jcol = jm.MetricCollection(members(jm), bucket=True, donate=False)
+    JaxEvaluator(jcol, block_size=3).run(jax_batches)
+    host = tm.WordErrorRate(device="cpu")
+    for h, r in string_batches:
+        host.update(h, r)
+    for name in ("wer", "wip", "wil"):
+        for state in ("errors", "target_total", "input_total"):
+            got = getattr(col[name], state).numpy().tobytes()
+            assert got == getattr(host, state).numpy().tobytes(), f"{name}.{state} vs host"
+            assert got == np.asarray(getattr(jcol[name], state)).tobytes(), f"{name}.{state} vs JAX"

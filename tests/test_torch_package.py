@@ -130,6 +130,13 @@ def test_sources_import_no_jax():
         "torcheval_tpu_torch/metrics/image/fid.py",
         "torcheval_tpu_torch/metrics/image/psnr.py",
         "torcheval_tpu_torch/metrics/image/ssim.py",
+        "torcheval_tpu_torch/tools/__init__.py",
+        "torcheval_tpu_torch/tools/flops.py",
+        "torcheval_tpu_torch/tools/module_summary.py",
+        "torcheval_tpu_torch/tools/profiling.py",
+        "torcheval_tpu_torch/tools/roofline.py",
+        "torcheval_tpu_torch/routing.py",
+        "torcheval_tpu_torch/routing_autotune.py",
     } <= scanned
     assert _FORBIDDEN.search("from __graft_entry__ import entry")
     assert _FORBIDDEN.search("import jax.numpy as jnp")
@@ -246,16 +253,27 @@ print(" ".join(torcheval_tpu_torch.__all__))
 """
 
 
-def test_top_level_exports_the_jax_layers_less_tools():
+def test_top_level_exports_the_jax_layers():
     import torcheval_tpu
 
-    # tools/ is still to port (ROADMAP queue 1).
-    assert set(torcheval_tpu_torch.__all__) == set(torcheval_tpu.__all__) - {"tools"}
+    assert set(torcheval_tpu_torch.__all__) == set(torcheval_tpu.__all__)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _TOP_LEVEL], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == torcheval_tpu_torch.__all__
+
+
+def test_tools_export_the_jax_names_that_have_a_counterpart():
+    import torcheval_tpu.tools as jax_tools
+
+    import torcheval_tpu_torch.tools as port_tools
+
+    # They read XLA's compiled objects (tools/flops.py's docstring).
+    absent = {"memory_stats_of", "normalize_cost_analysis"}
+    assert set(port_tools.__all__) == set(jax_tools.__all__) - absent
+    for name in port_tools.__all__:
+        assert getattr(port_tools, name) is not None
 
 
 def test_kv_timeout_flag_raises_on_a_bad_value(monkeypatch):

@@ -11,10 +11,10 @@ Metrics live on the GPU unless the caller asks for the CPU
 (``device="cpu"``); functional metrics run where their input tensors
 live and place numpy arrays and lists on the GPU.  ``flagship`` holds the
 torch twin of the JAX package's flagship eval step.  The top level
-exports the JAX package's layers less ``tools``, which is still to port.
+exports the JAX package's layers.
 """
 
-from torcheval_tpu_torch import aot, engine, metrics, resilience, telemetry
+from torcheval_tpu_torch import aot, engine, metrics, resilience, telemetry, tools
 from torcheval_tpu_torch.version import __version__
 
 __all__ = [
@@ -23,5 +23,6 @@ __all__ = [
     "metrics",
     "resilience",
     "telemetry",
+    "tools",
     "__version__",
 ]

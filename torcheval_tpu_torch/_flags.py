@@ -9,17 +9,19 @@ the telemetry, trace, flight-recorder, data-health and fault-plan switches
 are read once by their own modules at import (each module's ``enable()``
 turns it on later).  Integer flags are read through :func:`get_int`,
 tri-state flags (forced on, forced off, or unset for auto) through
-:func:`get_tristate`, the one path flag through :func:`get_str` and the
-fault plan through :func:`get_json`.  :func:`snapshot_non_default` lists
+:func:`get_tristate`, the path flags through :func:`get_str` and the
+fault plan through :func:`get_json`; :func:`overridden` sets one for a
+block (the route races of ``aot.warmup(autotune=True)``).  :func:`snapshot_non_default` lists
 every flag set away from its default (the flight recorder writes it into
 each bundle).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 PREFIX = "TORCHEVAL_TPU_TORCH_"
 
@@ -89,6 +91,13 @@ INT_FLAGS: Dict[str, Tuple[int, str, str]] = {
         "e.g. the engine's captured CUDA graphs, one a block signature "
         "(read when a cache is built).",
     ),
+    "AUTOTUNE_PROBE_BUDGET": (
+        8,
+        "strict_positive",
+        "How many candidate timings one aot.warmup(autotune=True) call may run "
+        "(routing_autotune.probe_budget); anything but a positive integer raises "
+        "(read per call).",
+    ),
     "KV_TIMEOUT_MS": (
         600_000,
         "strict_positive",
@@ -105,6 +114,11 @@ STR_FLAGS: Dict[str, str] = {
     "FLIGHTREC_DIR": (
         "Directory the flight recorder writes its bundles under (default "
         "./flightrec; read at import)."
+    ),
+    "AUTOTUNE_DIR": (
+        "Directory of the measured route-cost store "
+        "(torcheval_tpu_torch_route_costs.json); unset keeps the store in memory "
+        "and leaves the AUTOTUNE auto mode off (read per call)."
     ),
 }
 
@@ -134,6 +148,12 @@ TRISTATE_FLAGS: Dict[str, str] = {
         "anything else the exact sample buffers (read at construction; the "
         "engine's route token carries it). It chooses a layout, never a "
         "plain version for a GPU tensor."
+    ),
+    "AUTOTUNE": (
+        "The measured route-cost layer (routing_autotune): truthy on, falsy off "
+        "(and aot.warmup(autotune=True) races nothing), unset on exactly when "
+        "AUTOTUNE_DIR names a directory (read at import; enable() / disable() "
+        "flip it later). An explicit route flag always outranks a measured pick."
     ),
 }
 
@@ -210,6 +230,29 @@ def get_tristate(name: str) -> Optional[bool]:
     if raw in FALSY:
         return False
     return None
+
+
+@contextlib.contextmanager
+def overridden(name: str, raw: Optional[str]) -> Iterator[None]:
+    """Set ``TORCHEVAL_TPU_TORCH_<name>`` to ``raw`` (``None``: unset) for
+    the enclosed block, then put back what was there: how a route race
+    forces each candidate through the flag a user would pin."""
+    if not any(name in table for table in (
+            FLAGS, INT_FLAGS, STR_FLAGS, JSON_FLAGS, TRISTATE_FLAGS)):
+        raise KeyError(f"unknown flag {name!r}")
+    env = PREFIX + name
+    before = os.environ.get(env)
+    try:
+        if raw is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = raw
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = before
 
 
 def snapshot_non_default() -> Dict[str, Any]:

@@ -81,18 +81,34 @@ def warmup(
     :meth:`~torcheval_tpu_torch.engine.Evaluator.warmup`, which captures
     the block graph of every swept bucket (``fused`` does not apply).
 
-    ``autotune=True`` (the JAX package's route racing) needs the
-    measured-cost store, ``routing_autotune``, which the port does not
-    have yet (ROADMAP queue 1 item 8): it raises ``NotImplementedError``.
+    ``autotune=True`` also RACES the top-2 candidates of each routing
+    decision that is a real choice at the warmed shape, and records the
+    wall-clock outcomes as ``site="race"`` rows of the route-cost store
+    (:mod:`torcheval_tpu_torch.routing_autotune`), which then decides the
+    auto routes (the layer is turned on for the process):
+
+    * ``megakernel`` on a collection's ``fused_update`` whose members the
+      forced-on plan covers: the collection kernel (``mega.cu``) against
+      each member on its own kernels (``cm_slab.cu``, ``binned_count.cu``);
+    * ``cm_row_chunk`` where a confusion-matrix member takes the one-hot
+      matmul route at this shape: the flag's row height against twice it;
+    * ``rank_sketch`` for a ``BinaryAUROC``, ``BinaryAUPRC`` or
+      ``MulticlassAUROC``, on fresh twins (one update and one compute
+      each): advice only, never a change of the metric's state layout.
+
+    Each candidate is forced through the flag a user would pin
+    (``_flags.overridden``), so it launches exactly that route's kernels;
+    no candidate sends a CUDA tensor to a plain version.  The race runs at
+    most ``TORCHEVAL_TPU_TORCH_AUTOTUNE_PROBE_BUDGET`` candidate timings
+    (default 8), skips a decision the store already measured for this
+    shape, flags and card, and an explicit ``TORCHEVAL_TPU_TORCH_AUTOTUNE=0``
+    outranks the argument and races nothing.  The snapshot restore erases
+    what the race wrote into the states.  An ``Evaluator`` warms its own
+    blocks and races nothing.
     """
     from torcheval_tpu_torch.engine import Evaluator
     from torcheval_tpu_torch.metrics.collection import MetricCollection
 
-    if autotune:
-        raise NotImplementedError(
-            "aot.warmup(autotune=True) races routes through routing_autotune, which "
-            "the port does not have yet (ROADMAP queue 1 item 8)."
-        )
     if isinstance(metric_or_collection, Evaluator):
         return metric_or_collection.warmup(example_batch, max_batch=max_batch, sizes=sizes)
 
@@ -128,6 +144,156 @@ def warmup(
     try:
         for b in sweep:
             entry(*(_tile_to(a, b) for a in arrays))
+        if autotune:
+            _race_routes(obj, entry, arrays, max(sweep), is_collection)
     finally:
         obj.load_state_dict(snapshot)
     return tuple(sweep)
+
+
+# Members whose (C, C) counts follow the confusion-matrix route, and so
+# read the row height where that route is the one-hot matmul.
+_CM_CLASSES = (
+    "MulticlassConfusionMatrix",
+    "MulticlassF1Score",
+    "MulticlassPrecision",
+    "MulticlassRecall",
+)
+_SKETCH_CLASSES = ("BinaryAUROC", "BinaryAUPRC", "MulticlassAUROC")
+
+
+def _takes_matmul(member: Any, batch: Tuple[Any, ...]) -> bool:
+    """Whether ``member``'s update of ``batch`` counts through the one-hot
+    matmul route, the only route that reads the row height."""
+    from torcheval_tpu_torch.metrics.functional.classification.confusion_matrix import (
+        _cm_route,
+    )
+
+    if type(member).__name__ not in _CM_CLASSES:
+        return False
+    if getattr(member, "average", None) == "micro":
+        return False
+    num_classes = getattr(member, "num_classes", None)
+    if not isinstance(num_classes, int) or not batch:
+        return False
+    return _cm_route(num_classes, int(batch[0].shape[0])) == "matmul"
+
+
+def _sketch_twin(obj: Any, sketch: bool) -> Any:
+    kwargs = {"sketch": sketch, "device": obj.device}
+    if type(obj).__name__ == "MulticlassAUROC":
+        kwargs.update(num_classes=obj.num_classes, average=obj.average)
+    else:
+        kwargs["num_tasks"] = obj.num_tasks
+    return type(obj)(**kwargs)
+
+
+def _race_routes(obj, entry, arrays, top, is_collection) -> int:
+    """Race the top-2 candidates of each decision that is a real choice on
+    ``obj``'s warmed shape and persist the wall-clock outcomes as
+    ``site="race"`` rows.  Returns the number of candidate timings spent
+    (0 when the layer is explicitly off)."""
+    import time
+
+    from torcheval_tpu_torch import _flags
+    from torcheval_tpu_torch import routing_autotune as _autotune
+    from torcheval_tpu_torch.ops import _flags as _oflags
+
+    if _oflags.autotune_mode() is False:
+        return 0  # the explicit kill-switch outranks the argument
+    if not _autotune.ENABLED:
+        _autotune.enable()
+
+    batch = tuple(_tile_to(a, top) for a in arrays)
+    signature = _autotune.batch_signature(batch)
+    budget = _autotune.probe_budget()
+    spent = 0
+    device = getattr(obj, "device", None)
+    on_card = device is not None and torch.device(device).type == "cuda"
+
+    def sync() -> None:
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    def timed(call) -> float:
+        call()  # untimed: builds, loads and warms what the route launches
+        sync()
+        best = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            call()
+            sync()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    def race(decision, sig, candidates) -> None:
+        """candidates: [(choice, thunk), ...]."""
+        nonlocal spent
+        if spent + len(candidates) > budget:
+            return
+        pref = _autotune.preference(decision, sig)
+        if pref is not None and pref["kind"] == "measured":
+            return  # already raced for this shape, flag context and card
+        for choice, call in candidates:
+            seconds = timed(call)
+            _autotune.record_measurement(decision, choice, sig, seconds, site="race")
+            spent += 1
+
+    def under(flag, raw):
+        def call():
+            with _flags.overridden(flag, raw):
+                entry(*batch)
+
+        return call
+
+    members = list(obj._metrics.values()) if is_collection else [obj]
+
+    # Collection kernel on or off: only where the forced-on plan covers
+    # this collection (else there is nothing to choose).
+    if is_collection and getattr(entry, "__name__", "") == "fused_update":
+        from torcheval_tpu_torch.ops import _mega_plan
+
+        # The plan and its measured pick see the batch as fused_update
+        # does: on the collection's device, padded to its bucket; the
+        # pick is keyed on that batch and the plan's members.
+        prepared, kw = obj._prepare(batch, {})
+        with _flags.overridden("MEGAKERNEL", "1"):
+            plan = _mega_plan.plan_for(obj._metrics, prepared, kw, obj._slices)
+        if plan is not None:
+            race(
+                "megakernel",
+                _mega_plan.plan_signature(prepared, plan.members),
+                [("mega", under("MEGAKERNEL", "1")), ("fused", under("MEGAKERNEL", "0"))],
+            )
+
+    # One-hot row height: the flag's value against twice it.
+    if any(_takes_matmul(m, batch) for m in members):
+        base = _oflags.cm_row_chunk()
+        race(
+            "cm_row_chunk",
+            "*",
+            [
+                (str(base), under("CM_ROW_CHUNK", str(base))),
+                (str(base * 2), under("CM_ROW_CHUNK", str(base * 2))),
+            ],
+        )
+
+    # Sketch against exact: a construction-time state layout, so the race
+    # runs on fresh twins, and its rows stay advice.  The exact route
+    # defers its cost to compute(), so a step is one update and one
+    # compute.
+    if not is_collection and type(obj).__name__ in _SKETCH_CLASSES:
+        twins = [("sketch", _sketch_twin(obj, True)), ("sort", _sketch_twin(obj, False))]
+
+        def step(twin):
+            def call():
+                twin.reset()
+                twin.update(*batch)
+                twin.compute()
+
+            return call
+
+        race("rank_sketch", signature, [(choice, step(t)) for choice, t in twins])
+
+    _autotune.flush()
+    return spent

@@ -11,9 +11,11 @@ health and route-token setting) is captured once, ``block_size`` steps of
 :meth:`MetricCollection._scan_step` over static slot views of a static
 block buffer, and every block of that signature is one
 ``CUDAGraph.replay()``.  The collection kernel (``mega.cu``) and, for
-members past its plan, their own kernels (``cm_slab.cu``) run inside the
-graph; each step's result is bit-equal to a ``fused_update`` of the same
-padded batch, since it is the same body on the same tensors.
+members past its plan, their own kernels (``cm_slab.cu``,
+``binned_count.cu``, and ``wavefront.cu`` for the text family's token ids
+or logits) run inside the graph; each step's result is bit-equal to a
+``fused_update`` of the same padded batch, since it is the same body on
+the same tensors.
 
 A graph replays the addresses it captured, so the runner owns the states
 the graph reads and writes: every member state is a view of one flat

@@ -129,11 +129,9 @@ def _onehot_cm(
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """:func:`_onehot_cm_block` over row chunks of at most
-    ``TORCHEVAL_TPU_TORCH_CM_ROW_CHUNK`` rows (default 4096), summed with
-    exact f32 integer adds: the result is bit-identical at any chunking.
-    The JAX package may take the chunk from its measured-cost store
-    instead; that waits for the port of ``routing_autotune``."""
-    row_chunk = cm_row_chunk()
+    :func:`_cm_row_chunk` rows, summed with exact f32 integer adds: the
+    result is bit-identical at any chunking."""
+    row_chunk = _cm_row_chunk()
     n = t.shape[0]
     if n <= row_chunk:
         return _onehot_cm_block(t, p, width, mask)
@@ -143,6 +141,24 @@ def _onehot_cm(
         m = None if mask is None else mask[rows]
         acc = acc + _onehot_cm_block(t[rows], p[rows], width, m)
     return acc
+
+
+def _cm_row_chunk() -> int:
+    """Row cap of one one-hot block, resolved at call time: the
+    ``TORCHEVAL_TPU_TORCH_CM_ROW_CHUNK`` flag when it is set (an explicit
+    flag outranks a measurement), else the measured-cost layer's pick when
+    it is on and has raced chunk heights, else the flag's default (4096).
+    Chunking bounds the live one-hots to 2·chunk·width f32 and never
+    changes the counts, which is what makes the height safe to race."""
+    chunk = cm_row_chunk()
+    from torcheval_tpu_torch import routing_autotune as _autotune
+
+    if _autotune.ENABLED:
+        try:
+            chunk = int(_autotune.decide("cm_row_chunk", "*", str(chunk)))
+        except ValueError:  # a store row that is not an integer
+            pass
+    return chunk
 
 
 def _wrap_labels(x: torch.Tensor, num_classes: int) -> torch.Tensor:

@@ -48,3 +48,13 @@ def rank_sketch_enabled() -> bool:
     built with ``sketch=None``: only an explicit truthy flag engages the
     sketch states (auto means off)."""
     return rank_sketch_mode() is True
+
+
+def autotune_mode() -> Optional[bool]:
+    """Call-time tri-state read of ``TORCHEVAL_TPU_TORCH_AUTOTUNE`` (the
+    counterpart of the JAX package's ``autotune_mode``): True or False
+    when set, None (auto: on exactly when ``..._AUTOTUNE_DIR`` names the
+    store's directory) otherwise.  ``routing_autotune`` resolves it at
+    import; an explicit falsy value also makes ``aot.warmup(autotune=True)``
+    race nothing."""
+    return _flags.get_tristate("AUTOTUNE")

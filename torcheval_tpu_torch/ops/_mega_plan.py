@@ -33,8 +33,6 @@ Left out of the JAX module, each for a reason:
   kernel's VMEM tiling.  The CUDA kernel keeps counters in shared memory
   where they fit and in global memory (L2) where they do not, so no plan
   is infeasible for want of on-chip memory.
-* the ``routing_autotune`` branch of auto mode: the measured-cost layer
-  is not ported yet.
 * the wavefront mode, the Pallas switch and the backend in
   :func:`route_token`: the port has no such switches, and its graphs are
   keyed by device already.
@@ -287,13 +285,39 @@ def route_token() -> Tuple[Any, ...]:
     collection kernel's mode, the matmul confusion-matrix row chunk, the
     rank-sum switch and the rank-sketch state layout).  The engine keys
     its captured graphs under it, so a flag flipped mid-stream captures
-    anew instead of replaying a stale route."""
-    return (
+    anew instead of replaying a stale route.  While the measured-cost
+    layer is on, the store's epoch rides along: a new measurement
+    recaptures through the same key, with no rebuild rule of its own;
+    off, the token is exactly the static tuple."""
+    token = (
         _oflags.megakernel_mode(),
         _oflags.cm_row_chunk(),
         _oflags.ustat_disabled(),
         _oflags.rank_sketch_mode(),
     )
+    from torcheval_tpu_torch import routing_autotune as _autotune
+
+    if _autotune.ENABLED:
+        return token + (_autotune.EPOCH,)
+    return token
+
+
+def plan_signature(args: Tuple[Any, ...], members) -> str:
+    """The measured-cost store's key of the collection-kernel decision:
+    the batch's shapes and dtypes (``routing_autotune.batch_signature``)
+    plus the supported members' accumulation specs.  The JAX package keys
+    this decision on the batch alone, so two collections of different
+    members share one row when their batches have the same shapes (a
+    C = 64 and a C = 200 confusion matrix on the same labels); the port
+    keeps them apart."""
+    import hashlib
+
+    from torcheval_tpu_torch import routing_autotune as _autotune
+
+    specs = "|".join(
+        f"{mp.spec}:{mp.num_classes}:{mp.num_thresholds}:{mp.threshold}" for mp in members
+    )
+    return f"{_autotune.batch_signature(args)}-{hashlib.sha256(specs.encode()).hexdigest()[:8]}"
 
 
 def _same_device(metrics: Dict[str, Any]) -> Optional[torch.device]:
@@ -313,9 +337,11 @@ def plan_for(
     device.
 
     Auto mode (the flag unset) engages when the states live on a GPU and
-    at least two members are supported; forced on, one supported member
-    on any device is enough (on the CPU the kernel's plain version
-    runs).  Reads shapes and dtypes only."""
+    at least two members are supported, unless the measured-cost layer
+    (``routing_autotune``) is on and holds a measured pick for this batch
+    signature; forced on, one supported member on any device is enough
+    (on the CPU the kernel's plain version runs).  Reads shapes and
+    dtypes only."""
     mode = _oflags.megakernel_mode()
     if mode is False:
         return None
@@ -354,8 +380,20 @@ def plan_for(
             supported.append(mp)
     if not supported:
         return None
-    if mode is None and (len(supported) < 2 or device.type != "cuda"):
-        return None
+    if mode is None:
+        declines = len(supported) < 2 or device.type != "cuda"
+        from torcheval_tpu_torch import routing_autotune as _autotune
+
+        if _autotune.ENABLED:
+            # A measured pick for this shape bucket and these members may
+            # overrule the auto heuristic either way (decide() keeps the
+            # heuristic's choice without one); either choice launches
+            # kernels on a GPU.
+            default = "fused" if declines else "mega"
+            if _autotune.decide("megakernel", plan_signature(args, supported), default) != "mega":
+                return None
+        elif declines:
+            return None
 
     a = 1 + (slices or 0)
     if sum(counters(mp, a) for mp in supported) >= _MAX_COUNTERS:

@@ -21,7 +21,9 @@ switch that hides the kernel), and ``wavefront_plan``, which sizes TPU
 tiles and their on-chip memory.  The kernel's own geometry is a warp a
 pair, the shorter side on the rows, ``R`` rows a lane (:func:`_strip_rows`)
 and bands of 256 rows past that (``csrc/wavefront.cu``); the launch and
-its carry scratch are :func:`_wavefront_plan`.
+its carry scratch are :func:`_wavefront_plan`, from the shapes alone (the
+kernel clips each pair's lengths on the card), so a launch reads nothing
+back and runs inside the engine's captured graphs.
 """
 
 from __future__ import annotations

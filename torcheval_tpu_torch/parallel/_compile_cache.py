@@ -19,6 +19,7 @@ Left out, as jit artifacts: ``compiled_spmd``, ``spmd_cache_info`` and
 from __future__ import annotations
 
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Hashable, NamedTuple, Optional
 
@@ -64,6 +65,7 @@ class LruCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        _LIVE.add(self)
 
     def __len__(self) -> int:
         with self._lock:
@@ -128,4 +130,24 @@ class LruCache:
 
 _MISSING = object()
 
-__all__ = ["LruCache", "SpmdCacheInfo"]
+# Every LruCache still referenced, for the process-wide view of
+# routing.hot_path_stats(); a dropped cache (and its graphs) leaves it.
+_LIVE: "weakref.WeakSet[LruCache]" = weakref.WeakSet()
+
+
+def cache_totals() -> SpmdCacheInfo:
+    """Hits, misses, capacity and live entries summed over every live
+    cache of the process (the engine runners' graph caches): the port's
+    stand-in for the JAX package's one ``spmd_cache_info()``."""
+    hits = misses = maxsize = currsize = evictions = 0
+    for cache in list(_LIVE):
+        info = cache.cache_info()
+        hits += info.hits
+        misses += info.misses
+        maxsize += info.maxsize
+        currsize += info.currsize
+        evictions += info.evictions
+    return SpmdCacheInfo(hits, misses, maxsize, currsize, 0, evictions)
+
+
+__all__ = ["LruCache", "SpmdCacheInfo", "cache_totals"]

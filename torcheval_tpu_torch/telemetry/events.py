@@ -329,9 +329,10 @@ class AlertEvent(Event):
 @dataclass
 class RouteDecisionEvent(Event):
     """One routing decision resolved by the measured-cost layer
-    (:mod:`torcheval_tpu.routing_autotune`): ``decision`` names the
-    ambiguous choice (``megakernel`` / ``wavefront`` / ``rank_sketch``
-    / ``cm_row_chunk``), ``route`` what was picked for the
+    (:mod:`torcheval_tpu_torch.routing_autotune`): ``decision`` names the
+    ambiguous choice (``megakernel`` / ``rank_sketch`` / ``cm_row_chunk``;
+    the JAX package's ``wavefront`` has no counterpart), ``route`` what
+    was picked for the
     ``signature`` shape bucket, and ``verdict`` whether the pick was
     ``measured`` (the cost store ranked both candidates — ``seconds``
     vs ``alt_seconds`` are the numbers that decided it) or
@@ -575,7 +576,7 @@ def _zero_aggregates() -> Dict[str, Any]:
         # SLO alerting: rule -> {"count": fires, "value": last observed,
         # "threshold": rule bound, "message": last rendered text}.
         "alerts": {},
-        # Measured-cost routing (torcheval_tpu/routing_autotune):
+        # Measured-cost routing (routing_autotune.py):
         # (decision, route, verdict) -> {"count": resolutions,
         # "seconds": winner cost last observed, "alt_seconds": runner-up
         # cost, "source": winning row provenance, "signature": last
