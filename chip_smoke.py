@@ -402,7 +402,32 @@ times kernels and lifecycle with CUDA events.  Phases:
     launched 24 times inside the replay (the counters and the profiler),
     every state bit-equal to the per-batch loop, the figures within 1e-6
     (WER / WIP / WIL) and 1e-5 (perplexity) of phases 22 and 24's float64
-    oracles; timed beside the loop and phase 25's eager times.
+    oracles; timed beside the loop and phase 25's eager times;
+64. serve at full width (``benchmarks/workloads.py``'s
+    ``bench_serve_multitenant``: 64 tenants, ``group_width=8``, each a
+    ``MulticlassAccuracy`` + ``MulticlassF1Score`` at C = 100, its own
+    256-row batch from numpy seed 11, one warm batch then 6 a tenant,
+    ``AdmissionController(1024, 32, deadline 2 s)``): 385 dispatches, shed 0,
+    quarantined 0, one bundle for the 8 groups, ``mega.cu`` launched once a
+    dispatch and no plain version, every tenant bit-equal to a solo unsliced
+    suite on the card; rows/s dispatched and the p99 admit wait;
+65. quarantine and spill on one group of phase 64: under
+    ``health.enable(raise_on_corrupt=True)`` a NaN batch quarantines its
+    tenant only, a neighbour is spilled and resumed mid-stream, the 7
+    neighbours end bit-equal to phase 64, ``drain()`` completes;
+66. metering (``bench_serve_tenant_metering``'s skewed load, weights
+    [16, 8, 4, 2] + [1] x 60, 3 rounds, numpy seed 13): the per-tenant
+    device-seconds sum to the programs' banked totals within 1e-6 relative,
+    ``rebalance_hints()`` ranks tenant-00 first, the same bits with the
+    ledger on and off, both legs timed;
+67. perfscope: with ``enable(rules=default_rules())`` the headline
+    collection update (phase 17), the scan stream (phase 44), the sharded
+    call over ``LocalWorld(4)`` (phase 27) and phase 64's serve run are
+    priced; ``explain_perf()`` has their rows, each at most 100 % of the
+    card's peaks, with ``aliased`` printed; ``profile(dir)`` around the scan
+    stream writes one merged JSON with the telemetry spans and ``mega.cu``'s
+    device events; a rule set to fire fires one ``AlertEvent``; phases 17
+    and 64's lifecycles timed with perfscope off and on.
 
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
@@ -414,6 +439,7 @@ non-zero before it.  With no GPU the script exits 1 and prints no result.
 
 import itertools
 import json
+import logging
 import os
 import socket
 import statistics
@@ -438,6 +464,9 @@ BINNED_THRESHOLDS = 10_000
 BIG = 3.0e38  # the tables' pad value
 COL_CLASSES = 100
 COL_SAMPLES = 2**19  # the collection workload's total, 8 updates of 2^16
+SERVE_TENANTS = 64  # benchmarks/workloads.py's bench_serve_multitenant
+SERVE_STEPS = 6
+SERVE_ROWS = 256
 SLICED_CLASSES, SLICES = 20, 16
 # 132 SMs x 64 int32 lanes x 1.98 GHz: half the 33.5 TOPS of the Hopper white
 # paper, which counts a multiply-add as two operations.
@@ -4775,6 +4804,349 @@ def main(argv) -> int:
     print(f"times {card}: phases 60-63 together {time.perf_counter() - late_t0:.3f} s",
           flush=True)
 
+    # ------------------------------------------------ 64. serve at full width
+    from torcheval_tpu_torch.serve import (
+        AdmissionController,
+        Admitted,
+        EvalService,
+        Rejected,
+        metering,
+    )
+    from torcheval_tpu_torch.telemetry import perfscope
+
+    # A 256-row batch leaves some of the 100 classes out of a tenant's
+    # target, and every F1 compute would log that.
+    logging.getLogger("torcheval_tpu_torch.metrics.functional.classification.f1_score").setLevel(
+        logging.ERROR)
+    serve_t0 = time.perf_counter()
+    serve_rng = np.random.default_rng(11)  # benchmarks/workloads.py's bench_serve_multitenant
+    serve_names = [f"tenant-{i:02d}" for i in range(SERVE_TENANTS)]
+    # One 256-row batch a tenant, its own, submitted every step.
+    serve_batches = {
+        name: (torch.from_numpy(serve_rng.random((SERVE_ROWS, COL_CLASSES),
+                                                 dtype=np.float32)).to(dev),
+               torch.from_numpy(serve_rng.integers(0, COL_CLASSES, SERVE_ROWS)
+                                .astype(np.int32)).to(dev))
+        for name in serve_names}
+
+    def serve_suite():
+        return {"acc": MulticlassAccuracy(num_classes=COL_CLASSES, average="macro"),
+                "f1": MulticlassF1Score(num_classes=COL_CLASSES, average="macro")}
+
+    def serve_service(**kw):
+        return EvalService(group_width=8, admission=AdmissionController(
+            global_capacity=1024, per_tenant_capacity=32, deadline_s=2.0), **kw)
+
+    def serve_lifecycle(svc, names=serve_names, steps=SERVE_STEPS, between=None):
+        """bench_serve_multitenant's loop: open every tenant, one warm batch of
+        the first, then ``steps`` rounds of one batch a tenant, a pump after
+        each; returns the timed rounds' seconds (to a device sync)."""
+        for name in names:
+            svc.open(name, serve_suite())
+        svc.submit(names[0], *serve_batches[names[0]])
+        svc.pump()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(steps):
+            if between is not None:
+                between(step)
+            for name in names:
+                svc.submit(name, *serve_batches[name], deadline_s=2.0)
+            svc.pump()
+        svc.pump()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def serve_solo(name, times):
+        """The reference: a plain unsliced suite on the card over the same
+        batches."""
+        suite = serve_suite()
+        for _ in range(times):
+            for m in suite.values():
+                m.update(*serve_batches[name])
+        return {k: m.compute() for k, m in suite.items()}
+
+    def same_bits(a, b):
+        return a.keys() == b.keys() and all(
+            a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+
+    _build.reset_counts()
+    svc64 = serve_service()
+    serve64_s = serve_lifecycle(svc64)
+    serve64_launches, serve64_plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    stats64 = svc64.stats()
+    counts64 = stats64["counts"]
+    serve_dispatches = 1 + SERVE_TENANTS * SERVE_STEPS
+    print(f"serve ({SERVE_TENANTS} tenants, group_width 8, MulticlassAccuracy + "
+          f"MulticlassF1Score at C={COL_CLASSES}, {SERVE_ROWS}-row batches, 1 warm + "
+          f"{SERVE_STEPS} a tenant): counts {counts64}, groups {stats64['groups']}, programs "
+          f"{stats64['programs']}, launches {serve64_launches}, plain {serve64_plain}",
+          flush=True)
+    check(counts64["dispatched"] == serve_dispatches and counts64["shed"] == 0
+          and counts64["quarantined"] == 0 and stats64["groups"] == SERVE_TENANTS // 8
+          and stats64["programs"]["misses"] == 1,
+          f"serve: {serve_dispatches} dispatches, shed 0, quarantined 0, one bundle for "
+          f"{SERVE_TENANTS // 8} groups")
+    check(serve64_launches == {"mega_counts": serve_dispatches} and not serve64_plain,
+          f"serve: mega.cu launched once a dispatch ({serve_dispatches}), no other kernel, "
+          "no plain version")
+    serve64_out = {name: svc64.results(name) for name in serve_names}
+    solo_once = {n: serve_solo(n, SERVE_STEPS + (n == serve_names[0])) for n in serve_names}
+    torch.cuda.synchronize()
+    check(all(same_bits(serve64_out[n], solo_once[n]) for n in serve_names),
+          f"serve: all {SERVE_TENANTS} tenants' results bit-equal to a solo unsliced suite on "
+          "the card over the same batches")
+    serve_rows_s = SERVE_TENANTS * SERVE_STEPS * SERVE_ROWS / serve64_s
+    serve_p99_ms = stats64["admit_wait_p99_s"] * 1e3
+    print(f"times {card}: serve, {SERVE_TENANTS * SERVE_STEPS} timed dispatches in "
+          f"{serve64_s * 1e3:.3f} ms: {serve_rows_s:.1f} rows/s dispatched, p99 admit wait "
+          f"{serve_p99_ms:.3f} ms (deadline 2000 ms)", flush=True)
+    serve_mega_prof, serve_mega_ms = kernel_launches(
+        lambda: serve_lifecycle(serve_service(), names=serve_names[:8], steps=2), "mega_kernel")
+    print(f"profiler: mega.cu device launches in an 8-tenant, 2-round serve lifecycle: "
+          f"{serve_mega_prof}, {serve_mega_ms} ms of device time", flush=True)
+    check(serve_mega_prof in (None, 1 + 8 * 2),
+          "the profiler sees mega.cu once a serve dispatch")
+
+    # ------------------------------------------------ 65. quarantine and spill
+    spill65 = tempfile.mkdtemp(prefix="chip_smoke_serve_spill_")
+    try:
+        group65 = serve_names[:8]  # one group: the poison tenant and its 7 neighbours
+        poison, spilled65 = group65[0], group65[3]
+        svc65 = serve_service(spill_dir=spill65)
+        nan_scores = serve_batches[poison][0].clone()
+        nan_scores[7, 3] = float("nan")
+
+        def poison_and_spill(step):
+            if step == 2:
+                svc65.submit(poison, nan_scores, serve_batches[poison][1])
+            if step == 3:
+                svc65.spill(spilled65)
+
+        outcomes65 = []
+
+        def submit_watch(name, *args, **kw):
+            outcomes65.append(real_submit(name, *args, **kw))
+            return outcomes65[-1]
+
+        real_submit = svc65.submit
+        svc65.submit = submit_watch
+        _build.reset_counts()
+        health.enable(raise_on_corrupt=True)
+        try:
+            serve_lifecycle(svc65, names=group65, between=poison_and_spill)
+        finally:
+            health.disable()
+            health.RAISE_ON_CORRUPT = False
+            del svc65.submit
+        torch.cuda.synchronize()
+        counts65 = svc65.stats()["counts"]
+        q_launches, q_plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        print(f"serve under health.enable(raise_on_corrupt=True), a NaN batch from {poison} "
+              f"at round 3 and {spilled65} spilled after round 3: counts {counts65}, "
+              f"launches {q_launches}, plain {q_plain}", flush=True)
+        rejected = [o for o in outcomes65 if isinstance(o, Rejected)]
+        check(counts65["quarantined"] == 1 and counts65["spills"] == 1
+              and counts65["resumes"] == 1
+              and {o.reason for o in rejected} == {"quarantined"}
+              and {o.tenant for o in rejected} == {poison},
+              "serve: the NaN batch quarantines only its tenant (its later batches are "
+              "rejected); one spill, one resume")
+        check(q_launches == {"mega_counts": counts65["dispatched"]} and not q_plain,
+              "serve under health: mega.cu once a dispatch (the poison's included), no plain "
+              "version")
+        check(isinstance(svc65.submit(poison, *serve_batches[poison]), Rejected),
+              "the quarantined tenant stays fenced")
+        check(all(same_bits(svc65.results(n), serve64_out[n]) for n in group65[1:]),
+              "serve: the 7 group neighbours of the poison tenant bit-equal to phase 64, the "
+              "spilled and resumed one included")
+        drained = svc65.drain(deadline_s=60.0)
+        print(f"drain: {drained}", flush=True)
+        check(drained.flushed and not drained.expired and not drained.stuck
+              and drained.pending == 0 and drained.spilled == 7,
+              "drain() completes: flushed, nothing pending, the 7 resident tenants spilled")
+    finally:
+        shutil.rmtree(spill65, ignore_errors=True)
+
+    # --------------------------------------------------------- 66. metering
+    meter_rng = np.random.default_rng(13)  # benchmarks/workloads.py's bench_serve_tenant_metering
+    meter_batch = (torch.from_numpy(meter_rng.random((SERVE_ROWS, COL_CLASSES),
+                                                     dtype=np.float32)).to(dev),
+                   torch.from_numpy(meter_rng.integers(0, COL_CLASSES, SERVE_ROWS)
+                                    .astype(np.int32)).to(dev))
+    meter_weights = [16, 8, 4, 2] + [1] * (SERVE_TENANTS - 4)
+    meter_schedule = [n for n, w in zip(serve_names, meter_weights) for _ in range(w)]
+
+    def meter_leg(on):
+        """One leg of the skewed schedule on a fresh service with the
+        ledger forced on or off; the ledger's rows when on."""
+        metering.reset()
+        (metering.enable if on else metering.disable)()
+        svc = EvalService(group_width=8, admission=AdmissionController(
+            global_capacity=1024, per_tenant_capacity=32))
+        for name in serve_names:
+            svc.open(name, serve_suite())
+        svc.submit(serve_names[0], *meter_batch)
+        svc.pump()
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            for name in meter_schedule:
+                svc.submit(name, *meter_batch)
+            svc.pump()
+        svc.pump()
+        torch.cuda.synchronize()
+        leg = {"seconds": time.perf_counter() - t0,
+               "out": {name: svc.results(name) for name in serve_names},
+               "launches": dict(_build.LAUNCHES), "plain": dict(_build.PLAIN_CALLS),
+               "empty": not metering.has_data()}
+        if on:
+            leg.update(ledger=metering.ledger_rows(), programs=metering.program_rows(),
+                       hints=metering.rebalance_hints())
+        return leg
+
+    try:
+        # In turns (off on on off), as the bench's interleaved legs.
+        legs = [meter_leg(on) for on in (False, True, True, False)]
+    finally:
+        metering.reset()
+    on_legs, off_legs = legs[1:3], legs[::3]
+    check(all(leg["empty"] for leg in off_legs), "metering off: the ledger stays empty")
+    meter_dispatches = 3 * len(meter_schedule)
+    check(all(leg["launches"] == {"mega_counts": meter_dispatches} and not leg["plain"]
+              for leg in legs),
+          f"metering on and off: mega.cu once a dispatch ({meter_dispatches}), no plain "
+          "version")
+    check(all(same_bits(leg["out"][n], legs[0]["out"][n]) for leg in legs for n in serve_names),
+          "metering: every tenant's results the same bits with the ledger on and off")
+    for leg in on_legs:
+        tenant_total = sum(r["device_seconds"] for r in leg["ledger"])
+        program_total = sum(p["seconds"] for p in leg["programs"])
+        conservation = abs(tenant_total - program_total) / max(program_total, 1e-12)
+        hints = leg["hints"]
+        print(f"metering (skewed load {meter_weights[:4]} + [1] x {SERVE_TENANTS - 4}, 3 "
+              f"rounds): {len(leg['ledger'])} tenants, programs "
+              f"{[(p['program'], p['calls']) for p in leg['programs']]}, attribution error "
+              f"{conservation:.3e}, hottest {hints.tenants[0].tenant} "
+              f"({hints.tenants[0].device_seconds / max(hints.device_seconds_total, 1e-12):.3f} "
+              f"of the device-seconds), dominant {hints.dominant_tenant!r}", flush=True)
+        check(conservation <= 1e-6 and len(leg["ledger"]) == SERVE_TENANTS,
+              "per-tenant device-seconds sum to the programs' banked totals within 1e-6 "
+              "relative")
+        check(hints.tenants[0].tenant == serve_names[0],
+              "rebalance_hints() ranks tenant-00 (16x the tail's load) first")
+    on_launches = on_legs[0]["launches"]
+    on_ms = [leg["seconds"] * 1e3 for leg in on_legs]
+    off_ms = [leg["seconds"] * 1e3 for leg in off_legs]
+    print(f"times {card}: metering, {meter_dispatches} dispatches, legs in turns (off on on "
+          f"off): ledger on {on_ms[0]:.3f} / {on_ms[1]:.3f} ms, off {off_ms[0]:.3f} / "
+          f"{off_ms[1]:.3f} ms (best of each: {(min(on_ms) - min(off_ms)) / min(off_ms) * 100:+.2f} %)",
+          flush=True)
+
+    # -------------------------------------------------------- 67. perfscope
+    from torcheval_tpu_torch.tools import roofline
+
+    perf_t0 = time.perf_counter()
+    bus.clear()
+    bus.enable()
+    perfscope.reset()
+    perfscope.enable(rules=perfscope.default_rules())
+    try:
+        fused_lifecycle(col)  # the headline collection update
+        engine_lifecycle(scan_ev, scan_batches)  # phase 44's scan stream
+        world(4, ns_call())  # phase 27's sharded call over LocalWorld(4)
+        serve_lifecycle(serve_service())  # phase 64's serve run
+        torch.cuda.synchronize()
+        perf = perfscope.explain_perf()
+        peaks = roofline.device_peaks()
+        for program, route in sorted(perf["routes"].items()):
+            print(f"perfscope {card}: {program}: {route['profiles']} signature(s), "
+                  f"{route['bytes_accessed'] / 1e6:.3f} MB a dispatch "
+                  f"({route['batch_bytes'] / 1e6:.3f} MB batch, reread "
+                  f"x{route['reread_multiplier']:.2f}), {route.get('dispatches', 0)} "
+                  f"dispatches at {route.get('wall_seconds_per_dispatch', 0.0) * 1e3:.4f} ms: "
+                  f"{route.get('achieved_gbps', 0.0):.3f} GB/s, {route.get('hbm_pct', 0.0):.4f} % "
+                  f"of the {peaks['device_kind']} row's {peaks['hbm_gbps']:.0f} GB/s, "
+                  f"{route.get('bound', '?')}-bound; peak {route['peak_bytes']} B (temp "
+                  f"{route['temp_bytes']} B); donated {route['donated']}, aliased "
+                  f"{route['aliased']}", flush=True)
+        spmd = [p for p in perf["routes"] if p.startswith("spmd:")]
+        check({"mega_collection", "mega_scan", "serve_group"} <= set(perf["routes"]) and spmd,
+              f"explain_perf has a row for mega_collection, mega_scan, serve_group and "
+              f"{spmd}")
+        check(peaks["exact"] and peaks["device_kind"] == device_kind,
+              f"tools.roofline has this card's row ({device_kind})")
+        check(all(r["hbm_pct"] <= 100.0 and r["flops_pct"] <= 100.0
+                  for r in perf["routes"].values()),
+              "every route's share of the card's peaks is at most 100 %")
+        check(all(e.flops == 0 and e.bytes_accessed >= e.batch_bytes > 0
+                  for e in bus.events("program_profile")),
+              "every profile: bytes accessed at least the batch's, no flops (counting)")
+        for attempt in range(3):
+            # The profiler now and then returns a trace without its device
+            # rows (profiled_device_events): such a trace is taken again.
+            trace67 = tempfile.mkdtemp(prefix="chip_smoke_perfscope_")
+            try:
+                with perfscope.profile(trace67) as capture67:
+                    engine_lifecycle(scan_ev, scan_batches)
+                with open(capture67["merged"], encoding="utf-8") as fh:
+                    merged67 = json.load(fh)["traceEvents"]
+            finally:
+                shutil.rmtree(trace67, ignore_errors=True)
+            host_spans = [r for r in merged67 if r.get("name") == "Evaluator.engine_block"]
+            mega_rows = [r for r in merged67 if r.get("cat") == "kernel"
+                         and "mega_kernel" in r.get("name", "")]
+            if mega_rows:
+                break
+            print("profile(): a merged trace without device rows; tracing again", flush=True)
+        print(f"profile(): merged trace of {len(merged67)} rows: {capture67['events']} "
+              f"telemetry events, {len(host_spans)} engine_block spans, {len(mega_rows)} "
+              f"mega.cu device events", flush=True)
+        check(host_spans and mega_rows and len(mega_rows) == 32,
+              "profile() writes one merged JSON with the telemetry spans and mega.cu's 32 "
+              "device events of the scan stream")
+        fired_before = {r: e["count"] for r, e in bus.aggregates()["alerts"].items()}
+        print(f"default rules fired during the run: {fired_before or 'none'}", flush=True)
+        bus.clear()
+        always = perfscope.SloRule("serve_p99_set_to_fire", "serve_admit_p99_s", ">", -1.0,
+                                   "a threshold below any wait")
+        fired = perfscope.evaluate_slo((always,))
+        alerts = bus.events("alert")
+        check(len(fired) == 1 and len(alerts) == 1 and alerts[0].rule == always.name,
+              f"a rule set to fire fires one AlertEvent ({fired})")
+    finally:
+        perfscope.disable()
+        perfscope.reset()
+        bus.disable()
+        bus.clear()
+
+    def perfscope_turns(fn, reps=3):
+        """``fn``'s host wall clock (to a device sync) with perfscope off and
+        on, in turns (off on, on off, ...): the two lists in ms."""
+        out = {False: [], True: []}
+        for i in range(2 * reps):
+            on = (i % 4) in (1, 2)
+            perfscope.reset()
+            (perfscope.enable if on else perfscope.disable)()
+            fn()  # a first call prices, with perfscope on; not timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[on].append((time.perf_counter() - t0) * 1e3)
+        perfscope.disable()
+        perfscope.reset()
+        return out[False], out[True]
+
+    col_off_ms, col_on_ms = perfscope_turns(lambda: fused_lifecycle(col), reps=5)
+    sv_off_ms, sv_on_ms = perfscope_turns(lambda: serve_lifecycle(serve_service()), reps=2)
+    print(f"times {card}: collection lifecycle (phase 17) perfscope off {spread(col_off_ms)}, "
+          f"on {spread(col_on_ms)}; serve lifecycle (phase 64) perfscope off "
+          f"{spread(sv_off_ms)}, on {spread(sv_on_ms)}", flush=True)
+    print(f"times {card}: phase 67 {time.perf_counter() - perf_t0:.3f} s, phases 64-67 "
+          f"{time.perf_counter() - serve_t0:.3f} s", flush=True)
+
     # ------------------------------------------------------ the kernels line
     kernels = [
         {
@@ -4912,6 +5284,11 @@ def main(argv) -> int:
                                       else fold_mega_ms / fold_prof),
             "fleet_engine_launches": fleet_engine_launches,
             "race_launches": race_launches.get("mega_counts", 0),
+            "serve_launches": serve64_launches["mega_counts"],
+            "serve_quarantine_launches": q_launches["mega_counts"],
+            "serve_metering_launches": on_launches["mega_counts"],
+            "serve_device_ms": (None if serve_mega_ms is None
+                                else serve_mega_ms / serve_mega_prof),
             "verdict": "bit-equal",
         },
         {

@@ -1961,3 +1961,53 @@ def test_autotune_race_on_the_card_writes_rows_keeps_states_and_takes_no_plain_v
     finally:
         ra.disable()
         ra.clear()
+
+
+def test_serve_on_the_card_launches_the_collection_kernel_once_a_dispatch(monkeypatch):
+    """A small multi-tenant serve run on the card: each dispatch is one
+    mega.cu launch (no plain version), one bundle serves every group, and
+    every tenant's states and results are bit-equal to a solo unsliced
+    suite on the card over the same batches."""
+    from torcheval_tpu_torch.serve import AdmissionController, EvalService
+
+    dev = _cuda()
+    monkeypatch.delenv("TORCHEVAL_TPU_TORCH_MEGAKERNEL", raising=False)
+    c, rows, tenants, steps = 100, 256, 12, 3
+    rng = np.random.default_rng(11)
+
+    def suite():
+        return {"acc": MulticlassAccuracy(num_classes=c, average="macro", device=dev),
+                "f1": MulticlassF1Score(num_classes=c, average="macro", device=dev)}
+
+    svc = EvalService(group_width=8, admission=AdmissionController(
+        global_capacity=1024, per_tenant_capacity=32, deadline_s=30.0))
+    names = [f"tenant-{i:02d}" for i in range(tenants)]
+    streams = {n: [(torch.from_numpy(rng.random((rows, c), dtype=np.float32)).to(dev),
+                    torch.from_numpy(rng.integers(0, c, rows).astype(np.int32)).to(dev))
+                   for _ in range(steps)] for n in names}
+    for n in names:
+        svc.open(n, suite())
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    for step in range(steps):
+        for n in names:
+            svc.submit(n, *streams[n][step])
+        svc.pump()
+    torch.cuda.synchronize()
+    stats = svc.stats()
+    assert stats["counts"]["dispatched"] == tenants * steps and stats["counts"]["shed"] == 0
+    assert stats["groups"] == 2 and stats["programs"]["misses"] == 1
+    assert dict(_build.LAUNCHES) == {"mega_counts": tenants * steps}
+    assert not _build.PLAIN_CALLS
+    for n in names:
+        solo = suite()
+        for batch in streams[n]:
+            for m in solo.values():
+                m.update(*batch)
+        got = svc.results(n)
+        for name, m in solo.items():
+            assert torch.equal(got[name], m.compute()), (n, name)
+        seat = svc._registry.seat_state_dict(svc.session(n))
+        for name, m in solo.items():
+            for state, value in m.state_dict().items():
+                assert torch.equal(seat[f"{name}/{state}"], value), (n, name, state)

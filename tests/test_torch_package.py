@@ -64,6 +64,13 @@ def test_sources_import_no_jax():
         "torcheval_tpu_torch/telemetry/health.py",
         "torcheval_tpu_torch/telemetry/trace.py",
         "torcheval_tpu_torch/telemetry/__main__.py",
+        "torcheval_tpu_torch/telemetry/perfscope.py",
+        "torcheval_tpu_torch/telemetry/tenants.py",
+        "torcheval_tpu_torch/serve/__init__.py",
+        "torcheval_tpu_torch/serve/admission.py",
+        "torcheval_tpu_torch/serve/metering.py",
+        "torcheval_tpu_torch/serve/registry.py",
+        "torcheval_tpu_torch/serve/service.py",
         "torcheval_tpu_torch/resilience/checkpoint.py",
         "torcheval_tpu_torch/resilience/faults.py",
         "torcheval_tpu_torch/resilience/membership.py",
@@ -342,18 +349,50 @@ def test_telemetry_and_resilience_export_the_jax_names_of_the_ported_modules():
     import torcheval_tpu_torch.telemetry as port_telemetry
 
     assert port_resilience.__all__ == jax_resilience.__all__
-    # perfscope and aggregate (and the formatters and tenants module that
-    # read them) wait: ROADMAP queue 1 item 4's remainder and the serve layer.
-    waiting = {"SloRule", "default_rules", "explain_perf", "profile", "perfscope",
-               "aggregate", "fleet_report", "host_snapshot", "merge_snapshots",
-               "fleet_to_perfetto", "format_explain_perf", "format_fleet_report", "tenants"}
+    # aggregate (the fleet report) and the two formatters that read it wait
+    # for the multi-host serve plane: ROADMAP queue 1 step 8.
+    waiting = {"aggregate", "fleet_report", "host_snapshot", "merge_snapshots",
+               "fleet_to_perfetto", "format_fleet_report"}
     assert set(port_telemetry.__all__) == set(jax_telemetry.__all__) - waiting
+    for name in ("SloRule", "default_rules", "explain_perf", "profile", "perfscope",
+                 "tenants", "format_explain_perf"):
+        assert name in port_telemetry.__all__
     for mod in (port_telemetry, port_resilience):
         for name in mod.__all__:
             assert getattr(mod, name) is not None
     from torcheval_tpu_torch.telemetry import export
 
     assert callable(export.fleet_to_perfetto) and callable(export.format_fleet_report)
+    # Every public name of the two JAX modules that has a counterpart.
+    import torcheval_tpu.telemetry.perfscope as jax_perfscope
+    import torcheval_tpu.telemetry.tenants as jax_tenants
+
+    for jax_mod, port_mod in ((jax_perfscope, port_telemetry.perfscope),
+                              (jax_tenants, port_telemetry.tenants)):
+        public = {n for n in vars(jax_mod) if not n.startswith("_")
+                  and callable(getattr(jax_mod, n)) and getattr(
+                      getattr(jax_mod, n), "__module__", "") == jax_mod.__name__}
+        assert {n for n in public if not hasattr(port_mod, n)} == set()
+
+
+def test_serve_exports_the_single_host_names():
+    import torcheval_tpu.serve as jax_serve
+
+    import torcheval_tpu_torch.serve as port_serve
+
+    multi_host = {"ServeCluster", "HashRing", "Placement", "PlacementOutcome"}
+    assert set(port_serve.__all__) == set(jax_serve.__all__) - multi_host
+    for name in port_serve.__all__:
+        assert getattr(port_serve, name) is not None
+    for name in sorted(multi_host):
+        with pytest.raises(NotImplementedError, match="queue 1 step 8"):
+            getattr(port_serve, name)
+    with pytest.raises(AttributeError):
+        port_serve.NoSuchName
+    from torcheval_tpu_torch.serve import admission, metering, registry, service
+
+    for mod in (admission, metering, registry, service):
+        assert mod.__name__.startswith("torcheval_tpu_torch.serve.")
 
 
 def test_default_device_without_a_gpu_raises(monkeypatch):

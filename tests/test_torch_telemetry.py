@@ -27,6 +27,7 @@ from torcheval_tpu.telemetry import events as jax_events
 from torcheval_tpu.telemetry import export as jax_export
 from torcheval_tpu.telemetry import flightrec as jax_flightrec
 from torcheval_tpu.telemetry import health as jax_health
+from torcheval_tpu.telemetry import perfscope as jax_perfscope
 from torcheval_tpu.telemetry import trace as jax_trace
 
 import torcheval_tpu_torch.metrics as tm
@@ -34,11 +35,13 @@ import torcheval_tpu_torch.telemetry as port_telemetry
 from torcheval_tpu_torch import _flags
 from torcheval_tpu_torch.distributed import LocalWorld
 from torcheval_tpu_torch.resilience import faults as port_faults
+from torcheval_tpu_torch.serve import metering as port_metering
 from torcheval_tpu_torch.telemetry import __main__ as port_cli
 from torcheval_tpu_torch.telemetry import events as port_events
 from torcheval_tpu_torch.telemetry import export as port_export
 from torcheval_tpu_torch.telemetry import flightrec as port_flightrec
 from torcheval_tpu_torch.telemetry import health as port_health
+from torcheval_tpu_torch.telemetry import perfscope as port_perfscope
 from torcheval_tpu_torch.telemetry import trace as port_trace
 
 
@@ -78,10 +81,14 @@ def reset_all():
         plan = fa.active()
         if plan is not None:
             plan.uninstall()
-    # The JAX serve plane's tenant ledger: a JAX serve test that built an
+    # The serve planes' tenant ledgers: a serve test that built an
     # EvalService earlier in this process turns metering on and fills it,
-    # and the JAX report and Prometheus text then carry its tenants.
+    # and the report and Prometheus text then carry its tenants.
     jax_metering.reset()
+    port_metering.reset()
+    for scope in (jax_perfscope, port_perfscope):
+        scope.disable()
+        scope.reset()
 
 
 def stream(events, drop_kinds=JAX_ONLY_KINDS, volatile=VOLATILE):
@@ -283,11 +290,17 @@ def test_jsonl_reads_both_ways():
         port_export.read_jsonl(io.StringIO(line), strict=True)
 
 
-def test_perfetto_prometheus_and_report_match_jax():
-    # Tenant samples feed the tenants module (not ported: its Prometheus
-    # families and report section wait with the serve layer) and program
-    # profiles make the JAX report call perfscope.
-    dicts = every_kind_dicts(exclude={"tenant_sample", "program_profile"})
+def test_perfetto_prometheus_and_report_match_jax(monkeypatch):
+    # Every kind: tenant samples feed the tenants section and families,
+    # program profiles the perf section.  The sketch census is process
+    # global: another test's sketch members must not reach one package's
+    # perf section and not the other's.
+    from torcheval_tpu.metrics import _rank_state as jax_rank_state
+    from torcheval_tpu_torch.metrics import _rank_state as port_rank_state
+
+    for mod in (jax_rank_state, port_rank_state):
+        monkeypatch.setattr(mod, "_CENSUS", {"constructed": 0, "bins": {}})
+    dicts = every_kind_dicts()
     _emit_both(dicts)
     assert port_telemetry.to_perfetto() == jax_telemetry.to_perfetto()
     trace = port_telemetry.to_perfetto(pid=3, process_name="rank 3")
@@ -302,7 +315,7 @@ def test_perfetto_prometheus_and_report_match_jax():
             float(line.rsplit(" ", 1)[1])
     jax_report = jax_telemetry.report()
     port_report = port_telemetry.report()
-    left_out = {"trace_counts", "spmd_cache", "flags", "perf", "tenants"}
+    left_out = {"trace_counts", "spmd_cache", "flags"}
     assert {k: v for k, v in port_report.items() if k != "flags"} == {
         k: v for k, v in jax_report.items() if k not in left_out}
     assert port_export.format_report(jax_report) == jax_export.format_report(jax_report)
@@ -404,18 +417,22 @@ def test_cli_replays_a_jax_dump(tmp_path, capsys):
     assert port_cli.main([str(dump), "--alerts"]) == 1
     assert port_cli.main([str(dump), "--routes"]) == 0
     capsys.readouterr()
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        port_cli.main([str(dump), "--perf"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        port_cli.main([str(dump), "--tenants"])
+    # The dump holds no program profile and no tenant sample: perfscope's
+    # table says so, and so does the tenant table.
+    assert port_cli.main([str(dump), "--perf"]) == 0
+    assert "no profiled programs" in capsys.readouterr().out
+    assert port_cli.main([str(dump), "--tenants"]) == 0
+    assert capsys.readouterr().out.startswith("tenants: no tenant samples")
     assert port_cli.main([str(tmp_path / "missing.jsonl")]) == 2
 
 
 def test_left_out_formatters_raise():
-    for fn in (port_export.fleet_to_perfetto, port_export.format_explain_perf,
-               port_export.format_fleet_report):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    # The fleet report's two formatters wait for the multi-host serve
+    # plane; format_explain_perf is ported (tests/test_torch_perfscope.py).
+    for fn in (port_export.fleet_to_perfetto, port_export.format_fleet_report):
+        with pytest.raises(NotImplementedError, match="queue 1 step 8"):
             fn([] if fn is port_export.fleet_to_perfetto else {})
+    assert port_export.format_explain_perf({}).startswith("torcheval_tpu perfscope")
 
 
 def test_serve_prometheus_answers_a_scrape():

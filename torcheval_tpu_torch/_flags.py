@@ -60,6 +60,10 @@ FLAGS: Dict[str, str] = {
         "Raise DataCorruptionError on NaN, Inf or out-of-range labels, after "
         "the batch is applied (read at import)."
     ),
+    "PERFSCOPE": (
+        "Turn perfscope on: price each hot-path program once a signature and "
+        "evaluate the installed SLO rules (read at import)."
+    ),
 }
 
 
@@ -98,6 +102,12 @@ INT_FLAGS: Dict[str, Tuple[int, str, str]] = {
         "(routing_autotune.probe_budget); anything but a positive integer raises "
         "(read per call).",
     ),
+    "PERFSCOPE_SLO_EVERY": (
+        8,
+        "positive",
+        "Dispatched engine blocks between two evaluations of perfscope's SLO "
+        "rules (read at import).",
+    ),
     "KV_TIMEOUT_MS": (
         600_000,
         "strict_positive",
@@ -114,6 +124,11 @@ STR_FLAGS: Dict[str, str] = {
     "FLIGHTREC_DIR": (
         "Directory the flight recorder writes its bundles under (default "
         "./flightrec; read at import)."
+    ),
+    "SERVE_SPILL_DIR": (
+        "Default directory EvalService spills idle tenant sessions into "
+        "(EvalService(spill_dir=...) outranks it); unset, spill is off unless "
+        "a directory is passed (read at construction)."
     ),
     "AUTOTUNE_DIR": (
         "Directory of the measured route-cost store "
@@ -154,6 +169,11 @@ TRISTATE_FLAGS: Dict[str, str] = {
         "(and aot.warmup(autotune=True) races nothing), unset on exactly when "
         "AUTOTUNE_DIR names a directory (read at import; enable() / disable() "
         "flip it later). An explicit route flag always outranks a measured pick."
+    ),
+    "TENANT_METERING": (
+        "The serve plane's per-tenant ledger (serve/metering.py): truthy on at "
+        "import, falsy off, unset off until the first EvalService is built, "
+        "then on (metering.enable() / disable() outrank it)."
     ),
 }
 

@@ -40,7 +40,8 @@ must have.
 NCCL is not the transport: it runs one rank a GPU, and the object
 collectives travel through the CPU anyway.  Not ported yet:
 ``pack_frames``, ``unpack_frames`` and ``serve_tag``, which only the
-serve plane uses (ROADMAP queue 1, with serve).
+multi-host serve plane (``serve/cluster.py``) uses; they come with it
+(ROADMAP queue 1 step 8).
 """
 
 from __future__ import annotations

@@ -37,8 +37,9 @@ Telemetry (when enabled): an ``Evaluator.engine_block`` span and an
 thread, all in ``telemetry.report()``'s ``engine`` section
 (``dispatches_per_batch`` is the O(N / block) claim, measured).
 :meth:`Evaluator.start_fleet_merge` runs a fleet merge of a snapshot
-beside further blocks.  Left out until its module is ported: the perfscope
-hooks (ROADMAP queue 1 item 4's remainder).
+beside further blocks.  With perfscope on, each block's program is priced
+once a signature (``engine/scan.py``) and the installed SLO rules run every
+``SLO_EVERY_BLOCKS`` dispatched blocks (``telemetry/perfscope.py``).
 """
 
 import time
@@ -58,6 +59,7 @@ from torcheval_tpu_torch.resilience.checkpoint import CheckpointManager
 from torcheval_tpu_torch.telemetry import events as _telemetry
 from torcheval_tpu_torch.telemetry import flightrec as _flightrec
 from torcheval_tpu_torch.telemetry import health as _health
+from torcheval_tpu_torch.telemetry import perfscope as _perfscope
 from torcheval_tpu_torch.telemetry import trace as _trace
 
 __all__ = ["Evaluator", "Prefetcher", "ScanRunner"]
@@ -686,6 +688,8 @@ class Evaluator:
                 health_stats, source="engine_block", bounds=runner.bounds,
                 steps=block.batches,
             )
+        if _perfscope.ENABLED:
+            _perfscope.maybe_evaluate_slo(self.blocks_dispatched)
         self._maybe_snapshot()
         self._maybe_checkpoint()
 

@@ -41,7 +41,11 @@ tests hold against the JAX engine.  There the capture counter
 (``_stats``) counts what a capture would have been, once a signature.
 With the data-health monitor on, each step's
 :func:`~torcheval_tpu_torch.telemetry.health.batch_stats` is stacked as a
-side output (JAX's scan ``ys``), read back once a block.
+side output (JAX's scan ``ys``), read back once a block.  With perfscope
+on, the first block of each signature is priced as ``"mega_scan"`` or
+``"engine_scan"`` (:func:`_program_name`); on the card its states are the
+runner's buffer, which a donated replay writes in place, and the memory
+rise of that block includes the capture's graph pool.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from torcheval_tpu_torch.parallel import _compile_cache
 from torcheval_tpu_torch.resilience import faults as _faults
 from torcheval_tpu_torch.telemetry import events as _telemetry
 from torcheval_tpu_torch.telemetry import health as _health
+from torcheval_tpu_torch.telemetry import perfscope as _perfscope
 
 States = Dict[str, Dict[str, torch.Tensor]]
 
@@ -261,6 +266,8 @@ class ScanRunner:
         self._states: Optional[_StateBuffer] = None
         self._states_key: Optional[Tuple[Any, ...]] = None
         self.replays = 0
+        # Perfscope's program name of each block signature.
+        self._perf_programs: Dict[Any, str] = {}
 
     @property
     def donate(self) -> bool:
@@ -307,6 +314,11 @@ class ScanRunner:
                 f"the block is on {device} but the collection's states are on "
                 f"{col.device}."
             )
+        pending = (
+            self._perfscope_begin(key, stacked_args, stacked_mask, device)
+            if _perfscope.ENABLED
+            else None
+        )
         program = self._programs.get(key)
         if device.type == "cuda":
             if program is None:
@@ -316,14 +328,38 @@ class ScanRunner:
                     self._states_key = states_key
                 program = self._capture(stacked_args, stacked_mask, before, self._states)
                 self._programs.put(key, program)
-            return self._replay(program, stacked_args, stacked_mask)
+            stats = self._replay(program, stacked_args, stacked_mask)
+            if pending is not None:
+                # The replay read and wrote the runner's buffer: those are
+                # the states a donated block keeps in place.
+                self._price(pending, program.states.views, stacked_args, stacked_mask)
+            return stats
         if device.type != "cpu":
             raise ValueError(f"the engine runs on cuda or cpu, not {device}.")
         if program is None:
             col._check_fusable()
             bump_trace(_program_name(col, stacked_args, stacked_mask))
             self._programs.put(key, True)
-        return self._run_eager(stacked_args, stacked_mask, before)
+        stats = self._run_eager(stacked_args, stacked_mask, before)
+        if pending is not None:
+            self._price(pending, before, stacked_args, stacked_mask)
+        return stats
+
+    def _perfscope_begin(self, key, stacked_args, stacked_mask, device):
+        """Perfscope's gate for one block (only called with perfscope on);
+        the program name of a signature is worked out once."""
+        program = self._perf_programs.get(key)
+        if program is None:
+            program = self._perf_programs[key] = _program_name(
+                self._collection, stacked_args, stacked_mask)
+        return _perfscope.begin(
+            program, (key, self._donate, self._health, self._token), device)
+
+    def _price(self, pending, before: States, stacked_args, stacked_mask) -> None:
+        _perfscope.profile_program(
+            pending, before, self._collection._read_states(),
+            batch_args=(stacked_args, stacked_mask), donate=self._donate,
+        )
 
     # ----------------------------------------------------------------- CPU
     def _run_eager(self, stacked_args, stacked_mask, before: States):

@@ -15,11 +15,13 @@ included, and only the others run their own update.  With the telemetry
 bus on, each call is one ``update`` span named ``MetricCollection.fused``;
 with the data-health monitor on (``telemetry/health.py``), the batch is
 screened on its device and the screen read back once, after the states
-are installed (a flagged batch is then counted exactly).  Left out of the
-JAX method, because they serve the JAX program cache or a module not
-ported yet: the perfscope hook, the per-collection signature set
-(``_fused_seen``) and the compilation-cache bypass around donated
-programs.  :func:`_call_signature` keys the engine's captured graphs
+are installed (a flagged batch is then counted exactly).  With perfscope
+on (``telemetry/perfscope.py``), the first call of each signature is
+priced as ``"mega_collection"`` (the collection kernel took the members)
+or ``"fused_collection"``.  Left out of the JAX method, because they serve
+the JAX program cache: the per-collection signature set (``_fused_seen``)
+and the compilation-cache bypass around donated programs.
+:func:`_call_signature` keys the engine's captured graphs
 (``engine/scan.py``), and :meth:`MetricCollection._scan_step` is the body
 each step of an engine block runs.
 """
@@ -40,6 +42,7 @@ from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.ops import _mega_plan, mega
 from torcheval_tpu_torch.telemetry import events as _telemetry
 from torcheval_tpu_torch.telemetry import health as _health
+from torcheval_tpu_torch.telemetry import perfscope as _perfscope
 
 
 def _call_signature(args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> Any:
@@ -157,6 +160,9 @@ class MetricCollection:
         # The health monitor's (member, num_classes) pairs: taken once, at
         # the first fused_update with the monitor on (the members are fixed).
         self._health_bounds: Optional[Tuple[Tuple[str, int], ...]] = None
+        # Perfscope's program name of each call signature (the plan is a
+        # function of it), so a priced signature costs no plan again.
+        self._perf_programs: Dict[Any, str] = {}
 
     # ------------------------------------------------------------- container
     def __getitem__(self, name: str) -> Metric:
@@ -288,6 +294,7 @@ class MetricCollection:
             if self._health_bounds is None:
                 self._health_bounds = _health.label_bounds(self._metrics)
             health_stats = _health.stats_for_update(args, kwargs, self._health_bounds)
+        pending = self._perfscope_begin(args, kwargs) if _perfscope.ENABLED else None
         before = self._read_states()
         try:
             with skip_value_checks():
@@ -296,6 +303,12 @@ class MetricCollection:
         except BaseException:
             self._install_states(before)
             raise
+        if pending is not None:
+            # Priced once per (signature, donation, health, route token).
+            _perfscope.profile_program(
+                pending, before, self._read_states(), batch_args=(args, kwargs),
+                donate=bool(self._donate),
+            )
         if _telemetry.ENABLED:
             _telemetry.record_span(
                 "update",
@@ -308,6 +321,28 @@ class MetricCollection:
             # leaves the applied batch in place; the monitor only reports.
             _health.inspect(health_stats, source="fused_update", bounds=self._health_bounds)
         return self
+
+    def _perfscope_begin(
+        self, args: Tuple[Any, ...], kwargs: Dict[str, Any]
+    ) -> Optional[_perfscope.Pending]:
+        """Perfscope's gate for one :meth:`fused_update` (only called
+        with perfscope on): the program is ``"mega_collection"`` when the
+        collection kernel takes the members, else ``"fused_collection"``."""
+        signature = (
+            _call_signature(args, kwargs),
+            bool(self._donate),
+            _health.ENABLED,
+            _mega_plan.route_token(),
+        )
+        program = self._perf_programs.get(signature)
+        if program is None:
+            kw = {k: v for k, v in kwargs.items() if k != "slice_ids"}
+            program = self._perf_programs[signature] = (
+                "mega_collection"
+                if _mega_plan.plan_for(self._metrics, args, kw, self._slices) is not None
+                else "fused_collection"
+            )
+        return _perfscope.begin(program, signature, self.device)
 
     def _scan_step(
         self, args: Tuple[Any, ...], kwargs: Dict[str, Any], donate: bool

@@ -5,7 +5,8 @@
 The JAX package keeps its ``jit(shard_map(...))`` programs, the engine's
 per-signature scan set and serve's program cache in one shape of cache.
 The port has no jit: its cached programs are the engine's captured CUDA
-graphs (``engine/scan.py``), one a block signature.  A resident process
+graphs (``engine/scan.py``), one a block signature, and serve's shared
+bundles (``serve/registry.py``), one a suite signature.  A resident process
 cannot hold unbounded graphs, each with its own memory pool, so the
 cache is bounded: capacity comes from
 ``TORCHEVAL_TPU_TORCH_COMPILE_CACHE_CAP`` (read when the cache is built;
@@ -29,8 +30,9 @@ from torcheval_tpu_torch.telemetry import events as _telemetry
 
 class SpmdCacheInfo(NamedTuple):
     """``functools.CacheInfo`` plus the eviction count.  ``peak_bytes``
-    stays 0: the JAX package fills it from perfscope's pricing, which
-    the port does not have yet."""
+    stays 0: the JAX package fills it from perfscope's pricing of its
+    sharded programs; the port's perfscope reports its figures through
+    ``telemetry.explain_perf`` instead."""
 
     hits: int
     misses: int

@@ -44,9 +44,12 @@ Dropped as TPU artifacts:
 * the tracer downgrades and ``warn_route_downgrade`` (PyTorch runs
   eagerly; ``assume_01_targets=`` still pins the gate);
 * ``shard_map``, ``compiled_spmd``, ``spmd_cache_info`` and
-  ``spmd_cache_clear`` (a jit cache);
-* ``_timed_dispatch``'s perfscope pricing (perfscope is not ported yet,
-  ROADMAP queue 1 item 4).
+  ``spmd_cache_clear`` (a jit cache).
+
+With the telemetry bus or perfscope on, each histogram call goes through
+:func:`_timed_dispatch`, as in the JAX package: one ``sync`` event (the
+call's wall clock to its end and the merge's wire payload) and, once a
+signature, perfscope's ``"spmd:<op>"`` profile.
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ from torcheval_tpu_torch.ops.binned import binned_counts, binned_weighted_counts
 from torcheval_tpu_torch.parallel.mesh import AxisSpec, Mesh
 from torcheval_tpu_torch.resilience import faults as _faults
 from torcheval_tpu_torch.telemetry import events as _telemetry
+from torcheval_tpu_torch.telemetry import perfscope as _perfscope
 
 Reduction = Union[str, Any]  # 'sum' | 'max' | 'min' | 'mean' | 'concat' | tree
 
@@ -241,6 +245,42 @@ def _mc_roc_from_counts(num_tp: torch.Tensor, num_fp: torch.Tensor, average):
     return aurocs.mean() if average == "macro" else aurocs
 
 
+# -------------------------------------------------------- timed dispatch
+
+
+def _timed_dispatch(fn: Callable[[], Any], op: str, payload_bytes: int, *args):
+    """Instrumented call of one sharded histogram: ``fn()`` runs it on
+    this rank's shard ``args``.  With the telemetry bus on: its wall clock
+    (to the end of its device work: the collective rides inside) and the
+    merge's wire payload, as ONE ``sync`` event.  With perfscope on: the
+    call is priced once per argument signature (``spmd:<op>``): the shard's
+    bytes read, the merged counts written.  Callers branch on
+    ``_telemetry.ENABLED or _perfscope.ENABLED`` so the fully disabled path
+    stays a bare call."""
+    pending = (
+        _perfscope.begin(
+            f"spmd:{op}",
+            tuple((tuple(a.shape), str(a.dtype)) for a in args),
+            args[0].device,
+        )
+        if _perfscope.ENABLED
+        else None
+    )
+    if not _telemetry.ENABLED:
+        out = fn()
+    else:
+        t0 = time.monotonic()
+        out = fn()
+        if out.is_cuda:
+            torch.cuda.current_stream(out.device).synchronize()
+        _telemetry.record_sync(op, time.monotonic() - t0, payload_bytes)
+    if pending is not None:
+        _perfscope.profile_program(
+            pending, {}, {}, batch_args=args, written_bytes=payload_bytes
+        )
+    return out
+
+
 # ------------------------------------------------------------ value checks
 
 
@@ -359,19 +399,43 @@ def _run_sharded_binary(
     else:
         _check_scores_in_unit_interval(scores, mesh, axis)
     if assume_01_targets:
-        tp, fp = _counts_local(scores[None], (targets != 0)[None], weights, num_bins)
-        tp, fp = tp[0], fp[0]
-        if kind == "auroc":
-            tp, fp = (x.to(torch.float32) for x in mesh.all_reduce_many([tp, fp], ["sum", "sum"], axis))
-            zero = torch.zeros(1, dtype=torch.float32, device=tp.device)
-            return _binned_roc_area(torch.cat([zero, tp.flip(0)]), torch.cat([zero, fp.flip(0)]))
-        tp, tp_fp = mesh.all_reduce_many([tp, tp + fp], ["sum", "sum"], axis)
-        cum_tp = tp.to(torch.float32).flip(0)
-        cum_all = tp_fp.to(torch.float32).flip(0)
-        delta_tp = torch.diff(cum_tp, prepend=torch.zeros(1, device=cum_tp.device))
-        return _binned_step_ap(delta_tp, cum_tp, cum_all)
-    if weights is None:
-        weights = torch.ones_like(scores, dtype=torch.float32)
+        op = "binary_hist_counts" if weights is None else "binary_hist_wcounts"
+
+        def run():
+            return _binary_counts_route(kind, num_bins, mesh, axis, scores, targets, weights)
+
+    else:
+        op = "binary_hist_scatter"
+        if weights is None:
+            weights = torch.ones_like(scores, dtype=torch.float32)
+
+        def run():
+            return _binary_scatter_route(kind, num_bins, mesh, axis, scores, targets, weights)
+
+    if _telemetry.ENABLED or _perfscope.ENABLED:
+        # Wire payload of the merge: 2 x num_bins f32 counters.
+        shard = (scores, targets) if weights is None else (scores, targets, weights)
+        return _timed_dispatch(run, op, 2 * num_bins * 4, *shard)
+    return run()
+
+
+def _binary_counts_route(kind, num_bins, mesh, axis, scores, targets, weights):
+    """The kernels' route of the 1-D histograms (0/1 targets)."""
+    tp, fp = _counts_local(scores[None], (targets != 0)[None], weights, num_bins)
+    tp, fp = tp[0], fp[0]
+    if kind == "auroc":
+        tp, fp = (x.to(torch.float32) for x in mesh.all_reduce_many([tp, fp], ["sum", "sum"], axis))
+        zero = torch.zeros(1, dtype=torch.float32, device=tp.device)
+        return _binned_roc_area(torch.cat([zero, tp.flip(0)]), torch.cat([zero, fp.flip(0)]))
+    tp, tp_fp = mesh.all_reduce_many([tp, tp + fp], ["sum", "sum"], axis)
+    cum_tp = tp.to(torch.float32).flip(0)
+    cum_all = tp_fp.to(torch.float32).flip(0)
+    delta_tp = torch.diff(cum_tp, prepend=torch.zeros(1, device=cum_tp.device))
+    return _binned_step_ap(delta_tp, cum_tp, cum_all)
+
+
+def _binary_scatter_route(kind, num_bins, mesh, axis, scores, targets, weights):
+    """The scatter route of the 1-D histograms (soft targets)."""
     pos, tot = _local_binned_counts(scores, targets, weights.to(scores.device), num_bins)
     pos, tot = mesh.all_reduce_many([pos, tot], ["sum", "sum"], axis)
     if kind == "auroc":
@@ -462,9 +526,21 @@ def sharded_multiclass_auroc_histogram(
         )
     _check_scores_in_unit_interval(scores, mesh, axis)
     num_classes = scores.shape[1]
-    tp, fp = _counts_local(scores.T, class_hits(targets, num_classes), weights, num_bins)
-    tp, fp = mesh.all_reduce_many([tp, fp], ["sum", "sum"], axis)
-    return _mc_roc_from_counts(tp.to(torch.float32), fp.to(torch.float32), average)
+
+    def run():
+        tp, fp = _counts_local(scores.T, class_hits(targets, num_classes), weights, num_bins)
+        tp, fp = mesh.all_reduce_many([tp, fp], ["sum", "sum"], axis)
+        return _mc_roc_from_counts(tp.to(torch.float32), fp.to(torch.float32), average)
+
+    if _telemetry.ENABLED or _perfscope.ENABLED:
+        # Merge payload: (C, 2 x num_bins) f32 per-class counters.
+        payload = num_classes * 2 * num_bins * 4
+        if weights is not None:
+            return _timed_dispatch(
+                run, "multiclass_hist_weighted", payload, scores, targets, weights
+            )
+        return _timed_dispatch(run, "multiclass_hist_counts", payload, scores, targets)
+    return run()
 
 
 __all__ = (

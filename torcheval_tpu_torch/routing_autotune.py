@@ -13,8 +13,8 @@ measurement on the card overrule them where a route is a real choice:
 * two **feeds**: :func:`record_measurement` stores the wall clock that
   ``aot.warmup(autotune=True)`` measures when it races the candidates of
   a decision on real shapes (``site="race"``), and :func:`observe_profile`
-  turns a priced program profile into a roofline-priced row.  Its caller,
-  perfscope, is not ported yet, so only race rows are written today;
+  turns a priced program profile (perfscope's, bytes only) into a
+  roofline-priced row;
 * one **consumer**: :func:`decide`, called from the auto branch of
   ``ops/_mega_plan.plan_for`` and from the confusion matrix's row-chunk
   resolution (``_cm_row_chunk``): a dict lookup on the hot path, a store
@@ -419,8 +419,8 @@ def observe_profile(program: str, batch_args: Any, profile: Mapping[str, Any]) -
     """Turn one priced program profile (``bytes_accessed`` and ``flops``)
     into a cost row, its seconds the roofline's ``max(bytes / memory
     peak, flops / compute peak)`` for this card.  Only programs whose name
-    maps onto a known decision contribute.  Its caller, the perfscope
-    layer, is not ported yet."""
+    maps onto a known decision contribute.  Its caller is
+    ``telemetry.perfscope.profile_program``, while this layer is on."""
     mapped = _PROGRAM_ROWS.get(program)
     if mapped is None:
         return

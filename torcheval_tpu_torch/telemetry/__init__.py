@@ -19,14 +19,19 @@ with :func:`enable` or ``TORCHEVAL_TPU_TORCH_TELEMETRY=1``, then:
 * :mod:`~torcheval_tpu_torch.telemetry.trace`: causal trace ids on every
   event; :mod:`~torcheval_tpu_torch.telemetry.flightrec`: post-mortem
   bundles;
-* :func:`to_perfetto`: the events as Chrome/Perfetto trace-event JSON.
+* :func:`to_perfetto`: the events as Chrome/Perfetto trace-event JSON;
+* :mod:`~torcheval_tpu_torch.telemetry.perfscope`: live roofline
+  accounting of the hot-path dispatches: :func:`explain_perf` (achieved
+  GB/s against the card's peaks, reread multiplier, donation
+  verification), :func:`profile` (one merged host + device Perfetto
+  trace) and SLO alert rules (:class:`SloRule`, :func:`default_rules`);
+* :mod:`~torcheval_tpu_torch.telemetry.tenants`: the serve plane's
+  per-tenant rows, in :func:`report`'s ``tenants`` section and the
+  ``torcheval_tpu_tenant_*`` Prometheus families.
 
-Not exported yet: perfscope's ``explain_perf``, ``profile``, ``SloRule``
-and ``default_rules`` (``telemetry/perfscope.py`` prices compiled XLA
-programs; its torch counterpart waits), and ``aggregate.fleet_report`` /
-``host_snapshot`` / ``merge_snapshots`` (the cross-host rollup, with the
-fleet merge), both ROADMAP queue 1 item 4.  The ``tenants`` section of
-:func:`report` waits with the serve layer.
+Not exported yet: ``aggregate.fleet_report`` / ``host_snapshot`` /
+``merge_snapshots`` (the cross-host rollup), which come with the
+multi-host serve plane (ROADMAP queue 1 step 8).
 
 Example::
 
@@ -46,7 +51,15 @@ from __future__ import annotations
 
 from typing import Any, Dict, Union
 
-from torcheval_tpu_torch.telemetry import events, export, flightrec, health, trace
+from torcheval_tpu_torch.telemetry import (
+    events,
+    export,
+    flightrec,
+    health,
+    perfscope,
+    tenants,
+    trace,
+)
 from torcheval_tpu_torch.telemetry.events import (
     AdmissionEvent,
     AlertEvent,
@@ -80,11 +93,18 @@ from torcheval_tpu_torch.telemetry.export import (
     event_from_dict,
     event_to_dict,
     export_jsonl,
+    format_explain_perf,
     format_report,
     prometheus_text,
     read_jsonl,
     serve_prometheus,
     to_perfetto,
+)
+from torcheval_tpu_torch.telemetry.perfscope import (
+    SloRule,
+    default_rules,
+    explain_perf,
+    profile,
 )
 
 # Re-export the snapshot accessor under its natural name without shadowing
@@ -98,10 +118,8 @@ def report(as_text: bool = False) -> Union[Dict[str, Any], str]:
     """Process health summary over everything the bus has captured: a
     JSON-able dict, or the rendered text with ``as_text=True``.
 
-    The JAX package's sections, less three: ``trace_counts`` and
-    ``spmd_cache`` (the port traces and caches no program), and
-    ``tenants`` / ``perf`` (their modules are not ported; no event of
-    theirs occurs in the port).
+    The JAX package's sections, less two: ``trace_counts`` and
+    ``spmd_cache`` (the port traces and caches no program).
     """
     agg = events.aggregates()
 
@@ -226,6 +244,14 @@ def report(as_text: bool = False) -> Union[Dict[str, Any], str]:
         "events_dropped_by_kind": events.dropped_by_kind(),
         "ring_capacity": events.capacity(),
     }
+    if agg["perf"]:
+        perf = explain_perf()
+        result["perf"] = {
+            "device_kind": perf["device_kind"],
+            "routes": perf["routes"],
+        }
+        if "rank_sketch" in perf:
+            result["perf"]["rank_sketch"] = perf["rank_sketch"]
     if agg["merge_levels"]:
         # Hierarchical-merge depth accounting, structured as a list of
         # dicts (like quality) so fleet snapshots keep it intact through
@@ -318,12 +344,18 @@ def report(as_text: bool = False) -> Union[Dict[str, Any], str]:
             "quarantined": srv["quarantined"],
             "sessions": dict(srv["sessions"]),
         }
+    tenant_rows = tenants.collect_rows(agg)
+    if tenant_rows:
+        # Top-K by attributed device-seconds with the worst-shed and
+        # worst-p99 tenants pinned in; rows are plain list-of-dicts.
+        result["tenants"] = tenants.report_section(tenant_rows)
     if as_text:
         return format_report(result)
     return result
 
 
 __all__ = [
+    "SloRule",
     "AdmissionEvent",
     "AlertEvent",
     "BucketPadEvent",
@@ -346,6 +378,7 @@ __all__ = [
     "SyncEvent",
     "TenantSampleEvent",
     "clear",
+    "default_rules",
     "disable",
     "emit",
     "enable",
@@ -354,15 +387,20 @@ __all__ = [
     "event_to_dict",
     "events",
     "events_snapshot",
+    "explain_perf",
     "export",
     "export_jsonl",
     "flightrec",
+    "format_explain_perf",
     "format_report",
     "health",
+    "perfscope",
+    "profile",
     "prometheus_text",
     "read_jsonl",
     "report",
     "serve_prometheus",
+    "tenants",
     "to_perfetto",
     "trace",
 ]

@@ -9,11 +9,12 @@ writes a Chrome/Perfetto trace, ``--trace <trace_id>`` renders the span
 tree(s) holding that trace id (exit 1 when the id is not in the dump),
 ``--flight <bundle_dir>`` validates and renders a flight-recorder bundle
 (no report path needed; exit 2 on a corrupt bundle), ``--alerts`` renders
-the fired SLO rules of a dump and exits 1 when any fired, and ``--routes``
-renders the routing decision table of a dump.  ``--perf`` (perfscope) and
-``--tenants`` (serve metering) read modules the port does not have yet and
-raise ``NotImplementedError``.  Unknown event kinds are skipped with a
-counted warning (``export.read_jsonl``).
+the fired SLO rules of a dump and exits 1 when any fired, ``--routes``
+renders the routing decision table of a dump, ``--perf`` prints
+perfscope's roofline table (``explain_perf``) over the dump's program
+profiles and spans, and ``--tenants`` the per-tenant serve metering table
+rebuilt from its ``TenantSampleEvent`` stream.  Unknown event kinds are
+skipped with a counted warning (``export.read_jsonl``).
 """
 
 from __future__ import annotations
@@ -172,10 +173,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
 
     if args.tenants:
-        raise NotImplementedError(
-            "--tenants renders telemetry/tenants.py's metering table, which comes "
-            "with the serve layer (ROADMAP queue 1 item 8)."
+        from torcheval_tpu_torch.telemetry import tenants as tenants_mod
+
+        print(
+            tenants_mod.format_table(
+                tenants_mod.collect_rows(ev.aggregates())
+            )
         )
+        return 0
 
     if args.alerts:
         alerts = ev.aggregates()["alerts"]
@@ -202,10 +207,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     elif args.prometheus:
         sys.stdout.write(export.prometheus_text())
     elif args.perf:
-        raise NotImplementedError(
-            "--perf renders telemetry/perfscope.py's explain_perf, which the port does "
-            "not have yet (ROADMAP queue 1 item 4)."
-        )
+        import torcheval_tpu_torch.telemetry as telemetry
+
+        sys.stdout.write(telemetry.explain_perf(as_text=True))
     else:
         import torcheval_tpu_torch.telemetry as telemetry
 

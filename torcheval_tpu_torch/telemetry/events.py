@@ -12,12 +12,13 @@ layer's retry/degraded/checkpoint lifecycle
 
 Every event class of the JAX bus is here, with the same fields and
 ``kind`` strings, so ``export.read_jsonl`` parses a JAX dump and the JAX
-package parses the port's.  Three have no hook site in the port and are
-kept for those dumps only: :class:`RetraceEvent` (PyTorch runs eagerly
-and traces no program), :class:`DonationEvent` (no buffer is donated to a
-compiler) and :class:`CacheEvent` (no sharded-program cache).  The engine,
-perfscope, routing, monitor and serve events get their hook sites with
-those modules.
+package parses the port's.  :class:`DonationEvent` has no hook site in
+the port (no buffer is donated to a compiler) and is kept for those dumps
+only; :class:`RetraceEvent` counts the engine's graph captures and serve's
+bundle builds (``_stats.bump_trace``), and :class:`CacheEvent` the
+lookups of serve's program cache.  The engine, perfscope
+(``telemetry/perfscope.py``), routing, monitor and serve events are
+emitted at those modules' hook sites.
 
 Zero-cost-when-off contract
 ---------------------------

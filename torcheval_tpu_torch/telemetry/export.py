@@ -12,13 +12,15 @@ Prometheus text format, and the report formatter (the port of
   metric families keep the JAX package's ``torcheval_tpu_`` prefix, so a
   dashboard built on one package reads the other.
 * :func:`format_report` renders ``telemetry.report()``.
+* :func:`format_explain_perf` renders perfscope's ``explain_perf``; the
+  Prometheus text carries the per-tenant families of the serve metering
+  ledger (``telemetry/tenants.py``).
 
-``fleet_to_perfetto``, ``format_explain_perf`` and
-``format_fleet_report`` render what ``telemetry/aggregate.py`` and
-``telemetry/perfscope.py`` produce; neither is ported yet (ROADMAP queue 1
-item 4), so each raises ``NotImplementedError``, and the per-tenant
-Prometheus families wait with the serve layer.  Live spans in a profiler
-trace are not a drain: ``telemetry.enable(annotate=True)`` (or
+``fleet_to_perfetto`` and ``format_fleet_report`` render what
+``telemetry/aggregate.py`` produces, which comes with the multi-host serve
+plane (ROADMAP queue 1 step 8), so each raises ``NotImplementedError``.
+Live spans in a profiler trace are not a drain:
+``telemetry.enable(annotate=True)`` (or
 ``TORCHEVAL_TPU_TORCH_TELEMETRY_ANNOTATE=1``) runs every update/compute
 span under ``torch.profiler.record_function``.
 """
@@ -347,8 +349,8 @@ def fleet_to_perfetto(snapshots: List[Dict[str, Any]]) -> Dict[str, Any]:
     """One merged Perfetto trace over per-host snapshots: waits for
     ``telemetry/aggregate.py``."""
     raise NotImplementedError(
-        "fleet_to_perfetto reads telemetry/aggregate.py's host snapshots, which the "
-        "port does not have yet (ROADMAP queue 1 item 4)."
+        "fleet_to_perfetto reads telemetry/aggregate.py's host snapshots, which "
+        "come with the multi-host serve plane (ROADMAP queue 1 step 8)."
     )
 
 
@@ -814,6 +816,156 @@ def prometheus_text() -> str:
                 f"{srv['sessions'][action]}"
             )
 
+    from torcheval_tpu_torch.telemetry import tenants as _tenants
+
+    tenant_rows = _tenants.capped_rows(_tenants.collect_rows(agg))
+    if tenant_rows:
+        # Tenant-labeled families off the metering ledger.  Cardinality
+        # is bounded by design: past TENANT_SERIES_CAP tenants the tail
+        # folds into one __other__ series, and tenant ids pass through
+        # tenant_label (printable) + _label_escape (quoting).
+        rows = sorted(tenant_rows, key=lambda r: r["tenant"])
+        out.append(
+            f"# HELP {_PREFIX}_tenant_admission_total Per-tenant "
+            "admission outcomes from the serve metering ledger."
+        )
+        out.append(f"# TYPE {_PREFIX}_tenant_admission_total counter")
+        for row in rows:
+            label = _tenants.tenant_label(row["tenant"])
+            for outcome in ("admitted", "shed", "rejected"):
+                out.append(
+                    f"{_PREFIX}_tenant_admission_total"
+                    f"{_labels(tenant=label, outcome=outcome)} "
+                    f"{row.get(outcome, 0)}"
+                )
+        out.append(
+            f"# HELP {_PREFIX}_tenant_dispatched_total Batches executed "
+            "per tenant through the shared group programs."
+        )
+        out.append(f"# TYPE {_PREFIX}_tenant_dispatched_total counter")
+        for row in rows:
+            out.append(
+                f"{_PREFIX}_tenant_dispatched_total"
+                f"{_labels(tenant=_tenants.tenant_label(row['tenant']))} "
+                f"{row.get('dispatched', 0)}"
+            )
+        out.append(
+            f"# HELP {_PREFIX}_tenant_rows_total Valid batch rows "
+            "dispatched per tenant (the attribution weight)."
+        )
+        out.append(f"# TYPE {_PREFIX}_tenant_rows_total counter")
+        for row in rows:
+            out.append(
+                f"{_PREFIX}_tenant_rows_total"
+                f"{_labels(tenant=_tenants.tenant_label(row['tenant']))} "
+                f"{row.get('rows', 0)}"
+            )
+        out.append(
+            f"# HELP {_PREFIX}_tenant_payload_bytes_total Admitted batch "
+            "payload bytes per tenant."
+        )
+        out.append(f"# TYPE {_PREFIX}_tenant_payload_bytes_total counter")
+        for row in rows:
+            out.append(
+                f"{_PREFIX}_tenant_payload_bytes_total"
+                f"{_labels(tenant=_tenants.tenant_label(row['tenant']))} "
+                f"{row.get('payload_bytes', 0)}"
+            )
+        out.append(
+            f"# HELP {_PREFIX}_tenant_device_seconds_total Attributed "
+            "device time per tenant: each shared program's priced "
+            "seconds split by valid-row share."
+        )
+        out.append(
+            f"# TYPE {_PREFIX}_tenant_device_seconds_total counter"
+        )
+        for row in rows:
+            out.append(
+                f"{_PREFIX}_tenant_device_seconds_total"
+                f"{_labels(tenant=_tenants.tenant_label(row['tenant']))} "
+                f"{_fmt(row.get('device_seconds', 0.0))}"
+            )
+        out.append(
+            f"# HELP {_PREFIX}_tenant_queue_depth Queued batches per "
+            "tenant at the last metering observation."
+        )
+        out.append(f"# TYPE {_PREFIX}_tenant_queue_depth gauge")
+        for row in rows:
+            out.append(
+                f"{_PREFIX}_tenant_queue_depth"
+                f"{_labels(tenant=_tenants.tenant_label(row['tenant']))} "
+                f"{row.get('queue_depth', 0)}"
+            )
+        out.append(
+            f"# HELP {_PREFIX}_tenant_wait_seconds Per-tenant queue-wait "
+            "quantiles (StreamDigest ladder)."
+        )
+        out.append(f"# TYPE {_PREFIX}_tenant_wait_seconds gauge")
+        for row in rows:
+            label = _tenants.tenant_label(row["tenant"])
+            for q, field in (("0.5", "wait_p50_s"), ("0.99", "wait_p99_s")):
+                out.append(
+                    f"{_PREFIX}_tenant_wait_seconds"
+                    f"{_labels(tenant=label, quantile=q)} "
+                    f"{_fmt(row.get(field, 0.0))}"
+                )
+        out.append(
+            f"# HELP {_PREFIX}_tenant_e2e_seconds Per-tenant "
+            "submit-to-result latency quantiles."
+        )
+        out.append(f"# TYPE {_PREFIX}_tenant_e2e_seconds gauge")
+        for row in rows:
+            label = _tenants.tenant_label(row["tenant"])
+            for q, field in (("0.5", "e2e_p50_s"), ("0.99", "e2e_p99_s")):
+                out.append(
+                    f"{_PREFIX}_tenant_e2e_seconds"
+                    f"{_labels(tenant=label, quantile=q)} "
+                    f"{_fmt(row.get(field, 0.0))}"
+                )
+        out.append(
+            f"# HELP {_PREFIX}_tenant_session_churn_total Spill/resume "
+            "steps per tenant (placement churn)."
+        )
+        out.append(f"# TYPE {_PREFIX}_tenant_session_churn_total counter")
+        for row in rows:
+            label = _tenants.tenant_label(row["tenant"])
+            for action in ("spills", "resumes"):
+                out.append(
+                    f"{_PREFIX}_tenant_session_churn_total"
+                    f"{_labels(tenant=label, action=action)} "
+                    f"{row.get(action, 0)}"
+                )
+        dominant = [r for r in rows if r.get("dominant_program")]
+        if dominant:
+            out.append(
+                f"# HELP {_PREFIX}_tenant_dominant_share Device-time "
+                "share of a shared program held by its dominant tenant "
+                "(the noisy-neighbour verdict)."
+            )
+            out.append(f"# TYPE {_PREFIX}_tenant_dominant_share gauge")
+            for row in dominant:
+                out.append(
+                    f"{_PREFIX}_tenant_dominant_share"
+                    f"{_labels(tenant=_tenants.tenant_label(row['tenant']), program=row['dominant_program'])} "
+                    f"{_fmt(row.get('dominant_share', 0.0))}"
+                )
+        folded = next(
+            (
+                r["folded_tenants"]
+                for r in rows
+                if r["tenant"] == _tenants.OTHER_LABEL
+                and "folded_tenants" in r
+            ),
+            0,
+        )
+        if folded:
+            out.append(
+                f"# HELP {_PREFIX}_tenant_series_folded Tenants folded "
+                "into the __other__ series by the cardinality cap."
+            )
+            out.append(f"# TYPE {_PREFIX}_tenant_series_folded gauge")
+            out.append(f"{_PREFIX}_tenant_series_folded {folded}")
+
     return "\n".join(out) + "\n"
 
 
@@ -1106,18 +1258,85 @@ def format_report(report: Dict[str, Any]) -> str:
     return buf.getvalue()
 
 
+def _format_perf_route(program: str, route: Dict[str, Any]) -> str:
+    """One report line for a profiled route (shared by the telemetry
+    report and :func:`format_explain_perf`)."""
+    parts = [
+        f"{program}: {route['flops'] / 1e6:.3f} MFLOP, "
+        f"{route['bytes_accessed'] / 1e6:.3f} MB accessed"
+    ]
+    if route.get("reread_multiplier"):
+        parts.append(f"reread x{route['reread_multiplier']:.2f}")
+    if route.get("legacy_reread_multiplier"):
+        # Present only when the legacy route for the same collection
+        # signature was priced in this process: the megakernel's delta.
+        delta = f"legacy reread x{route['legacy_reread_multiplier']:.2f}"
+        if route.get("reread_reduction_x"):
+            delta += f" -> {route['reread_reduction_x']:.1f}x lower"
+        parts.append(delta)
+    if "achieved_gbps" in route:
+        parts.append(
+            f"{route['achieved_gbps']:.2f} GB/s "
+            f"({route['hbm_pct']:.2f}% HBM roof), "
+            f"{route['achieved_gflops']:.2f} GFLOP/s "
+            f"({route['flops_pct']:.2f}% compute roof), "
+            f"{route['bound']}-bound"
+        )
+        parts.append(
+            f"dispatch overhead "
+            f"{route['dispatch_overhead_seconds'] * 1e6:.1f} us/call "
+            f"({route['dispatch_overhead_pct']:.1f}% of wall) over "
+            f"{route['dispatches']} dispatches"
+        )
+    parts.append(f"peak {route['peak_bytes']} B (temp {route['temp_bytes']} B)")
+    if route.get("donated"):
+        verdict = "verified" if route.get("aliased") else "NOT ALIASED"
+        parts.append(f"donation {verdict}")
+    return "; ".join(parts)
+
+
 def format_explain_perf(result: Dict[str, Any]) -> str:
-    """Render perfscope's ``explain_perf``: waits for
-    ``telemetry/perfscope.py``."""
-    raise NotImplementedError(
-        "format_explain_perf renders telemetry/perfscope.py's explain_perf, which the "
-        "port does not have yet (ROADMAP queue 1 item 4)."
+    """Render :func:`torcheval_tpu_torch.telemetry.explain_perf`'s dict (or
+    the JAX package's) as the per-route roofline table."""
+    buf = io.StringIO()
+    peaks = result.get("peaks", {})
+    exact = "" if peaks.get("exact", True) else " (fallback peaks)"
+    buf.write(
+        f"torcheval_tpu perfscope — device {result.get('device_kind', '?')}"
+        f"{exact}: {peaks.get('hbm_gbps', 0.0):.0f} GB/s HBM, "
+        f"{peaks.get('flops', 0.0) / 1e12:.1f} TFLOP/s\n"
     )
+    routes = result.get("routes", {})
+    if not routes:
+        buf.write(
+            "  no profiled programs — enable perfscope before dispatching "
+            "(TORCHEVAL_TPU_TORCH_PERFSCOPE=1 or perfscope.enable())\n"
+        )
+    for program, route in sorted(routes.items()):
+        buf.write(f"  {_format_perf_route(program, route)}\n")
+    sketch = result.get("rank_sketch")
+    if sketch:
+        bins = ", ".join(
+            f"{b}x{n}" for b, n in sketch.get("bins", {}).items()
+        )
+        buf.write(
+            f"  rank-sketch tier: {sketch.get('members_constructed', 0)} "
+            f"member(s) on sort-free sketch states (bins {bins}, "
+            f"predicted eps <= {sketch.get('predicted_eps_max', 0.0):.2e})"
+            " — exact-buffer curve members would pay a sort per compute\n"
+        )
+    alerts = result.get("alerts", {})
+    for rule, entry in sorted(alerts.items()):
+        buf.write(
+            f"  ALERT {rule}: fired {entry['count']}x — "
+            f"{entry.get('message', '')}\n"
+        )
+    return buf.getvalue()
 
 
 def format_fleet_report(fleet: Dict[str, Any]) -> str:
     """Render ``fleet_report``: waits for ``telemetry/aggregate.py``."""
     raise NotImplementedError(
-        "format_fleet_report renders telemetry/aggregate.py's fleet_report, which the "
-        "port does not have yet (ROADMAP queue 1 item 4)."
+        "format_fleet_report renders telemetry/aggregate.py's fleet_report, which "
+        "comes with the multi-host serve plane (ROADMAP queue 1 step 8)."
     )

@@ -25,9 +25,10 @@ to one directory:
 
 The bundle layout (:data:`BUNDLE_FORMAT`, the manifest's fields, a
 SHA-256 a file) is the JAX package's: a bundle written by either package
-validates in the other.  ``program_profiles`` stays ``[]`` until
-perfscope is ported, and the ``tenants.json`` file is written only when a
-trigger passes tenant rows, which no ported site does.
+validates in the other.  ``program_profiles`` holds the perfscope
+profiles among the bundle's events, and the ``tenants.json`` file is
+written when a trigger passes tenant rows (serve's quarantine path, with
+the metering ledger on).
 
 Trigger sites (each under ``if _flightrec.ENABLED:``): a
 :class:`~torcheval_tpu_torch.telemetry.health.DataCorruptionError` raise,
