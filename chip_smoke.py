@@ -467,6 +467,10 @@ COL_SAMPLES = 2**19  # the collection workload's total, 8 updates of 2^16
 SERVE_TENANTS = 64  # benchmarks/workloads.py's bench_serve_multitenant
 SERVE_STEPS = 6
 SERVE_ROWS = 256
+# benchmarks/workloads.py's bench_serve_cluster_migration
+CLUSTER_WORLD, CLUSTER_TENANTS, CLUSTER_ROWS, CLUSTER_CLASSES = 8, 256, 64, 20
+CLUSTER_BATCHES, CLUSTER_MIGRATIONS = 2, 8
+GLOO_TENANTS = 32
 SLICED_CLASSES, SLICES = 20, 16
 # 132 SMs x 64 int32 lanes x 1.98 GHz: half the 33.5 TOPS of the Hopper white
 # paper, which counts a multiply-add as two operations.
@@ -5147,6 +5151,346 @@ def main(argv) -> int:
     print(f"times {card}: phase 67 {time.perf_counter() - perf_t0:.3f} s, phases 64-67 "
           f"{time.perf_counter() - serve_t0:.3f} s", flush=True)
 
+    # ------------------------------------------- 68. frames and placement on the card
+    import shutil
+    import threading
+
+    from torcheval_tpu_torch.distributed import LocalWorld, pack_frames, unpack_frames
+    from torcheval_tpu_torch.resilience import FaultPlan
+    from torcheval_tpu_torch.serve import HashRing, ServeCluster
+    from torcheval_tpu_torch.serve.cluster import _placed
+
+    cluster_t0 = time.perf_counter()
+    cl_host = cluster_batch()
+    cl_batch = tuple(torch.from_numpy(a).to(dev) for a in cl_host)
+    frames68 = pack_frames(cl_batch)
+    check(frames68 == pack_frames(tuple(t.cpu() for t in cl_batch)) == pack_frames(cl_host),
+          f"frames: pack_frames of the {CLUSTER_ROWS} x {CLUSTER_CLASSES} f32 scores and int32 "
+          f"target on the card equals pack_frames of their host copies ({len(frames68)} B)")
+    args68, kw68 = unpack_frames(frames68)
+    placed68, _ = _placed(args68, kw68, dev)
+    torch.cuda.synchronize()
+    check(all(p.device.type == "cuda" and torch.equal(p, b) for p, b in zip(placed68, cl_batch)),
+          "frames: the owner's unpacked frames land on the card bit-equal to the sender's")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof68:
+        _placed(args68, kw68, dev)
+        torch.cuda.synchronize()
+    ops68 = prof68.key_averages()
+    copy_ops68 = sum(e.count for e in ops68 if e.key == "aten::copy_")
+    htod68 = sum(e.count for e in ops68 if "HtoD" in e.key)
+    print(f"profiler: placing one routed batch of 2 frames: {copy_ops68} aten::copy_, "
+          f"{htod68 if htod68 else 'no'} host-to-device memcpy rows", flush=True)
+    check(copy_ops68 == 2 and htod68 in (0, 2), "frames: one host-to-device copy a frame")
+    cl_names = [f"tenant-{i:03d}" for i in range(CLUSTER_TENANTS)]
+    ring68 = HashRing(range(CLUSTER_WORLD), vnodes=64).spread(cl_names)
+    print(f"placement: {CLUSTER_TENANTS} tenants on the 64-vnode ring of {CLUSTER_WORLD} hosts: "
+          f"{ring68}", flush=True)
+    check(sum(ring68.values()) == CLUSTER_TENANTS and min(ring68.values()) > 0,
+          "placement: every host owns tenants")
+
+    # -------------------------------------------- 69. the serve cluster at full width
+    def cl_suite():
+        return {"acc": MulticlassAccuracy(num_classes=CLUSTER_CLASSES, average="macro",
+                                          device=dev),
+                "f1": MulticlassF1Score(num_classes=CLUSTER_CLASSES, average="macro",
+                                        device=dev)}
+
+    solo69 = {}
+
+    def cl_solo(k):
+        """A plain unsliced suite on the card over ``k`` of the batch."""
+        if k not in solo69:
+            suite = cl_suite()
+            for _ in range(k):
+                for m in suite.values():
+                    m.update(*cl_batch)
+            solo69[k] = {name: m.compute() for name, m in suite.items()}
+        return solo69[k]
+
+    def same_on_host(got, want):
+        return got.keys() == want.keys() and all(
+            torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
+
+    # Warm the kernel and every host's service before any cluster exists:
+    # a cold first launch stalling the driver could get a live host excised.
+    warm69 = EvalService(group_width=8)
+    warm69.open("warm", cl_suite())
+    warm69.submit("warm", *cl_batch)
+    warm69.pump()
+    warm69.results("warm")
+    torch.cuda.synchronize()
+    spill69 = tempfile.mkdtemp(prefix="chip_smoke_cluster_spill_")
+    world69 = LocalWorld(CLUSTER_WORLD)
+    clusters = [ServeCluster(world69.group(r), spill_dir=spill69, heartbeat_s=0.05,
+                             death_timeout_s=10.0, group_width=8)
+                for r in range(CLUSTER_WORLD)]
+    for cl in clusters:
+        cl.service.open("__warm__", cl_suite())
+        cl.service.submit("__warm__", *cl_batch)
+        cl.service.pump()
+        cl.service.results("__warm__")
+        cl.service.close("__warm__")
+    torch.cuda.synchronize()
+
+    def dispatched69():
+        return sum(cl.service.stats()["counts"]["dispatched"] for cl in clusters)
+
+    stop69, driver_err69 = threading.Event(), []
+
+    def drive69():
+        # One driver thread steps every live host round-robin.
+        try:
+            while not stop69.is_set():
+                idle = True
+                for cl in clusters:
+                    if not cl.is_dead and cl.step():
+                        idle = False
+                if idle:
+                    time.sleep(0.001)
+        except BaseException as exc:  # noqa: BLE001 - failed below
+            driver_err69.append(exc)
+
+    def wait69(predicate, what, timeout_s=120.0):
+        deadline = time.monotonic() + timeout_s
+        while not predicate():
+            if driver_err69:
+                fail(f"cluster: the driver thread raised {driver_err69[0]!r}")
+            if time.monotonic() > deadline:
+                fail(f"cluster: {what} not reached in {timeout_s} s")
+            time.sleep(0.005)
+
+    driver69 = threading.Thread(target=drive69, name="chip-smoke-cluster-driver", daemon=True)
+    driver69.start()
+    try:
+        opens = [cl.open(name, cl_suite).action for name in cl_names for cl in clusters]
+        check(opens.count("local") == CLUSTER_TENANTS
+              and opens.count("routed") == CLUSTER_TENANTS * (CLUSTER_WORLD - 1),
+              f"cluster: {CLUSTER_TENANTS} tenants opened on all {CLUSTER_WORLD} hosts, each "
+              "local on its ring owner")
+        owner_of = clusters[0].placement.owner_of
+        owned = {r: [n for n in cl_names if owner_of(n) == r] for r in range(CLUSTER_WORLD)}
+        base = dispatched69()
+        for r in range(CLUSTER_WORLD):
+            clusters[0].submit(owned[r][0], *cl_batch)  # warms the routed path end to end
+        wait69(lambda: dispatched69() >= base + CLUSTER_WORLD, "the warm routed dispatches")
+        torch.cuda.synchronize()
+        warm_sent = {owned[r][0] for r in range(CLUSTER_WORLD)}
+        _build.reset_counts()
+        base = dispatched69()
+        t0 = time.perf_counter()
+        routed = []
+        for _ in range(CLUSTER_BATCHES):
+            for name in cl_names:
+                routed.append(clusters[0].submit(name, *cl_batch).action)
+        want69 = base + CLUSTER_TENANTS * CLUSTER_BATCHES
+        wait69(lambda: dispatched69() >= want69, "the routed dispatches")
+        torch.cuda.synchronize()
+        routed69_s = time.perf_counter() - t0
+        launches69, plain69 = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        dispatches69 = dispatched69() - base
+        check(routed.count("routed") == CLUSTER_BATCHES * (CLUSTER_TENANTS - len(owned[0]))
+              and routed.count("local") == CLUSTER_BATCHES * len(owned[0]),
+              f"cluster: {len(routed)} submits from rank 0, {routed.count('routed')} routed p2p")
+        check(launches69 == {"mega_counts": dispatches69} and not plain69
+              and dispatches69 == CLUSTER_TENANTS * CLUSTER_BATCHES,
+              f"cluster: {dispatches69} owner dispatches, mega.cu launched once each "
+              f"({launches69}), no plain version ({plain69})")
+        cl_rows_s = CLUSTER_TENANTS * CLUSTER_BATCHES * CLUSTER_ROWS / routed69_s
+        print(f"times {card}: serve cluster, {CLUSTER_TENANTS * CLUSTER_BATCHES} batches "
+              f"routed end to end from rank 0 over {CLUSTER_WORLD} hosts in "
+              f"{routed69_s * 1e3:.3f} ms: {cl_rows_s:.1f} rows/s", flush=True)
+        seen69 = {}
+        for name in cl_names:
+            owner = clusters[owner_of(name)]
+            seen69[name] = owner.service.session(name).batches
+            out = owner.results(name)
+            if out.action != "local" or not same_on_host(out.value, cl_solo(seen69[name])):
+                fail(f"cluster: {name} ({out.action}) differs from a solo suite")
+        check(all(seen69[n] == CLUSTER_BATCHES + (n in warm_sent) for n in cl_names),
+              f"cluster: all {CLUSTER_TENANTS} tenants bit-equal to a solo unsliced suite on the "
+              "card over the same batches, results read on their owners")
+
+        # 8 live migrations off rank 0, then one routed batch to each.
+        targets = [r for r in range(1, CLUSTER_WORLD) if owned[r]]
+        moved = owned[0][:CLUSTER_MIGRATIONS]
+        mig_s, mig_out = [], []
+        for i, name in enumerate(moved):
+            t0 = time.perf_counter()
+            out = clusters[0].migrate(name, targets[i % len(targets)], timeout_s=30.0)
+            mig_s.append(time.perf_counter() - t0)
+            mig_out.append((out.action, out.owner))
+        check(mig_out == [("migrated", targets[i % len(targets)]) for i in range(len(moved))],
+              f"cluster: {len(moved)} live migrations from rank 0 to ranks "
+              f"{[o for _, o in mig_out]} ({[a for a, _ in mig_out]})")
+        mig_p99 = clusters[0].stats()["migration_p99_s"]
+        print(f"times {card}: {len(moved)} live migrations off rank 0: p99 {mig_p99:.6f} s "
+              f"(the cluster's stats), each call {[round(s, 6) for s in mig_s]} s", flush=True)
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        base = dispatched69()
+        check(all(clusters[0].submit(name, *cl_batch).action == "routed" for name in moved),
+              "cluster: the migrated tenants now route from rank 0 to their new owners")
+        wait69(lambda: dispatched69() >= base + len(moved), "the migrated tenants' dispatches")
+        torch.cuda.synchronize()
+        mig_launches = dict(_build.LAUNCHES)
+        check(mig_launches == {"mega_counts": len(moved)} and not _build.PLAIN_CALLS,
+              f"cluster: the migrated tenants' dispatches after resume launch mega.cu once each "
+              f"({mig_launches}), no plain version")
+        for name in moved:
+            owner = clusters[owner_of(name)]
+            if owner.rank == 0:
+                fail(f"cluster: migrated {name} is still owned by rank 0")
+            out = owner.results(name)
+            if out.action != "local" or not same_on_host(out.value, cl_solo(seen69[name] + 1)):
+                fail(f"cluster: migrated {name} differs from a solo suite")
+            seen69[name] += 1
+        print("ok: cluster: the 8 migrated tenants bit-equal to a solo suite on their new "
+              "owners (handed off through spill, stream and resume)", flush=True)
+
+        # Chaos: half a host's tenants spilled, then it dies mid-migration.
+        victim = next(r for r in range(1, CLUSTER_WORLD) if len(owned[r]) >= 4)
+        spilled = owned[victim][: len(owned[victim]) // 2]
+        unspilled = [n for n in owned[victim] if n not in spilled]
+        mig_tenant, expected_lost = unspilled[0], unspilled[1:]
+        for name in spilled:
+            clusters[victim].service.spill(name)
+        _build.reset_counts()
+        base_all = dispatched69()
+        plan = FaultPlan([{"site": "serve.migrate", "action": "drop_rank",
+                           "match": {"phase": "stream", "rank": victim}}])
+        t0 = time.perf_counter()
+        with plan:
+            out = clusters[victim].migrate(mig_tenant, 0, timeout_s=30.0)
+        check(out.action == "dead" and clusters[victim].is_dead,
+              f"chaos: rank {victim} killed mid-migration at phase 'stream' ({out.action})")
+        survivors = [cl for cl in clusters if not cl.is_dead]
+
+        def converged():
+            stats = [cl.stats() for cl in survivors]
+            return (all(victim in s["dead"] for s in stats)
+                    and len({s["epoch"] for s in stats}) == 1
+                    and len({s["fingerprint"] for s in stats}) == 1)
+
+        wait69(converged, "post-failover ring convergence")
+        failover_s = time.perf_counter() - t0
+        stats69 = [cl.stats() for cl in survivors]
+        lost = set().union(*(set(s["lost"]) for s in stats69))
+        recovered = sum(s["counts"]["recovered"] for s in stats69)
+        check(len(survivors) == CLUSTER_WORLD - 1,
+              f"chaos: the {len(survivors)} survivors converged to epoch {stats69[0]['epoch']} "
+              f"and fingerprint {stats69[0]['fingerprint'][:16]}")
+        check(lost == set(expected_lost),
+              f"chaos: lost == the dead host's never-spilled sessions exactly "
+              f"({len(lost)} of its {len(owned[victim])}; {recovered} recovered)")
+        probe = spilled[0]
+        wait69(lambda: all(cl.service.session(probe) is not None or cl.rank != owner_of(probe)
+                           for cl in survivors), "the probe's recovery")
+        check(clusters[0].submit(probe, *cl_batch).action in ("local", "routed"),
+              f"chaos: recovered {probe} takes one more routed batch")
+        wait69(lambda: clusters[owner_of(probe)].service.session(probe).batches
+               >= seen69[probe] + 1, "the probe's dispatch")
+        out = clusters[0].results(probe, timeout_s=30.0)
+        check(out.action == "local" and same_on_host(out.value, cl_solo(seen69[probe] + 1)),
+              f"chaos: {probe} on rank {owner_of(probe)} answers rank 0's results() "
+              f"({'remote' if owner_of(probe) else 'local'}) bit-equal to a solo suite")
+        torch.cuda.synchronize()
+        chaos_launches, chaos_plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        chaos_dispatches = dispatched69() - base_all
+        check(chaos_launches.get("mega_counts", 0) == chaos_dispatches and not chaos_plain,
+              f"chaos: {chaos_dispatches} dispatches through the failover (re-driven frames "
+              f"and the probe), mega.cu once each ({chaos_launches}), no plain version")
+    finally:
+        stop69.set()
+        driver69.join(timeout=10.0)
+    check(not driver69.is_alive() and not driver_err69, "cluster: the driver thread ended clean")
+
+    # mega.cu's device time a routed owner launch: one routed batch to 8
+    # tenants of live hosts, the owners stepped from this thread.
+    probes69 = [n for n in cl_names
+                if owner_of(n) not in (0, victim) and not clusters[owner_of(n)].is_dead][:8]
+
+    def routed_round():
+        base = dispatched69()
+        for name in probes69:
+            clusters[0].submit(name, *cl_batch)
+        while dispatched69() < base + len(probes69):
+            for cl in survivors:
+                cl.step()
+
+    cl_mega_prof, cl_mega_ms = kernel_launches(routed_round, "mega_kernel")
+    print(f"profiler: mega.cu device launches in a routed round of {len(probes69)} owner "
+          f"dispatches: {cl_mega_prof}, {cl_mega_ms} ms of device time", flush=True)
+    check(cl_mega_prof in (None, len(probes69)), "the profiler sees mega.cu once an owner dispatch")
+    cl_launch_ms = None if not cl_mega_prof else cl_mega_ms / cl_mega_prof
+    shutil.rmtree(spill69, ignore_errors=True)
+    wall69 = time.perf_counter() - cluster_t0
+    print(f"times {card}: phases 68-69 {wall69:.3f} s (failover {failover_s:.3f} s of it, "
+          "the death timeout 10 s)", flush=True)
+
+    # ----------------------------- 70. a real multi-process cluster and the fleet report
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port70 = sock.getsockname()[1]
+    spill70 = tempfile.mkdtemp(prefix="chip_smoke_gloo_spill_")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--serve-child", str(r), "2", str(port70),
+         spill70],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env59)
+        for r in range(2)]
+    deadline70 = time.monotonic() + 300.0
+    outs70 = []
+    try:
+        for proc in procs:
+            try:
+                out, _ = proc.communicate(timeout=max(1.0, deadline70 - time.monotonic()))
+                outs70.append((proc.returncode, out))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, _ = proc.communicate()
+                outs70.append(("timeout", out))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(spill70, ignore_errors=True)
+    wall70 = time.perf_counter() - t0
+    res70 = []
+    for rank, (rc, out) in enumerate(outs70):
+        lines = [ln for ln in out.splitlines() if ln.startswith("SERVE ")]
+        if rc != 0 or not lines:
+            print(f"--- serve rank {rank} exited {rc}:\n{out[-4000:]}", file=sys.stderr)
+        check(rc == 0 and bool(lines), f"serve rank {rank} of 2 ran to its end (exit {rc})")
+        res70.append(json.loads(lines[-1][len("SERVE "):]))
+    r0, r1 = res70
+    gloo_launches = r0["launches"].get("mega_counts", 0) + r1["launches"].get("mega_counts", 0)
+    check(r0["results_bit_equal"] and r0["migrated"] == "migrated"
+          and gloo_launches == r0["dispatched"] + r1["dispatched"] == 2 * GLOO_TENANTS
+          and not r0["plain"] and not r1["plain"],
+          f"gloo cluster: {GLOO_TENANTS} tenants submitted twice from rank 0 over one "
+          f"TorchProcessGroup of 2 processes on cuda:0, one live migration 0 -> 1, every "
+          f"tenant's results (remote ones through the store) bit-equal to a solo suite; "
+          f"mega.cu {gloo_launches} launches for {r0['dispatched']} + {r1['dispatched']} owner "
+          "dispatches, no plain version")
+    fleet70 = r0["fleet"]
+    check(fleet70["hosts"] == 2 and fleet70["process_index"] == [0, 1]
+          and fleet70["owners_named"] and fleet70["tenant_rows"] > 0
+          and fleet70["text_ok"] and fleet70["pids"] == [0, 1] and r1["fleet"] is None,
+          f"fleet report: telemetry.fleet_report(dst=0) on rank 0 has 2 hosts (process_index "
+          f"0 and 1) and a tenant x host rollup of {fleet70['tenant_rows']} tenants naming "
+          "each owner; format_fleet_report renders; fleet_to_perfetto has pids 0 and 1; "
+          f"rank 1 gets None ({fleet70})")
+    print(f"times {card}: gloo serve cluster: routed {r0['routed_s']:.3f} s for "
+          f"{2 * GLOO_TENANTS} batches, migration {r0['migrate_s']:.3f} s, step "
+          f"{r0['step_ms']:.4f} ms (rank 0, {r0['steps']} steps) and {r1['step_ms']:.4f} ms "
+          f"(rank 1, {r1['steps']} steps) mean; fleet report {r0['fleet_s']:.3f} s; whole "
+          f"phase {wall70:.3f} s with the processes' start", flush=True)
+    print(f"times {card}: phases 68-70 together {time.perf_counter() - cluster_t0:.3f} s",
+          flush=True)
+
     # ------------------------------------------------------ the kernels line
     kernels = [
         {
@@ -5289,6 +5633,11 @@ def main(argv) -> int:
             "serve_metering_launches": on_launches["mega_counts"],
             "serve_device_ms": (None if serve_mega_ms is None
                                 else serve_mega_ms / serve_mega_prof),
+            "cluster_launches": launches69["mega_counts"],
+            "cluster_migrated_launches": mig_launches["mega_counts"],
+            "cluster_failover_launches": chaos_launches.get("mega_counts", 0),
+            "cluster_device_ms": cl_launch_ms,
+            "gloo_cluster_launches": gloo_launches,
             "verdict": "bit-equal",
         },
         {
@@ -5380,7 +5729,151 @@ def gloo_child(rank: int, world: int, port: int) -> int:
     return 0
 
 
+def cluster_batch():
+    """``bench_serve_cluster_migration``'s one batch (numpy seed 17): 64
+    rows of f32 scores over 20 classes and their int32 target."""
+    rng = np.random.default_rng(17)
+    return (rng.random((CLUSTER_ROWS, CLUSTER_CLASSES), dtype=np.float32),
+            rng.integers(0, CLUSTER_CLASSES, CLUSTER_ROWS).astype(np.int32))
+
+
+def serve_child(rank: int, world: int, port: int, spill_dir: str) -> int:
+    """One process of phase 70's world: a ``ServeCluster`` over a
+    ``TorchProcessGroup`` on cuda:0, stepped by a thread of its own.  Rank
+    0 submits every batch, migrates one tenant to rank 1 and reads every
+    tenant's results; then both take the fleet report to rank 0.  Prints
+    one ``SERVE {...}`` line; any failure raises (a non-zero exit)."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from torcheval_tpu_torch import telemetry
+    from torcheval_tpu_torch.distributed import TorchProcessGroup, initialize_multihost
+    from torcheval_tpu_torch.metrics import MulticlassAccuracy, MulticlassF1Score
+    from torcheval_tpu_torch.ops import _build
+    from torcheval_tpu_torch.serve import EvalService, ServeCluster
+    from torcheval_tpu_torch.telemetry import aggregate, export
+
+    logging.getLogger("torcheval_tpu_torch.metrics.functional.classification.f1_score").setLevel(
+        logging.ERROR)
+    dev = torch.device("cuda", 0)
+
+    def suite():
+        return {"acc": MulticlassAccuracy(num_classes=CLUSTER_CLASSES, average="macro",
+                                          device=dev),
+                "f1": MulticlassF1Score(num_classes=CLUSTER_CLASSES, average="macro",
+                                        device=dev)}
+
+    batch = tuple(torch.from_numpy(a).to(dev) for a in cluster_batch())
+    warm = EvalService(group_width=8)
+    warm.open("warm", suite())
+    warm.submit("warm", *batch)
+    warm.pump()
+    warm.results("warm")
+    torch.cuda.synchronize()
+    group = initialize_multihost(f"localhost:{port}", world, rank)
+    check(isinstance(group, TorchProcessGroup) and group.supports_p2p, "a gloo world with a store")
+    telemetry.enable()
+    cluster = ServeCluster(group, spill_dir=spill_dir, heartbeat_s=0.05, death_timeout_s=60.0,
+                           group_width=8)
+    names = [f"tenant-{i:02d}" for i in range(GLOO_TENANTS)]
+    for name in names:
+        check(cluster.open(name, suite).action in ("local", "routed"), f"{name} opened")
+    dist.barrier()
+    _build.reset_counts()
+    steps, stop, errors = [], threading.Event(), []
+
+    def drive():
+        try:
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                handled = cluster.step()
+                steps.append(time.perf_counter() - t0)
+                if not handled:
+                    time.sleep(0.001)
+        except BaseException as exc:  # noqa: BLE001 - failed below
+            errors.append(exc)
+
+    def wait(predicate, what, timeout_s=120.0):
+        deadline = time.monotonic() + timeout_s
+        while not predicate():
+            if errors:
+                fail(f"the driver thread raised {errors[0]!r}")
+            if time.monotonic() > deadline:
+                fail(f"{what} not reached in {timeout_s} s")
+            time.sleep(0.002)
+
+    driver = threading.Thread(target=drive, name=f"chip-smoke-serve-{rank}", daemon=True)
+    driver.start()
+    out = {"rank": rank, "fleet": None}
+    if rank == 0:
+        def applied(name):
+            if cluster.placement.owner_of(name) == 0:
+                session = cluster.service.session(name)
+                return session.batches if session is not None else 0
+            return cluster._streams[name].applied + 1
+
+        t0 = time.perf_counter()
+        for _ in range(2):
+            for name in names:
+                check(cluster.submit(name, *batch).action in ("local", "routed"),
+                      f"{name} submitted")
+        wait(lambda: all(applied(n) >= 2 for n in names), "every batch applied")
+        out["routed_s"] = time.perf_counter() - t0
+        mine = next(n for n in names if cluster.placement.owner_of(n) == 0)
+        t0 = time.perf_counter()
+        out["migrated"] = cluster.migrate(mine, 1, timeout_s=60.0).action
+        out["migrate_s"] = time.perf_counter() - t0
+        solo = suite()
+        for _ in range(2):
+            for m in solo.values():
+                m.update(*batch)
+        want = {k: m.compute().cpu() for k, m in solo.items()}
+        equal = True
+        for name in names:
+            got = cluster.results(name, timeout_s=60.0)
+            equal &= got.action == "local" and all(
+                torch.equal(got.value[k].cpu(), want[k]) for k in want)
+        out["results_bit_equal"] = equal
+    dist.barrier()
+    stop.set()
+    driver.join(timeout=10.0)
+    check(not driver.is_alive() and not errors, f"the driver thread ended clean {errors[:1]}")
+    torch.cuda.synchronize()
+    out["launches"], out["plain"] = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    out["dispatched"] = cluster.service.stats()["counts"]["dispatched"]
+    out["step_ms"] = statistics.mean(steps) * 1e3
+    out["steps"] = len(steps)
+    t0 = time.perf_counter()
+    fleet = telemetry.fleet_report(group, dst=0)
+    snaps = group.gather_object(aggregate.host_snapshot(), dst=0)
+    if rank == 0:
+        # The warm service's tenant has a ledger row too, and no owner.
+        rows = [r for r in fleet["tenants"]["per_tenant"] if r["tenant"] in names]
+        text = export.format_fleet_report(fleet)
+        trace = export.fleet_to_perfetto(snaps)
+        out["fleet_s"] = time.perf_counter() - t0
+        out["fleet"] = {
+            "hosts": fleet["hosts"],
+            "process_index": [r["host"]["process_index"] for r in fleet["per_host"]],
+            "tenant_rows": len(rows),
+            "owners_named": all(r["owner"] == str(cluster.placement.owner_of(r["tenant"]))
+                                for r in rows),
+            "text_ok": text.startswith("torcheval_tpu fleet telemetry (2 hosts)"),
+            "pids": sorted({e["pid"] for e in trace["traceEvents"]}),
+        }
+    else:
+        check(fleet is None and snaps is None, "only rank 0 merges the fleet report")
+    dist.barrier()
+    dist.destroy_process_group()
+    print("SERVE " + json.dumps(out), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-child"]:
         sys.exit(gloo_child(*(int(a) for a in sys.argv[2:5])))
+    if sys.argv[1:2] == ["--serve-child"]:
+        sys.exit(serve_child(*(int(a) for a in sys.argv[2:5]), sys.argv[5]))
     sys.exit(main(sys.argv[1:]))

@@ -2011,3 +2011,102 @@ def test_serve_on_the_card_launches_the_collection_kernel_once_a_dispatch(monkey
         for name, m in solo.items():
             for state, value in m.state_dict().items():
                 assert torch.equal(seat[f"{name}/{state}"], value), (n, name, state)
+
+
+def _cluster_run(device, spill_dir, names, batches):
+    """Two ServeCluster hosts over a LocalWorld, every batch submitted from
+    rank 0 (routed to the other host's tenants), stepped from this thread;
+    returns each tenant's owner-local results and seat states, and the
+    launch counters of the routed run."""
+    from torcheval_tpu_torch.serve import EvalService, ServeCluster
+
+    def suite():
+        return {"acc": MulticlassAccuracy(num_classes=20, average="macro", device=device),
+                "f1": MulticlassF1Score(num_classes=20, average="macro", device=device)}
+
+    # Warm the kernel before any cluster exists.
+    warm = EvalService(group_width=8)
+    warm.open("warm", suite())
+    warm.submit("warm", *batches[0])
+    warm.pump()
+    warm.results("warm")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    world = LocalWorld(2)
+    clusters = [ServeCluster(world.group(r), spill_dir=str(spill_dir), heartbeat_s=0.05,
+                             death_timeout_s=60.0, group_width=8) for r in range(2)]
+    for name in names:
+        for cl in clusters:
+            assert cl.open(name, suite).action in ("local", "routed")
+    _build.reset_counts()
+    for batch in batches:
+        for name in names:
+            assert clusters[0].submit(name, *batch).action in ("local", "routed")
+    owner = {n: clusters[clusters[0].placement.owner_of(n)] for n in names}
+    assert {c.rank for c in owner.values()} == {0, 1}
+    for _ in range(10_000):
+        for cl in clusters:
+            cl.step()
+        if all(owner[n].service.session(n).batches == len(batches) for n in names):
+            break
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    dispatched = sum(cl.service.stats()["counts"]["dispatched"] for cl in clusters)
+    out = {}
+    for n in names:
+        svc = owner[n].service
+        out[n] = (owner[n].results(n).value,
+                  svc._registry.seat_state_dict(svc.session(n)))
+    return out, counts, dispatched
+
+
+def test_serve_cluster_on_the_card_launches_mega_on_every_owner_dispatch(monkeypatch, tmp_path):
+    """A 2-host cluster with cuda metrics: every owner dispatch (local or
+    routed) is one mega.cu launch and never a plain version; each tenant
+    is bit-equal to a solo suite on the card, and its states bit-equal
+    (its figures within 1e-6) to the same run on the CPU."""
+    dev = _cuda()
+    monkeypatch.delenv("TORCHEVAL_TPU_TORCH_MEGAKERNEL", raising=False)
+    rng = np.random.default_rng(17)
+    host = [(rng.random((64, 20), dtype=np.float32), rng.integers(0, 20, 64).astype(np.int32))
+            for _ in range(2)]
+    names = [f"tenant-{i:02d}" for i in range(8)]
+    on_card, (launches, plain), dispatched = _cluster_run(
+        dev, tmp_path / "card", names, [tuple(torch.from_numpy(a).to(dev) for a in b)
+                                        for b in host])
+    assert dispatched == len(names) * 2
+    assert launches == {"mega_counts": len(names) * 2} and not plain
+    on_cpu, _, _ = _cluster_run(torch.device("cpu"), tmp_path / "cpu", names,
+                                [tuple(torch.from_numpy(a) for a in b) for b in host])
+    for n in names:
+        solo = {"acc": MulticlassAccuracy(num_classes=20, average="macro", device=dev),
+                "f1": MulticlassF1Score(num_classes=20, average="macro", device=dev)}
+        for b in host:
+            for m in solo.values():
+                m.update(*(torch.from_numpy(a).to(dev) for a in b))
+        got, seat = on_card[n]
+        want, cpu_seat = on_cpu[n]
+        for k, m in solo.items():
+            assert got[k].device.type == "cuda" and torch.equal(got[k], m.compute()), (n, k)
+            torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-6, atol=0)
+        assert seat.keys() == cpu_seat.keys()
+        for k in seat:
+            assert torch.equal(seat[k].cpu(), cpu_seat[k]), (n, k)
+
+
+def test_pack_frames_of_cuda_tensors_equals_their_cpu_copies():
+    from torcheval_tpu_torch.distributed import pack_frames, unpack_frames
+    from torcheval_tpu_torch.serve.cluster import _placed
+
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    scores = torch.from_numpy(rng.random((64, 20), dtype=np.float32)).to(dev)
+    target = torch.from_numpy(rng.integers(0, 20, 64).astype(np.int32)).to(dev)
+    mask = scores[:, 0] > 0.5
+    args, kwargs = (scores, target, scores.t()[:, ::2]), {"mask": mask}
+    payload = pack_frames(args, kwargs)
+    assert payload == pack_frames(tuple(a.cpu() for a in args), {"mask": mask.cpu()})
+    (s, t, v), kw = _placed(*unpack_frames(payload), dev)
+    assert s.device.type == "cuda" and torch.equal(s, scores) and torch.equal(t, target)
+    assert torch.equal(v, scores.t()[:, ::2]) and torch.equal(kw["mask"], mask)

@@ -39,13 +39,14 @@ from tests.test_torch_telemetry import reset_all, stream
 # The module (the package's ``fleet_merge`` attribute is the function).
 jax_fm = importlib.import_module("torcheval_tpu.parallel.fleet_merge")
 
-# A small unit deadline keeps the drop scenarios (whose detection times
-# grow exponentially with subtree height) fast.  The drops run at the JAX
-# chaos tests' 0.25 s rather than test_fleet_merge.py's 0.1 s: both
-# packages run here, under the parallel load of a whole test run, and at
-# 0.1 s a live but descheduled rank is now and then excised as dead.
-_FAST = dict(level_deadline=0.25, poll_slice=0.01)
-_DROP = _FAST
+# A fault-free round returns as soon as every message is in, whatever the
+# deadline, so the fault-free cases take a generous one: under the
+# parallel load of a whole test run a short deadline can excise a live
+# but descheduled rank.  The cases with fault rules keep a small unit
+# deadline, which keeps the drop scenarios (whose detection times grow
+# exponentially with subtree height) fast: the JAX chaos tests' 0.25 s.
+_CLEAN = dict(level_deadline=10.0, poll_slice=0.01)
+_DROP = dict(level_deadline=0.25, poll_slice=0.01)
 
 _PKG = {
     "jax": dict(world=JaxLocalWorld, merge=jax_fm.fleet_merge, policy=jax_fm.MergePolicy,
@@ -95,10 +96,13 @@ def _flat_value(ranks, cls="BinaryAUROC"):
     return float(metrics[0].compute())
 
 
-def _run(pkg, world, topology="tree", policy=_FAST, rules=(), dst=0, recipient=None,
+def _run(pkg, world, topology="tree", policy=None, rules=(), dst=0, recipient=None,
          sketch=None, sketch_options=None, make=None):
-    """One merge round of ``pkg`` over its LocalWorld, one thread per rank.
+    """One merge round of ``pkg`` over its LocalWorld, one thread per rank
+    (``policy`` defaults to ``_DROP`` with fault rules, else ``_CLEAN``).
     Returns (outcomes, events, seconds); asserts no rank hangs or raises."""
+    if policy is None:
+        policy = _DROP if rules else _CLEAN
     p = _PKG[pkg]
     w = p["world"](world)
     outs, errors = [None] * world, []
@@ -221,7 +225,7 @@ def test_repeated_rounds_use_fresh_tags():
 
         def worker(rank):
             outs[rank] = fleet_merge(_metric("port", rank), w.group(rank), topology="tree",
-                                     policy=MergePolicy(**_FAST))
+                                     policy=MergePolicy(**_CLEAN))
 
         threads = [threading.Thread(target=worker, args=(r,)) for r in (0, 1)]
         for t in threads:
@@ -436,9 +440,9 @@ def test_sync_and_compute_tree_returns_outcome():
             t.join(timeout=30)
         return outs
 
-    outs = body(sync_and_compute, LocalWorld, "port", merge_policy=MergePolicy(**_FAST))
+    outs = body(sync_and_compute, LocalWorld, "port", merge_policy=MergePolicy(**_CLEAN))
     jax_outs = body(jax_sync_and_compute, JaxLocalWorld, "jax",
-                    merge_policy=jax_fm.MergePolicy(**_FAST))
+                    merge_policy=jax_fm.MergePolicy(**_CLEAN))
     assert isinstance(outs[0], MergeOutcome)
     assert float(outs[0].value) == float(jax_outs[0].value) == _flat_value(range(2))
     assert outs[1].value is None
@@ -450,7 +454,7 @@ def test_sync_and_compute_membership_is_carried_across_rounds():
 
     def worker(rank):
         outs[rank] = sync_and_compute(_metric("port", rank), w.group(rank), topology="ring",
-                                      merge_policy=MergePolicy(**_FAST), membership=views[rank])
+                                      merge_policy=MergePolicy(**_CLEAN), membership=views[rank])
 
     threads = [threading.Thread(target=worker, args=(r,)) for r in (0, 1)]
     for t in threads:
@@ -535,11 +539,11 @@ def test_start_fleet_merge_overlaps_and_joins():
     def peer():
         other = tm.MetricCollection({"acc": tm.MulticlassAccuracy(num_classes=3, device="cpu")})
         other.update(*_batch("port", 1))
-        fleet_merge(other, w.group(1), topology="tree", policy=MergePolicy(**_FAST))
+        fleet_merge(other, w.group(1), topology="tree", policy=MergePolicy(**_CLEAN))
 
     peer_thread = threading.Thread(target=peer)
     peer_thread.start()
-    pending = engine.start_fleet_merge(w.group(0), topology="tree", policy=MergePolicy(**_FAST))
+    pending = engine.start_fleet_merge(w.group(0), topology="tree", policy=MergePolicy(**_CLEAN))
     assert isinstance(pending, PendingMerge)
     # The engine keeps stepping; the snapshot it merged does not move.
     engine.step(*_batch("port", 0))

@@ -349,11 +349,7 @@ def test_telemetry_and_resilience_export_the_jax_names_of_the_ported_modules():
     import torcheval_tpu_torch.telemetry as port_telemetry
 
     assert port_resilience.__all__ == jax_resilience.__all__
-    # aggregate (the fleet report) and the two formatters that read it wait
-    # for the multi-host serve plane: ROADMAP queue 1 step 8.
-    waiting = {"aggregate", "fleet_report", "host_snapshot", "merge_snapshots",
-               "fleet_to_perfetto", "format_fleet_report"}
-    assert set(port_telemetry.__all__) == set(jax_telemetry.__all__) - waiting
+    assert port_telemetry.__all__ == jax_telemetry.__all__
     for name in ("SloRule", "default_rules", "explain_perf", "profile", "perfscope",
                  "tenants", "format_explain_perf"):
         assert name in port_telemetry.__all__
@@ -375,24 +371,29 @@ def test_telemetry_and_resilience_export_the_jax_names_of_the_ported_modules():
         assert {n for n in public if not hasattr(port_mod, n)} == set()
 
 
-def test_serve_exports_the_single_host_names():
+def test_serve_exports_the_jax_names():
     import torcheval_tpu.serve as jax_serve
 
     import torcheval_tpu_torch.serve as port_serve
 
-    multi_host = {"ServeCluster", "HashRing", "Placement", "PlacementOutcome"}
-    assert set(port_serve.__all__) == set(jax_serve.__all__) - multi_host
+    assert port_serve.__all__ == jax_serve.__all__
     for name in port_serve.__all__:
         assert getattr(port_serve, name) is not None
-    for name in sorted(multi_host):
-        with pytest.raises(NotImplementedError, match="queue 1 step 8"):
-            getattr(port_serve, name)
     with pytest.raises(AttributeError):
         port_serve.NoSuchName
-    from torcheval_tpu_torch.serve import admission, metering, registry, service
+    from torcheval_tpu_torch.serve import (
+        admission,
+        cluster,
+        metering,
+        placement,
+        registry,
+        service,
+    )
 
-    for mod in (admission, metering, registry, service):
+    for mod in (admission, cluster, metering, placement, registry, service):
         assert mod.__name__.startswith("torcheval_tpu_torch.serve.")
+    assert port_serve.ServeCluster.__module__ == "torcheval_tpu_torch.serve.cluster"
+    assert port_serve.HashRing.__module__ == "torcheval_tpu_torch.serve.placement"
 
 
 def test_default_device_without_a_gpu_raises(monkeypatch):

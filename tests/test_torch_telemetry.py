@@ -426,12 +426,19 @@ def test_cli_replays_a_jax_dump(tmp_path, capsys):
     assert port_cli.main([str(tmp_path / "missing.jsonl")]) == 2
 
 
-def test_left_out_formatters_raise():
-    # The fleet report's two formatters wait for the multi-host serve
-    # plane; format_explain_perf is ported (tests/test_torch_perfscope.py).
-    for fn in (port_export.fleet_to_perfetto, port_export.format_fleet_report):
-        with pytest.raises(NotImplementedError, match="queue 1 step 8"):
-            fn([] if fn is port_export.fleet_to_perfetto else {})
+def test_fleet_formatters_render_a_one_host_fleet():
+    # A one-host fleet: this process's snapshot alone, no collective.
+    from torcheval_tpu_torch.telemetry import aggregate
+
+    port_events.enable()
+    port_events.record_sync("op", 0.002, 64)
+    snap = aggregate.host_snapshot()
+    fleet = aggregate.merge_snapshots([snap])
+    text = port_export.format_fleet_report(fleet)
+    assert text.startswith("torcheval_tpu fleet telemetry (1 hosts)")
+    assert "slowest collective: 2.000 ms op on host 0" in text
+    trace = port_export.fleet_to_perfetto([snap])
+    assert {e["pid"] for e in trace["traceEvents"]} == {0}
     assert port_export.format_explain_perf({}).startswith("torcheval_tpu perfscope")
 
 

@@ -108,6 +108,30 @@ INT_FLAGS: Dict[str, Tuple[int, str, str]] = {
         "Dispatched engine blocks between two evaluations of perfscope's SLO "
         "rules (read at import).",
     ),
+    "SERVE_VNODES": (
+        64,
+        "strict_positive",
+        "Virtual nodes a host on the serve cluster's consistent-hash placement "
+        "ring (serve/placement.py); more vnodes smooth the tenant load a host "
+        "at O(hosts x vnodes) ring-build cost; anything but a positive integer "
+        "raises (read when a ServeCluster is built).",
+    ),
+    "SERVE_ROUTE_WINDOW": (
+        64,
+        "strict_positive",
+        "A tenant's in-flight window of cross-host routed batches "
+        "(serve/cluster.py): a sender with this many unacked batches sheds "
+        "locally instead of piling more onto a backlogged owner; anything but "
+        "a positive integer raises (read when a ServeCluster is built).",
+    ),
+    "SERVE_HEARTBEAT_MS": (
+        1000,
+        "strict_positive",
+        "Serve-cluster heartbeat / gossip period (milliseconds); a host is "
+        "declared dead after 5 missed heartbeats and the ring repairs around "
+        "it; anything but a positive integer raises (read when a ServeCluster "
+        "is built).",
+    ),
     "KV_TIMEOUT_MS": (
         600_000,
         "strict_positive",

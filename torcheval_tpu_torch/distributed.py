@@ -38,20 +38,25 @@ before it is pickled, so a payload never names a device the receiver
 must have.
 
 NCCL is not the transport: it runs one rank a GPU, and the object
-collectives travel through the CPU anyway.  Not ported yet:
-``pack_frames``, ``unpack_frames`` and ``serve_tag``, which only the
-multi-host serve plane (``serve/cluster.py``) uses; they come with it
-(ROADMAP queue 1 step 8).
+collectives travel through the CPU anyway.
+
+The serve plane's wire (``serve/cluster.py``): :func:`serve_tag` puts
+every serve-plane p2p tag under :data:`SERVE_TAG_NAMESPACE`, and
+:func:`pack_frames` / :func:`unpack_frames` frame a routed batch as
+length-prefixed arrays, byte for byte the JAX package's format, so a
+payload packed by either package unpacks in the other.
 """
 
 from __future__ import annotations
 
 import pickle
+import struct
 import threading
 import time
 from abc import ABC, abstractmethod
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from torcheval_tpu_torch import _flags
@@ -621,6 +626,123 @@ class TorchProcessGroup(CollectiveGroup):
         return sub
 
 
+# --------------------------------------------------------------------------
+# Serve-plane tag namespace.
+#
+# Both p2p transports key undelivered messages by (dst, src, tag): the
+# LocalWorld mailbox dict and the TorchProcessGroup store alike, so two
+# protocols sharing a group must not mint the same tag.  The hierarchical
+# merge derives its tags from a round id (``fm{round}/...``,
+# ``parallel/fleet_merge.py``); the serve cluster's traffic is long-lived
+# and round-free, so every serve-plane tag goes through ``serve_tag()``
+# and lives under this prefix.  A concurrent fleet_merge round and a
+# migration on the same group then never cross-deliver envelopes.
+SERVE_TAG_NAMESPACE = "serve/"
+
+
+def serve_tag(tag: str) -> str:
+    """Namespace a serve-plane p2p tag under :data:`SERVE_TAG_NAMESPACE`.
+    Idempotent; the cluster routes every send/recv through here so no
+    raw serve tag can collide with another protocol's."""
+    if tag.startswith(SERVE_TAG_NAMESPACE):
+        return tag
+    return SERVE_TAG_NAMESPACE + tag
+
+
+# --------------------------------------------------------------------------
+# Length-prefixed array framing for the serve plane's cross-host batches.
+#
+# A routed submit must not become Python object soup on the hot path: the
+# sender flattens the batch (positional arrays + array keywords) into ONE
+# contiguous bytes payload of length-prefixed frames, and the receiver
+# reassembles numpy views with ``np.frombuffer``: zero copies on unpack.
+# The layout is the JAX package's: magic ``TEF1``, ``<HH`` counts, then one
+# frame an array (positional ones named by index, keywords sorted by name):
+# ``<H`` name length, name, ``<H`` dtype length, numpy dtype string, ``<B``
+# ndim, ``<Q`` a dimension, ``<Q`` byte count, the C-order bytes.
+
+_FRAME_MAGIC = b"TEF1"
+
+
+def _host_array(value: Any) -> np.ndarray:
+    """``value`` as a C-contiguous numpy array; a tensor (on any device)
+    is pulled to the host first.  A tensor dtype numpy has no counterpart
+    for (``torch.bfloat16``) raises ``TypeError``: the JAX package would
+    frame ml_dtypes' ``<V2``, which does not round-trip."""
+    if isinstance(value, torch.Tensor):
+        try:
+            value = value.detach().cpu().numpy()
+        except TypeError as exc:
+            raise TypeError(
+                f"pack_frames cannot frame a {value.dtype} tensor: numpy has no "
+                f"{value.dtype} dtype; cast it first (e.g. .float())"
+            ) from exc
+    return np.ascontiguousarray(np.asarray(value))
+
+
+def _frame_array(name: str, value: Any) -> bytes:
+    arr = _host_array(value)
+    name_b = name.encode("utf-8")
+    dtype_b = arr.dtype.str.encode("ascii")
+    head = struct.pack(
+        f"<H{len(name_b)}sH{len(dtype_b)}sB",
+        len(name_b),
+        name_b,
+        len(dtype_b),
+        dtype_b,
+        arr.ndim,
+    )
+    shape = struct.pack(f"<{arr.ndim}Q", *arr.shape)
+    body = arr.tobytes()
+    return head + shape + struct.pack("<Q", len(body)) + body
+
+
+def pack_frames(args: Any = (), kwargs: Optional[dict] = None) -> bytes:
+    """Serialize positional arrays and array keywords into one framed
+    bytes payload (tensors on any device are pulled to the host first)."""
+    args = tuple(args)
+    kwargs = dict(kwargs or {})
+    out = [_FRAME_MAGIC, struct.pack("<HH", len(args), len(kwargs))]
+    for i, value in enumerate(args):
+        out.append(_frame_array(str(i), value))
+    for name in sorted(kwargs):
+        out.append(_frame_array(name, kwargs[name]))
+    return b"".join(out)
+
+
+def unpack_frames(payload: bytes) -> tuple:
+    """Inverse of :func:`pack_frames`: ``(args, kwargs)`` of numpy arrays
+    built as zero-copy views over the payload buffer (read-only views when
+    ``payload`` is ``bytes``)."""
+    view = memoryview(payload)
+    if bytes(view[:4]) != _FRAME_MAGIC:
+        raise ValueError("not a framed batch payload (bad magic)")
+    npos, nkw = struct.unpack_from("<HH", view, 4)
+    off = 8
+    frames = []
+    for _ in range(npos + nkw):
+        (name_len,) = struct.unpack_from("<H", view, off)
+        off += 2
+        name = bytes(view[off : off + name_len]).decode("utf-8")
+        off += name_len
+        (dtype_len,) = struct.unpack_from("<H", view, off)
+        off += 2
+        dtype = np.dtype(bytes(view[off : off + dtype_len]).decode("ascii"))
+        off += dtype_len
+        (ndim,) = struct.unpack_from("<B", view, off)
+        off += 1
+        shape = struct.unpack_from(f"<{ndim}Q", view, off)
+        off += 8 * ndim
+        (nbytes,) = struct.unpack_from("<Q", view, off)
+        off += 8
+        arr = np.frombuffer(view[off : off + nbytes], dtype=dtype).reshape(shape)
+        off += nbytes
+        frames.append((name, arr))
+    args = tuple(arr for _, arr in frames[:npos])
+    kwargs = {name: arr for name, arr in frames[npos:]}
+    return args, kwargs
+
+
 def default_group() -> CollectiveGroup:
     """The world group: a :class:`TorchProcessGroup` when a
     ``torch.distributed`` world of more than one process is up, else the
@@ -635,6 +757,7 @@ def default_group() -> CollectiveGroup:
 
 __all__ = (
     "REDUCE_OPS",
+    "SERVE_TAG_NAMESPACE",
     "CollectiveGroup",
     "LocalGroup",
     "LocalWorld",
@@ -645,4 +768,7 @@ __all__ = (
     "default_group",
     "initialize_multihost",
     "kv_timeout_ms",
+    "pack_frames",
+    "serve_tag",
+    "unpack_frames",
 )

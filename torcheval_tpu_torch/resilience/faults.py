@@ -8,28 +8,64 @@ the data-health monitor use (``if _faults.ENABLED: _faults.fire(...)``),
 so with no plan installed (the default) the hot path pays one module
 attribute read and one branch and never calls into this module.
 
-The port's sites:
+The port's sites, each with the JAX package's name and context keys:
 
 ``collective``
     Each attempt of an object collective inside
     :class:`~torcheval_tpu_torch.resilience.retry.ResilientGroup`
     (context: ``op``, ``attempt``).  ``action="raise"`` drops the attempt,
     ``action="delay"`` stalls it.
+``prefetch.produce``
+    After the engine's prefetch producer stages an item
+    (``engine/prefetch.py``; context: ``items`` staged so far).
+    ``after=K`` kills the producer after K items, exercising the
+    consumer-side error relay.
+``engine.scan``
+    At the top of the scan runner's dispatch (``engine/scan.py``), before
+    any state is read: a mid-stream abort between blocks (context:
+    ``signature``).
+``engine.batch``
+    Per batch admitted by the ``Evaluator`` (``engine/__init__.py``;
+    context: ``batch``).  ``action="corrupt"`` applies
+    :func:`corrupt_batch`, a NaN in the first float argument, so the
+    data-health monitor has something to catch.
+``checkpoint.write``
+    Inside ``CheckpointManager.save`` (context: ``generation``,
+    ``nbytes``).  ``action="tear"`` leaves a torn data file of ``offset``
+    bytes behind, as a crash would, then raises.
 ``sync.dispatch``
     Each attempt of a synced update (``parallel/sync.py``'s
     ``make_synced_update``; context: ``op``), after the rank's local
     kernel and before it enters the collective, so a rank that fails and
     retries joins the same round its peers wait in.
-``checkpoint.write``
-    Inside ``CheckpointManager.save`` (context: ``generation``,
-    ``nbytes``).  ``action="tear"`` leaves a torn data file of ``offset``
-    bytes behind, as a crash would, then raises.
-
-The JAX package's other sites (``prefetch.produce``, ``engine.scan``,
-``engine.batch``, ``serve.*``, ``merge.level``) come with the modules
-that hold them; every action they use is accepted here already.
-:func:`corrupt_batch` is what the ``engine.batch`` site applies for
-``action="corrupt"``; callers may apply it themselves until then.
+``serve.admit``
+    Per ``EvalService.submit`` call (``serve/service.py``; context:
+    ``tenant``, ``queue_depth``).  ``action="raise"`` propagates an
+    :class:`InjectedFault` to the submitter (the service itself stays
+    consistent); ``action="delay"`` stalls admission to manufacture queue
+    pressure.
+``merge.level``
+    Each participation step of the hierarchical fleet merge
+    (``parallel/fleet_merge.py``; context: ``rank``, ``level``,
+    ``round``, ``topology``, ``role``).  ``action="drop_rank"`` makes the
+    matched rank vanish mid-merge (peers must excise and re-parent around
+    it); ``action="slow_rank"`` turns it into a ``delay_s`` straggler.
+``serve.route``
+    Per placement decision in the distributed serve plane
+    (``serve/cluster.py``; context: ``tenant``, ``rank``, ``role``:
+    ``"submit"`` on the sender, ``"apply"`` on the owner applying a
+    routed frame).  ``action="drop_rank"`` kills the host typed (the
+    cluster catches it and goes silent: a mid-dispatch death with batches
+    still in its inbox); ``action="raise"`` sheds the batch (sender side)
+    or parks the frame for the retry sweep (owner side).
+``serve.migrate``
+    Per phase of a live tenant migration (``serve/cluster.py``; context:
+    ``tenant``, ``phase`` in ``spill`` / ``stream`` / ``resume``, ``rank``,
+    ``target``).  ``action="drop_rank"`` at ``spill`` or ``stream`` kills
+    the source mid-handoff; at ``resume`` it kills the target after the
+    blob arrived: the source aborts and the tenant stays bit-exact where
+    it last spilled.  ``action="raise"`` aborts the handoff typed
+    (``PlacementOutcome(action="aborted")``).
 
 Reproducibility: probabilistic rules (``probability < 1``) draw from a
 ``numpy`` generator seeded by ``FaultPlan(seed=)``; draws are consumed in

@@ -1,5 +1,5 @@
 """Multi-tenant eval serving: coalesced sessions under admission control
-(the port of ``torcheval_tpu/serve``, its single-host plane).
+(the port of ``torcheval_tpu/serve``).
 
 The serve layer turns the sliced-collection machinery into a long-running,
 overload-safe service: many tenants' metric suites coalesce by signature
@@ -12,6 +12,12 @@ Idle sessions spill to checkpoints and resume transparently.  When the
 per-tenant ledger is on (:mod:`~torcheval_tpu_torch.serve.metering`),
 :func:`rebalance_hints` reads it back as typed placement signals.
 
+The distributed tier (:mod:`~torcheval_tpu_torch.serve.cluster` +
+:mod:`~torcheval_tpu_torch.serve.placement`) shards tenants across hosts
+on a consistent-hash ring, routes batches p2p with backpressure, migrates
+sessions live through the checkpoint path, and repairs the ring around
+dead hosts: every action a typed :class:`PlacementOutcome`.
+
 Example::
 
     from torcheval_tpu_torch.metrics import MulticlassAccuracy
@@ -23,13 +29,18 @@ Example::
     svc.pump()
     svc.results("tenant-a")
 
-Not here yet: the distributed tier (``ServeCluster``, ``HashRing``,
-``Placement``, ``PlacementOutcome``; ``serve/cluster.py`` and
-``serve/placement.py``), ROADMAP queue 1 step 8.  Asking for one of those
-names raises ``NotImplementedError``.
-"""
+A cluster over the ranks of one process (one ``ServeCluster`` a rank of a
+``LocalWorld``, or of a ``TorchProcessGroup`` across processes), stepped
+from the caller's loop::
 
-from typing import Any
+    world = LocalWorld(2)
+    clusters = [ServeCluster(world.group(r), spill_dir=d) for r in range(2)]
+    for c in clusters:
+        c.open("tenant-a", lambda: {"acc": MulticlassAccuracy(num_classes=100)})
+    clusters[0].submit("tenant-a", scores, target)   # local or routed
+    for c in clusters:
+        c.step()
+"""
 
 from torcheval_tpu_torch.serve import metering
 from torcheval_tpu_torch.serve.admission import (
@@ -39,10 +50,16 @@ from torcheval_tpu_torch.serve.admission import (
     Rejected,
     Shed,
 )
+from torcheval_tpu_torch.serve.cluster import ServeCluster
 from torcheval_tpu_torch.serve.metering import (
     RebalanceHints,
     TenantSignal,
     rebalance_hints,
+)
+from torcheval_tpu_torch.serve.placement import (
+    HashRing,
+    Placement,
+    PlacementOutcome,
 )
 from torcheval_tpu_torch.serve.registry import (
     DEFAULT_GROUP_WIDTH,
@@ -53,34 +70,19 @@ from torcheval_tpu_torch.serve.registry import (
 )
 from torcheval_tpu_torch.serve.service import DrainResult, EvalService
 
-# The multi-host names of the JAX package, with the module each lives in.
-_NEXT_SLICE = {
-    "ServeCluster": "serve/cluster.py",
-    "HashRing": "serve/placement.py",
-    "Placement": "serve/placement.py",
-    "PlacementOutcome": "serve/placement.py",
-}
-
-
-def __getattr__(name: str) -> Any:
-    if name in _NEXT_SLICE:
-        raise NotImplementedError(
-            f"torcheval_tpu_torch.serve.{name} lives in {_NEXT_SLICE[name]}, the "
-            "multi-host serve plane, which the port does not have yet (ROADMAP "
-            "queue 1 step 8)."
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
 __all__ = [
     "Admitted",
     "AdmissionController",
     "DEFAULT_GROUP_WIDTH",
     "DrainResult",
     "EvalService",
+    "HashRing",
     "POLICIES",
+    "Placement",
+    "PlacementOutcome",
     "RebalanceHints",
     "Rejected",
+    "ServeCluster",
     "Session",
     "SessionRegistry",
     "Shed",

@@ -27,11 +27,14 @@ with :func:`enable` or ``TORCHEVAL_TPU_TORCH_TELEMETRY=1``, then:
   trace) and SLO alert rules (:class:`SloRule`, :func:`default_rules`);
 * :mod:`~torcheval_tpu_torch.telemetry.tenants`: the serve plane's
   per-tenant rows, in :func:`report`'s ``tenants`` section and the
-  ``torcheval_tpu_tenant_*`` Prometheus families.
-
-Not exported yet: ``aggregate.fleet_report`` / ``host_snapshot`` /
-``merge_snapshots`` (the cross-host rollup), which come with the
-multi-host serve plane (ROADMAP queue 1 step 8).
+  ``torcheval_tpu_tenant_*`` Prometheus families;
+* :func:`fleet_report`: the cross-host rollup: per-host snapshots
+  (:func:`host_snapshot`) merged over any
+  :class:`~torcheval_tpu_torch.distributed.CollectiveGroup`
+  (:func:`merge_snapshots`) with skew diagnostics and the tenant × host
+  rollup (:mod:`~torcheval_tpu_torch.telemetry.aggregate`), rendered by
+  :func:`format_fleet_report` and :func:`fleet_to_perfetto` (one ``pid``
+  a host).
 
 Example::
 
@@ -52,6 +55,7 @@ from __future__ import annotations
 from typing import Any, Dict, Union
 
 from torcheval_tpu_torch.telemetry import (
+    aggregate,
     events,
     export,
     flightrec,
@@ -59,6 +63,11 @@ from torcheval_tpu_torch.telemetry import (
     perfscope,
     tenants,
     trace,
+)
+from torcheval_tpu_torch.telemetry.aggregate import (
+    fleet_report,
+    host_snapshot,
+    merge_snapshots,
 )
 from torcheval_tpu_torch.telemetry.events import (
     AdmissionEvent,
@@ -93,7 +102,9 @@ from torcheval_tpu_torch.telemetry.export import (
     event_from_dict,
     event_to_dict,
     export_jsonl,
+    fleet_to_perfetto,
     format_explain_perf,
+    format_fleet_report,
     format_report,
     prometheus_text,
     read_jsonl,
@@ -355,7 +366,6 @@ def report(as_text: bool = False) -> Union[Dict[str, Any], str]:
 
 
 __all__ = [
-    "SloRule",
     "AdmissionEvent",
     "AlertEvent",
     "BucketPadEvent",
@@ -374,9 +384,11 @@ __all__ = [
     "RetryEvent",
     "RouteDowngradeEvent",
     "SessionEvent",
+    "SloRule",
     "SpanEvent",
     "SyncEvent",
     "TenantSampleEvent",
+    "aggregate",
     "clear",
     "default_rules",
     "disable",
@@ -390,10 +402,15 @@ __all__ = [
     "explain_perf",
     "export",
     "export_jsonl",
+    "fleet_report",
+    "fleet_to_perfetto",
     "flightrec",
     "format_explain_perf",
+    "format_fleet_report",
     "format_report",
     "health",
+    "host_snapshot",
+    "merge_snapshots",
     "perfscope",
     "profile",
     "prometheus_text",

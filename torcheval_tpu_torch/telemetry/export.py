@@ -16,9 +16,10 @@ Prometheus text format, and the report formatter (the port of
   Prometheus text carries the per-tenant families of the serve metering
   ledger (``telemetry/tenants.py``).
 
-``fleet_to_perfetto`` and ``format_fleet_report`` render what
-``telemetry/aggregate.py`` produces, which comes with the multi-host serve
-plane (ROADMAP queue 1 step 8), so each raises ``NotImplementedError``.
+* :func:`fleet_to_perfetto` merges per-host snapshots
+  (``telemetry/aggregate.py``) into one trace, a ``pid`` a host, and
+  :func:`format_fleet_report` renders ``telemetry.fleet_report()``.
+
 Live spans in a profiler trace are not a drain:
 ``telemetry.enable(annotate=True)`` (or
 ``TORCHEVAL_TPU_TORCH_TELEMETRY_ANNOTATE=1``) runs every update/compute
@@ -346,12 +347,36 @@ def to_perfetto(
 
 
 def fleet_to_perfetto(snapshots: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """One merged Perfetto trace over per-host snapshots: waits for
-    ``telemetry/aggregate.py``."""
-    raise NotImplementedError(
-        "fleet_to_perfetto reads telemetry/aggregate.py's host snapshots, which "
-        "come with the multi-host serve plane (ROADMAP queue 1 step 8)."
-    )
+    """One merged Perfetto trace over per-host snapshots (from
+    :func:`torcheval_tpu_torch.telemetry.aggregate.host_snapshot`): each host
+    becomes a ``pid`` whose process row is named after it, threads
+    within a host keep their own tracks, and flow arrows resolve ACROSS
+    hosts (a fleet-merge child span on rank 3 draws its arrow from the
+    parent's slice on rank 1).  Unknown event kinds in a snapshot's
+    sample are skipped (forward compatibility, as
+    :func:`read_jsonl`)."""
+    merged: List[Dict[str, Any]] = []
+    span_slices: Dict[str, Dict[str, Any]] = {}
+    flow_links: List[Dict[str, Any]] = []
+    for snapshot in snapshots:
+        host = snapshot.get("host", {})
+        pid = int(host.get("process_index", 0))
+        name = f"host {pid} ({host.get('hostname', '?')})"
+        events = [
+            event_from_dict(payload)
+            for payload in snapshot.get("events", [])
+            if payload.get("kind") in _events.KIND_TO_CLASS
+        ]
+        _convert_events(
+            events,
+            pid=pid,
+            process_name=name,
+            trace=merged,
+            span_slices=span_slices,
+            flow_links=flow_links,
+        )
+    merged.extend(_flow_events(span_slices, flow_links))
+    return {"traceEvents": merged, "displayTimeUnit": "ms"}
 
 
 # ------------------------------------------------------------------ Prometheus
@@ -1335,8 +1360,128 @@ def format_explain_perf(result: Dict[str, Any]) -> str:
 
 
 def format_fleet_report(fleet: Dict[str, Any]) -> str:
-    """Render ``fleet_report``: waits for ``telemetry/aggregate.py``."""
-    raise NotImplementedError(
-        "format_fleet_report renders telemetry/aggregate.py's fleet_report, which "
-        "comes with the multi-host serve plane (ROADMAP queue 1 step 8)."
+    """Render :func:`torcheval_tpu_torch.telemetry.fleet_report`'s merged dict
+    as the human-readable fleet summary."""
+    buf = io.StringIO()
+    totals = fleet.get("totals", {})
+    buf.write(
+        f"torcheval_tpu fleet telemetry ({fleet.get('hosts', 0)} hosts)\n"
     )
+    buf.write(
+        f"  totals: {totals.get('events_captured', 0)} events, "
+        f"{totals.get('sync_calls', 0)} collectives "
+        f"({totals.get('sync_seconds', 0.0) * 1e3:.3f} ms), "
+        f"{totals.get('engine_blocks', 0)} engine blocks / "
+        f"{totals.get('engine_batches', 0)} batches, "
+        f"{totals.get('retrace_total', 0)} retraces\n"
+    )
+    for r in fleet.get("per_host", []):
+        host = r.get("host", {})
+        buf.write(
+            f"  host {host.get('process_index', '?')} "
+            f"({host.get('hostname', '?')}): "
+            f"{r.get('events_captured', 0)} events, "
+            f"sync {r.get('sync_seconds', 0.0) * 1e3:.3f} ms / "
+            f"{r.get('sync_calls', 0)} calls, "
+            f"{r.get('prefetch_stalls', 0)} stalls, "
+            f"{r.get('retrace_total', 0)} retraces, "
+            f"pad waste {r.get('pad_waste_pct', 0.0):.1f}%\n"
+        )
+    skew = fleet.get("skew", {})
+    slowest = skew.get("slowest_sync") or {}
+    if slowest.get("op"):
+        host = slowest.get("host", {})
+        buf.write(
+            f"  slowest collective: {slowest.get('seconds', 0.0) * 1e3:.3f}"
+            f" ms {slowest['op']} on host "
+            f"{host.get('process_index', '?')}\n"
+        )
+    for label, key in (
+        ("sync seconds", "sync_seconds"),
+        ("prefetch stalls", "prefetch_stalls"),
+        ("retraces", "retrace"),
+    ):
+        spread = skew.get(key, {})
+        if spread.get("max"):
+            host = spread.get("max_host", {})
+            buf.write(
+                f"  {label} skew: max {spread['max']:.4g} on host "
+                f"{host.get('process_index', '?')} "
+                f"(mean {spread['mean']:.4g}, "
+                f"imbalance {spread['imbalance']:.2f}x)\n"
+            )
+    pad = skew.get("pad_waste_pct", {})
+    if pad:
+        buf.write(
+            f"  pad waste: mean {pad.get('mean', 0.0):.2f}% "
+            f"(variance {pad.get('variance', 0.0):.3f})\n"
+        )
+    for entry in fleet.get("data_health_by_host", []):
+        host = entry.get("host", {})
+        buf.write(
+            f"  DATA HEALTH: host {host.get('process_index', '?')} "
+            f"({host.get('hostname', '?')}) reported "
+            f"{entry.get('findings', 0)} offending elements/batches\n"
+        )
+    quality = fleet.get("quality", {})
+    for entry in quality.get("per_metric", []):
+        where = f"[{entry['slice']}]" if entry["slice"] else "[global]"
+        buf.write(
+            f"  quality {entry['metric']}{where} ({entry['window']}): "
+            f"min {entry['min']:.6g} / mean {entry['mean']:.6g} / "
+            f"max {entry['max']:.6g} over {entry['hosts']} host(s)\n"
+        )
+    worst = quality.get("worst_slice") or {}
+    if worst.get("metric"):
+        host = worst.get("host", {})
+        buf.write(
+            f"  WORST SLICE: {worst['metric']}[{worst['slice']}] "
+            f"({worst['window']}) = {worst['value']:.6g} on host "
+            f"{host.get('process_index', '?')} "
+            f"({host.get('hostname', '?')})\n"
+        )
+    tenant_fleet = fleet.get("tenants", {})
+    for entry in tenant_fleet.get("per_tenant", []):
+        buf.write(
+            f"  tenant {entry['tenant']}: "
+            f"{entry.get('device_seconds', 0.0):.6f} dev-s, "
+            f"{entry.get('rows', 0)} rows, "
+            f"shed rate {entry.get('shed_rate', 0.0):.3f} over "
+            f"{entry.get('hosts', 0)} host(s)\n"
+        )
+    worst_tenant = tenant_fleet.get("worst_shed") or {}
+    if worst_tenant.get("tenant"):
+        host = worst_tenant.get("host", {})
+        buf.write(
+            f"  WORST TENANT SHED: {worst_tenant['tenant']} "
+            f"({worst_tenant.get('shed_rate', 0.0):.3f}) on host "
+            f"{host.get('process_index', '?')}\n"
+        )
+    worst_tenant = tenant_fleet.get("worst_p99") or {}
+    if worst_tenant.get("tenant"):
+        host = worst_tenant.get("host", {})
+        buf.write(
+            f"  WORST TENANT P99 WAIT: {worst_tenant['tenant']} "
+            f"({worst_tenant.get('wait_p99_s', 0.0) * 1e3:.3f} ms) on "
+            f"host {host.get('process_index', '?')}\n"
+        )
+    for entry in fleet.get("traces", []):
+        buf.write(
+            f"  trace {entry.get('trace_id', '?')}: "
+            f"{entry.get('spans', 0)} spans across "
+            f"{entry.get('hosts', 0)} host(s)\n"
+        )
+        hops = entry.get("critical_path") or []
+        if hops:
+            chain = " -> ".join(
+                f"{hop['name']}"
+                + (
+                    f"@host{hop['host']}"
+                    if hop.get("host") is not None
+                    else ""
+                )
+                + f" {hop['seconds'] * 1e3:.2f}ms"
+                for hop in hops
+            )
+            buf.write(f"    critical path: {chain}\n")
+    return buf.getvalue()

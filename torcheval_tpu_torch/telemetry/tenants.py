@@ -27,9 +27,10 @@ table, and ``fleet.merge_snapshots`` — shows the SAME numbers:
   worst-p99 readings are pinned to the host that produced them.
 
 Everything here is plain-dict arithmetic, importable from the CLI and
-from fleet merge coordinators.  :func:`merge_rollups`' caller, the
-fleet report (``telemetry/aggregate.py``), comes with the multi-host
-serve plane (ROADMAP queue 1 step 8).
+from fleet merge coordinators.  :func:`merge_rollups`' caller is the
+fleet report (``telemetry/aggregate.py``), whose ``tenants`` section it
+builds; :func:`note_owner` is fed by the serve cluster's placement
+changes (``serve/cluster.py``).
 """
 
 from __future__ import annotations
