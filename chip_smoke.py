@@ -428,6 +428,17 @@ times kernels and lifecycle with CUDA events.  Phases:
     stream writes one merged JSON with the telemetry spans and ``mega.cu``'s
     device events; a rule set to fire fires one ``AlertEvent``; phases 17
     and 64's lifecycles timed with perfscope off and on.
+71. the linter on the GPU host: the port's static analyzer, loaded by path
+    in a process of its own (no torch, no jax), over its default targets
+    against ``torcheval_tpu_torch/analysis/tpulint.baseline``: exit 0, no
+    new finding, none of torch, jax and the two packages imported; files,
+    counts and seconds printed;
+72. the static hook map against the hot path: every name of
+    ``analysis.hook_entry_points()`` wrapped in a counting wrapper; with
+    every bus off the headline lifecycle, one engine scan block, one serve
+    dispatch and one corpus-WER update call no hook and launch
+    ``rank_sum.cu``, ``mega.cu`` and ``wavefront.cu`` with no plain
+    version; with the event bus on the ``emit`` funnel fires.
 
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
@@ -437,6 +448,7 @@ the last is ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before it.  With no GPU the script exits 1 and prints no result.
 """
 
+import contextlib
 import itertools
 import json
 import logging
@@ -499,6 +511,115 @@ def check(ok: bool, message: str) -> None:
     if not ok:
         fail(message)
     print(f"ok: {message}", flush=True)
+
+
+def load_analysis_by_path(root: str):
+    """The port's static analyzer (``torcheval_tpu_torch/analysis``),
+    loaded by path under a synthetic package name: the package's
+    ``__init__`` (and so torch) is never imported."""
+    import importlib.util
+
+    pkg_dir = os.path.join(root, "torcheval_tpu_torch", "analysis")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_tpulint", os.path.join(pkg_dir, "__init__.py"),
+        submodule_search_locations=[pkg_dir])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def lint_child() -> int:
+    """Phase 71's process: the port's analyzer over its default targets
+    against its baseline, loaded by path.  Prints one ``LINT {...}`` line;
+    exits non-zero on a new finding or when torch, jax or either package
+    was imported."""
+    import io
+
+    t0 = time.perf_counter()
+    analysis = load_analysis_by_path(os.path.dirname(os.path.abspath(__file__)))
+    out, err = io.StringIO(), io.StringIO()
+    code = analysis.main(["--json"], stdout=out, stderr=err)
+    seconds = time.perf_counter() - t0
+    payload = json.loads(out.getvalue()) if out.getvalue().strip() else {}
+    leaked = [m for m in ("torch", "jax", "torcheval_tpu", "torcheval_tpu_torch")
+              if m in sys.modules]
+    print("LINT " + json.dumps({
+        "exit": code,
+        "files": payload.get("files_checked"),
+        "new": [f["fingerprint"] for f in payload.get("new", [])],
+        "baselined": len(payload.get("grandfathered", [])),
+        "stale": len(payload.get("stale_baseline", [])),
+        "seconds": seconds,
+        "leaked": leaked,
+        "stderr": err.getvalue()[-2000:],
+    }), flush=True)
+    return 0 if code == 0 and not leaked else 1
+
+
+@contextlib.contextmanager
+def buses_off():
+    """Every hook bus of the port off for the block (events, health,
+    perfscope, faults, trace, flight recorder, metering, autotune); each
+    module's switch is put back as it was after."""
+    from torcheval_tpu_torch import routing_autotune
+    from torcheval_tpu_torch.resilience import faults
+    from torcheval_tpu_torch.serve import metering
+    from torcheval_tpu_torch.telemetry import events, flightrec, health, perfscope, trace
+
+    modules = (events, health, perfscope, faults, trace, flightrec, metering, routing_autotune)
+    saved = [m.ENABLED for m in modules]
+    forced = metering._forced
+    for m in modules:
+        if m is faults:
+            faults.ENABLED = False
+        else:
+            m.disable()
+    try:
+        yield
+    finally:
+        for m, on in zip(modules, saved):
+            m.ENABLED = on
+        metering._forced = forced
+
+
+@contextlib.contextmanager
+def counting_hooks(names, counter):
+    """Wrap every runtime hook name of the port's static hook map
+    (``analysis.hook_entry_points()``: ``record_sync``, ``health.inspect``,
+    ...) in a counting wrapper on its module for the block.  A name that
+    resolves to no function raises ``LookupError``."""
+    import importlib
+    from unittest import mock
+
+    from torcheval_tpu_torch.analysis.rules.hook_guard import HOOK_SPECS
+
+    specs = sorted(HOOK_SPECS, key=lambda s: -len(s.runtime_ns))
+
+    def resolve(name):
+        for spec in specs:
+            if not name.startswith(spec.runtime_ns):
+                continue
+            attr = name[len(spec.runtime_ns):]
+            if attr in spec.names or (spec.record_prefix and attr.startswith("record_")):
+                module = importlib.import_module(spec.module)
+                if callable(getattr(module, attr, None)):
+                    return module, attr
+        raise LookupError(f"hook {name!r} of the static map resolves to no function")
+
+    def counting(fn, name):
+        def wrapper(*args, **kwargs):
+            counter[name] = counter.get(name, 0) + 1
+            return fn(*args, **kwargs)
+
+        return wrapper
+
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            module, attr = resolve(name)
+            stack.enter_context(
+                mock.patch.object(module, attr, counting(getattr(module, attr), name)))
+        yield counter
 
 
 def oracle_auc(scores: np.ndarray, hits: np.ndarray) -> float:
@@ -704,6 +825,7 @@ def main(argv) -> int:
         class_hits,
         sort_desc,
     )
+    from torcheval_tpu_torch import _flags
     from torcheval_tpu_torch.ops import _build
     from torcheval_tpu_torch.ops.auc import _auc_from_sorted_plain, auc_from_sorted, auc_plan
     from torcheval_tpu_torch.ops.ustat import (
@@ -928,15 +1050,12 @@ def main(argv) -> int:
     # declines a balanced 2^22 and the sort route runs the AUC scan.
     b_noflag, binary_launches = counted("BinaryAUROC 2^22, no flag (past the rank route's cap)",
                                         binary_lifecycle, binary, "auc_from_sorted")
-    os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
-    try:
+    with _flags.overridden("DISABLE_USTAT", "1"):
         b_out, _ = counted("BinaryAUROC 2^22 (sort route)", binary_lifecycle, binary,
                            "auc_from_sorted")
         mc_sorted, sort_launches = counted(
             "headline MulticlassAUROC, rank-sum route off", headline_lifecycle, sorted_mc,
             "auc_from_sorted")
-    finally:
-        del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
     check(torch.equal(b_noflag, b_out), "BinaryAUROC 2^22: the same bits with the flag and without")
     b_val = float(b_out)
     b_err = abs(b_val - oracle_auc(xb, yb == 1))
@@ -997,12 +1116,9 @@ def main(argv) -> int:
     life_ms = host_median_ms(lambda: headline_lifecycle(headline))
     print(f"time {card}: headline lifecycle (8 updates + compute, rank-sum route): "
           f"{life_ms:.3f} ms", flush=True)
-    os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
-    try:
+    with _flags.overridden("DISABLE_USTAT", "1"):
         sort_life_ms = host_median_ms(lambda: headline_lifecycle(sorted_mc))
         bin_life_ms = host_median_ms(lambda: binary_lifecycle(binary))
-    finally:
-        del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
     print(f"time {card}: headline lifecycle, sort route: {sort_life_ms:.3f} ms", flush=True)
     print(f"time {card}: BinaryAUROC 2^22 lifecycle (4 updates + compute): "
           f"{bin_life_ms:.3f} ms", flush=True)
@@ -1011,12 +1127,9 @@ def main(argv) -> int:
     if profile_phase:
         profile_lifecycle(torch, card, "headline lifecycle, rank-sum route",
                           lambda: headline_lifecycle(headline))
-        os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
-        try:
+        with _flags.overridden("DISABLE_USTAT", "1"):
             profile_lifecycle(torch, card, "headline lifecycle, sort route",
                               lambda: headline_lifecycle(sorted_mc))
-        finally:
-            del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
         profile_lifecycle(torch, card, "BinaryAUROC 2^22 lifecycle (sort route, no flag)",
                           lambda: binary_lifecycle(binary), host_ops=True)
 
@@ -1186,11 +1299,8 @@ def main(argv) -> int:
     print(f"time {card}: confusion_slab, CUDA events around one call: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in slab_wall.items()), flush=True)
     cm_life_ms = host_median_ms(lambda: cm_f1_lifecycle(cm_pair))
-    os.environ["TORCHEVAL_TPU_TORCH_SKIP_VALUE_CHECKS"] = "1"
-    try:
+    with _flags.overridden("SKIP_VALUE_CHECKS", "1"):
         cm_life_skip_ms = host_median_ms(lambda: cm_f1_lifecycle(cm_pair))
-    finally:
-        del os.environ["TORCHEVAL_TPU_TORCH_SKIP_VALUE_CHECKS"]
     p_chunks, y_chunks = [x.long() for x in p_chunks32], [x.long() for x in y_chunks32]
     cm_life64_ms = host_median_ms(lambda: cm_f1_lifecycle(cm_pair64))
     p_chunks, y_chunks = p_chunks32, y_chunks32
@@ -1329,14 +1439,11 @@ def main(argv) -> int:
           f"max err {ap_err:.3e} (oracle {time.perf_counter() - t0:.1f} s)")
     print(f"headline macro AUPRC {float(ap.mean())!r}", flush=True)
     sorted_auprc = MulticlassAUPRC(num_classes=NUM_CLASSES)
-    os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
-    try:
+    with _flags.overridden("DISABLE_USTAT", "1"):
         _build.reset_counts()
         macro_sorted = headline_lifecycle(sorted_auprc)
         torch.cuda.synchronize()
         sort_counts = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
-    finally:
-        del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
     print(f"headline MulticlassAUPRC, sort route: launches {sort_counts[0]}, plain calls "
           f"{sort_counts[1]}", flush=True)
     macro_gap = abs(float(ap.mean()) - float(macro_sorted))
@@ -1500,8 +1607,7 @@ def main(argv) -> int:
         return "; ".join(lp.describe() for lp in launch_plans(
             plan, x.shape[0], sms, x.data_ptr() % 16 == 0 or plan.features == 0))
 
-    os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"] = "1"  # plan single members too
-    try:
+    with _flags.overridden("MEGAKERNEL", "1"):  # plan single members too
         main_plan, main_ops = mega_case(five(COL_CLASSES), col_x[0], col_y[0])
         ok, mega_err = mega_equal(main_plan, main_ops)
         check(ok, f"mega_counts bit-equal to plain at the main path's update "
@@ -1574,8 +1680,6 @@ def main(argv) -> int:
         check(not _build.LAUNCHES and all(t is None or int(t.abs().sum()) == 0
                                           for pair in empty for t in pair),
               "mega_counts at N=0: zero counts, no launch")
-    finally:
-        del os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"]
     del sl, bx, wide
 
     # ------------------------------- 17. the collection workload's lifecycle
@@ -1592,11 +1696,8 @@ def main(argv) -> int:
         return col.compute()
 
     def off(fn, *args):
-        os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"] = "0"
-        try:
+        with _flags.overridden("MEGAKERNEL", "0"):
             return fn(*args)
-        finally:
-            del os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"]
 
     col = MetricCollection(five(COL_CLASSES))
     col_out, col_launches = counted(
@@ -2570,12 +2671,9 @@ def main(argv) -> int:
           f"auc_from_sorted bit-equal to plain on the window's sorted (16, 2^17) operands "
           f"[{auc_plan(rare_th, rare_hh, sms).describe()}]")
     del rare_th, rare_hh
-    os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
-    try:
+    with _flags.overridden("DISABLE_USTAT", "1"):
         rare_sorted, _ = counted("the same window with TORCHEVAL_TPU_TORCH_DISABLE_USTAT=1",
                                  window_lifecycle(rare_batches), rare, "auc_from_sorted")
-    finally:
-        del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
     rare_gap = float((rare_sorted - rare_auc).abs().max())
     rare_sort_err = float(np.abs(rare_sorted.cpu().numpy().astype(np.float64) - rare_want).max())
     check(rare_gap <= TOL and rare_sort_err <= TOL,
@@ -2834,11 +2932,8 @@ def main(argv) -> int:
     # ----------------------------------------------- 35. times of phases 30-34
     win_ms = host_median_ms(lambda: window_lifecycle(win_batches)(win))
     rare_ms = host_median_ms(lambda: window_lifecycle(rare_batches)(rare))
-    os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
-    try:
+    with _flags.overridden("DISABLE_USTAT", "1"):
         rare_sort_ms = host_median_ms(lambda: window_lifecycle(rare_batches)(rare))
-    finally:
-        del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
     cw_ms = host_median_ms(cw_lifecycle)
     psnr_ms = host_median_ms(lambda: image_lifecycle(psnr))
     ssim_ms = host_median_ms(lambda: image_lifecycle(ssim))
@@ -2908,12 +3003,9 @@ def main(argv) -> int:
                           lambda: window_lifecycle(win_batches)(win), host_ops=True)
         profile_lifecycle(torch, card, "WindowedBinaryAUROC (16, 2^17) rare positives, rank route",
                           lambda: window_lifecycle(rare_batches)(rare), host_ops=True)
-        os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
-        try:
+        with _flags.overridden("DISABLE_USTAT", "1"):
             profile_lifecycle(torch, card, "the same, sort route",
                               lambda: window_lifecycle(rare_batches)(rare), host_ops=True)
-        finally:
-            del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
         profile_lifecycle(torch, card, "click-prediction windows (NE + WC collection, CTR, MSE; "
                           "250 updates)", cw_lifecycle, repeats=1, host_ops=True)
         profile_lifecycle(torch, card, "StructuralSimilarity lifecycle",
@@ -2981,12 +3073,9 @@ def main(argv) -> int:
     ex_err = float(np.abs(ex_pc.cpu().numpy().astype(np.float64) - ex_want).max())
     check(ex_err <= TOL, f"{ex_label}: all {ex_c} classes vs float64 Mann-Whitney, max err "
           f"{ex_err:.3e} ({time.perf_counter() - t0:.1f} s of oracle on the host)")
-    os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
-    try:
+    with _flags.overridden("DISABLE_USTAT", "1"):
         ss_pc = world_launches(f"{ex_label}, TORCHEVAL_TPU_TORCH_DISABLE_USTAT=1 (searchsorted)",
                                4, mc_ustat(average=None), {})
-    finally:
-        del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
     ss_gap = float((ss_pc - ex_pc).abs().max())
     check(ss_gap <= TOL, f"searchsorted within {ss_gap:.3e} of the rank-sum kernel, every class")
     # rank_sum.cu on rank 1's own operands: its (1000, 16384) strided block
@@ -4552,7 +4641,7 @@ def main(argv) -> int:
          {"num_classes": NUM_CLASSES}, None),
         ("phase 4: BinaryAUROC on 2^22", TF.binary_auroc, (xb_dev, yb_dev), {}, None),
         ("phase 4: the headline, rank route off", TF.multiclass_auroc, (s_all, t_all),
-         {"num_classes": NUM_CLASSES}, "TORCHEVAL_TPU_TORCH_DISABLE_USTAT"),
+         {"num_classes": NUM_CLASSES}, True),
         ("phase 8: the confusion matrix at C = 1000", TF.multiclass_confusion_matrix,
          (p_chunks[0], y_chunks[0]), {"num_classes": CM_CLASSES}, None),
         ("phase 8: macro F1 at C = 1000", TF.multiclass_f1_score, (p_chunks[0], y_chunks[0]),
@@ -4560,10 +4649,8 @@ def main(argv) -> int:
         (f"phase 12: the binned update (1, 2^19) x {BINNED_THRESHOLDS}", TF.binary_binned_auroc,
          (b_s_chunks[0], b_t_chunks[0]), {"threshold": BINNED_THRESHOLDS}, None),
     ]
-    for label, fn, args61, kw61, flag in routes61:
-        if flag:
-            os.environ[flag] = "1"
-        try:
+    for label, fn, args61, kw61, rank_off in routes61:
+        with _flags.overridden("DISABLE_USTAT", "1" if rank_off else None):
             text61 = routing.explain_route(fn, *args61, **kw61)
             key61 = routing.route_kernel(fn, *args61, **kw61)
             _build.reset_counts()
@@ -4571,9 +4658,6 @@ def main(argv) -> int:
             torch.cuda.synchronize()
             launched61 = dict(_build.LAUNCHES)
             plain61 = dict(_build.PLAIN_CALLS)
-        finally:
-            if flag:
-                del os.environ[flag]
         print(f"explain_route, {label}: {text61}", flush=True)
         check(key61 is not None and launched61 == {key61: 1} and not plain61,
               f"{label}: the explained kernel {key61} is the one the call launched "
@@ -4581,7 +4665,8 @@ def main(argv) -> int:
 
     # --------------------------------------------------------- 62. autotune
     store62 = tempfile.mkdtemp(prefix="chip_smoke_route_costs_")
-    os.environ["TORCHEVAL_TPU_TORCH_AUTOTUNE_DIR"] = store62
+    store62_flag = contextlib.ExitStack()
+    store62_flag.enter_context(_flags.overridden("AUTOTUNE_DIR", store62))
     autotune.clear()
     race_launches = {}
 
@@ -4709,12 +4794,9 @@ def main(argv) -> int:
             rank_val = TF.multiclass_auroc(us, ut, num_classes=uc, ustat_cap=cap)
             r_ms = host_median_ms(lambda: TF.multiclass_auroc(us, ut, num_classes=uc,
                                                               ustat_cap=cap))
-            os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"] = "1"
-            try:
+            with _flags.overridden("DISABLE_USTAT", "1"):
                 sort_val = TF.multiclass_auroc(us, ut, num_classes=uc)
                 s_ms = host_median_ms(lambda: TF.multiclass_auroc(us, ut, num_classes=uc))
-            finally:
-                del os.environ["TORCHEVAL_TPU_TORCH_DISABLE_USTAT"]
             gap = abs(float(rank_val) - float(sort_val))
             check(gap <= TOL, f"N = {un}, C = {uc}: rank and sort routes within {TOL} ({gap:.2e})")
             ustat_cross.append((un, uc, cap, static, r_ms, s_ms))
@@ -4729,7 +4811,7 @@ def main(argv) -> int:
     finally:
         autotune.disable()
         autotune.clear()
-        del os.environ["TORCHEVAL_TPU_TORCH_AUTOTUNE_DIR"]
+        store62_flag.close()
         shutil.rmtree(store62, ignore_errors=True)
 
     # ------------------------------------------ 63. text through the engine
@@ -5491,6 +5573,79 @@ def main(argv) -> int:
     print(f"times {card}: phases 68-70 together {time.perf_counter() - cluster_t0:.3f} s",
           flush=True)
 
+    # ------------------------------------------- 71. the linter on the GPU host
+    t0 = time.perf_counter()
+    proc71 = subprocess.run([sys.executable, os.path.abspath(__file__), "--lint-child"],
+                            capture_output=True, text=True, timeout=600)
+    wall71 = time.perf_counter() - t0
+    lines71 = [ln for ln in proc71.stdout.splitlines() if ln.startswith("LINT ")]
+    check(len(lines71) == 1, f"the analyzer's process printed no LINT line (exit "
+          f"{proc71.returncode}): {proc71.stdout[-2000:]} {proc71.stderr[-2000:]}")
+    lint71 = json.loads(lines71[0][len("LINT "):])
+    print(f"lint {card}: tpulint over the port's default targets, loaded by path: "
+          f"{lint71['files']} files, {len(lint71['new'])} new, {lint71['baselined']} "
+          f"baselined, {lint71['stale']} stale; {lint71['seconds']:.3f} s in the analyzer, "
+          f"{wall71:.3f} s with the process's start", flush=True)
+    check(proc71.returncode == 0 and lint71["exit"] == 0 and not lint71["new"]
+          and lint71["files"] >= 150 and not lint71["stale"],
+          f"the port's analyzer reads the whole tree and exits 0 with no new finding and "
+          f"no stale baseline line ({lint71['files']} files, {lint71['new']}, "
+          f"{lint71['stale']} stale, {lint71['stderr']})")
+    check(not lint71["leaked"], "the path-loaded analyzer imports none of torch, jax, "
+          f"torcheval_tpu and torcheval_tpu_torch ({lint71['leaked']})")
+
+    # ----------------------------- 72. the static hook map against the hot path
+    from torcheval_tpu_torch.analysis import hook_entry_points
+
+    names72 = sorted(set(hook_entry_points()) | {"emit"})
+    check(len(names72) >= 40, f"the static hook map names the port's hooks ({names72})")
+    hook_svc72 = [0]
+
+    def hot_paths72():
+        """The four paths, each once: the headline lifecycle, one engine
+        scan block (a graph replay), one serve dispatch, one corpus-WER
+        update."""
+        headline_lifecycle(headline)
+        scan_ev.collection.reset()
+        scan_ev.run(scan_batches[:8])
+        hook_svc72[0] += 1
+        svc72 = serve_service()
+        name72 = f"hook-map-{hook_svc72[0]}"
+        svc72.open(name72, serve_suite())
+        svc72.submit(name72, *serve_batches[serve_names[0]])
+        svc72.pump()
+        svc72.close(name72)
+        wer_col.reset()
+        wer_col.update(*wer_batches[0])
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    off72 = {}
+    with buses_off(), counting_hooks(names72, off72):
+        _build.reset_counts()
+        hot_paths72()
+        launched72, plain72 = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    on72 = {}
+    with buses_off(), counting_hooks(names72, on72):
+        bus.enable()
+        try:
+            hot_paths72()
+        finally:
+            bus.disable()
+            bus.clear()
+    wall72 = time.perf_counter() - t0
+    print(f"hook map {card}: {len(names72)} hook names wrapped; every bus off: "
+          f"{sum(off72.values())} hook calls, launches {launched72}, plain calls "
+          f"{plain72}; the event bus on: {sum(on72.values())} hook calls (emit "
+          f"{on72.get('emit', 0)}); {wall72:.3f} s", flush=True)
+    check(not off72, f"no hook of the static map runs with every bus off ({off72})")
+    check(launched72.get("rank_sum_counts", 0) >= 1 and launched72.get("mega_counts", 0) >= 2
+          and launched72.get("edit_distance_tokens", 0) >= 1 and not plain72,
+          "the four paths launch rank_sum.cu, mega.cu (the engine's replay and the "
+          f"serve dispatch) and wavefront.cu and take no plain version ({launched72}, "
+          f"{plain72})")
+    check(on72.get("emit", 0) >= 1, f"with the event bus on the emit funnel fires ({on72})")
+
     # ------------------------------------------------------ the kernels line
     kernels = [
         {
@@ -5872,6 +6027,8 @@ def serve_child(rank: int, world: int, port: int, spill_dir: str) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lint-child"]:
+        sys.exit(lint_child())
     if sys.argv[1:2] == ["--gloo-child"]:
         sys.exit(gloo_child(*(int(a) for a in sys.argv[2:5])))
     if sys.argv[1:2] == ["--serve-child"]:

@@ -388,6 +388,7 @@ def mega_turn(res, dev, median_ms, by_kernel):
     import numpy as np
     import torch
 
+    from torcheval_tpu_torch import _flags
     from torcheval_tpu_torch import metrics as M
     from torcheval_tpu_torch.ops._mega_plan import plan_for
     from torcheval_tpu_torch.ops.mega import _mega_counts_plain, mega_counts
@@ -409,34 +410,34 @@ def mega_turn(res, dev, median_ms, by_kernel):
                    for ga, wa in zip(got, want) for a, b in zip(ga, wa)):
             raise SystemExit(f"{key}: the kernel disagrees with its plain version")
 
-    os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"] = "1"
-    rng = np.random.default_rng(6)
-    xs = [torch.from_numpy(rng.random((65536, 100), dtype=np.float32)).to(dev) for _ in range(8)]
-    ys = [torch.from_numpy(rng.integers(0, 100, 65536).astype(np.int32)).to(dev)
-          for _ in range(8)]
-    plan = plan_for(five(100), (xs[0], ys[0]), {}, None)
-    key = "mega_counts collection update (65536, 100), five members"
-    check(key, plan, xs[0], ys[0])
-    turn = [0]
+    with _flags.overridden("MEGAKERNEL", "1"):
+        rng = np.random.default_rng(6)
+        xs = [torch.from_numpy(rng.random((65536, 100), dtype=np.float32)).to(dev)
+              for _ in range(8)]
+        ys = [torch.from_numpy(rng.integers(0, 100, 65536).astype(np.int32)).to(dev)
+              for _ in range(8)]
+        plan = plan_for(five(100), (xs[0], ys[0]), {}, None)
+        key = "mega_counts collection update (65536, 100), five members"
+        check(key, plan, xs[0], ys[0])
+        turn = [0]
 
-    def update():
-        i = turn[0] = (turn[0] + 1) % 8
-        return mega_counts(plan, xs[i], ys[i])
+        def update():
+            i = turn[0] = (turn[0] + 1) % 8
+            return mega_counts(plan, xs[i], ys[i])
 
-    res[key] = [median_ms(update), by_kernel(update, reps=24)]
-    del xs, ys
-    rng = np.random.default_rng(23)
-    for n in (128, 256, 512):
-        x = torch.from_numpy(rng.random((n, 20), dtype=np.float32)).to(dev)
-        y = torch.from_numpy(rng.integers(0, 20, n).astype(np.int32)).to(dev)
-        mask = torch.from_numpy((rng.random(n) < 0.7).astype(np.int32)).to(dev)
-        sids = torch.from_numpy(rng.integers(0, 16, n).astype(np.int32)).to(dev)
-        sp = plan_for(five(20), (x, y), {"mask": mask}, 16)
-        key = f"mega_counts sliced batch n={n}, C=20, 16 slices, a mask"
-        check(key, sp, x, y, mask, sids)
-        call = lambda: mega_counts(sp, x, y, mask, sids)  # noqa: E731
-        res[key] = [median_ms(call), by_kernel(call, reps=24)]
-    del os.environ["TORCHEVAL_TPU_TORCH_MEGAKERNEL"]
+        res[key] = [median_ms(update), by_kernel(update, reps=24)]
+        del xs, ys
+        rng = np.random.default_rng(23)
+        for n in (128, 256, 512):
+            x = torch.from_numpy(rng.random((n, 20), dtype=np.float32)).to(dev)
+            y = torch.from_numpy(rng.integers(0, 20, n).astype(np.int32)).to(dev)
+            mask = torch.from_numpy((rng.random(n) < 0.7).astype(np.int32)).to(dev)
+            sids = torch.from_numpy(rng.integers(0, 16, n).astype(np.int32)).to(dev)
+            sp = plan_for(five(20), (x, y), {"mask": mask}, 16)
+            key = f"mega_counts sliced batch n={n}, C=20, 16 slices, a mask"
+            check(key, sp, x, y, mask, sids)
+            call = lambda: mega_counts(sp, x, y, mask, sids)  # noqa: E731
+            res[key] = [median_ms(call), by_kernel(call, reps=24)]
 
 
 def cm_turn(res, dev, median_ms, by_kernel):

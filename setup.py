@@ -50,10 +50,12 @@ if __name__ == "__main__":
         ),
         # The PyTorch port builds its CUDA kernels with nvcc, and its host
         # edit distance with the system C++ compiler, from these sources at
-        # first use, so they ship as files on disk.
+        # first use, so they ship as files on disk; its static analyzer
+        # reads its baseline beside it.
         package_data={
             "torcheval_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh"],
             "torcheval_tpu_torch.native": ["*.cpp"],
+            "torcheval_tpu_torch.analysis": ["tpulint.baseline"],
         },
         python_requires=">=3.10",
         install_requires=["jax", "numpy"],

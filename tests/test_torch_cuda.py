@@ -2110,3 +2110,59 @@ def test_pack_frames_of_cuda_tensors_equals_their_cpu_copies():
     (s, t, v), kw = _placed(*unpack_frames(payload), dev)
     assert s.device.type == "cuda" and torch.equal(s, scores) and torch.equal(t, target)
     assert torch.equal(v, scores.t()[:, ::2]) and torch.equal(kw["mask"], mask)
+
+
+_CAPTURE_FIXTURE = """\
+import torch
+
+
+def scale(x):
+    return x * x.sum().item()
+
+
+def capture(g, x, out):
+    with torch.cuda.graph(g):
+        out.copy_(scale(x))
+"""
+
+
+@pytest.mark.parametrize("host_read", [True, False])
+def test_what_tpu003_flags_in_a_capture_fails_on_the_card(host_read, tmp_path):
+    """The premise of the port's TPU003: a ``.item()`` in a function reached
+    from a ``torch.cuda.graph`` body is flagged, and its capture fails on
+    the card; the twin that keeps the sum on the device is not flagged,
+    captures, and replays equal to eager."""
+    from torcheval_tpu_torch.analysis._core import analyze_files
+
+    src = _CAPTURE_FIXTURE if host_read else _CAPTURE_FIXTURE.replace(
+        "x * x.sum().item()", "x * x.sum()")
+    path = tmp_path / "fixture.py"
+    path.write_text(src)
+    findings = analyze_files([(str(path), "torcheval_tpu_torch/fixture.py")]).all_findings
+    want = [("TPU003", 5, "scale")] if host_read else []
+    assert [(f.code, f.line, f.scope) for f in findings] == want
+
+    dev = _cuda()
+    scope = {}
+    exec(compile(src, str(path), "exec"), scope)
+    x = torch.arange(1, 9, dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        out.copy_(scope["scale"](x))  # warm-up outside the capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    g = torch.cuda.CUDAGraph()
+    if host_read:
+        with pytest.raises(RuntimeError):
+            scope["capture"](g, x, out)
+        torch.cuda.synchronize(dev)
+        assert float((x * 2).sum()) == 72.0  # the card still works
+        return
+    scope["capture"](g, x, out)
+    for k in (1.0, 3.0):
+        x.copy_(torch.arange(1, 9, dtype=torch.float32, device=dev) * k)
+        g.replay()
+        torch.cuda.synchronize(dev)
+        assert torch.equal(out, scope["scale"](x))

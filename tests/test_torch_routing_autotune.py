@@ -412,3 +412,27 @@ def test_off_layer_keeps_routes_and_counts_identical():
         ref.fused_update(*batch)
     assert counts == {"mega_counts": 1} and not ra.ENABLED and ra.store_rows() == []
     assert all(torch.equal(v, ref.state_dict()[k]) for k, v in col.state_dict().items())
+
+
+def test_the_explicit_row_chunk_pin_reads_through_the_registry(monkeypatch):
+    # The explicit CM_ROW_CHUNK pin reads the flag through _flags.raw, the
+    # registry's own reader, not os.environ directly (the static half of
+    # this pin is tests/test_torch_analysis.py's TPU013 mutation).
+    assert _flags.raw("CM_ROW_CHUNK") is None and ra._explicit("cm_row_chunk") is None
+    monkeypatch.setenv(_flags.PREFIX + "CM_ROW_CHUNK", "  ")
+    assert _flags.raw("CM_ROW_CHUNK") == "  " and ra._explicit("cm_row_chunk") is None
+    monkeypatch.setenv(_flags.PREFIX + "CM_ROW_CHUNK", "8192")
+    assert _flags.raw("CM_ROW_CHUNK") == "8192" and ra._explicit("cm_row_chunk") == "8192"
+    with pytest.raises(KeyError):
+        _flags.raw("NO_SUCH_FLAG")
+
+
+def test_a_race_with_the_layer_off_records_nothing(tmp_path):
+    # The race records a measurement only under routing_autotune.ENABLED,
+    # as the JAX package's race does; with enable() unable to turn the
+    # layer on, the candidates still run and no row is written.
+    with mock.patch.dict(os.environ, {_flags.PREFIX + "AUTOTUNE_DIR": str(tmp_path)}):
+        with mock.patch.object(ra, "enable", lambda: None):
+            assert not ra.ENABLED
+            aot.warmup(_small_collection(), _small_batch(), autotune=True)
+        assert ra.store_rows() == []

@@ -10,7 +10,8 @@ are read once by their own modules at import (each module's ``enable()``
 turns it on later).  Integer flags are read through :func:`get_int`,
 tri-state flags (forced on, forced off, or unset for auto) through
 :func:`get_tristate`, the path flags through :func:`get_str` and the
-fault plan through :func:`get_json`; :func:`overridden` sets one for a
+fault plan through :func:`get_json`, and :func:`raw` says whether one is
+set at all; :func:`overridden` sets one for a
 block (the route races of ``aot.warmup(autotune=True)``).  :func:`snapshot_non_default` lists
 every flag set away from its default (the flight recorder writes it into
 each bundle).
@@ -209,6 +210,20 @@ def get(name: str) -> bool:
     return os.environ.get(PREFIX + name, "").strip().lower() in TRUTHY
 
 
+def raw(name: str) -> Optional[str]:
+    """The raw string of ``TORCHEVAL_TPU_TORCH_<name>``, or ``None`` when
+    unset: whether a flag is set at all, for the callers that let an
+    explicit setting outrank a measured pick (``routing_autotune``)."""
+    _check_known(name)
+    return os.environ.get(PREFIX + name)
+
+
+def _check_known(name: str) -> None:
+    if not any(name in table for table in (
+            FLAGS, INT_FLAGS, STR_FLAGS, JSON_FLAGS, TRISTATE_FLAGS)):
+        raise KeyError(f"unknown flag {name!r}")
+
+
 def get_int(name: str) -> int:
     """Read the integer flag ``TORCHEVAL_TPU_TORCH_<name>`` now; unset gives
     its default, and so does an invalid value, except under the rule
@@ -281,9 +296,7 @@ def overridden(name: str, raw: Optional[str]) -> Iterator[None]:
     """Set ``TORCHEVAL_TPU_TORCH_<name>`` to ``raw`` (``None``: unset) for
     the enclosed block, then put back what was there: how a route race
     forces each candidate through the flag a user would pin."""
-    if not any(name in table for table in (
-            FLAGS, INT_FLAGS, STR_FLAGS, JSON_FLAGS, TRISTATE_FLAGS)):
-        raise KeyError(f"unknown flag {name!r}")
+    _check_known(name)
     env = PREFIX + name
     before = os.environ.get(env)
     try:

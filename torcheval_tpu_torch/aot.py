@@ -236,7 +236,8 @@ def _race_routes(obj, entry, arrays, top, is_collection) -> int:
             return  # already raced for this shape, flag context and card
         for choice, call in candidates:
             seconds = timed(call)
-            _autotune.record_measurement(decision, choice, sig, seconds, site="race")
+            if _autotune.ENABLED:
+                _autotune.record_measurement(decision, choice, sig, seconds, site="race")
             spent += 1
 
     def under(flag, raw):

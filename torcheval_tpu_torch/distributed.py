@@ -60,13 +60,15 @@ import numpy as np
 import torch
 
 from torcheval_tpu_torch import _flags
-from torcheval_tpu_torch.metrics.metric import _to_cpu_tree
 from torcheval_tpu_torch.telemetry import events as _telemetry
 
 REDUCE_OPS = ("sum", "max", "min", "mean", "concat")
 
 
 def _dumps(obj: Any) -> bytes:
+    # Lazy: the collective substrate sits below the metrics layer.
+    from torcheval_tpu_torch.metrics.metric import _to_cpu_tree
+
     return pickle.dumps(_to_cpu_tree(obj))
 
 

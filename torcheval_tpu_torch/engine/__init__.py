@@ -48,7 +48,6 @@ from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Tu
 import numpy as np
 import torch
 
-from torcheval_tpu_torch import convert
 from torcheval_tpu_torch.engine.prefetch import DEFAULT_DEPTH, Prefetcher
 from torcheval_tpu_torch.engine.scan import ScanRunner, resolve_donate, states_nbytes
 from torcheval_tpu_torch.metrics._bucket import bucket_size, bucket_sizes, pad_to_bucket
@@ -252,7 +251,10 @@ class Evaluator:
             resumed = self._ckpt.load_latest()
             if resumed is not None:
                 # Checkpoints hold host numpy in the JAX package's layout;
-                # load_state_dict puts them on the members' device.
+                # load_state_dict puts them on the members' device.  Lazy:
+                # ``convert`` sits in the tools layer above the engine.
+                from torcheval_tpu_torch import convert
+
                 collection.load_state_dict(convert.state_from_jax(resumed.state))
                 self.batches_seen = int(resumed.cursor.get("batches_seen", 0))
                 self.blocks_dispatched = int(resumed.cursor.get("blocks_dispatched", 0))
@@ -684,6 +686,7 @@ class Evaluator:
             # steps=block.batches: the stacked figures are reduced over the
             # REAL steps only, so the fully masked pad steps never read as
             # zero-weight batches.  One read back a block.
+            # tpulint: disable=TPU001 -- health_stats is non-None only when the runner was built with health=_health.ENABLED
             _health.inspect(
                 health_stats, source="engine_block", bounds=runner.bounds,
                 steps=block.batches,

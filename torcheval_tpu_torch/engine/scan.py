@@ -356,6 +356,8 @@ class ScanRunner:
             program, (key, self._donate, self._health, self._token), device)
 
     def _price(self, pending, before: States, stacked_args, stacked_mask) -> None:
+        if not _perfscope.ENABLED:
+            return
         _perfscope.profile_program(
             pending, before, self._collection._read_states(),
             batch_args=(stacked_args, stacked_mask), donate=self._donate,

@@ -303,7 +303,7 @@ class MetricCollection:
         except BaseException:
             self._install_states(before)
             raise
-        if pending is not None:
+        if _perfscope.ENABLED and pending is not None:
             # Priced once per (signature, donation, health, route token).
             _perfscope.profile_program(
                 pending, before, self._read_states(), batch_args=(args, kwargs),
@@ -319,6 +319,7 @@ class MetricCollection:
         if health_stats is not None:
             # After the states are installed: a raise-on-corrupt escalation
             # leaves the applied batch in place; the monitor only reports.
+            # tpulint: disable=TPU001 -- health_stats is non-None only when the program was built with health=_health.ENABLED
             _health.inspect(health_stats, source="fused_update", bounds=self._health_bounds)
         return self
 

@@ -65,8 +65,9 @@ def _load() -> Optional[ctypes.CDLL]:
     global _LIB, _LOAD_FAILED
     # Double-checked: the unlocked read is re-checked under _LOCK before
     # any write, and both names are stable once the with-block completes.
+    # tpulint: disable=TPU006,TPU009 -- double-checked fast path; re-checked
     if _LIB is not None or _LOAD_FAILED:
-        return _LIB
+        return _LIB  # tpulint: disable=TPU006 -- double-checked fast path
     with _LOCK:
         if _LIB is not None or _LOAD_FAILED:
             return _LIB
@@ -89,6 +90,7 @@ def _load() -> Optional[ctypes.CDLL]:
                 e,
             )
             _LOAD_FAILED = True
+    # tpulint: disable=TPU006 -- stable once the with-block above completes
     return _LIB
 
 

@@ -274,7 +274,7 @@ def _timed_dispatch(fn: Callable[[], Any], op: str, payload_bytes: int, *args):
         if out.is_cuda:
             torch.cuda.current_stream(out.device).synchronize()
         _telemetry.record_sync(op, time.monotonic() - t0, payload_bytes)
-    if pending is not None:
+    if _perfscope.ENABLED and pending is not None:
         _perfscope.profile_program(
             pending, {}, {}, batch_args=args, written_bytes=payload_bytes
         )

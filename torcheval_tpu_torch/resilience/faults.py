@@ -251,6 +251,7 @@ class FaultPlan:
 
 
 def active() -> Optional[FaultPlan]:
+    # tpulint: disable=TPU006 -- lock-free hot-path read; rebinds are atomic
     return _ACTIVE
 
 
@@ -264,6 +265,7 @@ def fire(site: str, **ctx: Any) -> Optional[FaultRule]:
     ``"tear"``/``"corrupt"`` return the matched rule so the site applies
     the data transformation itself.
     """
+    # tpulint: disable=TPU006 -- hot-path snapshot; _match runs under _lock
     plan = _ACTIVE
     if plan is None:  # pragma: no cover - uninstall race
         return None

@@ -502,7 +502,7 @@ def _explicit(decision: str) -> Optional[str]:
         mode = _oflags.megakernel_mode()
         return None if mode is None else ("mega" if mode else "fused")
     if decision == "cm_row_chunk":
-        raw = os.environ.get(_flags.PREFIX + "CM_ROW_CHUNK")
+        raw = _flags.raw("CM_ROW_CHUNK")
         return None if raw is None or not raw.strip() else str(_oflags.cm_row_chunk())
     if decision == "rank_sketch":
         mode = _oflags.rank_sketch_mode()

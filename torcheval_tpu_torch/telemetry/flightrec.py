@@ -164,6 +164,7 @@ def observe(event: Any) -> None:
     """Append one event to the retained tail.  Called by
     :func:`events.emit` under its own lock; the deque append is atomic,
     so no second lock on the hot path."""
+    # tpulint: disable=TPU006 -- deque.append is atomic; emit holds its lock
     _recent.append(event)
 
 
@@ -333,6 +334,7 @@ def _write_bundle(
             "bytes": len(tenants_blob),
         }
 
+    # tpulint: disable=TPU006 -- str rebinds are atomic; enable() is rare
     base = _dir
     os.makedirs(base, exist_ok=True)
     final = os.path.join(base, f"bundle-{seq:04d}-{_slug(reason)}")
