@@ -559,9 +559,10 @@ def lint_child() -> int:
 
 @contextlib.contextmanager
 def buses_off():
-    """Every hook bus of the port off for the block (events, health,
-    perfscope, faults, trace, flight recorder, metering, autotune); each
-    module's switch is put back as it was after."""
+    """Every hook bus of the port off for the block (events and its
+    profiler ranges, health, perfscope, faults, trace, flight recorder,
+    metering, autotune); each module's switch is put back as it was
+    after."""
     from torcheval_tpu_torch import routing_autotune
     from torcheval_tpu_torch.resilience import faults
     from torcheval_tpu_torch.serve import metering
@@ -569,17 +570,20 @@ def buses_off():
 
     modules = (events, health, perfscope, faults, trace, flightrec, metering, routing_autotune)
     saved = [m.ENABLED for m in modules]
+    spans = (events.ANNOTATE, events.SPANS)
     forced = metering._forced
     for m in modules:
         if m is faults:
             faults.ENABLED = False
         else:
             m.disable()
+    events.annotate(False)
     try:
         yield
     finally:
         for m, on in zip(modules, saved):
             m.ENABLED = on
+        events.ANNOTATE, events.SPANS = spans
         metering._forced = forced
 
 
@@ -3687,7 +3691,11 @@ def main(argv) -> int:
         kernel_rows = [(e.key, device_us(e)) for e in device_events(torch, prof)
                        if "rank_sum" in e.key]
         check(named == ["torcheval_tpu_torch.MulticlassAUROC.compute",
-                        "torcheval_tpu_torch.MulticlassAUROC.update"],
+                        "torcheval_tpu_torch.MulticlassAUROC.update",
+                        "torcheval_tpu_torch.compute.concat",
+                        "torcheval_tpu_torch.compute.kernel.rank_sum",
+                        "torcheval_tpu_torch.compute.route",
+                        "torcheval_tpu_torch.readback.multiclass_route"],
               f"annotate: the spans by name in the profiler trace {named}, beside "
               f"{[(k[:40], round(us, 1)) for k, us in kernel_rows]}")
     finally:

@@ -672,6 +672,14 @@ _MUTATIONS = {
     "TPU001 guard removed in parallel/_compile_cache.py": (
         "torcheval_tpu_torch/parallel/_compile_cache.py", "TPU001",
         lambda s: s.replace("if self._events and _telemetry.ENABLED:", "if self._events:", 1)),
+    "TPU001 a profiler range opened without its ANNOTATE branch in ops/auc.py": (
+        "torcheval_tpu_torch/ops/auc.py", "TPU001",
+        lambda s: s.replace(
+            "        if _telemetry.ANNOTATE:\n            with _telemetry.span(\"compute.sort\"):",
+            "        if True:\n            with _telemetry.span(\"compute.sort\"):", 1)),
+    "TPU001 member spans outside their SPANS branch in metrics/collection.py": (
+        "torcheval_tpu_torch/metrics/collection.py", "TPU001",
+        lambda s: s.replace("spans = _telemetry.SPANS", "spans = True", 1)),
     "TPU002 a module-level import of jax": (
         "torcheval_tpu_torch/metrics/metric.py", "TPU002",
         lambda s: s + "\nimport jax\n"),

@@ -34,7 +34,7 @@ from torcheval_tpu_torch.resilience import FaultPlan, MembershipView
 from torcheval_tpu_torch.telemetry import events as port_events
 
 from tests.test_torch_rank_sketch import TOL as RANK_TOL
-from tests.test_torch_telemetry import reset_all, stream
+from tests.test_torch_telemetry import reset_all, stream, update_bytes_dropped
 
 # The module (the package's ``fleet_merge`` attribute is the function).
 jax_fm = importlib.import_module("torcheval_tpu.parallel.fleet_merge")
@@ -166,7 +166,8 @@ def _both(world, **kw):
 def _same_events(evs):
     jax_evs, port_evs = evs
     key = lambda e: repr(e)  # noqa: E731 - the threads interleave: compare as multisets
-    assert sorted(stream(port_evs), key=key) == sorted(stream(jax_evs), key=key)
+    assert sorted(stream(port_evs), key=key) == sorted(
+        update_bytes_dropped(stream(jax_evs)), key=key)
 
 
 def _drop(rank, role="recv"):

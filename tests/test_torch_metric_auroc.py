@@ -171,11 +171,14 @@ def test_metric_base_lifecycle():
 
 def test_telemetry_spans(monkeypatch):
     monkeypatch.setattr(events, "ENABLED", True)
+    monkeypatch.setattr(events, "SPANS", True)
     events.clear()
     m = _Counters(device=CPU).update([1.0, 2.0])
     m.compute()
     spans = events.events("span")
     assert [(s.phase, s.name) for s in spans] == [("update", "_Counters"), ("compute", "_Counters")]
-    assert spans[0].state_bytes > 0 and all(s.seconds >= 0 for s in spans)
+    # The compute span carries the state's bytes; an update span none.
+    assert spans[0].state_bytes == 0 and spans[1].state_bytes > 0
+    assert all(s.seconds >= 0 for s in spans)
     assert set(events.aggregates()["spans"]) == {("_Counters", "update"), ("_Counters", "compute")}
     events.clear()

@@ -521,6 +521,7 @@ def test_collection_of_perplexity_and_wer_shares_the_logits_signature():
 
 def test_telemetry_spans_wrap_the_new_classes(monkeypatch):
     monkeypatch.setattr(events, "ENABLED", True)
+    monkeypatch.setattr(events, "SPANS", True)
     events.clear()
     tm.WordErrorRate(device="cpu").update(["a b"], ["a c"]).compute()
     tm.BLEUScore(device="cpu").update("a b", "a b").compute()

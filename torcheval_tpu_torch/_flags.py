@@ -41,8 +41,10 @@ FLAGS: Dict[str, str] = {
     ),
     "TELEMETRY": "Turn the telemetry event bus on (read at import).",
     "TELEMETRY_ANNOTATE": (
-        "Also run each update/compute span under torch.profiler.record_function, "
-        "so the spans show in a profiler trace beside the kernels (read at import)."
+        "Open a torch.profiler.record_function range at each span hook site (members' "
+        "update/compute, value checks, read backs, compute stages), so the spans show in "
+        "a profiler trace beside the kernels, with or without the bus (read at import; "
+        "telemetry.events.annotate() at run time)."
     ),
     "TRACE": (
         "Turn causal tracing on: every event carries trace and span ids "

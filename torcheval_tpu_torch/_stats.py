@@ -10,19 +10,28 @@ bumps it where a capture would have been: once a block signature.
 ``aot.warmup`` uses the delta to check its contract: after a warmup, the
 stream adds zero captures.
 
-Mutation is lock-guarded (captures may run in several threads), and
-``bump_trace`` is also the ``retrace`` hook of the telemetry bus: one
+Beside it, the read-back counter: :func:`readback` counts each read of
+device values to the host by the site the caller names, always on, and
+makes the read, inside the profiler range ``readback.<site>`` with the
+telemetry ranges on (``telemetry.events.annotate``).  It costs one
+increment at a site that is about to wait for the device anyway, with no
+lock: the contract of ``ops._build.LAUNCHES``, exact in one thread, where
+threads that read back at one site at once may lose an increment.
+
+The capture counter's mutation is lock-guarded (captures may run in
+several threads), and ``bump_trace`` is also the ``retrace`` hook of the telemetry bus: one
 branch on the bus's module flag, taken only at capture time.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 from torcheval_tpu_torch.telemetry import events as _telemetry
 
 _trace_counts: Dict[str, int] = {}
+_readback_counts: Dict[str, int] = {}
 _lock = threading.Lock()
 
 
@@ -55,3 +64,24 @@ def reset_trace_count() -> None:
     a signature already captured still replays without a capture."""
     with _lock:
         _trace_counts.clear()
+
+
+def readback(site: str, read: Callable[..., Any], *args: Any) -> Any:
+    """Count one read of device values to the host at ``site`` (a short
+    literal the caller passes) and return ``read(*args)``, the read
+    itself: ``_stats.readback("binary_route", stats.tolist)``."""
+    _readback_counts[site] = _readback_counts.get(site, 0) + 1
+    if _telemetry.ANNOTATE:
+        with _telemetry.span("readback." + site):
+            return read(*args)
+    return read(*args)
+
+
+def readback_counts() -> Dict[str, int]:
+    """Read backs by site since process start (or the last reset); a copy."""
+    return dict(_readback_counts)
+
+
+def reset_readback_counts() -> None:
+    """Zero the read-back counter (test/benchmark hook)."""
+    _readback_counts.clear()

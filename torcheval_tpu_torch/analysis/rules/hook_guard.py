@@ -24,7 +24,10 @@ Recognized guard shapes (all observed in this repo):
 Guard equivalences: each hook module guards on its own flag, except
 ``monitor.quality`` whose documented contract is to be gated on the
 *event bus* flag (``telemetry.events.ENABLED``) — a quality reading is
-just another event.
+just another event.  The event module's span entry points guard on its
+other flags: ``timed_phase`` / ``member_phase`` on ``SPANS`` (the bus or
+the profiler ranges on) and ``span`` on ``ANNOTATE`` (the ranges on);
+the shapes above hold for them with that flag in place of ``ENABLED``.
 
 Dominance is checked lexically within the enclosing function: a hook
 wrapped in a helper whose *callers* hold the branch cannot be proven
@@ -57,8 +60,17 @@ class HookSpec:
     module: str  # fully-dotted defining module
     names: FrozenSet[str]  # explicit entry-point names
     record_prefix: bool  # also match any discovered record_* name
-    guard_modules: FrozenSet[str]  # whose ENABLED dominates these hooks
+    guard_modules: FrozenSet[str]  # whose flag dominates these hooks
     runtime_ns: str  # prefix of the hook-map check's counting wrappers
+    # The module flags (attribute names) that guard these hooks.
+    guard_flags: FrozenSet[str] = frozenset({"ENABLED"})
+
+    @property
+    def guards(self) -> FrozenSet[Tuple[str, str]]:
+        """Every accepted (module, flag) guard of these hooks."""
+        return frozenset(
+            (m, f) for m in self.guard_modules for f in self.guard_flags
+        )
 
 
 _EVENTS = "torcheval_tpu_torch.telemetry.events"
@@ -74,10 +86,28 @@ _METERING = "torcheval_tpu_torch.serve.metering"
 HOOK_SPECS: Tuple[HookSpec, ...] = (
     HookSpec(
         module=_EVENTS,
-        names=frozenset({"emit", "timed_phase"}),
+        names=frozenset({"emit"}),
         record_prefix=True,
         guard_modules=frozenset({_EVENTS}),
         runtime_ns="",
+    ),
+    HookSpec(
+        module=_EVENTS,
+        # A metric phase span: with the bus, the profiler ranges, or both.
+        names=frozenset({"timed_phase", "member_phase"}),
+        record_prefix=False,
+        guard_modules=frozenset({_EVENTS}),
+        runtime_ns="",
+        guard_flags=frozenset({"SPANS", "ENABLED"}),
+    ),
+    HookSpec(
+        module=_EVENTS,
+        # A profiler range; the bus may be off.
+        names=frozenset({"span"}),
+        record_prefix=False,
+        guard_modules=frozenset({_EVENTS}),
+        runtime_ns="",
+        guard_flags=frozenset({"ANNOTATE"}),
     ),
     HookSpec(
         module=_HEALTH,
@@ -180,12 +210,19 @@ HOOK_SPECS: Tuple[HookSpec, ...] = (
     ),
 )
 
-_SPEC_BY_MODULE: Dict[str, HookSpec] = {s.module: s for s in HOOK_SPECS}
+_SPECS_BY_MODULE: Dict[str, Tuple[HookSpec, ...]] = {}
+for _spec in HOOK_SPECS:
+    _SPECS_BY_MODULE[_spec.module] = _SPECS_BY_MODULE.get(_spec.module, ()) + (_spec,)
+
+# Every flag attribute some hook is guarded by.
+_GUARD_FLAGS: FrozenSet[str] = frozenset(
+    f for spec in HOOK_SPECS for f in spec.guard_flags
+)
 
 # A hook module's own source freely calls its entry points after the
 # public guard (record_* funnel into emit, fire dispatches rules);
 # dominance applies to *callers*, not the implementation.
-_DEFINING_MODULES: FrozenSet[str] = frozenset(_SPEC_BY_MODULE)
+_DEFINING_MODULES: FrozenSet[str] = frozenset(_SPECS_BY_MODULE)
 
 
 def _spec_for_call(
@@ -194,27 +231,30 @@ def _spec_for_call(
     """(spec, hook_name) when this call statically targets a hook entry
     point, else None."""
     for module, attr in resolve_chain(mod, call.func):
-        spec = _SPEC_BY_MODULE.get(module)
-        if spec is None or attr is None:
+        if attr is None:
             continue
-        if attr in spec.names or (
-            spec.record_prefix and attr.startswith("record_")
-        ):
-            return spec, attr
+        for spec in _SPECS_BY_MODULE.get(module, ()):
+            if attr in spec.names or (
+                spec.record_prefix and attr.startswith("record_")
+            ):
+                return spec, attr
     return None
 
 
 # ----------------------------------------------------------- guard tests
 
 
+Guard = Tuple[str, str]  # (module, flag attribute)
+
+
 def _guarded_modules_of_test(
-    mod: Module, test: ast.AST, local_flags: Dict[str, Set[str]]
-) -> Set[str]:
-    """Modules whose ENABLED flag a test expression *positively*
+    mod: Module, test: ast.AST, local_flags: Dict[str, Set[Guard]]
+) -> Set[Guard]:
+    """(module, flag) guards a test expression *positively*
     requires-or-mentions.  `a.ENABLED and x`, `a.ENABLED or b.ENABLED`
     both count for `a` — the contract is one branch per site, not
     minimal branch strength."""
-    out: Set[str] = set()
+    out: Set[Guard] = set()
 
     def walk(node: ast.AST) -> None:
         if isinstance(node, ast.BoolOp):
@@ -223,17 +263,17 @@ def _guarded_modules_of_test(
             return
         if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.Not):
             return  # negation flips polarity; handled by early-exit form
-        if isinstance(node, ast.Attribute) and node.attr == "ENABLED":
+        if isinstance(node, ast.Attribute) and node.attr in _GUARD_FLAGS:
             for module, attr in resolve_chain(mod, node):
-                if attr == "ENABLED" and module in _SPEC_BY_MODULE:
-                    out.add(module)
+                if attr == node.attr and module in _SPECS_BY_MODULE:
+                    out.add((module, attr))
             return
         if isinstance(node, ast.Call):
             dn = dotted_name(node.func)
             if dn and dn.split(".")[-1] == "enabled":
                 for module, attr in resolve_chain(mod, node.func):
-                    if attr == "enabled" and module in _SPEC_BY_MODULE:
-                        out.add(module)
+                    if attr == "enabled" and module in _SPECS_BY_MODULE:
+                        out.add((module, "ENABLED"))
             return
         if isinstance(node, ast.Name):
             out.update(local_flags.get(node.id, set()))
@@ -245,14 +285,14 @@ def _guarded_modules_of_test(
 
 
 def _negated_guard_modules(
-    mod: Module, test: ast.AST, local_flags: Dict[str, Set[str]]
-) -> Set[str]:
-    """Modules M for which the test is (or contains, via `or`) a
-    ``not M.ENABLED`` — the early-exit polarity."""
+    mod: Module, test: ast.AST, local_flags: Dict[str, Set[Guard]]
+) -> Set[Guard]:
+    """Guards (M, F) for which the test is (or contains, via `or`) a
+    ``not M.F`` — the early-exit polarity."""
     if isinstance(test, ast.UnaryOp) and isinstance(test.op, ast.Not):
         return _guarded_modules_of_test(mod, test.operand, local_flags)
     if isinstance(test, ast.BoolOp) and isinstance(test.op, ast.Or):
-        out: Set[str] = set()
+        out: Set[Guard] = set()
         for v in test.values:
             out.update(_negated_guard_modules(mod, v, local_flags))
         return out
@@ -261,13 +301,13 @@ def _negated_guard_modules(
 
 def _collect_local_flags(
     mod: Module, fn: Optional[ast.AST]
-) -> Dict[str, Set[str]]:
+) -> Dict[str, Set[Guard]]:
     """Names assigned from a guard expression (``health =
     _health.ENABLED``) in the enclosing function chain (closures
     included) and at module level.  Flow-insensitive: a name that ever
     holds the flag is trusted — misuse would be a contrived way to lie
     to the linter, not an accident."""
-    flags: Dict[str, Set[str]] = {}
+    flags: Dict[str, Set[Guard]] = {}
     scopes: List[ast.AST] = []
     cur = fn
     while cur is not None:
@@ -299,22 +339,18 @@ _TERMINAL = (ast.Return, ast.Raise, ast.Continue, ast.Break)
 def _dominated(
     mod: Module,
     call: ast.Call,
-    guard_modules: FrozenSet[str],
-    local_flags: Dict[str, Set[str]],
+    guards: FrozenSet[Guard],
+    local_flags: Dict[str, Set[Guard]],
 ) -> bool:
-    """True when the call is dominated by an ENABLED branch of any
-    accepted guard module, looking only within the enclosing function
+    """True when the call is dominated by a branch on any accepted
+    (module, flag) guard, looking only within the enclosing function
     (a def's body runs at call time, not where the def statement sits)."""
 
     def positive(test: ast.AST) -> bool:
-        return bool(
-            _guarded_modules_of_test(mod, test, local_flags) & guard_modules
-        )
+        return bool(_guarded_modules_of_test(mod, test, local_flags) & guards)
 
     def negated(test: ast.AST) -> bool:
-        return bool(
-            _negated_guard_modules(mod, test, local_flags) & guard_modules
-        )
+        return bool(_negated_guard_modules(mod, test, local_flags) & guards)
 
     node: ast.AST = call
     up = parent(node)
@@ -372,7 +408,7 @@ class HookGuardRule(Rule):
         if mod.name in _DEFINING_MODULES:
             return []
         findings: List[Finding] = []
-        flag_cache: Dict[int, Dict[str, Set[str]]] = {}
+        flag_cache: Dict[int, Dict[str, Set[Guard]]] = {}
         for node in ast.walk(mod.tree):
             if not isinstance(node, ast.Call):
                 continue
@@ -384,9 +420,10 @@ class HookGuardRule(Rule):
             key = id(fn)
             if key not in flag_cache:
                 flag_cache[key] = _collect_local_flags(mod, fn)
-            if _dominated(mod, node, spec.guard_modules, flag_cache[key]):
+            if _dominated(mod, node, spec.guards, flag_cache[key]):
                 continue
-            guard = sorted(spec.guard_modules)[0].rsplit(".", 1)[-1]
+            module, flag = sorted(spec.guards)[0]
+            guard = f"{module.rsplit('.', 1)[-1]}.{flag}"
             findings.append(
                 Finding(
                     code=self.code,
@@ -394,7 +431,7 @@ class HookGuardRule(Rule):
                     line=node.lineno,
                     message=(
                         f"hook call `{spec.runtime_ns}{hook}` is not "
-                        f"dominated by an `{guard}.ENABLED` branch "
+                        f"dominated by an `{guard}` branch "
                         "(zero-cost-when-off contract)"
                     ),
                     scope=scope_qualname(node),

@@ -42,6 +42,12 @@ from torcheval_tpu_torch.metrics.functional.classification.binned_auc import (
 from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.ops._flags import rank_sketch_enabled
 from torcheval_tpu_torch.ops.fused_auc import has_fused
+from torcheval_tpu_torch.telemetry import events as _telemetry
+
+def _concat(inputs, targets, dim: int):
+    """The sample buffers, each concatenated along ``dim``."""
+    return torch.cat(inputs, dim=dim), torch.cat(targets, dim=dim)
+
 
 _MASK_NEEDS_SKETCH = (
     "mask= requires the rank-sketch state (sketch=True); the exact sample "
@@ -115,11 +121,12 @@ class BinaryAUROC(Metric[torch.Tensor]):
             return score[0] if self.num_tasks == 1 else score
         if not self.inputs:
             return torch.zeros(0, device=self.device)
-        return _binary_auroc_compute(
-            torch.cat(self.inputs, dim=-1),
-            torch.cat(self.targets, dim=-1),
-            self.use_fused,
-        )
+        if _telemetry.ANNOTATE:
+            with _telemetry.span("compute.concat"):
+                inputs, targets = _concat(self.inputs, self.targets, -1)
+        else:
+            inputs, targets = _concat(self.inputs, self.targets, -1)
+        return _binary_auroc_compute(inputs, targets, self.use_fused)
 
     def merge_state(self, metrics: Iterable["BinaryAUROC"]) -> "BinaryAUROC":
         if self._sketch_mode:
@@ -202,12 +209,12 @@ class MulticlassAUROC(Metric[torch.Tensor]):
             return score.mean() if self.average == "macro" else score
         if not self.inputs:
             return torch.zeros(0, device=self.device)
-        return _multiclass_auroc_compute(
-            torch.cat(self.inputs, dim=0),
-            torch.cat(self.targets, dim=0),
-            self.num_classes,
-            self.average,
-        )
+        if _telemetry.ANNOTATE:
+            with _telemetry.span("compute.concat"):
+                inputs, targets = _concat(self.inputs, self.targets, 0)
+        else:
+            inputs, targets = _concat(self.inputs, self.targets, 0)
+        return _multiclass_auroc_compute(inputs, targets, self.num_classes, self.average)
 
     def merge_state(self, metrics: Iterable["MulticlassAUROC"]) -> "MulticlassAUROC":
         if self._sketch_mode:

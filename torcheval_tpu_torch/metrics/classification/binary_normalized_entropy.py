@@ -11,6 +11,7 @@ from typing import Iterable
 
 import torch
 
+from torcheval_tpu_torch import _stats
 from torcheval_tpu_torch.metrics._fuse import accumulate, on_device
 from torcheval_tpu_torch.metrics._merge import merge_add
 from torcheval_tpu_torch.metrics.functional.classification.binary_normalized_entropy import (
@@ -63,7 +64,8 @@ class BinaryNormalizedEntropy(Metric[torch.Tensor]):
     def compute(self) -> torch.Tensor:
         """Per-task NE, or an empty tensor when any task saw no examples
         (reference ``binary_normalized_entropy.py:~115-130``)."""
-        if bool(torch.any(self.num_examples == 0.0)):
+        empty = torch.any(self.num_examples == 0.0)
+        if _stats.readback("normalized_entropy.empty", bool, empty):
             return torch.zeros(0, device=self.device)
         baseline_entropy = _baseline_update(self.num_positive, self.num_examples)
         cross_entropy = self.total_entropy / self.num_examples

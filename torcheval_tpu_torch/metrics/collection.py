@@ -24,6 +24,11 @@ and the compilation-cache bypass around donated programs.
 :func:`_call_signature` keys the engine's captured graphs
 (``engine/scan.py``), and :meth:`MetricCollection._scan_step` is the body
 each step of an engine block runs.
+
+With the profiler ranges on (``telemetry.events.annotate``),
+:meth:`~MetricCollection.update` and :meth:`~MetricCollection.compute`
+are ``MetricCollection.update`` / ``.compute`` ranges, and each member's
+call inside is its own, named ``<Class>[<member>].<phase>``.
 """
 
 from __future__ import annotations
@@ -253,8 +258,13 @@ class MetricCollection:
                 )
                 handled = plan.member_names
         rest = [name for name in self._metrics if name not in handled]
+        # Each member's update is its span, named by its member name.
+        spans = _telemetry.SPANS
         for name in rest:
-            self._metrics[name].update(*args, **kwargs)
+            if spans:
+                _telemetry.member_phase(self._metrics[name], name, "update", args, kwargs)
+            else:
+                self._metrics[name].update(*args, **kwargs)
         if self._slices is not None and rest:
             base_mask = kwargs.get("mask")
             for k in range(self._slices):
@@ -269,6 +279,12 @@ class MetricCollection:
     def update(self, *args: Any, **kwargs: Any) -> "MetricCollection":
         """Update every member with the batch, each on its own path and with
         its own value checks."""
+        if _telemetry.ANNOTATE:
+            with _telemetry.span("MetricCollection.update"):
+                return self._update(args, kwargs)
+        return self._update(args, kwargs)
+
+    def _update(self, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> "MetricCollection":
         args, kwargs = self._prepare(args, kwargs)
         self._update_members(args, kwargs, fused=False)
         return self
@@ -387,7 +403,17 @@ class MetricCollection:
                 setattr(m, s, v)
 
     def compute(self) -> Dict[str, Any]:
-        return {name: m.compute() for name, m in self._metrics.items()}
+        if _telemetry.ANNOTATE:
+            with _telemetry.span("MetricCollection.compute"):
+                return self._compute()
+        return self._compute()
+
+    def _compute(self) -> Dict[str, Any]:
+        spans = _telemetry.SPANS
+        return {
+            name: _telemetry.member_phase(m, name, "compute") if spans else m.compute()
+            for name, m in self._metrics.items()
+        }
 
     def compute_slices(self) -> Dict[str, Dict[str, Any]]:
         """Per-slice results: ``{slice_label: {metric_name: value}}``,

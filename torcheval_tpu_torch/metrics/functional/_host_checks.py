@@ -5,6 +5,10 @@ The port's slice of ``torcheval_tpu/metrics/functional/_host_checks.py``.
 A value check reads numbers back from the device, which waits for it; the
 helpers fuse all of a validation's reductions into ONE read back, and the
 switches let a throughput-critical loop on pre-validated data skip it.
+Each read back is counted by the ``site`` its caller names
+(``_stats.readback``), and runs in a ``readback.<site>`` profiler range
+with the telemetry ranges on; :func:`check_index_ranges` runs in a
+``check.<site>`` range.
 """
 
 from contextlib import contextmanager
@@ -15,7 +19,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from torcheval_tpu_torch import _flags
+from torcheval_tpu_torch import _flags, _stats
+from torcheval_tpu_torch.telemetry import events as _telemetry
 
 _SKIP_CHECKS: ContextVar = ContextVar(
     "torcheval_tpu_torch_skip_value_checks", default=False
@@ -84,9 +89,14 @@ def x64_off(*values):
     )
 
 
-def to_host(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
+def to_host(*tensors: torch.Tensor, site: str) -> Tuple[np.ndarray, ...]:
     """numpy copies of ``tensors`` with ONE wait for the device: every copy
-    is queued before the stream is synchronized once."""
+    is queued before the stream is synchronized once.  ``site`` names the
+    read back."""
+    return _stats.readback(site, _to_host, *tensors)
+
+
+def _to_host(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
     if all(t.device.type == "cpu" for t in tensors):
         return tuple(t.numpy() for t in tensors)
     host = [t.to("cpu", non_blocking=True) for t in tensors]
@@ -95,28 +105,43 @@ def to_host(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
     return tuple(h.numpy() for h in host)
 
 
-def bounds(*tensors: torch.Tensor) -> np.ndarray:
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def bounds(*tensors: torch.Tensor, site: str) -> np.ndarray:
     """``[min0, max0, min1, max1, ...]`` of the tensors with ONE read back,
     in their promoted dtype (float32 at least, float64 when an input is).
     Exact for integer class indices below 2^24.  Callers skip empty
-    tensors themselves (their min does not exist)."""
+    tensors themselves (their min does not exist).  ``site`` names the
+    read back."""
     dtype = reduce(torch.promote_types, (t.dtype for t in tensors), torch.float32)
     stacked = torch.stack([m.to(dtype) for t in tensors for m in torch.aminmax(t)])
-    return stacked.cpu().numpy()
+    return _stats.readback(site, _numpy, stacked)
 
 
 def check_index_ranges(
-    pairs: Sequence[Tuple[torch.Tensor, str]], upper: Optional[int]
+    pairs: Sequence[Tuple[torch.Tensor, str]], upper: Optional[int], site: str
 ) -> None:
     """Range-check several class-index tensors with one read back for all
     of them; raises for the first one outside ``[0, upper)``, in order
-    (the JAX scatters drop such indices where torch's raise)."""
+    (the JAX scatters drop such indices where torch's raise).  ``site``
+    names the ``check.<site>`` span and the read back."""
     if upper is None or not value_checks_enabled():
         return
+    if _telemetry.ANNOTATE:
+        with _telemetry.span("check." + site):
+            return _index_ranges(pairs, upper, site)
+    _index_ranges(pairs, upper, site)
+
+
+def _index_ranges(
+    pairs: Sequence[Tuple[torch.Tensor, str]], upper: int, site: str
+) -> None:
     pairs = [(v, n) for v, n in pairs if v.numel()]
     if not pairs:
         return
-    vals = bounds(*(v for v, _ in pairs))
+    vals = bounds(*(v for v, _ in pairs), site=site)
     for i, (_, name) in enumerate(pairs):
         lo, hi = vals[2 * i], vals[2 * i + 1]
         if lo < 0 or hi >= upper:

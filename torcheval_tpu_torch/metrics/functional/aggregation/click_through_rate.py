@@ -8,10 +8,12 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
+from torcheval_tpu_torch import _stats
 from torcheval_tpu_torch.metrics.functional._host_checks import (
     place_inputs,
     value_checks_enabled,
 )
+from torcheval_tpu_torch.telemetry import events as _telemetry
 
 
 def click_through_rate(
@@ -93,7 +95,13 @@ def _ctr_input_check(
     # Click events must be 0/1: a data-dependent check (one read back),
     # skipped like every value check (_host_checks.py).
     if input.numel() and value_checks_enabled():
-        if not bool(torch.all((input == 0) | (input == 1))):
-            raise ValueError(
-                "`input` should be a binary tensor of 0/1 click events."
-            )
+        if _telemetry.ANNOTATE:
+            with _telemetry.span("check.click_through_rate"):
+                return _check_binary(input)
+        _check_binary(input)
+
+
+def _check_binary(input: torch.Tensor) -> None:
+    binary = torch.all((input == 0) | (input == 1))
+    if not _stats.readback("click_through_rate", bool, binary):
+        raise ValueError("`input` should be a binary tensor of 0/1 click events.")

@@ -162,7 +162,7 @@ def _multiclass_accuracy_validate(
     # gather for k > 1), an out-of-range value must raise.
     if average != "micro" or k > 1:
         upper = num_classes if num_classes is not None else input.shape[-1]
-        check_index_ranges([(target, "target")], upper)
+        check_index_ranges([(target, "target")], upper, "accuracy")
 
 
 def _multiclass_accuracy_update(

@@ -35,6 +35,7 @@ from torcheval_tpu_torch.ops.ustat import (
     multiclass_auroc_ustat,
     ustat_route_cap,
 )
+from torcheval_tpu_torch.telemetry import events as _telemetry
 
 
 def binary_auroc(
@@ -132,7 +133,11 @@ def _binary_auroc_compute(
     squeeze = input.dim() == 1
     rows = input[None] if squeeze else input
     t_rows = target[None] if squeeze else target
-    ustat_route = binary_ustat_route(rows, t_rows)
+    if _telemetry.ANNOTATE:
+        with _telemetry.span("compute.route"):
+            ustat_route = binary_ustat_route(rows, t_rows)
+    else:
+        ustat_route = binary_ustat_route(rows, t_rows)
     if ustat_route is not None:
         side, cap = ustat_route
         auc = binary_auroc_ustat(rows, t_rows.to(torch.int32), cap=cap, table_side=side)
@@ -159,7 +164,11 @@ def _multiclass_auroc_compute(
     # backend and Pallas gates have no counterpart, since the port's route
     # never depends on the device.
     if ustat_cap is None:
-        ustat_cap = ustat_route_cap(input, target, num_classes)
+        if _telemetry.ANNOTATE:
+            with _telemetry.span("compute.route"):
+                ustat_cap = ustat_route_cap(input, target, num_classes)
+        else:
+            ustat_cap = ustat_route_cap(input, target, num_classes)
     elif ustat_disabled():
         ustat_cap = None
     if ustat_cap is not None:

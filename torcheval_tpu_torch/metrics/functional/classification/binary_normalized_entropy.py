@@ -18,6 +18,7 @@ from torcheval_tpu_torch.metrics.functional._host_checks import (
     place_inputs,
     value_checks_enabled,
 )
+from torcheval_tpu_torch.telemetry import events as _telemetry
 
 
 def _accum_dtype() -> torch.dtype:
@@ -137,12 +138,19 @@ def _ne_input_check(
             f"({num_tasks}, num_samples), but got shape ({tuple(input.shape)})."
         )
     if not from_logits and input.numel() and value_checks_enabled():
-        lo, hi = bounds(input)
-        input_min, input_max = float(lo), float(hi)
-        if input_max > 1.0 or input_min < 0.0:
-            raise ValueError(
-                f"`from_logits`={from_logits}, `input` should be probability "
-                f"in range [0., 1.], but got `input` ranging from {input_min} "
-                f"to {input_max}. Please set `from_logits = True` or convert "
-                "`input` into valid probability value."
-            )
+        if _telemetry.ANNOTATE:
+            with _telemetry.span("check.normalized_entropy"):
+                return _check_probabilities(input)
+        _check_probabilities(input)
+
+
+def _check_probabilities(input: torch.Tensor) -> None:
+    lo, hi = bounds(input, site="normalized_entropy")
+    input_min, input_max = float(lo), float(hi)
+    if input_max > 1.0 or input_min < 0.0:
+        raise ValueError(
+            f"`from_logits`=False, `input` should be probability "
+            f"in range [0., 1.], but got `input` ranging from {input_min} "
+            f"to {input_max}. Please set `from_logits = True` or convert "
+            "`input` into valid probability value."
+        )

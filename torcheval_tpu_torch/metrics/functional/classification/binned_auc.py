@@ -190,7 +190,7 @@ def _multiclass_binned_auc_validate(
     and class paths: ``class_hits`` would otherwise count an out-of-range
     target as a negative of every class."""
     _multiclass_auroc_update_input_check(input, target, num_classes)
-    _check_index_range(target, num_classes, "target")
+    _check_index_range(target, num_classes, "target", site="binned_auc")
 
 
 def _select_binned_route(num_samples: int) -> str:

@@ -116,7 +116,9 @@ def _multiclass_binned_validate(
     _multiclass_binned_update_input_check(input, target, num_classes)
     # Out-of-range targets must raise: the one-vs-rest hits would count
     # them as a negative of every class.
-    _check_index_range(target, num_classes, "target")
+    _check_index_range(
+        target, num_classes, "target", site="binned_precision_recall_curve"
+    )
 
 
 def _multiclass_binned_precision_recall_curve_update(
@@ -205,7 +207,7 @@ def _binned_precision_recall_curve_param_check(threshold: torch.Tensor) -> None:
     """Thresholds must be sorted and within [0, 1]
     (reference ``binned_precision_recall_curve.py:235-242``); one read
     back."""
-    (t,) = to_host(threshold)
+    (t,) = to_host(threshold, site="binned_thresholds")
     if bool((t[1:] - t[:-1] < 0.0).any()):
         raise ValueError("The `threshold` should be a sorted array.")
     if bool((t < 0.0).any()) or bool((t > 1.0).any()):

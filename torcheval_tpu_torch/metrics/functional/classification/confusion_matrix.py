@@ -34,6 +34,7 @@ from torcheval_tpu_torch.metrics.functional._host_checks import (
 from torcheval_tpu_torch.metrics.functional._scatter import at_add
 from torcheval_tpu_torch.ops._flags import cm_row_chunk
 from torcheval_tpu_torch.ops.cm import _MAX_N, _MAX_W, _slab, class_window
+from torcheval_tpu_torch.telemetry import events as _telemetry
 
 
 def binary_confusion_matrix(
@@ -255,13 +256,20 @@ def _binary_confusion_matrix_validate(input: torch.Tensor, target: torch.Tensor)
     # Out-of-range targets must raise, as torch's scatter_ does in the
     # reference; the port's scatter would drop them.
     if target.numel() and value_checks_enabled():
-        t_min, t_max = bounds(target)
-        if t_min < 0 or t_max >= 2:
-            raise ValueError(
-                "Got `target` class which is larger than the number of classes, "
-                "num_classes: 2 must be strictly greater than max target: "
-                f"{int(t_max)}."
-            )
+        if _telemetry.ANNOTATE:
+            with _telemetry.span("check.binary_confusion_matrix"):
+                return _check_binary_target(target)
+        _check_binary_target(target)
+
+
+def _check_binary_target(target: torch.Tensor) -> None:
+    t_min, t_max = bounds(target, site="binary_confusion_matrix")
+    if t_min < 0 or t_max >= 2:
+        raise ValueError(
+            "Got `target` class which is larger than the number of classes, "
+            "num_classes: 2 must be strictly greater than max target: "
+            f"{int(t_max)}."
+        )
 
 
 def _binary_confusion_matrix_update_kernel(
@@ -343,9 +351,16 @@ def _confusion_matrix_update_input_check(
     # Range checks, every bound in one read back, input first.
     if not value_checks_enabled() or target.numel() == 0:
         return
+    if _telemetry.ANNOTATE:
+        with _telemetry.span("check.confusion_matrix"):
+            return _check_class_ranges(input, target, num_classes)
+    _check_class_ranges(input, target, num_classes)
+
+
+def _check_class_ranges(input: torch.Tensor, target: torch.Tensor, num_classes: int) -> None:
     to_check = [("input", input)] if input.dim() == 1 else []
     to_check.append(("target", target))
-    vals = bounds(*(v for _, v in to_check))
+    vals = bounds(*(v for _, v in to_check), site="confusion_matrix")
     for i, (name, _) in enumerate(to_check):
         lo, hi = vals[2 * i], vals[2 * i + 1]
         if name == "input":

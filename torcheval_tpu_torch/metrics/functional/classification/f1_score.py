@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from torcheval_tpu_torch import _stats
 from torcheval_tpu_torch.metrics.functional._host_checks import place_inputs
 from torcheval_tpu_torch.metrics.functional.classification.confusion_matrix import (
     _class_counts,
@@ -82,7 +83,7 @@ def _f1_score_validate(
         pairs = [(target, "target")]
         if input.dim() == 1:
             pairs.append((input, "input"))
-        _check_index_ranges(pairs, num_classes)
+        _check_index_ranges(pairs, num_classes, "f1_score")
 
 
 def _f1_score_update_kernel(
@@ -108,11 +109,13 @@ def _f1_score_compute(
     num_prediction: torch.Tensor,
     average: Optional[str],
 ) -> torch.Tensor:
-    if num_label.dim() and bool(torch.any(num_label == 0)):
-        _logger.warning(
-            "Warning: Some classes do not exist in the target. F1 scores for "
-            "these classes will be cast to zeros."
-        )
+    if num_label.dim():
+        missing = torch.any(num_label == 0)
+        if _stats.readback("f1_score.missing_classes", bool, missing):
+            _logger.warning(
+                "Warning: Some classes do not exist in the target. F1 scores for "
+                "these classes will be cast to zeros."
+            )
     precision = num_tp / num_prediction
     recall = num_tp / num_label
     f1 = torch.nan_to_num(2 * precision * recall / (precision + recall))

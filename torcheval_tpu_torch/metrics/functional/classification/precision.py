@@ -77,7 +77,7 @@ def _precision_validate(
         pairs = [(target, "target")]
         if input.dim() == 1:
             pairs.append((input, "input"))
-        _check_index_ranges(pairs, num_classes)
+        _check_index_ranges(pairs, num_classes, "precision")
 
 
 def _micro_counts(
@@ -182,10 +182,12 @@ def _precision_update_input_check(
         )
 
 
-def _check_index_range(values: torch.Tensor, upper: Optional[int], name: str) -> None:
+def _check_index_range(
+    values: torch.Tensor, upper: Optional[int], name: str, site: str
+) -> None:
     """Out-of-range class indices must raise (the JAX scatters drop them
     where torch's ``scatter_`` raises)."""
-    _check_index_ranges([(values, name)], upper)
+    _check_index_ranges([(values, name)], upper, site)
 
 
 def _binary_precision_update(

@@ -104,7 +104,8 @@ def _compute_for_each_class(
     if input.shape[-1] == 0:
         return _empty_curve(input.device)
     threshold, is_last, num_tp, num_fp = to_host(
-        *_prc_device_kernel(input, (target == pos_label).to(torch.int32))
+        *_prc_device_kernel(input, (target == pos_label).to(torch.int32)),
+        site="precision_recall_curve",
     )
     return _materialize_curve(
         num_tp[is_last], num_fp[is_last], threshold[is_last], input.device
@@ -140,7 +141,9 @@ def _materialize_row_curves(
     if input.shape[0] == 0:
         curves = [_empty_curve(input.device) for _ in range(num_rows)]
         return tuple(list(xs) for xs in zip(*curves))
-    thresholds, is_last, num_tp, num_fp = to_host(*device_kernel(input, target))
+    thresholds, is_last, num_tp, num_fp = to_host(
+        *device_kernel(input, target), site="precision_recall_curve"
+    )
     precisions, recalls, thresh_list = [], [], []
     for c in range(num_rows):
         mask = is_last[c]

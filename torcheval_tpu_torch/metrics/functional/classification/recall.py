@@ -94,7 +94,7 @@ def _recall_validate(
         pairs = [(target, "target")]
         if input.dim() == 1:
             pairs.append((input, "input"))
-        _check_index_ranges(pairs, num_classes)
+        _check_index_ranges(pairs, num_classes, "recall")
 
 
 def _recall_update_kernel(

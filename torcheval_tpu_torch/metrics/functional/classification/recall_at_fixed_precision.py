@@ -76,7 +76,9 @@ def _best_point(
     has no threshold: it only matters when nothing else qualifies, and
     then the sentinel result (0.0, _NO_THRESHOLD) is returned anyway."""
     device = precision.device
-    precision, recall, thresholds = to_host(precision, recall, thresholds)
+    precision, recall, thresholds = to_host(
+        precision, recall, thresholds, site="recall_at_fixed_precision"
+    )
     precision, recall = precision[:-1], recall[:-1]
     ok = precision >= min_precision
     if not ok.any() or float(recall[ok].max()) == 0.0:

@@ -109,11 +109,11 @@ def _move_state(value: TState, device: torch.device, fresh: bool = False) -> TSt
 
 def _wrap_phase(fn, phase: str):
     """Wrap a subclass's ``update``/``compute`` as a telemetry span hook:
-    one module-flag branch when telemetry is off."""
+    one module-flag branch when the bus and the profiler ranges are off."""
 
     @functools.wraps(fn)
     def wrapped(self, *args, **kwargs):
-        if not _telemetry.ENABLED:
+        if not _telemetry.SPANS:
             return fn(self, *args, **kwargs)
         return _telemetry.timed_phase(self, phase, fn, args, kwargs)
 

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from torcheval_tpu_torch.ops import _build
+from torcheval_tpu_torch.telemetry import events as _telemetry
 
 _ONE_BYTE = (torch.bool, torch.uint8, torch.int8)
 
@@ -183,6 +184,12 @@ def binary_auroc_sorted_path(scores: torch.Tensor, targets: torch.Tensor) -> tor
     if scores.shape[-1] == 0:
         auc = torch.full(scores.shape[:-1], 0.5, device=scores.device)
     else:
-        thresholds, hits = sort_desc(scores.to(torch.float32), targets.to(torch.int8))
-        auc = auc_from_sorted(thresholds, hits)
+        scores, targets = scores.to(torch.float32), targets.to(torch.int8)
+        if _telemetry.ANNOTATE:
+            with _telemetry.span("compute.sort"):
+                thresholds, hits = sort_desc(scores, targets)
+            with _telemetry.span("compute.kernel.auc_scan"):
+                auc = auc_from_sorted(thresholds, hits)
+        else:
+            auc = auc_from_sorted(*sort_desc(scores, targets))
     return auc[0] if squeeze else auc

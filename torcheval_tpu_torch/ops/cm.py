@@ -63,7 +63,7 @@ def confusion_slab(
 
     _check_slab_args(target, pred, num_classes)
     if value_checks_enabled() and target.numel():
-        t_lo, t_hi, p_lo, p_hi = bounds(target, pred)
+        t_lo, t_hi, p_lo, p_hi = bounds(target, pred, site="confusion_slab")
         if min(t_lo, p_lo) < 0 or max(t_hi, p_hi) > num_classes:
             raise ValueError(
                 f"confusion_slab takes labels mapped into [0, {num_classes}], "

@@ -52,8 +52,10 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from torcheval_tpu_torch import _stats
 from torcheval_tpu_torch.ops import _build
 from torcheval_tpu_torch.ops._flags import ustat_disabled
+from torcheval_tpu_torch.telemetry import events as _telemetry
 
 _FW = 16  # table capacities are multiples of this
 _BIG = 3.0e38  # pad sentinel; the route guarantees |score| < _BIG
@@ -439,7 +441,11 @@ def _auroc_from_rank_sums(
             "use the sort path for this shape"
         )
     tables = torch.cat([table, -table.flip(1)])
-    k = rank_sum_counts(queries, tables, negate=True)
+    if _telemetry.ANNOTATE:
+        with _telemetry.span("compute.kernel.rank_sum"):
+            k = rank_sum_counts(queries, tables, negate=True)
+    else:
+        k = rank_sum_counts(queries, tables, negate=True)
     return _auroc_from_counts(k, counts, n, cap)
 
 
@@ -579,14 +585,15 @@ def _route_stats(
     t = target.to(torch.int64)
     in_range = (t.min() >= 0) & (t.max() < num_classes)
     counts = _index_counts(t.clamp(0, num_classes - 1), num_classes)
-    return torch.stack(
+    stats = torch.stack(
         [
             scores.min().to(torch.float32),
             scores.max().to(torch.float32),
             counts.max().to(torch.float32),
             in_range.to(torch.float32),
         ]
-    ).tolist()
+    )
+    return _stats.readback("multiclass_route", stats.tolist)
 
 
 def ustat_route_cap(
@@ -613,7 +620,7 @@ def _binary_route_stats(scores: torch.Tensor, target: torch.Tensor) -> List[floa
     pos = torch.sum(target != 0, dim=-1, dtype=torch.int32)
     neg = scores.shape[-1] - pos
     non01 = torch.sum((target != 0) & (target != 1), dtype=torch.int32)
-    return torch.stack(
+    stats = torch.stack(
         [
             scores.min().to(torch.float32),
             scores.max().to(torch.float32),
@@ -621,7 +628,8 @@ def _binary_route_stats(scores: torch.Tensor, target: torch.Tensor) -> List[floa
             pos.max().to(torch.float32),
             neg.max().to(torch.float32),
         ]
-    ).tolist()
+    )
+    return _stats.readback("binary_route", stats.tolist)
 
 
 def binary_ustat_route(

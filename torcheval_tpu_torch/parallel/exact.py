@@ -277,7 +277,7 @@ def _world_stats(
         bounds = torch.stack(torch.aminmax(scores)).to(torch.float64)
     else:
         bounds = torch.tensor([np.inf, -np.inf], dtype=torch.float64)
-    b, s, m = to_host(bounds, sums.to(torch.int64), maxes.to(torch.int64))
+    b, s, m = to_host(bounds, sums.to(torch.int64), maxes.to(torch.int64), site="exact_stats")
     lo, hi, rows, total, largest = mesh.all_reduce_many(
         [
             torch.from_numpy(b[:1].copy()),
@@ -978,6 +978,7 @@ def eager_ustat_pin(
         bounds, most = to_host(
             torch.stack(torch.aminmax(s)).to(torch.float64),
             _class_counts(targets, num_classes, world).max(),
+            site="exact_route",
         )
         lo, hi, most = float(bounds[0]), float(bounds[1]), int(most)
     else:

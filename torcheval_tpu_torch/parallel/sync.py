@@ -312,7 +312,7 @@ def _world_stats(
             else ((targets != 0) & (targets != 1)).sum()
         )
         local = torch.stack([lo, hi, non01.to(torch.float64)])
-        (stats,) = to_host(local)
+        (stats,) = to_host(local, site="sync_stats")
     else:
         stats = np.array([np.inf, -np.inf, 0.0])
     world = mesh.axis_group(axis).all_gather_object((stats, n))

@@ -38,6 +38,39 @@ collection's ``fused`` span) is the **host** time of the call, as in the
 JAX package: no device synchronisation is added, so a phase on the GPU
 that does not wait for the device times its enqueue.
 
+Profiler ranges, with or without the bus
+----------------------------------------
+:data:`ANNOTATE` (``TORCHEVAL_TPU_TORCH_TELEMETRY_ANNOTATE``, or
+:func:`annotate` at run time) opens a ``torch.profiler.record_function``
+range named ``torcheval_tpu_torch.<span>`` at each span hook site, so the
+spans sit in a profiler trace on the device trace's clock.  It works
+without the bus: ``annotate(True)`` alone opens the ranges and emits
+nothing (no event, no callsite walk, no state sizing, no lock).  The span
+tree of an update or compute:
+
+- ``MetricCollection.update`` / ``MetricCollection.compute``;
+- one range a member call, ``<Class>[<member>].<phase>`` inside a
+  collection and ``<Class>.<phase>`` outside one; only the outermost
+  wrapped phase of a call opens one (a subclass's ``super().update()``
+  opens none; the bus still emits a :class:`SpanEvent` for each wrapped
+  call, as the JAX bus does);
+- ``check.<site>`` around a data-dependent value check, ``readback.<site>``
+  around each read of device values to the host
+  (``torcheval_tpu_torch._stats.readback``, which also counts it by site,
+  ranges on or off: ``readback_counts()`` / ``reset_readback_counts()``),
+  and the compute stages ``compute.concat``, ``compute.route``,
+  ``compute.sort`` and ``compute.kernel.<kernel>``.
+
+The metric phase wrappers read :data:`SPANS` (the bus or the ranges on);
+every other range site is one branch on :data:`ANNOTATE`::
+
+    if _telemetry.ANNOTATE:
+        with _telemetry.span("check.accuracy"):
+            return _check(...)
+    return _check(...)
+
+The bus's own events keep ``time.monotonic()``.
+
 The buffer is a bounded deque under a lock: emission is thread-safe (the
 ranks of a ``LocalWorld`` emit from their own threads) and memory is
 capped: when full, the oldest events are dropped and counted in
@@ -79,9 +112,17 @@ def _env_capacity() -> int:
 # initialized from the environment at import so
 # ``TORCHEVAL_TPU_TORCH_TELEMETRY=1 python eval.py`` needs no code change.
 ENABLED: bool = _flags.get("TELEMETRY")
-# When also truthy, update/compute spans run under
-# ``torch.profiler.record_function`` so they land in profiler traces.
+# When truthy, the span hook sites open ``torch.profiler.record_function``
+# ranges, so the spans land in profiler traces; with the bus on or off.
 ANNOTATE: bool = _flags.get("TELEMETRY_ANNOTATE")
+# ENABLED or ANNOTATE: the one flag the metric phase wrappers read.
+SPANS: bool = ENABLED or ANNOTATE
+
+# Every profiler range of the port is named PREFIX + <span>.
+PREFIX = "torcheval_tpu_torch."
+# Per thread: whether a metric phase span is open (only the outermost
+# wrapped phase of a call opens one).
+_local = threading.local()
 
 _lock = threading.Lock()
 _events: "deque[Event]" = deque(maxlen=_env_capacity())
@@ -628,10 +669,10 @@ def enable(
     """Turn the bus on (equivalently: ``TORCHEVAL_TPU_TORCH_TELEMETRY=1``).
 
     ``capacity`` resizes the ring buffer (existing events are kept up to
-    the new bound); ``annotate=True`` additionally wraps update/compute
-    spans in ``torch.profiler.record_function``.
+    the new bound); ``annotate=True`` also opens the profiler ranges (as
+    :func:`annotate`), ``annotate=False`` keeps them closed.
     """
-    global ENABLED, ANNOTATE, _events
+    global ENABLED, ANNOTATE, SPANS, _events
     with _lock:
         if capacity is not None:
             if capacity < 1:
@@ -644,13 +685,26 @@ def enable(
     if annotate is not None:
         ANNOTATE = bool(annotate)
     ENABLED = True
+    SPANS = True
 
 
 def disable() -> None:
-    """Turn the bus off — hooks go back to their single disabled branch.
-    Captured events and counters are kept (drain/inspect after a run)."""
-    global ENABLED
+    """Turn the bus off — hooks go back to their single disabled branch;
+    the profiler ranges stay as :func:`annotate` left them.  Captured
+    events and counters are kept (drain/inspect after a run)."""
+    global ENABLED, SPANS
     ENABLED = False
+    SPANS = ANNOTATE
+
+
+def annotate(on: bool = True) -> None:
+    """Open (or, with ``on=False``, stop opening) the profiler ranges of
+    the span hook sites, leaving the bus as it is: with the bus off, a
+    span is its ``record_function`` range and nothing else (equivalently,
+    at import: ``TORCHEVAL_TPU_TORCH_TELEMETRY_ANNOTATE=1``)."""
+    global ANNOTATE, SPANS
+    ANNOTATE = bool(on)
+    SPANS = ENABLED or ANNOTATE
 
 
 def enabled() -> bool:
@@ -1404,24 +1458,74 @@ def state_nbytes(metric: Any) -> int:
     return total
 
 
-def timed_phase(obj: Any, phase: str, fn, args, kwargs):
-    """Run ``fn(obj, *args, **kwargs)`` as a recorded ``phase`` span
-    (with :data:`ANNOTATE`, under ``torch.profiler.record_function``).
-    Only called from hook wrappers after their ENABLED branch."""
-    name = type(obj).__name__
-    if ANNOTATE:
-        from torch.profiler import record_function
+# The context that opens a profiler range: torch's C++ record-function
+# context where the installed torch has it (about 1 us an enter and exit
+# against 14 for ``torch.profiler.record_function``, whose Python wrapper
+# calls two dispatcher ops), else ``record_function``.  Looked up at the
+# first span, so importing this module imports no torch.
+_range: Any = None
 
-        with record_function(f"torcheval_tpu_torch.{name}.{phase}"):
-            t0 = time.monotonic()
-            out = fn(obj, *args, **kwargs)
-            seconds = time.monotonic() - t0
-    else:
-        t0 = time.monotonic()
-        out = fn(obj, *args, **kwargs)
-        seconds = time.monotonic() - t0
-    record_span(phase, name, seconds, state_nbytes(obj))
+
+def span(name: str) -> Any:
+    """The profiler range ``torcheval_tpu_torch.<name>``: a record-function
+    context, in a profiler trace beside the operators it encloses.  Only
+    called from hook sites after their ANNOTATE branch."""
+    global _range
+    if _range is None:
+        import torch
+
+        _range = getattr(torch._C._profiler, "_RecordFunctionFast", None) or (
+            torch.profiler.record_function
+        )
+    return _range(PREFIX + name)
+
+
+def timed_phase(obj: Any, phase: str, fn, args, kwargs, member: Optional[str] = None):
+    """Run ``fn(obj, *args, **kwargs)`` as the ``phase`` span of ``obj``.
+    With :data:`ANNOTATE` it runs under the profiler range
+    ``<Class>.<phase>``, or ``<Class>[<member>].<phase>`` for a collection
+    member, unless a phase range is already open on this thread: only the
+    outermost wrapped phase of a call opens one.  With :data:`ENABLED`
+    every wrapped call is timed and emitted (:func:`_emit_phase`).  Only
+    called from hook wrappers after their SPANS branch."""
+    if ANNOTATE and not getattr(_local, "open", False):
+        name = type(obj).__name__
+        _local.open = True
+        try:
+            with span(f"{name}.{phase}" if member is None else f"{name}[{member}].{phase}"):
+                return _emit_phase(obj, phase, fn, args, kwargs)
+        finally:
+            _local.open = False
+    return _emit_phase(obj, phase, fn, args, kwargs)
+
+
+def _emit_phase(obj: Any, phase: str, fn, args, kwargs):
+    """``fn(obj, *args, **kwargs)``; with :data:`ENABLED`, timed and
+    emitted as a :class:`SpanEvent` named by the class, as the JAX bus
+    names it: a compute span with the state's bytes after it, an update
+    span with none, since a sample buffer's size grows with every
+    update."""
+    if not ENABLED:
+        return fn(obj, *args, **kwargs)
+    t0 = time.monotonic()
+    out = fn(obj, *args, **kwargs)
+    seconds = time.monotonic() - t0
+    record_span(phase, type(obj).__name__, seconds, 0 if phase == "update" else state_nbytes(obj))
     return out
+
+
+def member_phase(
+    metric: Any, member: str, phase: str, args: Tuple[Any, ...] = (),
+    kwargs: Optional[Dict[str, Any]] = None,
+):
+    """``metric.<phase>(*args, **kwargs)`` for the collection member named
+    ``member``, as its ``<Class>[<member>].<phase>`` span.  Only called
+    from hook sites after their SPANS branch."""
+    bound = getattr(metric, phase)
+    wrapper = getattr(bound, "__func__", None)
+    if getattr(wrapper, "__torcheval_tpu_phase__", None) != phase:
+        return bound(*args, **(kwargs or {}))
+    return timed_phase(metric, phase, wrapper.__wrapped__, args, kwargs or {}, member)
 
 
 def event_fields(cls: type) -> Tuple[str, ...]:

@@ -21,9 +21,10 @@ Prometheus text format, and the report formatter (the port of
   :func:`format_fleet_report` renders ``telemetry.fleet_report()``.
 
 Live spans in a profiler trace are not a drain:
-``telemetry.enable(annotate=True)`` (or
-``TORCHEVAL_TPU_TORCH_TELEMETRY_ANNOTATE=1``) runs every update/compute
-span under ``torch.profiler.record_function``.
+``telemetry.events.annotate()`` (or
+``TORCHEVAL_TPU_TORCH_TELEMETRY_ANNOTATE=1``, or
+``telemetry.enable(annotate=True)`` with the bus) opens every span as a
+profiler range (``telemetry.events.span``).
 """
 
 from __future__ import annotations
