@@ -2166,3 +2166,193 @@ def test_what_tpu003_flags_in_a_capture_fails_on_the_card(host_read, tmp_path):
         g.replay()
         torch.cuda.synchronize(dev)
         assert torch.equal(out, scope["scale"](x))
+
+
+# ------------------------------------------- MetricCollection.update's graph
+def _suite(case, d):
+    """The benchmark cells' suites (``portbench/cells/``), cut to test
+    sizes: groups of members, each group a collection, with the batch's
+    tensors it takes."""
+    from torcheval_tpu_torch import metrics as M
+
+    if case == "imagenet":
+        return [(("x", "y"), {
+            "top1": M.MulticlassAccuracy(device=d),
+            "top5": M.MulticlassAccuracy(k=5, device=d),
+            "f1": M.MulticlassF1Score(num_classes=1000, average="macro", device=d),
+            "cm": M.MulticlassConfusionMatrix(1000, device=d),
+            "auroc": M.MulticlassAUROC(num_classes=1000, device=d),
+        })]
+    if case == "criteo_epoch":
+        return [(("x", "y"), {
+            "auroc": M.BinaryAUROC(device=d),
+            "ne": M.BinaryNormalizedEntropy(device=d),
+            "accuracy": M.BinaryAccuracy(device=d),
+        }), (("y",), {"ctr": M.ClickThroughRate(device=d)})]
+    return [(("x", "y"), {
+        "auroc": M.WindowedBinaryAUROC(max_num_samples=8192, device=d),
+        "ne": M.WindowedBinaryNormalizedEntropy(max_num_updates=3, device=d),
+        "calibration": M.WindowedWeightedCalibration(max_num_updates=3, device=d),
+    }), (("y",), {"ctr": M.WindowedClickThroughRate(max_num_updates=3, device=d)})]
+
+
+def _suite_batches(case, dev, sizes):
+    rng = np.random.default_rng({"imagenet": 61, "criteo_epoch": 62, "criteo_window": 63}[case])
+    out = []
+    for n in sizes:
+        if case == "imagenet":
+            x = rng.standard_normal((n, 1000)).astype(np.float32)
+            y = rng.integers(0, 1000, n)
+        else:
+            y = (rng.random(n) < 0.034).astype(np.int64)
+            x = (1 / (1 + np.exp(-(rng.standard_normal(n) + 1.19 * y - 3.85)))).astype(np.float32)
+        out.append({"x": torch.from_numpy(x).to(dev), "y": torch.from_numpy(y).to(dev)})
+    return out
+
+
+@pytest.mark.parametrize("case", ["imagenet", "criteo_epoch", "criteo_window"])
+def test_collection_update_replays_the_members_eager_updates_bit_for_bit(case):
+    """``MetricCollection.update`` on the card against each member's own
+    ``update`` over a stream whose batch size changes: every state
+    bit-equal, one capture a signature (graph-eligible members only; the
+    windowed suite never reaches the graph), and each replay counting its
+    ``cm_slab.cu`` launches."""
+    from torcheval_tpu_torch import _stats
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    dev = _cuda()
+    sizes = (256, 80, 256, 256, 80) if case == "imagenet" else (4096, 1000, 4096, 4096, 1000)
+    batches = _suite_batches(case, dev, sizes)
+    groups = [(args, MetricCollection(members)) for args, members in _suite(case, dev)]
+    solo = [(args, members) for args, members in _suite(case, dev)]
+    _stats.reset_member_update_counts()
+    _build.reset_counts()
+    for b in batches:
+        for args, col in groups:
+            col.update(*(b[a] for a in args))
+    torch.cuda.synchronize()
+    counts, launches = _stats.member_update_counts(), dict(_build.LAUNCHES)
+    for b in batches:
+        for args, members in solo:
+            for m in members.values():
+                m.update(*(b[a] for a in args))
+    for (_, col), (_, members) in zip(groups, solo):
+        for name, m in members.items():
+            for k, v in m.state_dict().items():
+                got = col[name].state_dict()[k]
+                if isinstance(v, list):
+                    assert len(got) == len(v) and all(torch.equal(a, c) for a, c in zip(got, v))
+                else:
+                    assert got.device == v.device and got.dtype == v.dtype, (name, k)
+                    assert torch.equal(got, v), (name, k)
+    graphed = sum(len(col._graphed) for _, col in groups)
+    members = sum(len(m) for _, m in solo)
+    calls = len(batches)
+    if case == "criteo_window":
+        assert graphed == 0 and all(col._graphs is None for _, col in groups)
+        assert counts == {"eager": members * calls}
+        return
+    signatures = len(set(sizes))
+    assert all(len(col._graphs._programs) == signatures for _, col in groups if col._graphed)
+    assert counts == {"capture": graphed * signatures,
+                      "replay": graphed * (calls - signatures),
+                      "eager": (members - graphed) * calls}
+    if case == "imagenet":
+        # F1 and the matrix each launch the slab a call: once in each
+        # capture's eager warm-up, then in every replay.
+        assert launches.get("confusion_slab") == 2 * (signatures + calls)
+
+
+def test_collection_graph_honours_replaced_states_and_never_writes_held_ones():
+    """States a caller replaces between calls (``reset``,
+    ``load_state_dict``, ``merge_state``) are the ones the next replay adds
+    to, and a state tensor a caller holds is never written afterwards."""
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    dev = _cuda()
+    batches = _suite_batches("imagenet", dev, (256, 256, 80, 256))
+    (args, members), = _suite("imagenet", dev)
+    col = MetricCollection({k: v for k, v in members.items() if k != "auroc"})
+
+    def eager_after(steps, start=None):
+        (_, ref), = _suite("imagenet", dev)
+        ref = MetricCollection({k: v for k, v in ref.items() if k != "auroc"})
+        if start is not None:
+            ref.load_state_dict(start)
+        for b in steps:
+            for m in ref._metrics.values():
+                m.update(b["x"], b["y"])
+        return ref.state_dict()
+
+    def same(want):
+        got = col.state_dict()
+        assert got.keys() == want.keys()
+        assert all(torch.equal(got[k], want[k]) for k in want), [
+            k for k in want if not torch.equal(got[k], want[k])]
+
+    held = []
+
+    def hold():
+        for m in col._metrics.values():
+            for s in m._state_name_to_default:
+                t = getattr(m, s)
+                held.append((t, t.clone()))
+
+    col.update(batches[0]["x"], batches[0]["y"])
+    hold()
+    col.update(batches[1]["x"], batches[1]["y"])
+    same(eager_after(batches[:2]))
+    col.reset()
+    hold()
+    col.update(batches[2]["x"], batches[2]["y"])
+    same(eager_after(batches[2:3]))
+    snapshot = eager_after(batches[:1])
+    col.load_state_dict(snapshot)
+    hold()
+    col.update(batches[3]["x"], batches[3]["y"])
+    same(eager_after(batches[3:4], start=snapshot))
+    other = MetricCollection({k: v for k, v in _suite("imagenet", dev)[0][1].items()
+                              if k != "auroc"})
+    other.update(batches[1]["x"], batches[1]["y"])
+    want = eager_after(batches[3:4], start=snapshot)
+    merged = MetricCollection({k: v for k, v in _suite("imagenet", dev)[0][1].items()
+                               if k != "auroc"})
+    merged.load_state_dict(want)
+    merged.merge_state([other])
+    col.merge_state([other])
+    hold()
+    col.update(batches[0]["x"], batches[0]["y"])
+    same(eager_after(batches[:1], start=merged.state_dict()))
+    hold()
+    col.update(batches[0]["x"].t().contiguous().t(), batches[0]["y"])  # strided: eager
+    torch.cuda.synchronize()
+    for t, was in held:
+        assert torch.equal(t, was)
+
+
+def test_collection_graph_checks_first_and_writes_nothing_on_a_bad_batch():
+    """A label past the classes raises top-5's message, as the eager path
+    does, and writes no graph-eligible member's state (the eager path has
+    written top-1 by then)."""
+    from torcheval_tpu_torch import _stats
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    dev = _cuda()
+    b, = _suite_batches("imagenet", dev, (256,))
+    (_, members), = _suite("imagenet", dev)
+    col = MetricCollection(members)
+    col.update(b["x"], b["y"])
+    before = {k: v.clone() for k, v in col.state_dict().items() if not k.startswith("auroc")}
+    bad = b["y"].clone()
+    bad[7] = 1000
+    counts = _stats.member_update_counts()
+    with pytest.raises(ValueError) as on_graph:
+        col.update(b["x"], bad)
+    (_, eager), = _suite("imagenet", dev)
+    with pytest.raises(ValueError) as on_eager:
+        for m in eager.values():
+            m.update(b["x"], bad)
+    assert str(on_graph.value) == str(on_eager.value)
+    assert _stats.member_update_counts().get("replay", 0) == counts.get("replay", 0)
+    after = col.state_dict()
+    assert all(torch.equal(after[k], v) for k, v in before.items())

@@ -18,6 +18,12 @@ increment at a site that is about to wait for the device anyway, with no
 lock: the contract of ``ops._build.LAUNCHES``, exact in one thread, where
 threads that read back at one site at once may lose an increment.
 
+The member-update counter, in the same style: :func:`count_member_updates`
+counts the member updates of ``MetricCollection.update`` by how their
+device work ran: ``"replay"`` (one replay of the collection's captured
+graph, ``metrics/_graphs.py``), ``"capture"`` (the call that captured it)
+or ``"eager"`` (the member's own update, slice clones included).
+
 The capture counter's mutation is lock-guarded (captures may run in
 several threads), and ``bump_trace`` is also the ``retrace`` hook of the telemetry bus: one
 branch on the bus's module flag, taken only at capture time.
@@ -32,12 +38,14 @@ from torcheval_tpu_torch.telemetry import events as _telemetry
 
 _trace_counts: Dict[str, int] = {}
 _readback_counts: Dict[str, int] = {}
+_member_update_counts: Dict[str, int] = {}
 _lock = threading.Lock()
 
 
 def bump_trace(kind: str) -> None:
-    """Record one capture of the ``kind`` program (``"mega_scan"`` or
-    ``"engine_scan"``)."""
+    """Record one capture of the ``kind`` program (``"mega_scan"``,
+    ``"engine_scan"``, or ``"collection_update"`` for
+    ``MetricCollection.update``'s graphs)."""
     with _lock:
         _trace_counts[kind] = _trace_counts.get(kind, 0) + 1
     if _telemetry.ENABLED:
@@ -85,3 +93,20 @@ def readback_counts() -> Dict[str, int]:
 def reset_readback_counts() -> None:
     """Zero the read-back counter (test/benchmark hook)."""
     _readback_counts.clear()
+
+
+def count_member_updates(how: str, n: int) -> None:
+    """Count ``n`` member updates of one ``MetricCollection.update`` whose
+    device work ran ``how``: ``"replay"``, ``"capture"`` or ``"eager"``."""
+    _member_update_counts[how] = _member_update_counts.get(how, 0) + n
+
+
+def member_update_counts() -> Dict[str, int]:
+    """Member updates by how their device work ran, since process start (or
+    the last reset); a copy."""
+    return dict(_member_update_counts)
+
+
+def reset_member_update_counts() -> None:
+    """Zero the member-update counter (test/benchmark hook)."""
+    _member_update_counts.clear()

@@ -19,7 +19,7 @@ the same tensors.
 
 A graph replays the addresses it captured, so the runner owns the states
 the graph reads and writes: every member state is a view of one flat
-buffer of its dtype (:class:`_StateBuffer`), one set a runner, which
+buffer of its dtype (:class:`StateBuffer`), one set a runner, which
 every graph of the runner reads and writes.  Before a replay the members' states are
 copied in (one copy, skipped when the members hold the buffer's own
 views); the graph adds each step's counts in place and, at its end,
@@ -31,7 +31,9 @@ A capture runs the first step once eagerly on a side stream first, on
 scratch copies of the states (PyTorch's capture recipe), so every kernel
 is built, loaded and configured before the capture.  It captures in
 ``"thread_local"`` mode, so the prefetch thread's pinned allocations and
-copies on its own stream stay legal.  A failed capture or replay raises;
+copies on its own stream stay legal.  The state buffer and this recipe
+are ``metrics/_graphs.py``'s, shared with ``MetricCollection.update``'s
+replay of its eligible members.  A failed capture or replay raises;
 it never falls back to the eager loop.  Launch counters: a capture
 records its launches (``_build.recording``) and each replay adds them
 (``_build.count_replay``).
@@ -50,13 +52,13 @@ rise of that block includes the capture's graph pool.
 
 from __future__ import annotations
 
-import math
 from collections import Counter
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from torcheval_tpu_torch._stats import bump_trace
+from torcheval_tpu_torch.metrics._graphs import StateBuffer, capture, pairs, states_signature
 from torcheval_tpu_torch.metrics.collection import MetricCollection, _call_signature
 from torcheval_tpu_torch.metrics.functional._host_checks import skip_value_checks
 from torcheval_tpu_torch.ops import _build, _mega_plan
@@ -67,9 +69,6 @@ from torcheval_tpu_torch.telemetry import health as _health
 from torcheval_tpu_torch.telemetry import perfscope as _perfscope
 
 States = Dict[str, Dict[str, torch.Tensor]]
-
-# Byte alignment of each state's view in its flat state buffer.
-_ALIGN = 16
 
 
 def _program_name(
@@ -131,98 +130,13 @@ def _run_steps(
     return _stack(per_step) if health else None
 
 
-def _states_signature(states: States) -> Tuple[Any, ...]:
-    return tuple(
-        (name, s, tuple(v.shape), str(v.dtype), str(v.device))
-        for name, per in states.items()
-        for s, v in per.items()
-    )
-
-
-def _pairs(dst: States, src: States) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-    """The (destination, source) tensors of ``src`` that are not already
-    the tensors of ``dst``."""
-    d, s = [], []
-    for name, per in src.items():
-        for state, v in per.items():
-            target = dst[name][state]
-            if v is not target:
-                d.append(target)
-                s.append(v)
-    return d, s
-
-
-class _StateBuffer:
-    """A runner's static states: every member state is a view of one flat
-    buffer of its dtype, so copying them in and cloning them out are one
-    copy a dtype, and a clone's views are one ``as_strided`` a state."""
-
-    def __init__(self, states: States, device: torch.device) -> None:
-        self._layout = []
-        used: Dict[torch.dtype, int] = {}
-        for name, per in states.items():
-            for s, v in per.items():
-                at = used.get(v.dtype, 0)
-                shape = tuple(v.shape)
-                stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
-                self._layout.append((name, s, v.dtype, shape, stride, at))
-                step = max(_ALIGN // v.element_size(), 1)
-                used[v.dtype] = at + -(-v.numel() // step) * step
-        self.flats = {dt: torch.empty(max(n, 1), dtype=dt, device=device) for dt, n in used.items()}
-        self.views = self._views(self.flats)
-        # The clone the members got after the last replay (no donation).
-        self._clone_flats: Optional[Dict[torch.dtype, torch.Tensor]] = None
-        self._clone_views: Optional[States] = None
-
-    def _views(self, flats: Dict[torch.dtype, torch.Tensor]) -> States:
-        out: States = {}
-        for name, s, dtype, shape, stride, at in self._layout:
-            out.setdefault(name, {})[s] = flats[dtype].as_strided(shape, stride, at)
-        return out
-
-    def _all_are(self, current: States, views: Optional[States]) -> bool:
-        return views is not None and all(
-            v is views[name][s] for name, per in current.items() for s, v in per.items()
-        )
-
-    def holds(self, current: States) -> bool:
-        """Whether ``current`` are this buffer's views or its last clone's
-        (then they have the buffer's layout)."""
-        return self._all_are(current, self.views) or self._all_are(current, self._clone_views)
-
-    def copy_in(self, current: States) -> None:
-        """Make the buffer hold ``current``: nothing to do when the members
-        hold its own views, one copy a dtype when they hold the last clone,
-        else one multi-tensor copy of every state."""
-        if self._all_are(current, self.views):
-            return
-        if self._all_are(current, self._clone_views):
-            for dtype, flat in self.flats.items():
-                flat.copy_(self._clone_flats[dtype])
-            return
-        dst, src = _pairs(self.views, current)
-        torch._foreach_copy_(dst, src)
-
-    def write_back(self, current: States) -> None:
-        """Copy into the buffer every state a member rebound (inside the
-        capture: the graph ends with the buffer holding its result)."""
-        dst, src = _pairs(self.views, current)
-        if dst:
-            torch._foreach_copy_(dst, src)
-
-    def cloned(self) -> States:
-        self._clone_flats = {dtype: flat.clone() for dtype, flat in self.flats.items()}
-        self._clone_views = self._views(self._clone_flats)
-        return self._clone_views
-
-
 class _Captured(NamedTuple):
     """One captured block program and the static tensors it replays on."""
 
     graph: Any  # torch.cuda.CUDAGraph
     block: Tuple[torch.Tensor, ...]
     mask: Optional[torch.Tensor]
-    states: _StateBuffer
+    states: StateBuffer
     stats: Optional[Dict[str, Any]]
     launches: Counter
 
@@ -231,10 +145,6 @@ def _copy_block(dst, dst_mask, src, src_mask) -> None:
     d = list(dst) + ([dst_mask] if dst_mask is not None else [])
     s = list(src) + ([src_mask] if src_mask is not None else [])
     torch._foreach_copy_(d, s)
-
-
-def _clone_states(states: States) -> States:
-    return {name: {s: v.clone() for s, v in per.items()} for name, per in states.items()}
 
 
 class ScanRunner:
@@ -263,7 +173,7 @@ class ScanRunner:
         self._programs = _compile_cache.LruCache(name="engine_scan")
         # The static states every graph of this runner replays on, for
         # the states' layout it was made for.
-        self._states: Optional[_StateBuffer] = None
+        self._states: Optional[StateBuffer] = None
         self._states_key: Optional[Tuple[Any, ...]] = None
         self.replays = 0
         # Perfscope's program name of each block signature.
@@ -300,7 +210,7 @@ class ScanRunner:
         states_key = (
             self._states_key
             if self._states is not None and self._states.holds(before)
-            else _states_signature(before)
+            else states_signature(before)
         )
         key = (_call_signature(stacked_args, {"mask": stacked_mask}), states_key)
         if _faults.ENABLED:
@@ -324,7 +234,7 @@ class ScanRunner:
             if program is None:
                 col._check_fusable()
                 if states_key != self._states_key:
-                    self._states = _StateBuffer(before, device)
+                    self._states = StateBuffer(before, device)
                     self._states_key = states_key
                 program = self._capture(stacked_args, stacked_mask, before, self._states)
                 self._programs.put(key, program)
@@ -378,7 +288,7 @@ class ScanRunner:
             raise
         if self._donate:
             # Donated: the results go into the states' own tensors.
-            dst, src = _pairs(before, col._read_states())
+            dst, src = pairs(before, col._read_states())
             if dst:
                 torch._foreach_copy_(dst, src)
             col._install_states(before)
@@ -387,36 +297,25 @@ class ScanRunner:
 
     # ---------------------------------------------------------------- card
     def _capture(
-        self, stacked_args, stacked_mask, before: States, states: _StateBuffer
+        self, stacked_args, stacked_mask, before: States, states: StateBuffer
     ) -> _Captured:
         col = self._collection
-        device = stacked_args[0].device
         block = tuple(torch.empty_like(a) for a in stacked_args)
         mask = None if stacked_mask is None else torch.empty_like(stacked_mask)
         _copy_block(block, mask, stacked_args, stacked_mask)
         name = _program_name(col, stacked_args, stacked_mask)
-        graph = torch.cuda.CUDAGraph()
-        current = torch.cuda.current_stream(device)
-        try:
-            side = torch.cuda.Stream(device)
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                col._install_states(_clone_states(before))
-                _run_steps(col, block, mask, 1, True, self._health, self.bounds)
-            current.wait_stream(side)
-            col._install_states(states.views)
-            with _build.recording() as launches:
-                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                    bump_trace(name)
-                    stats = _run_steps(
-                        col, block, mask, stacked_args[0].shape[0],
-                        True, self._health, self.bounds,
-                    )
-                    states.write_back(col._read_states())
-        finally:
-            # The members hold capture-time tensors of the graph's pool
-            # (or scratch); put the caller's states back.
-            col._install_states(before)
+
+        def warm():
+            _run_steps(col, block, mask, 1, True, self._health, self.bounds)
+
+        def body():
+            bump_trace(name)
+            return _run_steps(
+                col, block, mask, stacked_args[0].shape[0], True, self._health, self.bounds)
+
+        graph, stats, launches = capture(
+            stacked_args[0].device, warm, body, col._read_states, col._install_states,
+            before, states)
         return _Captured(graph, block, mask, states, stats, launches)
 
     def _replay(self, program: _Captured, stacked_args, stacked_mask):

@@ -9,7 +9,8 @@ import torch
 from torcheval_tpu_torch.metrics._fuse import accumulate, on_device
 from torcheval_tpu_torch.metrics._merge import merge_add
 from torcheval_tpu_torch.metrics.functional.aggregation.click_through_rate import (
-    _ctr_select_kernel,
+    _ctr_input_check,
+    _ctr_pick_kernel,
 )
 from torcheval_tpu_torch.metrics.functional.classification.binary_normalized_entropy import (
     _accum_dtype,
@@ -20,6 +21,9 @@ from torcheval_tpu_torch.metrics.metric import Metric
 class ClickThroughRate(Metric[torch.Tensor]):
     """Weighted click fraction Σw·click / Σw per task; NaN before any
     weighted update (0/0)."""
+
+    # update() is _validate() then _update_body() (Metric._graph_update).
+    _graph_update = True
 
     def __init__(self, *, num_tasks: int = 1, device=None) -> None:
         super().__init__(device=device)
@@ -38,11 +42,18 @@ class ClickThroughRate(Metric[torch.Tensor]):
         (input,) = on_device(self.device, input)
         if not isinstance(weights, (float, int)):
             (weights,) = on_device(self.device, weights)
-        kernel, args = _ctr_select_kernel(input, weights, num_tasks=self.num_tasks)
+        self._validate(input, weights)
+        self._update_body(input, weights)
+        return self
+
+    def _validate(self, input, weights: Union[float, int, torch.Tensor] = 1.0) -> None:
+        _ctr_input_check(input, weights, num_tasks=self.num_tasks)
+
+    def _update_body(self, input, weights: Union[float, int, torch.Tensor] = 1.0) -> None:
+        kernel, args = _ctr_pick_kernel(input, weights)
         self.click_total, self.weight_total = accumulate(
             kernel, (self.click_total, self.weight_total), *args
         )
-        return self
 
     def compute(self) -> torch.Tensor:
         """CTR per task (scalar when ``num_tasks == 1``)."""

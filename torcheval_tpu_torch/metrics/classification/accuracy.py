@@ -36,6 +36,9 @@ class MulticlassAccuracy(Metric[torch.Tensor]):
 
     # Accepts update(..., mask=): rows where the mask is 0 add nothing.
     _supports_mask = True
+    # update() is _validate() then _update_body(), here and in every
+    # subclass below (Metric._graph_update).
+    _graph_update = True
 
     def __init__(
         self,
@@ -59,9 +62,16 @@ class MulticlassAccuracy(Metric[torch.Tensor]):
 
     def update(self, input, target, *, mask=None):
         input, target, mask = on_device(self.device, input, target, mask)
+        self._validate(input, target, mask=mask)
+        self._update_body(input, target, mask=mask)
+        return self
+
+    def _validate(self, input, target, *, mask=None) -> None:
         _multiclass_accuracy_validate(
             input, target, self.average, self.num_classes, self.k
         )
+
+    def _update_body(self, input, target, *, mask=None) -> None:
         self.num_correct, self.num_total = accumulate(
             _multiclass_accuracy_update_kernel,
             (self.num_correct, self.num_total),
@@ -70,7 +80,6 @@ class MulticlassAccuracy(Metric[torch.Tensor]):
             statics=(self.average, self.num_classes, self.k),
             mask=mask,
         )
-        return self
 
     def compute(self) -> torch.Tensor:
         """The accuracy; 0/0 gives NaN before any update (reference
@@ -94,9 +103,10 @@ class BinaryAccuracy(MulticlassAccuracy):
         super().__init__(device=device)
         self.threshold = threshold
 
-    def update(self, input, target, *, mask=None):
-        input, target, mask = on_device(self.device, input, target, mask)
+    def _validate(self, input, target, *, mask=None) -> None:
         _binary_accuracy_update_input_check(input, target)
+
+    def _update_body(self, input, target, *, mask=None) -> None:
         self.num_correct, self.num_total = accumulate(
             _binary_accuracy_update_kernel,
             (self.num_correct, self.num_total),
@@ -105,7 +115,6 @@ class BinaryAccuracy(MulticlassAccuracy):
             statics=(self.threshold,),
             mask=mask,
         )
-        return self
 
 
 class MultilabelAccuracy(MulticlassAccuracy):
@@ -124,9 +133,10 @@ class MultilabelAccuracy(MulticlassAccuracy):
         self.threshold = threshold
         self.criteria = criteria
 
-    def update(self, input, target, *, mask=None):
-        input, target, mask = on_device(self.device, input, target, mask)
+    def _validate(self, input, target, *, mask=None) -> None:
         _multilabel_accuracy_update_input_check(input, target)
+
+    def _update_body(self, input, target, *, mask=None) -> None:
         self.num_correct, self.num_total = accumulate(
             _multilabel_accuracy_update_kernel,
             (self.num_correct, self.num_total),
@@ -135,7 +145,6 @@ class MultilabelAccuracy(MulticlassAccuracy):
             statics=(self.threshold, self.criteria),
             mask=mask,
         )
-        return self
 
 
 class TopKMultilabelAccuracy(MulticlassAccuracy):
@@ -154,9 +163,10 @@ class TopKMultilabelAccuracy(MulticlassAccuracy):
         self.criteria = criteria
         self.k = k
 
-    def update(self, input, target, *, mask=None):
-        input, target, mask = on_device(self.device, input, target, mask)
+    def _validate(self, input, target, *, mask=None) -> None:
         _topk_multilabel_accuracy_update_input_check(input, target, self.k)
+
+    def _update_body(self, input, target, *, mask=None) -> None:
         self.num_correct, self.num_total = accumulate(
             _topk_multilabel_accuracy_update_kernel,
             (self.num_correct, self.num_total),
@@ -165,4 +175,3 @@ class TopKMultilabelAccuracy(MulticlassAccuracy):
             statics=(self.criteria, self.k),
             mask=mask,
         )
-        return self

@@ -27,6 +27,9 @@ _STATES = ("total_entropy", "num_examples", "num_positive")
 
 
 class BinaryNormalizedEntropy(Metric[torch.Tensor]):
+    # update() is _validate() then _update_body() (Metric._graph_update).
+    _graph_update = True
+
     def __init__(
         self,
         *,
@@ -47,7 +50,14 @@ class BinaryNormalizedEntropy(Metric[torch.Tensor]):
 
     def update(self, input, target, *, weight=None) -> "BinaryNormalizedEntropy":
         input, target, weight = on_device(self.device, input, target, weight)
+        self._validate(input, target, weight=weight)
+        self._update_body(input, target, weight=weight)
+        return self
+
+    def _validate(self, input, target, *, weight=None) -> None:
         _ne_input_check(input, target, self.from_logits, self.num_tasks, weight)
+
+    def _update_body(self, input, target, *, weight=None) -> None:
         # State order follows the kernel's (entropy, positive, examples).
         if weight is None:
             kernel, args = _ne_update_kernel_unweighted, (input, target)
@@ -59,7 +69,6 @@ class BinaryNormalizedEntropy(Metric[torch.Tensor]):
             *args,
             statics=(self.from_logits,),
         )
-        return self
 
     def compute(self) -> torch.Tensor:
         """Per-task NE, or an empty tensor when any task saw no examples

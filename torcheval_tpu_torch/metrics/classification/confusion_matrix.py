@@ -28,6 +28,8 @@ class MulticlassConfusionMatrix(Metric[torch.Tensor]):
 
     # Accepts update(..., mask=): rows where the mask is 0 add nothing.
     _supports_mask = True
+    # update() is _validate() then _update_body() (Metric._graph_update).
+    _graph_update = True
 
     def __init__(
         self,
@@ -46,7 +48,14 @@ class MulticlassConfusionMatrix(Metric[torch.Tensor]):
 
     def update(self, input, target, *, mask=None) -> "MulticlassConfusionMatrix":
         input, target, mask = on_device(self.device, input, target, mask)
+        self._validate(input, target, mask=mask)
+        self._update_body(input, target, mask=mask)
+        return self
+
+    def _validate(self, input, target, *, mask=None) -> None:
         _confusion_matrix_update_input_check(input, target, self.num_classes)
+
+    def _update_body(self, input, target, *, mask=None) -> None:
         (self.confusion_matrix,) = accumulate(
             _confusion_matrix_update_kernel,
             (self.confusion_matrix,),
@@ -55,7 +64,6 @@ class MulticlassConfusionMatrix(Metric[torch.Tensor]):
             statics=(self.num_classes, _cm_route(self.num_classes, input.shape[0])),
             mask=mask,
         )
-        return self
 
     def compute(self) -> torch.Tensor:
         return _confusion_matrix_compute(self.confusion_matrix, self.normalize)
@@ -85,9 +93,10 @@ class BinaryConfusionMatrix(MulticlassConfusionMatrix):
         super().__init__(num_classes=2, normalize=normalize, device=device)
         self.threshold = threshold
 
-    def update(self, input, target, *, mask=None) -> "BinaryConfusionMatrix":
-        input, target, mask = on_device(self.device, input, target, mask)
+    def _validate(self, input, target, *, mask=None) -> None:
         _binary_confusion_matrix_validate(input, target)
+
+    def _update_body(self, input, target, *, mask=None) -> None:
         (self.confusion_matrix,) = accumulate(
             _binary_confusion_matrix_update_kernel,
             (self.confusion_matrix,),
@@ -96,4 +105,3 @@ class BinaryConfusionMatrix(MulticlassConfusionMatrix):
             statics=(self.threshold, _use_matmul_cm(2, input.shape[0])),
             mask=mask,
         )
-        return self

@@ -31,6 +31,8 @@ class MulticlassF1Score(Metric[torch.Tensor]):
 
     # Accepts update(..., mask=): rows where the mask is 0 add nothing.
     _supports_mask = True
+    # update() is _validate() then _update_body() (Metric._graph_update).
+    _graph_update = True
 
     def __init__(
         self,
@@ -50,7 +52,14 @@ class MulticlassF1Score(Metric[torch.Tensor]):
 
     def update(self, input, target, *, mask=None) -> "MulticlassF1Score":
         input, target, mask = on_device(self.device, input, target, mask)
+        self._validate(input, target, mask=mask)
+        self._update_body(input, target, mask=mask)
+        return self
+
+    def _validate(self, input, target, *, mask=None) -> None:
         _f1_score_validate(input, target, self.num_classes, self.average)
+
+    def _update_body(self, input, target, *, mask=None) -> None:
         self.num_tp, self.num_label, self.num_prediction = accumulate(
             _f1_score_update_kernel,
             (self.num_tp, self.num_label, self.num_prediction),
@@ -63,7 +72,6 @@ class MulticlassF1Score(Metric[torch.Tensor]):
             ),
             mask=mask,
         )
-        return self
 
     def compute(self) -> torch.Tensor:
         return _f1_score_compute(
@@ -83,9 +91,10 @@ class BinaryF1Score(MulticlassF1Score):
         super().__init__(average="micro", device=device)
         self.threshold = threshold
 
-    def update(self, input, target, *, mask=None) -> "BinaryF1Score":
-        input, target, mask = on_device(self.device, input, target, mask)
+    def _validate(self, input, target, *, mask=None) -> None:
         _binary_f1_score_update_input_check(input, target)
+
+    def _update_body(self, input, target, *, mask=None) -> None:
         self.num_tp, self.num_label, self.num_prediction = accumulate(
             _binary_f1_score_update_kernel,
             (self.num_tp, self.num_label, self.num_prediction),
@@ -94,4 +103,3 @@ class BinaryF1Score(MulticlassF1Score):
             statics=(self.threshold,),
             mask=mask,
         )
-        return self

@@ -31,6 +31,8 @@ class MulticlassPrecision(Metric[torch.Tensor]):
 
     # Accepts update(..., mask=): rows where the mask is 0 add nothing.
     _supports_mask = True
+    # update() is _validate() then _update_body() (Metric._graph_update).
+    _graph_update = True
 
     def __init__(
         self,
@@ -50,7 +52,14 @@ class MulticlassPrecision(Metric[torch.Tensor]):
 
     def update(self, input, target, *, mask=None) -> "MulticlassPrecision":
         input, target, mask = on_device(self.device, input, target, mask)
+        self._validate(input, target, mask=mask)
+        self._update_body(input, target, mask=mask)
+        return self
+
+    def _validate(self, input, target, *, mask=None) -> None:
         _precision_validate(input, target, self.num_classes, self.average)
+
+    def _update_body(self, input, target, *, mask=None) -> None:
         self.num_tp, self.num_fp, self.num_label = accumulate(
             _precision_update_kernel,
             (self.num_tp, self.num_fp, self.num_label),
@@ -63,7 +72,6 @@ class MulticlassPrecision(Metric[torch.Tensor]):
             ),
             mask=mask,
         )
-        return self
 
     def compute(self) -> torch.Tensor:
         return _precision_compute(
@@ -83,9 +91,10 @@ class BinaryPrecision(MulticlassPrecision):
         super().__init__(num_classes=2, device=device)
         self.threshold = threshold
 
-    def update(self, input, target, *, mask=None) -> "BinaryPrecision":
-        input, target, mask = on_device(self.device, input, target, mask)
+    def _validate(self, input, target, *, mask=None) -> None:
         _binary_precision_update_input_check(input, target)
+
+    def _update_body(self, input, target, *, mask=None) -> None:
         self.num_tp, self.num_fp, self.num_label = accumulate(
             _binary_precision_update_kernel,
             (self.num_tp, self.num_fp, self.num_label),
@@ -94,4 +103,3 @@ class BinaryPrecision(MulticlassPrecision):
             statics=(self.threshold,),
             mask=mask,
         )
-        return self

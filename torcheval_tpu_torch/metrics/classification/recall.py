@@ -29,6 +29,8 @@ class BinaryRecall(Metric[torch.Tensor]):
 
     # Accepts update(..., mask=): rows where the mask is 0 add nothing.
     _supports_mask = True
+    # update() is _validate() then _update_body() (Metric._graph_update).
+    _graph_update = True
 
     def __init__(self, *, threshold: float = 0.5, device=None) -> None:
         super().__init__(device=device)
@@ -38,7 +40,14 @@ class BinaryRecall(Metric[torch.Tensor]):
 
     def update(self, input, target, *, mask=None) -> "BinaryRecall":
         input, target, mask = on_device(self.device, input, target, mask)
+        self._validate(input, target, mask=mask)
+        self._update_body(input, target, mask=mask)
+        return self
+
+    def _validate(self, input, target, *, mask=None) -> None:
         _binary_recall_update_input_check(input, target)
+
+    def _update_body(self, input, target, *, mask=None) -> None:
         self.num_tp, self.num_true_labels = accumulate(
             _binary_recall_update_kernel,
             (self.num_tp, self.num_true_labels),
@@ -47,7 +56,6 @@ class BinaryRecall(Metric[torch.Tensor]):
             statics=(self.threshold,),
             mask=mask,
         )
-        return self
 
     def compute(self) -> torch.Tensor:
         return _binary_recall_compute(self.num_tp, self.num_true_labels)
@@ -63,6 +71,8 @@ class MulticlassRecall(Metric[torch.Tensor]):
 
     # Accepts update(..., mask=): rows where the mask is 0 add nothing.
     _supports_mask = True
+    # update() is _validate() then _update_body() (Metric._graph_update).
+    _graph_update = True
 
     _STATES = ("num_tp", "num_labels", "num_predictions")
 
@@ -84,7 +94,14 @@ class MulticlassRecall(Metric[torch.Tensor]):
 
     def update(self, input, target, *, mask=None) -> "MulticlassRecall":
         input, target, mask = on_device(self.device, input, target, mask)
+        self._validate(input, target, mask=mask)
+        self._update_body(input, target, mask=mask)
+        return self
+
+    def _validate(self, input, target, *, mask=None) -> None:
         _recall_validate(input, target, self.num_classes, self.average)
+
+    def _update_body(self, input, target, *, mask=None) -> None:
         self.num_tp, self.num_labels, self.num_predictions = accumulate(
             _recall_update_kernel,
             (self.num_tp, self.num_labels, self.num_predictions),
@@ -97,7 +114,6 @@ class MulticlassRecall(Metric[torch.Tensor]):
             ),
             mask=mask,
         )
-        return self
 
     def compute(self) -> torch.Tensor:
         return _recall_compute(

@@ -25,10 +25,22 @@ and the compilation-cache bypass around donated programs.
 (``engine/scan.py``), and :meth:`MetricCollection._scan_step` is the body
 each step of an engine block runs.
 
+On a GPU, :meth:`MetricCollection.update` of an unsliced collection
+runs the value checks of its graph-eligible members (``Metric._graph_update``)
+eagerly, in member order, then their device work as one replay of a
+captured CUDA graph a call signature (``metrics/_graphs.py``); every other
+member updates on its own path, in member order.  A batch that fails a
+check writes no eligible member's state.  On the CPU, in a sliced
+collection, or for a call no graph can take, every member updates on its
+own path.  ``_stats.member_update_counts()`` counts the member updates by
+how their device work ran.
+
 With the profiler ranges on (``telemetry.events.annotate``),
 :meth:`~MetricCollection.update` and :meth:`~MetricCollection.compute`
 are ``MetricCollection.update`` / ``.compute`` ranges, and each member's
-call inside is its own, named ``<Class>[<member>].<phase>``.
+call inside is its own, named ``<Class>[<member>].<phase>``; an eligible
+member's range holds its checks, and the replay is one range,
+``graph[<member>,...].update``.
 """
 
 from __future__ import annotations
@@ -40,8 +52,10 @@ from typing import Any, Dict, Iterable, Iterator, List, Mapping, Optional, Seque
 import numpy as np
 import torch
 
+from torcheval_tpu_torch import _stats
 from torcheval_tpu_torch.metrics._bucket import DEFAULT_MIN_BUCKET, pad_to_bucket
 from torcheval_tpu_torch.metrics._buffer import RingWindowMixin
+from torcheval_tpu_torch.metrics._graphs import GraphedUpdate
 from torcheval_tpu_torch.metrics.functional._host_checks import skip_value_checks
 from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.ops import _mega_plan, mega
@@ -168,6 +182,15 @@ class MetricCollection:
         # Perfscope's program name of each call signature (the plan is a
         # function of it), so a priced signature costs no plan again.
         self._perf_programs: Dict[Any, str] = {}
+        # The members whose device work update() replays as one captured
+        # graph on a GPU (none in a sliced collection), and their graphs,
+        # made at the first such call.
+        self._graphed: Dict[str, Metric] = (
+            {n: m for n, m in self._metrics.items() if m._graph_update}
+            if self._slices is None
+            else {}
+        )
+        self._graphs: Optional[GraphedUpdate] = None
 
     # ------------------------------------------------------------- container
     def __getitem__(self, name: str) -> Metric:
@@ -234,7 +257,9 @@ class MetricCollection:
         Global members see the base validity mask; slice clone ``k`` sees
         ``mask * (slice_ids == k)``.  With ``fused``, the members the
         collection kernel supports are counted in one pass and returned as
-        folds, not yet added (the caller adds them); the rest update here."""
+        folds, not yet added (the caller adds them); the rest update here.
+        Without it, a call the collection's graphs can take runs
+        :meth:`_update_graphed` instead."""
         kwargs = dict(kwargs)
         slice_ids = kwargs.pop("slice_ids", None)
         if self._slices is None and slice_ids is not None:
@@ -249,6 +274,16 @@ class MetricCollection:
             )
         folds: List[mega.Fold] = []
         handled = frozenset()
+        if not fused and self._graphed and (
+            self._graphs is not None or self.device.type == "cuda"
+        ):
+            if self._graphs is None:
+                self._graphs = GraphedUpdate(self._graphed)
+            current = self._graphs.read()
+            key = self._graphs.key(args, kwargs, current)
+            if key is not None:
+                self._update_graphed(args, kwargs, key, current)
+                return folds
         if fused:
             plan = _mega_plan.plan_for(self._metrics, args, kwargs, self._slices)
             if plan is not None:
@@ -274,11 +309,48 @@ class MetricCollection:
                 kwargs["mask"] = smask
                 for name in rest:
                     self._slice_members[f"{name}@{k}"].update(*args, **kwargs)
+        if not fused:
+            _stats.count_member_updates("eager", len(rest) * (1 + (self._slices or 0)))
         return folds
 
+    def _update_graphed(
+        self,
+        args: Tuple[Any, ...],
+        kwargs: Dict[str, Any],
+        key: Tuple[Any, ...],
+        current: Dict[str, Dict[str, torch.Tensor]],
+    ) -> None:
+        """:meth:`update`'s members on a GPU: each member in member order,
+        an eligible one by its checks alone, any other by its own update;
+        then the eligible members' device work as one replay."""
+        spans = _telemetry.SPANS
+        for name, m in self._metrics.items():
+            if name not in self._graphed:
+                if spans:
+                    _telemetry.member_phase(m, name, "update", args, kwargs)
+                else:
+                    m.update(*args, **kwargs)
+            elif spans:
+                _telemetry.timed_phase(m, "update", type(m)._validate, args, kwargs, name)
+            else:
+                m._validate(*args, **kwargs)
+        eager = len(self._metrics) - len(self._graphed)
+        if eager:
+            _stats.count_member_updates("eager", eager)
+        graphs = self._graphs
+        t0 = time.monotonic() if _telemetry.ENABLED else 0.0
+        if _telemetry.ANNOTATE:
+            with _telemetry.span(graphs.name):
+                graphs.run(key, args, kwargs, current)
+        else:
+            graphs.run(key, args, kwargs, current)
+        if _telemetry.ENABLED:
+            _telemetry.record_span("update", graphs.name, time.monotonic() - t0, 0)
+
     def update(self, *args: Any, **kwargs: Any) -> "MetricCollection":
-        """Update every member with the batch, each on its own path and with
-        its own value checks."""
+        """Update every member with the batch, with every member's value
+        checks; on a GPU the graph-eligible members' device work is one
+        replay of a captured graph (the module's docstring)."""
         if _telemetry.ANNOTATE:
             with _telemetry.span("MetricCollection.update"):
                 return self._update(args, kwargs)
@@ -525,6 +597,13 @@ class MetricCollection:
         for metric in self._all_members.values():
             metric.to(device)
         return self
+
+    def __getstate__(self) -> Dict[str, Any]:
+        # Captured graphs stay with the process that made them: a pickled
+        # or deep-copied collection captures its own.
+        state = self.__dict__.copy()
+        state["_graphs"] = None
+        return state
 
     def __repr__(self) -> str:
         inner = ", ".join(f"{name}={type(m).__name__}" for name, m in self._metrics.items())

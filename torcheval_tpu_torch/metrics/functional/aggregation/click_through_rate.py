@@ -59,6 +59,11 @@ def _ctr_select_kernel(
     """Validate and pick the matching kernel; returns ``(kernel, args)``
     so callers can call it directly or through ``accumulate``."""
     _ctr_input_check(input, weights, num_tasks=num_tasks)
+    return _ctr_pick_kernel(input, weights)
+
+
+def _ctr_pick_kernel(input: torch.Tensor, weights: Union[float, int, torch.Tensor]):
+    """The kernel for ``weights``' kind, and its arguments."""
     if isinstance(weights, (float, int)):
         return _ctr_scalar_kernel, (input, float(weights))
     weights = torch.as_tensor(weights, device=input.device)

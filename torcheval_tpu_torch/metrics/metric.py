@@ -140,8 +140,20 @@ class Metric(Generic[TComputeReturn], ABC):
     # add, so ``monitor.SlidingWindow`` refuses a metric that has one.
     _extremum_states: Tuple[str, ...] = ()
 
+    # True on classes whose ``update`` is ``_validate`` (every shape,
+    # parameter and value check, with its read backs) then
+    # ``_update_body`` (device work only: no read back, host branches on
+    # shapes, dtypes and constructor parameters alone, tensor states
+    # only): ``MetricCollection.update`` replays the bodies of such
+    # members as one captured CUDA graph on a GPU (``metrics/_graphs.py``).
+    # A subclass that defines its own ``update`` is not eligible unless it
+    # sets this again.
+    _graph_update: bool = False
+
     def __init_subclass__(cls, **kwargs: Any) -> None:
         super().__init_subclass__(**kwargs)
+        if "update" in cls.__dict__ and "_graph_update" not in cls.__dict__:
+            cls._graph_update = False
         # Every concrete update/compute a subclass defines is wrapped ONCE
         # (inherited already-wrapped methods are left alone).
         for phase in ("update", "compute"):

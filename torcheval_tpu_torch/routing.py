@@ -138,12 +138,14 @@ def hot_path_stats() -> dict:
     """Process-wide hot-path counters in one dict:
 
     * ``"trace_counts"``: CUDA graphs captured, by kind (``"mega_scan"`` /
-      ``"engine_scan"``; :mod:`torcheval_tpu_torch._stats`), the port's
+      ``"engine_scan"`` / ``"collection_update"``;
+      :mod:`torcheval_tpu_torch._stats`), the port's
       counterpart of the JAX package's program builds.  In a steady
       stream this stops growing; each +1 is a capture
       (:func:`torcheval_tpu_torch.aot.warmup` moves them off the stream).
     * ``"spmd_cache"``: hits / misses / maxsize / currsize summed over the
-      engine runners' graph caches (``parallel/_compile_cache.py``,
+      engine runners' and the collections' graph caches
+      (``parallel/_compile_cache.py``,
       ``cache_totals``), standing in for the JAX package's sharded-program
       cache, which the port has no counterpart of (its sharded functions
       run eagerly).
