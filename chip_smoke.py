@@ -142,7 +142,8 @@ times kernels and lifecycle with CUDA events.  Phases:
     seed 7, (16, 256, 8192) f32 logits, 8 updates of 2 sequences) through
     one ``MetricCollection`` of ``Perplexity`` and ``WordErrorRate``:
     perplexity within 1e-5 of a float64 oracle, the token error counters
-    exactly equal to the native DP over numpy's argmax, 8 launches;
+    exactly equal to the native DP over numpy's argmax, 8 launches of
+    ``wavefront.cu`` and 8 of ``token_nll.cu``;
 25. times of phases 21-24, tagged with the card and power limit: the kernel
     at the corpus update's shape beside its plain version and its bound,
     its device time at the stream's largest batch, the three lifecycles,
@@ -400,6 +401,7 @@ times kernels and lifecycle with CUDA events.  Phases:
     phase 24's LM logits (+ WIP + WIL, ``Perplexity(ignore_index=-1)``)
     through ``Evaluator``: one captured graph each, ``wavefront.cu``
     launched 24 times inside the replay (the counters and the profiler),
+    and for the LM logits ``token_nll.cu`` 8 times,
     every state bit-equal to the per-batch loop, the figures within 1e-6
     (WER / WIP / WIL) and 1e-5 (perplexity) of phases 22 and 24's float64
     oracles; timed beside the loop and phase 25's eager times;
@@ -438,7 +440,13 @@ times kernels and lifecycle with CUDA events.  Phases:
     every bus off the headline lifecycle, one engine scan block, one serve
     dispatch and one corpus-WER update call no hook and launch
     ``rank_sum.cu``, ``mega.cu`` and ``wavefront.cu`` with no plain
-    version; with the event bus on the ``emit`` funnel fires.
+    version; with the event bus on the ``emit`` funnel fires;
+73. ``token_nll.cu`` (``Perplexity``'s update; it replaces no TPU kernel)
+    at DeepSeek-V3's (2, 4096, 129 280) bf16 micro-batch, against its
+    plain version (the card tests hold it at small and odd shapes in
+    every dtype): one launch, its time, device time, bound and roofline
+    beside the plain version's and one ``F.cross_entropy`` call's, and the
+    allocator's peak rise a call for the kernel and the plain version.
 
 Each lifecycle's launch counters are zeroed just before it runs and read
 just after, so every path shows its own launches.
@@ -1008,16 +1016,18 @@ def main(argv) -> int:
             metric.update(s, t)
         return metric.compute()
 
-    def counted(label, lifecycle, metric, kernel, times=1):
+    def counted(label, lifecycle, metric, kernel, times=1, also=None):
         """Run one lifecycle with the counters zeroed just before it; fail
-        unless it launched ``kernel`` ``times`` times and nothing else."""
+        unless it launched ``kernel`` ``times`` times, the kernels of
+        ``also`` ({name: times}) as often, and nothing else."""
         _build.reset_counts()
         out = lifecycle(metric)
         torch.cuda.synchronize()
         launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
         print(f"{label}: launches {launches}, plain calls {plain}", flush=True)
-        check(launches == {kernel: times} and not plain,
-              f"{label} launched {kernel} {times} time(s), no other kernel, no plain version")
+        want = {kernel: times, **(also or {})}
+        check(launches == want and not plain,
+              f"{label} launched {want}, no other kernel, no plain version")
         return out, launches[kernel]
 
     # average=None: the lifecycle's own per-class output is checked below.
@@ -2078,7 +2088,8 @@ def main(argv) -> int:
     lm_out, lm_launches = counted(
         f"LM logits lifecycle ({lm_seqs} x {lm_tokens} x {lm_vocab} f32, {NUM_UPDATES} updates, "
         "Perplexity + WordErrorRate)", lm_lifecycle, lm_col, "edit_distance_tokens",
-        times=NUM_UPDATES)
+        times=NUM_UPDATES, also={"token_nll": NUM_UPDATES})
+    lm_nll_launches = _build.LAUNCHES["token_nll"]  # counted's read, kept for the kernels line
     nll = 0.0
     for x, t in zip(lm_logits, lm_target):  # a sequence at a time: 16 MB of float64
         x64 = x.astype(np.float64)
@@ -4827,10 +4838,16 @@ def main(argv) -> int:
         return {"wer": WordErrorRate(), "wip": WordInformationPreserved(),
                 "wil": WordInformationLost()}
 
-    def text_engine(label, make, stream, steps_launches, capture_launches):
+    def text_engine(label, make, stream, steps_launches, capture_launches, ppl=False):
         """One engine and one per-batch loop over ``stream``: the cold run
         captures once (one eager warm-up step first), the warm run replays;
-        returns (engine, collection, result, warm launches)."""
+        with ``ppl`` (a Perplexity member) token_nll.cu launches once a
+        step too; returns (engine, collection, result, warm launches)."""
+        ppl_steps = NUM_UPDATES if ppl else 0
+        want_cold = {"edit_distance_tokens": capture_launches + steps_launches,
+                     **({"token_nll": 1 + ppl_steps} if ppl else {})}
+        want_warm = {"edit_distance_tokens": steps_launches,
+                     **({"token_nll": ppl_steps} if ppl else {})}
         eng_col, loop_col = make(), make()
         ev63 = Evaluator(eng_col, block_size=NUM_UPDATES)
         loop_out = per_batch(loop_col, stream)
@@ -4844,11 +4861,9 @@ def main(argv) -> int:
         torch.cuda.synchronize()
         warm63 = dict(_build.LAUNCHES)
         check(_stats.trace_count() - captures0 == ev63.runner.captures == 1
-              and cold63 == {"edit_distance_tokens": capture_launches + steps_launches}
-              and warm63 == {"edit_distance_tokens": steps_launches} and not _build.PLAIN_CALLS,
-              f"{label} through the engine: one captured graph, edit_distance_tokens "
-              f"{steps_launches} times a replay (cold {cold63}: and {capture_launches} of the "
-              "eager warm-up step), no plain version")
+              and cold63 == want_cold and warm63 == want_warm and not _build.PLAIN_CALLS,
+              f"{label} through the engine: one captured graph, {want_warm} a replay (cold "
+              f"{cold63}: and the eager warm-up step's), no plain version")
         check(states_equal(eng_col, loop_col)
               and all(torch.equal(out63[k], loop_out[k]) for k in loop_out),
               f"{label}: every state and figure bit-equal to the per-batch fused_update loop")
@@ -4875,7 +4890,7 @@ def main(argv) -> int:
         "LM logits (WER + WIP + WIL + Perplexity(ignore_index=-1), 8 x (2, 256, 8192))",
         lambda: MetricCollection({**word_members(), "ppl": Perplexity(ignore_index=-1)},
                                  bucket=True, min_bucket=2),
-        lm_batches, 3 * NUM_UPDATES, 3)
+        lm_batches, 3 * NUM_UPDATES, 3, ppl=True)
     ppl63_err = abs(float(lm63_out["ppl"]) - ppl64) / ppl64
     check(ppl63_err <= PPL_TOL and float(lm63_col["wer"].errors) == lm_native
           and float(lm63_col["ppl"].num_total) == lm_target.size,
@@ -5654,6 +5669,51 @@ def main(argv) -> int:
           f"{plain72})")
     check(on72.get("emit", 0) >= 1, f"with the event bus on the emit funnel fires ({on72})")
 
+    # -------------------------- 73. token_nll.cu at DeepSeek-V3's vocabulary
+    from torch.nn import functional as torch_F
+
+    from torcheval_tpu_torch.ops.token_nll import _token_nll_plain, token_nll
+
+    t0 = time.perf_counter()
+    gen73 = torch.Generator(device=dev).manual_seed(73)
+    n73, s73, v73 = 2, 4096, 129280
+    x73 = torch.randn((n73, s73, v73), generator=gen73, device=dev, dtype=torch.bfloat16)
+    t73 = torch.randint(0, v73, (n73, s73), generator=gen73, device=dev)
+    t73[torch.rand((n73, s73), generator=gen73, device=dev) < 0.02] = -100
+    _build.reset_counts()
+    got73 = token_nll(x73, t73)
+    torch.cuda.synchronize()
+    launches73 = dict(_build.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base73 = torch.cuda.memory_allocated(dev)
+    want73 = _token_nll_plain(x73, t73)
+    torch.cuda.synchronize()
+    plain_rise73 = torch.cuda.max_memory_allocated(dev) - base73
+    torch.cuda.reset_peak_memory_stats(dev)
+    base73 = torch.cuda.memory_allocated(dev)
+    token_nll(x73, t73)
+    torch.cuda.synchronize()
+    kernel_rise73 = torch.cuda.max_memory_allocated(dev) - base73
+    tnll_err = float((got73 - want73).abs().max())
+    check(launches73 == {"token_nll": 1} and tnll_err <= 2e-5 + 1e-6 * float(want73.abs().max()),
+          f"token_nll.cu at ({n73}, {s73}, {v73}) bf16: one launch, max abs err {tnll_err:.3e} "
+          "against the plain version")
+    del want73
+    tnll_ms = median_ms(lambda: token_nll(x73, t73))
+    tnll_dev_ms = device_ms(torch, lambda: token_nll(x73, t73), reps=10)
+    tnll_plain_ms = median_ms(lambda: _token_nll_plain(x73, t73), reps=3)
+    flat73, tflat73 = x73.view(-1, v73), t73.view(-1)
+    tnll_lib_ms = median_ms(lambda: torch_F.cross_entropy(flat73, tflat73, reduction="sum",
+                                                          ignore_index=-100), reps=3)
+    tnll_bound, tnll_by = bound(x73.numel() * 2 + t73.numel() * (8 + 4), 0)
+    print(f"time {card}: token_nll ({n73}, {s73}, {v73}) bf16: kernel {tnll_ms:.4f} ms (CUDA "
+          f"events), device {tnll_dev_ms:.4f} ms a call, plain {tnll_plain_ms:.4f} ms, library "
+          f"{tnll_lib_ms:.4f} ms (F.cross_entropy, reduction='sum', ignore_index=-100), bound "
+          f"{tnll_bound:.4f} ms ({tnll_by}); roofline {100 * tnll_bound / tnll_dev_ms:.2f} %; "
+          f"the allocator's peak rise a call: kernel {kernel_rise73} B, plain {plain_rise73} B "
+          f"(the logits {x73.numel() * 2} B); {time.perf_counter() - t0:.3f} s", flush=True)
+    del x73, t73, flat73, tflat73, got73
+
     # ------------------------------------------------------ the kernels line
     kernels = [
         {
@@ -5834,6 +5894,24 @@ def main(argv) -> int:
             "bound_by": wcount_by,
             "library_ms": None,
             "verdict": "within 1e-6 x sum|w|; bit-equal to binned_counts under unit weights",
+        },
+        {
+            "name": "token_nll",
+            "route": "cuda",
+            "source": "torcheval_tpu_torch/ops/csrc/token_nll.cu",
+            "replaces": None,
+            "launches": lm_nll_launches,
+            "launches_main_shape": launches73["token_nll"],
+            "max_abs_err": tnll_err,
+            "ms": tnll_ms,
+            "device_ms": tnll_dev_ms,
+            "plain_ms": tnll_plain_ms,
+            "bound_ms": tnll_bound,
+            "bound_by": tnll_by,
+            "library_ms": tnll_lib_ms,
+            "peak_rise_bytes": kernel_rise73,
+            "plain_peak_rise_bytes": plain_rise73,
+            "verdict": "within 2e-5 + 1e-6 |nll| of the plain version",
         },
     ]
     print(smi, flush=True)

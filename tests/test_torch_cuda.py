@@ -976,7 +976,7 @@ def test_text_lifecycles_on_the_card_equal_the_cpu_and_the_host_path():
     for d, col in lm.items():
         for x, t in zip(np.split(logits, 2), np.split(target, 2)):
             col.update(x, t)
-    assert _build.LAUNCHES["edit_distance_tokens"] == 2
+    assert _build.LAUNCHES["edit_distance_tokens"] == 2 and _build.LAUNCHES["token_nll"] == 2
     card_out, cpu_out = lm[dev].compute(), lm["cpu"].compute()
     assert torch.equal(card_out["wer"].cpu(), cpu_out["wer"])
     assert torch.equal(lm[dev]["ppl"].num_total.cpu(), lm["cpu"]["ppl"].num_total)
@@ -1906,8 +1906,10 @@ def test_text_family_replay_launches_the_wavefront_kernel_inside_the_graph():
     torch.cuda.synchronize()
     assert _stats.trace_count() - captures == ev.runner.captures == 1
     assert ev.runner.replays == 2
-    # Three word members a step: the eager warm-up step, then 4 steps a replay.
-    assert dict(_build.LAUNCHES) == {"edit_distance_tokens": 3 * (1 + 4 * 2)}
+    # Three word members and Perplexity a step: the eager warm-up step, then
+    # 4 steps a replay.
+    assert dict(_build.LAUNCHES) == {"edit_distance_tokens": 3 * (1 + 4 * 2),
+                                     "token_nll": 1 + 4 * 2}
     assert not _build.PLAIN_CALLS
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         col.reset()
@@ -2356,3 +2358,129 @@ def test_collection_graph_checks_first_and_writes_nothing_on_a_bad_batch():
     assert _stats.member_update_counts().get("replay", 0) == counts.get("replay", 0)
     after = col.state_dict()
     assert all(torch.equal(after[k], v) for k, v in before.items())
+
+
+# ------------------------------------------------------------ token_nll.cu
+def _lm_batch(rng, n, seq, vocab, dtype, dev, pad_share=0.02):
+    x = torch.from_numpy(rng.standard_normal((n, seq, vocab)).astype(np.float32))
+    t = rng.integers(0, vocab, (n, seq))
+    t[rng.random((n, seq)) < pad_share] = -100
+    return x.to(dev).to(dtype), torch.from_numpy(t).to(dev)
+
+
+# The kernel sums exp2 of float32 values in its own order where the plain
+# version runs torch.logsumexp: a few float32 ulps of log(V) ~ 7-12.
+_NLL_TOL = {"rtol": 1e-6, "atol": 2e-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("shape", [(2, 64, 1000), (3, 17, 50257), (2, 5, 7), (1, 3, 1)])
+def test_token_nll_kernel_against_the_plain_version(shape, dtype):
+    from torcheval_tpu_torch.ops.token_nll import _token_nll_plain, token_nll
+
+    dev = _cuda()
+    rng = np.random.default_rng(sum(shape))
+    x, t = _lm_batch(rng, *shape, dtype, dev)
+    t[0, 0] = shape[2]  # past the vocabulary: NaN
+    _build.reset_counts()
+    got = token_nll(x, t)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"token_nll": 1} and not _build.PLAIN_CALLS
+    want = _token_nll_plain(x, t)
+    torch.testing.assert_close(got, want, equal_nan=True, **_NLL_TOL)
+    assert torch.isnan(got[0, 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_token_nll_kernel_on_strided_and_misaligned_rows(dtype):
+    from torcheval_tpu_torch.ops.token_nll import _token_nll_plain, token_nll
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    wide, t = _lm_batch(rng, 3, 40, 1003, dtype, dev)
+    t = t[:, :39]
+    views = (wide[:, :39, 1:], wide[:, 1:, 2:1001], wide[:, ::2][:, :20, 3:].repeat(1, 2, 1)[:, :39])
+    for x in views[:2]:
+        assert x.stride(-1) == 1 and not x.is_contiguous()
+    for x in views:
+        torch.testing.assert_close(token_nll(x, t), _token_nll_plain(x, t), equal_nan=True,
+                                   **_NLL_TOL)
+    col = wide.transpose(1, 2)  # (3, 1003, 40), the vocabulary strided: copied, then read
+    assert col.stride(-1) != 1
+    tc = torch.from_numpy(rng.integers(0, 40, (3, 1003))).to(dev)
+    torch.testing.assert_close(token_nll(col, tc), _token_nll_plain(col, tc), **_NLL_TOL)
+
+
+def test_token_nll_kernel_propagates_non_finite_logits():
+    from torcheval_tpu_torch.ops.token_nll import _token_nll_plain, token_nll
+
+    dev = _cuda()
+    inf, nan = float("inf"), float("nan")
+    rows = torch.randn(8, 3000, device=dev)
+    rows[0, 2999] = nan
+    rows[1, 1500] = inf
+    rows[2] = -inf
+    rows[3, ::7] = -inf
+    rows[4, 10], rows[4, 2000] = inf, nan
+    rows[5, 17] = inf
+    rows[6, :2048] = -inf
+    rows[6, 2100] = nan  # NaN after a run of -inf only
+    rows[7, 1] = -inf
+    t = torch.tensor([[0, 0, 0, 5, 1, 17, 2500, 1]], device=dev)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x = rows.to(dtype)[None]
+        got, want = token_nll(x, t), _token_nll_plain(x, t)
+        assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.isinf(), want.isinf())
+        torch.testing.assert_close(got, want, equal_nan=True, **_NLL_TOL)
+
+
+def test_token_nll_kernel_at_one_row_block_of_the_benchmark():
+    """(1, 4096, 129 280) bf16: DeepSeek-V3's vocabulary, one sequence."""
+    from torcheval_tpu_torch.ops.token_nll import _token_nll_plain, token_nll
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(25)
+    x = torch.randn((1, 4096, 129280), generator=g, device=dev).to(torch.bfloat16)
+    t = torch.randint(0, 129280, (1, 4096), generator=g, device=dev)
+    torch.testing.assert_close(token_nll(x, t), _token_nll_plain(x, t), **_NLL_TOL)
+
+
+def test_perplexity_on_the_card_counts_a_launch_an_update_and_equals_the_cpu():
+    from torcheval_tpu_torch.metrics import Perplexity
+
+    dev = _cuda()
+    rng = np.random.default_rng(17)
+    batches = [_lm_batch(rng, 2, 64, 5000, torch.bfloat16, dev) for _ in range(3)]
+    card = Perplexity(ignore_index=-100, device=dev)
+    _build.reset_counts()
+    for x, t in batches:
+        card.update(x, t)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"token_nll": 3} and not _build.PLAIN_CALLS
+    cpu = Perplexity(ignore_index=-100, device="cpu")
+    for x, t in batches:
+        cpu.update(x.cpu(), t.cpu())
+    assert torch.equal(card.num_total.cpu(), cpu.num_total)
+    torch.testing.assert_close(card.sum_log_probs.cpu(), cpu.sum_log_probs, rtol=1e-6, atol=0)
+
+
+def test_perplexity_update_holds_no_logits_sized_temporary():
+    """An update at the benchmark's micro-batch, (2, 4096, 129 280) bf16,
+    raises the allocator's peak by under 2 % of the logits' bytes."""
+    from torcheval_tpu_torch.metrics import Perplexity
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(26)
+    x = torch.randn((2, 4096, 129280), generator=g, device=dev, dtype=torch.bfloat16)
+    t = torch.randint(0, 129280, (2, 4096), generator=g, device=dev)
+    m = Perplexity(ignore_index=-100, device=dev)
+    m.update(x[:, :8], t[:, :8])  # the library loaded, the states made
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    _build.reset_counts()
+    m.update(x, t)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(dev) - base
+    assert _build.LAUNCHES["token_nll"] == 1
+    assert rise < 0.02 * x.numel() * x.element_size(), rise

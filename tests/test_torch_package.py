@@ -433,6 +433,7 @@ def test_library_name_is_keyed_by_the_sources():
         "rank_hist.cu",
         "mega.cu",
         "rank_sum.cu",
+        "token_nll.cu",
         "wavefront.cu",
     }
 

@@ -2,14 +2,19 @@
 ``torcheval_tpu/metrics/functional/text/perplexity.py``).
 
 Sufficient statistics: the summed token negative log-likelihood and the
-token count, both mergeable by addition.  Plain PyTorch: the JAX package
-computes this outside any hand-written kernel too."""
+token count, both mergeable by addition.  Each token's NLL comes from
+:func:`torcheval_tpu_torch.ops.token_nll.token_nll`: on the GPU one read of
+the logits by ``ops/csrc/token_nll.cu``, with no float32 copy of them; on
+the CPU the plain formula.  The JAX package computes it outside any
+hand-written kernel, in XLA."""
 
 from typing import Optional, Tuple
 
 import torch
 
 from torcheval_tpu_torch.metrics.functional._host_checks import place_inputs
+from torcheval_tpu_torch.ops.token_nll import token_nll
+from torcheval_tpu_torch.telemetry import events as _telemetry
 
 
 def perplexity(
@@ -32,31 +37,24 @@ def _perplexity_update_kernel(
     ignore_index: Optional[int],
     mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    # Each token's log-prob is its gathered logit minus the vocab-axis
-    # logsumexp: the full (n, seq, vocab) log-prob tensor is never formed
-    # (a log_softmax-then-gather writes and re-reads the whole cube).
-    # Negative target ids (the tokenized-text pad convention) gather through
-    # a clamped index, and `valid` zeroes their term where they are the
-    # ignore_index.  An id past the vocabulary gives NaN, as the JAX
-    # gather's fill does, where torch.gather alone would fault.
-    logits = input.to(torch.float32)
-    vocab = logits.shape[-1]
-    index = target.to(torch.int64)
-    token_logit = torch.gather(
-        logits, -1, index.clamp(0, max(vocab - 1, 0))[..., None]
-    )[..., 0]
-    token_logit = torch.where(
-        index >= vocab, torch.full_like(token_logit, float("nan")), token_logit
-    )
-    token_ll = token_logit - torch.logsumexp(logits, dim=-1)
+    # Each token's NLL is the vocab-axis logsumexp minus its gathered logit:
+    # the (n, seq, vocab) log-prob tensor is never formed.  Negative target
+    # ids (the tokenized-text pad convention) gather through a clamped
+    # index, and `valid` zeroes their term where they are the ignore_index.
+    # An id past the vocabulary gives NaN, as the JAX gather's fill does.
+    if _telemetry.ANNOTATE:
+        with _telemetry.span("update.kernel.token_nll"):
+            nll = token_nll(input, target)
+    else:
+        nll = token_nll(input, target)
     if ignore_index is None:
-        valid = torch.ones(target.shape, dtype=torch.float32, device=logits.device)
+        valid = torch.ones(target.shape, dtype=torch.float32, device=nll.device)
     else:
         valid = (target != ignore_index).to(torch.float32)
     if mask is not None:
         # Padded bucket rows contribute exact zeros to both counters.
         valid = valid * mask.to(torch.float32)[:, None]
-    return -(token_ll * valid).sum(), valid.sum()
+    return (nll * valid).sum(), valid.sum()
 
 
 def _perplexity_compute(sum_nll: torch.Tensor, count: torch.Tensor) -> torch.Tensor:

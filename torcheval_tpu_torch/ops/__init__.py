@@ -14,6 +14,9 @@ plain PyTorch version beside its wrapper.
   the batch, planned by :mod:`._mega_plan`.
 * :mod:`.wavefront` — batched token-level edit distance by an
   anti-diagonal sweep (``csrc/wavefront.cu``), under the text metrics.
+* :mod:`.token_nll` — each token's negative log-likelihood from
+  next-token logits in one read of each row (``csrc/token_nll.cu``), under
+  ``Perplexity``; it replaces no TPU kernel.
 * :mod:`.rank_sketch` — the rank-sketch counts of ``sketch=True`` curve
   metrics (``binned_count.cu`` on the GPU, a ``bincount`` plain version on
   the CPU) and the dyadic ladder of ``monitor.StreamDigest`` (plain

@@ -92,6 +92,8 @@ _SIGNATURES: Dict[str, tuple] = {
     ),
     # weights, n, bits, stream
     "binned_wcount_range_launch": (_P, _LL, _P, _P),
+    # logits, s0, s1, seq, rows, vocab, dtype, target, target_wide, out, stream
+    "token_nll_launch": (_P, _LL, _LL, _I, _I, _I, _I, _P, _I, _P, _P),
     # scores, s_row, s_col, hits, h_row, h_col, weights, rows, n, thresholds,
     # t, scale, quantum, window, ranges, per_range, smem_thr, hist, w_tp,
     # w_fp, w_pos, stream

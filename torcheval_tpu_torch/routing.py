@@ -41,6 +41,7 @@ _KERNELS = {
     "binned_weighted_counts": "ops/csrc/binned_wcount.cu",
     "mega_counts": "ops/csrc/mega.cu",
     "edit_distance_tokens": "ops/csrc/wavefront.cu",
+    "token_nll": "ops/csrc/token_nll.cu",
 }
 
 
@@ -189,7 +190,8 @@ def explain_route(fn, *args, **kwargs) -> str:
     ``multiclass_recall``, the binned family (every ``*_binned_auroc`` /
     ``*_binned_auprc`` / ``*_binned_precision_recall_curve``), the text
     family (``word_error_rate``, ``word_information_preserved``,
-    ``word_information_lost``, ``ops.wavefront.edit_distance_tokens``), a
+    ``word_information_lost``, ``ops.wavefront.edit_distance_tokens``,
+    ``perplexity``), a
     collection's bound ``fused_update``, and the sharded functions of
     :mod:`torcheval_tpu_torch.parallel`.  Reads the data where the call's
     decider does (one read back); runs no kernel.  Returns one paragraph."""
@@ -346,6 +348,15 @@ def _explain(fn, args, kwargs) -> Tuple[str, Optional[str]]:
         edit_distance_tokens,
     ):
         return _text_explanation(fn, name, args, edit_distance_tokens)
+
+    if fn is F.perplexity:
+        return (
+            f"{name}: each token's negative log-likelihood through the token-NLL kernel, "
+            "one read of each logits row (online max and sum of exponentials in float32), "
+            "then the masked sum and count; one formulation, a CUDA tensor launches the "
+            "kernel or raises." + _launches("token_nll"),
+            "token_nll",
+        )
 
     parallel = _explain_parallel_route(fn, name, args, kwargs)
     if parallel is not None:
