@@ -2556,7 +2556,6 @@ def main(argv) -> int:
     from torcheval_tpu_torch.metrics.functional.image._precision import full_f32
     from torcheval_tpu_torch.metrics.functional.image.ssim import _gaussian_1d, _gaussian_window
     from torcheval_tpu_torch.metrics.toolkit import clone_metric
-    from torcheval_tpu_torch.metrics.window.auroc import _ring_insert
     from torcheval_tpu_torch.ops.ustat import binary_ustat_route
 
     def ring_model(batches, w):
@@ -2981,12 +2980,14 @@ def main(argv) -> int:
     print(f"time {card}: rank_sum_counts a windowed compute, (32, 2^17) queries, cap {rare_cap}: "
           f"device {rare_dev_ms:.4f} ms, events {rare_k_ms:.4f} ms, bound {rare_bound:.4f} ms "
           f"({rare_by}), issue floor {rare_floor:.4f} ms", flush=True)
-    ring_buf = win.inputs.clone()
-    ring_batch = win_s[:win_batch].view(1, -1)
-    ring_ms = device_ms(torch, lambda: _ring_insert(ring_buf, ring_batch, win_w - win_batch // 2))
-    ring_bound, _ = bound(2 * win_batch * 4, 0)
-    print(f"time {card}: ring insert of 2^16 f32 wrapping past the end of a 2^20 ring (two slice "
-          f"copies): device {ring_ms:.4f} ms, bound {ring_bound:.5f} ms (bytes)", flush=True)
+    ring = clone_metric(win)
+    ring_start = torch.full((), win_w - win_batch // 2, dtype=torch.int64, device=dev)
+    ring_ms = device_ms(
+        torch, lambda: ring._update_body(ring_start, win_s[:win_batch], win_t[:win_batch]))
+    ring_bound, _ = bound(2 * 2 * win_batch * 4, 0)
+    print(f"time {card}: ring write of 2^16 f32 scores and labels wrapping past the end of a 2^20 "
+          f"ring (the columns' index, one index_copy_ a ring): device {ring_ms:.4f} ms, bound "
+          f"{ring_bound:.5f} ms (bytes)", flush=True)
     x0, y0 = img_batches[0]
     window = _gaussian_window(3, 11, 1.5, dev)
     conv_ms = device_ms(torch, lambda: torch.nn.functional.conv2d(x0, window, groups=3))

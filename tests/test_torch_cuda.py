@@ -2216,8 +2216,8 @@ def _suite_batches(case, dev, sizes):
 def test_collection_update_replays_the_members_eager_updates_bit_for_bit(case):
     """``MetricCollection.update`` on the card against each member's own
     ``update`` over a stream whose batch size changes: every state
-    bit-equal, one capture a signature (graph-eligible members only; the
-    windowed suite never reaches the graph), and each replay counting its
+    bit-equal (the windowed suite's rings and cursors too), one capture a
+    signature (graph-eligible members only), and each replay counting its
     ``cm_slab.cu`` launches."""
     from torcheval_tpu_torch import _stats
     from torcheval_tpu_torch.metrics import MetricCollection
@@ -2247,22 +2247,184 @@ def test_collection_update_replays_the_members_eager_updates_bit_for_bit(case):
                 else:
                     assert got.device == v.device and got.dtype == v.dtype, (name, k)
                     assert torch.equal(got, v), (name, k)
+    for (_, col), (_, members) in zip(groups, solo):
+        for name, m in members.items():
+            if hasattr(m, "next_inserted"):
+                assert (col[name].next_inserted, col[name]._num_valid) == (
+                    m.next_inserted, m._num_valid), name
     graphed = sum(len(col._graphed) for _, col in groups)
     members = sum(len(m) for _, m in solo)
     calls = len(batches)
     if case == "criteo_window":
-        assert graphed == 0 and all(col._graphs is None for _, col in groups)
-        assert counts == {"eager": members * calls}
-        return
+        assert graphed == members
     signatures = len(set(sizes))
     assert all(len(col._graphs._programs) == signatures for _, col in groups if col._graphed)
-    assert counts == {"capture": graphed * signatures,
-                      "replay": graphed * (calls - signatures),
-                      "eager": (members - graphed) * calls}
+    want = {"capture": graphed * signatures, "replay": graphed * (calls - signatures),
+            "eager": (members - graphed) * calls}
+    assert counts == {how: n for how, n in want.items() if n}
     if case == "imagenet":
         # F1 and the matrix each launch the slab a call: once in each
         # capture's eager warm-up, then in every replay.
         assert launches.get("confusion_slab") == 2 * (signatures + calls)
+
+
+def _no_sync_in_replays(col):
+    """From the collection's first graph on, every call of its graphs'
+    ``run`` raises on a synchronising call, captures excepted (a capture
+    begins with one)."""
+    graphs = col._graphs
+    if graphs is None or "run" in vars(graphs):
+        return
+    run, capture = graphs.run, graphs._capture
+
+    def strict_run(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def lax_capture(*a, **k):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return capture(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    graphs.run, graphs._capture = strict_run, lax_capture
+
+
+def test_collection_graph_replays_the_monitor_rings_over_two_turns_without_a_sync():
+    """``criteo.window``'s two collections on the graph path against the
+    members' own updates: the AUROC ring of 100 000 samples (not a multiple
+    of the 8192-sample batch, so batches wrap mid-batch) and rings of 153
+    updates, over two full turns of each, with computes between; states,
+    cursors and values bit-equal, one capture a signature, every later
+    member update a replay, and no synchronising call inside any replay."""
+    from torcheval_tpu_torch import _stats
+    from torcheval_tpu_torch import metrics as M
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    dev = _cuda()
+
+    def suite():
+        return [(("x", "y"), {
+            "auroc": M.WindowedBinaryAUROC(max_num_samples=100_000, device=dev),
+            "ne": M.WindowedBinaryNormalizedEntropy(max_num_updates=153, device=dev),
+            "calibration": M.WindowedWeightedCalibration(max_num_updates=153, device=dev),
+        }), (("y",), {"ctr": M.WindowedClickThroughRate(max_num_updates=153, device=dev)})]
+
+    pool = _suite_batches("criteo_window", dev, [8192] * 16)
+    groups = [(args, MetricCollection(members)) for args, members in suite()]
+    solo = suite()
+    _stats.reset_member_update_counts()
+    updates = 2 * 153 + 5
+    for i in range(updates):
+        b = pool[i % len(pool)]
+        for args, col in groups:
+            _no_sync_in_replays(col)
+            col.update(*(b[a] for a in args))
+        for args, members in solo:
+            for m in members.values():
+                m.update(*(b[a] for a in args))
+        if i % 50 == 49 or i == updates - 1:
+            for (_, col), (_, members) in zip(groups, solo):
+                got = col.compute()
+                for name, m in members.items():
+                    want = m.compute()
+                    pairs = zip(got[name], want) if isinstance(want, tuple) else [
+                        (got[name], want)]
+                    for g, w in pairs:
+                        assert torch.equal(g, w), (i, name)
+    assert _stats.member_update_counts() == {"capture": 4, "replay": 4 * (updates - 1)}
+    assert all(len(col._graphs._programs) == 1 for _, col in groups)
+    for (_, col), (_, members) in zip(groups, solo):
+        for name, m in members.items():
+            for k, v in m.state_dict().items():
+                assert torch.equal(col[name].state_dict()[k].to(v.device), v), (name, k)
+    assert groups[0][1]["auroc"].total_samples == updates * 8192 > 2 * 100_000
+
+
+def test_collection_graph_rings_follow_oversized_batches_resets_loads_and_merges():
+    """The rings on the graph path, whose start the graph moves on itself,
+    against the members' own updates after each thing that moves a cursor
+    on the host alone: an oversized batch (a signature of its own), a
+    ``reset``, a ``load_state_dict`` mid-wrap, a ``merge_state`` (rings of
+    another width: a program of its own), and a switch back to an older
+    program; states, cursors and values bit-equal after each, and no
+    synchronising call inside a replay (the cursors' copy included)."""
+    from torcheval_tpu_torch import metrics as M
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    dev = _cuda()
+
+    def suite():
+        return [(("x", "y"), {
+            "auroc": M.WindowedBinaryAUROC(max_num_samples=20_000, device=dev),
+            "ne": M.WindowedBinaryNormalizedEntropy(max_num_updates=7, device=dev),
+            "calibration": M.WindowedWeightedCalibration(max_num_updates=7, device=dev),
+        }), (("y",), {"ctr": M.WindowedClickThroughRate(max_num_updates=7, device=dev)})]
+
+    pool = _suite_batches("criteo_window", dev, [4096] * 8 + [24_576])
+    groups = [(args, MetricCollection(members)) for args, members in suite()]
+    solo = suite()
+    donor = suite()
+    step = [0]
+
+    def update(k=1, big=False):
+        for _ in range(k):
+            b = pool[-1] if big else pool[step[0] % 8]
+            step[0] += 1
+            for args, col in groups:
+                _no_sync_in_replays(col)
+                col.update(*(b[a] for a in args))
+            # The donor sees the regular batches only: its cursors differ.
+            for args, members in solo + ([] if big else donor):
+                for m in members.values():
+                    m.update(*(b[a] for a in args))
+
+    def same(what):
+        for (_, col), (_, members) in zip(groups, solo):
+            got = col.compute()
+            for name, m in members.items():
+                want = m.compute()
+                for g, w in (zip(got[name], want) if isinstance(want, tuple) else
+                             [(got[name], want)]):
+                    assert torch.equal(g, w), (what, name)
+                for k, v in m.state_dict().items():
+                    assert torch.equal(col[name].state_dict()[k].to(v.device), v), (what, name, k)
+
+    update(5)
+    same("wrap")
+    update(big=True)
+    same("oversized")
+    update(3)
+    same("after the oversized batch")
+    for (_, col), (_, members) in zip(groups, solo):
+        col.reset()
+        for m in members.values():
+            m.reset()
+    update(4)
+    same("reset")
+    for (_, col), (_, members), (_, given) in zip(groups, solo, donor):
+        for name, m in members.items():
+            snapshot = given[name].state_dict()
+            m.load_state_dict(snapshot)
+            col[name].load_state_dict(snapshot)
+    update(3)
+    same("load")
+    for (_, col), (_, members), (_, given) in zip(groups, solo, donor):
+        for name, m in members.items():
+            m.merge_state([given[name]])
+            col[name].merge_state([given[name]])
+    update(4)
+    same("merge")
+    for (_, col), (_, members) in zip(groups, solo):
+        col.reset()
+        for m in members.values():
+            m.reset()
+    update(9)
+    same("back to the first program")
 
 
 def test_collection_graph_honours_replaced_states_and_never_writes_held_ones():

@@ -10,7 +10,13 @@ member never reach the graph path (the member-update counter says
 ``eager``).  The collection's order on that path, all checks before any
 eligible state is written, is held here with a stand-in for the captured
 graph that runs the same bodies eagerly; the replay itself is held against
-the eager path on the card (``tests/test_torch_cuda.py``)."""
+the eager path on the card (``tests/test_torch_cuda.py``).
+
+A ring window's ``update`` is ``_validate``, then ``_update_body`` at its
+cursor given as a device index, then the host bookkeeping
+``_update_host``: the same states, cursor, fill level and counters bit for
+bit through wraps, oversized batches, merges, resets and loads of a JAX
+``state_dict``."""
 
 import copy
 import pickle
@@ -21,6 +27,8 @@ import torch
 
 from torcheval_tpu_torch import _stats
 from torcheval_tpu_torch import metrics as P
+from torcheval_tpu_torch.convert import state_from_jax
+from torcheval_tpu_torch.metrics._buffer import RingWindowMixin
 from torcheval_tpu_torch.metrics._graphs import GraphedUpdate
 from torcheval_tpu_torch.metrics.metric import Metric
 
@@ -114,6 +122,57 @@ IDS = [c[0] for c in CASES]
 BAD = [c for c in CASES if c[3] is not None]
 
 
+def _tasks(seed, n, tasks=2):
+    x, y = zip(*(_binary(seed + k, n) for k in range(tasks)))
+    return torch.stack(x), torch.stack(y)
+
+
+def _weights(seed, shape):
+    return torch.from_numpy(_rng(seed + 200).random(shape).astype(np.float32))
+
+
+# The ring windows: (id, factory(device), batch(seed, n) -> (args, kwargs),
+# bad batch(seed)).  The AUROC ring holds 100 samples, so batches of 32
+# wrap mid-batch; the per-update rings hold 3 columns.
+RING_CASES = [
+    ("window_auroc", lambda d: P.WindowedBinaryAUROC(max_num_samples=100, device=d),
+     lambda s, n: (_binary(s, n), {}), lambda s: ((_binary(s)[0][:-1], _binary(s)[1]), {})),
+    ("window_auroc_tasks",
+     lambda d: P.WindowedBinaryAUROC(num_tasks=2, max_num_samples=100, device=d),
+     lambda s, n: ((_tasks(s, n)[0], _tasks(s, n)[1].float()), {}),
+     lambda s: (_binary(s), {})),
+    ("window_ne", lambda d: P.WindowedBinaryNormalizedEntropy(max_num_updates=3, device=d),
+     lambda s, n: (_binary(s, n), {}), lambda s: ((_binary(s)[0] + 1.0, _binary(s)[1]), {})),
+    ("window_ne_weighted", lambda d: P.WindowedBinaryNormalizedEntropy(
+        num_tasks=2, max_num_updates=3, enable_lifetime=False, device=d),
+     lambda s, n: (_tasks(s, n), {"weight": _weights(s, (2, n))}),
+     lambda s: (_tasks(s, N), {"weight": _weights(s, (2, N - 1))})),
+    ("window_calibration", lambda d: P.WindowedWeightedCalibration(max_num_updates=3, device=d),
+     lambda s, n: ((*_binary(s, n), 0.5), {}),
+     lambda s: ((*_binary(s), _weights(s, (N - 1,))), {})),
+    ("window_calibration_weighted", lambda d: P.WindowedWeightedCalibration(
+        num_tasks=2, max_num_updates=3, device=d),
+     lambda s, n: ((*_tasks(s, n), _weights(s, (2, n))), {}),
+     lambda s: ((*_binary(s), 1.0), {})),
+    ("window_ctr", lambda d: P.WindowedClickThroughRate(max_num_updates=3, device=d),
+     lambda s, n: ((_binary(s, n)[1].float(),), {}), lambda s: ((_binary(s)[1] * 2,), {})),
+    ("window_ctr_weighted", lambda d: P.WindowedClickThroughRate(
+        max_num_updates=3, enable_lifetime=False, device=d),
+     lambda s, n: ((_binary(s, n)[1], _weights(s, (n,))), {}),
+     lambda s: ((_binary(s)[1], _weights(s, (N, 2))), {})),
+]
+RING_IDS = [c[0] for c in RING_CASES]
+
+
+def _monitor(device):
+    """``criteo.window``'s first collection, at test sizes."""
+    return {
+        "auroc": P.WindowedBinaryAUROC(max_num_samples=100, device=device),
+        "ne": P.WindowedBinaryNormalizedEntropy(max_num_updates=3, device=device),
+        "calibration": P.WindowedWeightedCalibration(max_num_updates=3, device=device),
+    }
+
+
 def _states(m):
     return {k: v.clone() for k, v in m.state_dict().items()}
 
@@ -170,13 +229,91 @@ def test_a_bad_batch_raises_from_validate_and_writes_nothing(case):
     _assert_equal(_states(split), want)
 
 
+def _ring_split_update(m, args, kwargs):
+    """``update``'s three parts by hand, the start a tensor of the cursor;
+    the graph's ``_advance_start`` moves that tensor to the cursor that
+    ``_update_host`` leaves."""
+    m._validate(*args, **kwargs)
+    start = torch.tensor(m.next_inserted, dtype=torch.int64)
+    m._update_body(start, *args, **kwargs)
+    m._update_host(*args, **kwargs)
+    m._advance_start(start, *args, **kwargs)
+    assert int(start) == m.next_inserted
+
+
+# Each scenario: the steps both metrics take, ("update", seed, n) or an
+# operation on both ("merge", "reset", "load" of a JAX-layout state_dict).
+RING_SCENARIOS = {
+    "wrap": [("update", s, 32) for s in range(5)],
+    "oversized": [("update", 0, 32), ("update", 1, 32), ("update", 2, 130), ("update", 3, 32),
+                  ("update", 4, 70)],
+    "merge": [("update", 0, 32), ("update", 1, 32), ("merge",), ("update", 2, 32),
+              ("update", 3, 32), ("update", 4, 32)],
+    "reset": [("update", 0, 32), ("update", 1, 32), ("update", 2, 32), ("reset",),
+              ("update", 3, 32), ("update", 4, 32)],
+    "load": [("update", 0, 32), ("load",), ("update", 1, 32), ("update", 2, 32),
+             ("update", 3, 32)],
+}
+
+
+@pytest.mark.parametrize("scenario", list(RING_SCENARIOS))
+@pytest.mark.parametrize("case", RING_CASES, ids=RING_IDS)
+def test_ring_update_is_validate_then_body_at_the_cursor_then_bookkeeping(case, scenario):
+    _, make, batch, _ = case
+    whole, split = make("cpu"), make("cpu")
+    assert type(whole)._graph_update and isinstance(whole, RingWindowMixin)
+    donor = make("cpu")
+    for seed in (40, 41, 42, 43):  # mid-wrap: a cursor inside the ring
+        donor.update(*batch(seed, 32)[0], **batch(seed, 32)[1])
+    for step in RING_SCENARIOS[scenario]:
+        if step[0] == "update":
+            args, kwargs = batch(step[1], step[2])
+            reads_whole = _readbacks(lambda: whole.update(*args, **kwargs))
+            assert _readbacks(lambda: _ring_split_update(split, args, kwargs)) == reads_whole
+        elif step[0] == "merge":
+            whole.merge_state([donor])
+            split.merge_state([donor])
+        elif step[0] == "reset":
+            whole.reset()
+            split.reset()
+        else:
+            jax_layout = {k: v.numpy() for k, v in donor.state_dict().items()}
+            assert jax_layout["window_bookkeeping"].dtype == np.int64
+            whole.load_state_dict(state_from_jax(jax_layout))
+            split.load_state_dict(state_from_jax(jax_layout))
+        # state_dict carries the cursor, fill level and counters too.
+        _assert_equal(_states(split), _states(whole))
+    assert whole.next_inserted == split.next_inserted and whole._num_valid == split._num_valid
+
+
+@pytest.mark.parametrize("case", RING_CASES, ids=RING_IDS)
+def test_a_bad_ring_batch_raises_from_validate_and_moves_nothing(case):
+    _, make, batch, bad = case
+    whole, split = make("cpu"), make("cpu")
+    for seed in (5, 6):
+        args, kwargs = batch(seed, 32)
+        whole.update(*args, **kwargs)
+        split.update(*args, **kwargs)
+    want = _states(whole)
+    bad_args, bad_kwargs = bad(7)
+    with pytest.raises(ValueError) as from_update:
+        whole.update(*bad_args, **bad_kwargs)
+    with pytest.raises(ValueError) as from_validate:
+        split._validate(*bad_args, **bad_kwargs)
+    assert str(from_validate.value) == str(from_update.value)
+    _assert_equal(_states(whole), want)
+    _assert_equal(_states(split), want)
+
+
 def test_eligibility_is_a_class_attribute_a_redefined_update_drops():
-    eligible = {type(c[1]("cpu")) for c in CASES}
+    eligible = {type(c[1]("cpu")) for c in CASES + RING_CASES}
     assert all(cls._graph_update for cls in eligible)
+    assert {cls for cls in eligible if issubclass(cls, RingWindowMixin)} == {
+        P.WindowedBinaryAUROC, P.WindowedBinaryNormalizedEntropy,
+        P.WindowedWeightedCalibration, P.WindowedClickThroughRate}
+    # The windowed MSE sizes its rings on its first update: not eligible.
     for m in (P.BinaryAUROC(device="cpu"), P.MulticlassAUROC(num_classes=C, device="cpu"),
-              P.WindowedBinaryAUROC(max_num_samples=64, device="cpu"),
-              P.WindowedBinaryNormalizedEntropy(max_num_updates=4, device="cpu"),
-              P.WindowedClickThroughRate(max_num_updates=4, device="cpu"),
+              P.WindowedMeanSquaredError(max_num_updates=4, device="cpu"),
               P.Sum(device="cpu")):
         assert not m._graph_update, type(m).__name__
 
@@ -229,9 +366,11 @@ def test_collections_on_the_cpu_and_sliced_or_windowed_ones_update_eagerly():
     windowed = P.MetricCollection({
         "auroc": P.WindowedBinaryAUROC(max_num_samples=256, device="cpu"),
         "ne": P.WindowedBinaryNormalizedEntropy(max_num_updates=4, device="cpu"),
+        "mse": P.WindowedMeanSquaredError(max_num_updates=4, device="cpu"),
     })
-    assert not windowed._graphed
-    assert _counted(lambda: windowed.update(s, t)) == {"eager": 2}
+    assert list(windowed._graphed) == ["auroc", "ne"]
+    assert _counted(lambda: windowed.update(s, t)) == {"eager": 3}
+    assert windowed._graphs is None
 
     fused = P.MetricCollection({"acc": P.MulticlassAccuracy(device="cpu")})
     assert _counted(lambda: fused.fused_update(x, y)) == {}
@@ -244,16 +383,32 @@ def test_graph_key_refuses_a_cpu_batch():
     assert graphs.key(_multiclass(14), {}, graphs.read()) is None
 
 
+def test_the_ring_members_are_decided_once_from_the_member_classes():
+    assert GraphedUpdate({"acc": P.BinaryAccuracy(device="cpu"),
+                          "ne": P.BinaryNormalizedEntropy(device="cpu")})._rings == ()
+    members = dict(_monitor("cpu"), acc=P.BinaryAccuracy(device="cpu"))
+    assert GraphedUpdate(members)._rings == ("auroc", "ne", "calibration")
+
+
 class _EagerGraphs(GraphedUpdate):
     """The collection's graph path with the bodies run eagerly in place of
-    the replay: its order of checks and state writes, on the CPU."""
+    the replay: its order of checks, state writes and ring bookkeeping, on
+    the CPU (ring members read their start from one tensor filled from
+    their cursors, as the replay does)."""
 
     def key(self, args, kwargs, current):
         return ("cpu",)
 
     def run(self, key, args, kwargs, current):
-        for m in self._members.values():
-            m._update_body(*args, **kwargs)
+        starts = torch.tensor([self._members[n].next_inserted for n in self._rings],
+                              dtype=torch.int64)
+        for name, m in self._members.items():
+            if name in self._rings:
+                m._update_body(starts[self._rings.index(name)], *args, **kwargs)
+            else:
+                m._update_body(*args, **kwargs)
+        for name in self._rings:
+            self._members[name]._update_host(*args, **kwargs)
         _stats.count_member_updates("replay", len(self._members))
 
 
@@ -307,6 +462,32 @@ def test_the_graph_path_keeps_the_ineligible_members_order():
     for name in ("ne", "acc"):
         _assert_equal(graphed[name].state_dict(), {
             k.split("/", 1)[1]: v for k, v in before.items() if k.startswith(name + "/")})
+
+
+def test_the_graph_path_checks_every_ring_before_writing_or_moving_any():
+    # The monitor's rings on the graph path against their own updates,
+    # through wraps; then a batch whose probabilities pass 1 fails the
+    # entropy's check (the second member): the eager path has written the
+    # AUROC ring and moved its cursor by then, the graph path neither.
+    eager = _monitor("cpu")
+    graphed = _on_graph_path(P.MetricCollection(_monitor("cpu")))
+    for seed in range(50, 57):
+        s, t = _binary(seed, 32)
+        for m in eager.values():
+            m.update(s, t)
+        assert _counted(lambda: graphed.update(s, t)) == {"replay": 3}
+    for name, m in eager.items():
+        _assert_equal(graphed[name].state_dict(), m.state_dict())
+    before = graphed.state_dict()
+    s, t = _binary(57, 32)
+    with pytest.raises(ValueError) as on_graph:
+        graphed.update(s + 1.0, t)
+    with pytest.raises(ValueError) as on_eager:
+        for m in eager.values():
+            m.update(s + 1.0, t)
+    assert str(on_graph.value) == str(on_eager.value)
+    _assert_equal(graphed.state_dict(), before)
+    assert eager["auroc"].total_samples == graphed["auroc"].total_samples + 32
 
 
 def test_pickled_and_copied_collections_leave_their_graphs_behind():

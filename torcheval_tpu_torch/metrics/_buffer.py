@@ -62,6 +62,17 @@ class RingWindowMixin:
     ``_init_window`` from ``__init__``; the capacity lives in
     ``_window_capacity`` (exposed under the reference attribute names by
     properties on each class).
+
+    A graph-eligible subclass (``Metric._graph_update``) splits its
+    ``update`` in three: ``_validate`` (every check), ``_update_body(start,
+    ...)`` (device work only, writing the ring at ``start``, the cursor as
+    a 0-dim int64 tensor on the states' device) and ``_update_host(...)``
+    (the host bookkeeping: cursor, fill level, counters).  A standalone
+    update runs the three in turn (:meth:`_split_update`);
+    ``MetricCollection.update`` replays the bodies as a captured graph
+    that reads ``start`` from a device tensor and moves it on with
+    ``_advance_start(start, ...)``, the device twin of ``_update_host``'s
+    cursor move (``metrics/_graphs.py``), then runs the bookkeeping.
     """
 
     _window_states: tuple = ()
@@ -96,6 +107,18 @@ class RingWindowMixin:
             for name, value in zip(self._window_counters, values[3:]):
                 setattr(self, name, value)
         super().load_state_dict(state_dict, strict=strict)
+
+    def _window_start(self) -> torch.Tensor:
+        """The cursor as the 0-dim int64 device tensor an ``_update_body``
+        takes: one fill on a GPU, no copy from the host."""
+        return torch.full((), self.next_inserted, dtype=torch.int64, device=self.device)
+
+    def _split_update(self, *args, **kwargs) -> None:
+        """A standalone ``update`` on a batch already on the states' device:
+        the checks, the device body at the cursor, the host bookkeeping."""
+        self._validate(*args, **kwargs)
+        self._update_body(self._window_start(), *args, **kwargs)
+        self._update_host(*args, **kwargs)
 
     def _window_advance(self, n: int) -> None:
         """Host bookkeeping after inserting ``n`` columns at
@@ -152,8 +175,8 @@ class WindowedLifetimeMixin(RingWindowMixin):
     enabled) besides the RingWindowMixin attributes, keep an
     ``enable_lifetime`` flag and a ``total_updates`` counter, and call
     ``_merge_windowed`` from ``merge_state``.  Two-sum metrics get their
-    whole update/compute path from ``_update_windowed_pair`` /
-    ``_ratio_compute``."""
+    update body, bookkeeping and compute from ``_update_windowed_pair`` /
+    ``_update_host`` / ``_ratio_compute``."""
 
     _lifetime_states: tuple = ()
 
@@ -192,20 +215,35 @@ class WindowedLifetimeMixin(RingWindowMixin):
         for name in self._window_states:
             self._add_state(name, torch.zeros((num_tasks, max_num_updates), dtype=dtype))
 
-    def _update_windowed_pair(self, kernel, args, lifetime=None) -> None:
-        """Write the two statistics of ``kernel(*args)`` into the next ring
-        column in place, add them to the lifetime sums ``lifetime`` (default
-        ``_lifetime_states``) when enabled, and advance the window."""
+    def _write_window(self, start: torch.Tensor, *values: torch.Tensor) -> None:
+        """Write ``values`` (one a ring state, in ``_window_states`` order,
+        each a scalar or a value a row) into ring column ``start`` (0-dim
+        int64 device tensor), in place."""
+        col = start.reshape(1)
+        for name, v in zip(self._window_states, values):
+            ring = getattr(self, name)
+            ring.index_copy_(1, col, v.to(ring.dtype).reshape(-1, 1).expand(ring.shape[0], 1))
+
+    def _update_windowed_pair(self, start: torch.Tensor, kernel, args, lifetime=None) -> None:
+        """Device work of one update: write the two statistics of
+        ``kernel(*args)`` into ring column ``start`` in place and add them
+        to the lifetime sums ``lifetime`` (default ``_lifetime_states``)
+        when enabled."""
         a, b = kernel(*args)
-        wa, wb = self._window_states
-        getattr(self, wa)[:, self.next_inserted] = torch.atleast_1d(a)
-        getattr(self, wb)[:, self.next_inserted] = b
+        self._write_window(start, a, b)
         if self.enable_lifetime:
             la, lb = lifetime or self._lifetime_states
             setattr(self, la, getattr(self, la) + a)
             setattr(self, lb, getattr(self, lb) + b)
+
+    def _update_host(self, *_args, **_kwargs) -> None:
+        """Host bookkeeping of one update: one ring column, one update."""
         self._window_advance(1)
         self.total_updates += 1
+
+    def _advance_start(self, start: torch.Tensor, *_args, **_kwargs) -> None:
+        """``start`` moved on in place as ``_update_host`` moves the cursor."""
+        start.add_(1).remainder_(getattr(self, self._window_states[0]).shape[1])
 
     def _ratio_compute(self):
         """``windowed = Σa / Σb`` over the valid columns, plus the lifetime

@@ -27,6 +27,18 @@ their ``_update_body`` calls for the call's signature: the batch's
 shapes, strides, dtypes and device, the presence of each keyword, the
 members' state layout and ``_mega_plan.route_token()``.  A new signature
 is captured on its first call.  A capture or replay that fails raises.
+
+A ring window (``_buffer.RingWindowMixin``) writes its ring at its host
+cursor, which the graph cannot freeze: its body reads ``start`` from one
+entry of a static int64 tensor of the program (one entry a ring member,
+made only where the collection has ring members), and the graph ends by
+moving each entry on as the member's host bookkeeping moves its cursor
+(``_advance_start``).  After a replay the call runs each ring member's
+``_update_host`` in member order and keeps the cursors; a later call whose
+cursors differ from the kept ones (a ``reset``, a load, a merge, another
+program's replays) first copies its cursors in from pinned memory, a copy
+the host does not wait for.  The cursor is data, not signature: one graph
+serves every position.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from torcheval_tpu_torch import _stats
+from torcheval_tpu_torch.metrics._buffer import RingWindowMixin
 from torcheval_tpu_torch.metrics.functional._host_checks import skip_value_checks
 from torcheval_tpu_torch.ops import _build, _mega_plan
 
@@ -180,6 +193,10 @@ class _Program(NamedTuple):
     inputs: List[torch.Tensor]
     states: StateBuffer
     launches: Counter
+    # The ring members' write positions the graph reads and moves on (None:
+    # no ring), and the host cursors they hold (empty: unknown).
+    starts: Optional[torch.Tensor]
+    cursors: List[int]
 
 
 def _tensors(args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> List[torch.Tensor]:
@@ -222,6 +239,9 @@ class GraphedUpdate:
         self._programs = LruCache(name="collection_update")
         self._states: Optional[StateBuffer] = None
         self._states_key: Optional[Tuple[Any, ...]] = None
+        # The ring-window members, in member order: each reads its start
+        # from its entry of the program's ``starts``.
+        self._rings = tuple(n for n, m in members.items() if isinstance(m, RingWindowMixin))
 
     def read(self) -> States:
         return {
@@ -270,7 +290,8 @@ class GraphedUpdate:
     ) -> None:
         """The members' update bodies on this batch as one replay of the
         graph of ``key`` (captured here first where it is new); the members
-        then hold new state tensors."""
+        then hold new state tensors, and the ring members' host bookkeeping
+        follows."""
         tensors = _tensors(args, kwargs)
         program = self._programs.get(key)
         how = "replay"
@@ -282,12 +303,35 @@ class GraphedUpdate:
             program = self._capture(args, kwargs, tensors, current, self._states)
             self._programs.put(key, program)
             how = "capture"
+        if self._rings:
+            self._seed_starts(program)
         torch._foreach_copy_(program.inputs, tensors)
         program.states.copy_in(current)
         program.graph.replay()
         _build.count_replay(program.launches)
         self.install(program.states.cloned())
+        if self._rings:
+            self._ring_bookkeeping(program, args, kwargs)
         _stats.count_member_updates(how, len(self._members))
+
+    def _seed_starts(self, program: _Program) -> None:
+        """Copy the ring members' cursors into ``program.starts`` unless it
+        holds them already (the cursors its last replay left)."""
+        cursors = [self._members[n].next_inserted for n in self._rings]
+        if cursors != program.cursors:
+            # A pinned tensor of the caching host allocator is not handed
+            # out again before the copy from it has run.
+            program.starts.copy_(
+                torch.tensor(cursors, dtype=torch.int64, pin_memory=True), non_blocking=True)
+        program.cursors.clear()
+
+    def _ring_bookkeeping(self, program: _Program, args, kwargs) -> None:
+        """After a replay: each ring member's host bookkeeping, in member
+        order; the cursors it leaves are those the graph moved
+        ``program.starts`` to."""
+        for name in self._rings:
+            self._members[name]._update_host(*args, **kwargs)
+        program.cursors.extend(self._members[n].next_inserted for n in self._rings)
 
     def _capture(self, args, kwargs, tensors, current: States, states: StateBuffer) -> _Program:
         def static(v):
@@ -297,16 +341,28 @@ class GraphedUpdate:
         s_kwargs = {k: static(v) for k, v in kwargs.items()}
         inputs = _tensors(s_args, s_kwargs)
         torch._foreach_copy_(inputs, tensors)
+        device = tensors[0].device
+        # Zeros until the call copies the cursors in: a column of every
+        # ring, so the warm-up's writes stay inside the rings.
+        starts = (
+            torch.zeros(len(self._rings), dtype=torch.int64, device=device)
+            if self._rings else None
+        )
+        start_of = {name: starts[i] for i, name in enumerate(self._rings)}
 
         def bodies():
             with skip_value_checks():
-                for m in self._members.values():
-                    m._update_body(*s_args, **s_kwargs)
+                for name, m in self._members.items():
+                    if name in start_of:
+                        m._update_body(start_of[name], *s_args, **s_kwargs)
+                        m._advance_start(start_of[name], *s_args, **s_kwargs)
+                    else:
+                        m._update_body(*s_args, **s_kwargs)
 
         graph, _, launches = capture(
-            tensors[0].device, bodies, bodies, self.read, self.install, current, states)
+            device, bodies, bodies, self.read, self.install, current, states)
         _stats.bump_trace("collection_update")
-        return _Program(graph, inputs, states, launches)
+        return _Program(graph, inputs, states, launches, starts, [])
 
 
 __all__ = ["GraphedUpdate", "StateBuffer", "capture", "clone_states", "pairs", "states_signature"]

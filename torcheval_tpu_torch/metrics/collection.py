@@ -28,11 +28,12 @@ each step of an engine block runs.
 On a GPU, :meth:`MetricCollection.update` of an unsliced collection
 runs the value checks of its graph-eligible members (``Metric._graph_update``)
 eagerly, in member order, then their device work as one replay of a
-captured CUDA graph a call signature (``metrics/_graphs.py``); every other
+captured CUDA graph a call signature (``metrics/_graphs.py``), ring windows
+at their cursors, then the ring windows' host bookkeeping; every other
 member updates on its own path, in member order.  A batch that fails a
-check writes no eligible member's state.  On the CPU, in a sliced
-collection, or for a call no graph can take, every member updates on its
-own path.  ``_stats.member_update_counts()`` counts the member updates by
+check writes no eligible member's state and moves no ring cursor.  On the
+CPU, in a sliced collection, or for a call no graph can take, every member
+updates on its own path.  ``_stats.member_update_counts()`` counts the member updates by
 how their device work ran.
 
 With the profiler ranges on (``telemetry.events.annotate``),
@@ -322,7 +323,8 @@ class MetricCollection:
     ) -> None:
         """:meth:`update`'s members on a GPU: each member in member order,
         an eligible one by its checks alone, any other by its own update;
-        then the eligible members' device work as one replay."""
+        then the eligible members' device work as one replay, and the ring
+        members' host bookkeeping (:meth:`GraphedUpdate.run`)."""
         spans = _telemetry.SPANS
         for name, m in self._metrics.items():
             if name not in self._graphed:

@@ -54,17 +54,17 @@ def _weighted_calibration_select_kernel(
     """Validate and pick the matching kernel; returns ``(kernel, args)``
     so callers can call it directly or through ``accumulate``."""
     _weighted_calibration_input_check(input, target, weight, num_tasks=num_tasks)
+    return _wc_pick_kernel(input, target, weight)
+
+
+def _wc_pick_kernel(
+    input: torch.Tensor, target: torch.Tensor, weight: Union[float, int, torch.Tensor]
+):
+    """The kernel for a checked ``weight``'s kind, and its arguments."""
     if isinstance(weight, (float, int)):
         return _wc_scalar_kernel, (input, target, float(weight))
-    if isinstance(weight, (torch.Tensor, np.ndarray)) and tuple(input.shape) == tuple(
-        np.shape(weight)
-    ):
-        return _wc_array_kernel, (
-            input, target, *x64_off(torch.as_tensor(weight, device=input.device)))
-    raise ValueError(
-        "Weight must be either a float value or a tensor that matches the "
-        f"input tensor size. Got {weight} instead."
-    )
+    return _wc_array_kernel, (
+        input, target, *x64_off(torch.as_tensor(weight, device=input.device)))
 
 
 def _weighted_calibration_input_check(
@@ -88,4 +88,12 @@ def _weighted_calibration_input_check(
         raise ValueError(
             f"`num_tasks = {num_tasks}`, `input`'s shape is expected to be "
             f"({num_tasks}, num_samples), but got shape ({tuple(input.shape)})."
+        )
+    if not isinstance(weight, (float, int)) and not (
+        isinstance(weight, (torch.Tensor, np.ndarray))
+        and tuple(input.shape) == tuple(np.shape(weight))
+    ):
+        raise ValueError(
+            "Weight must be either a float value or a tensor that matches the "
+            f"input tensor size. Got {weight} instead."
         )

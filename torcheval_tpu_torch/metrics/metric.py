@@ -144,10 +144,15 @@ class Metric(Generic[TComputeReturn], ABC):
     # parameter and value check, with its read backs) then
     # ``_update_body`` (device work only: no read back, host branches on
     # shapes, dtypes and constructor parameters alone, tensor states
-    # only): ``MetricCollection.update`` replays the bodies of such
-    # members as one captured CUDA graph on a GPU (``metrics/_graphs.py``).
-    # A subclass that defines its own ``update`` is not eligible unless it
-    # sets this again.
+    # only, their shapes fixed before the update): ``MetricCollection.update``
+    # replays the bodies of such members as one captured CUDA graph on a
+    # GPU (``metrics/_graphs.py``).  A ring window
+    # (``_buffer.RingWindowMixin``) adds a third part: its ``_update_body``
+    # takes first ``start``, the ring cursor as a 0-dim int64 device
+    # tensor, and ``_update_host`` (same arguments as ``update``) then
+    # moves the host bookkeeping; in the graph, ``_advance_start`` moves
+    # ``start`` on as ``_update_host`` moves the cursor.  A subclass that
+    # defines its own ``update`` is not eligible unless it sets this again.
     _graph_update: bool = False
 
     def __init_subclass__(cls, **kwargs: Any) -> None:

@@ -7,11 +7,12 @@ pre-allocated ``(num_tasks, max_num_samples)`` ring buffer pair; the ring
 bookkeeping is host ints, shared with the other windowed metrics through
 :class:`~torcheval_tpu_torch.metrics._buffer.RingWindowMixin`.
 
-* Insertion: a batch of ``n < W`` columns is written in place at the ring
-  cursor as one slice copy, or two where it wraps past the end, so each
-  column is written once (the JAX package scatters to
-  ``(start + arange(n)) % W``; the layout is the same).  A batch of
-  ``n >= W`` keeps its last ``W`` samples and resets the cursor.
+* Insertion: a batch of ``n < W`` columns is written in place to columns
+  ``(start + arange(n)) % W``, one ``index_copy_`` a ring, where ``start``
+  is the cursor as a device index (the JAX package scatters to the same
+  columns), so each column is written once and a captured graph can take
+  the write (``MetricCollection.update``).  A batch of ``n >= W`` keeps its
+  last ``W`` samples and resets the cursor.
 * The valid-prefix length is tracked explicitly (``_num_valid``) instead
   of the reference's zero-suffix guess (``window/auroc.py:158-164``).
 * Merge concatenates the valid samples of each window and **grows**
@@ -37,17 +38,6 @@ from torcheval_tpu_torch.metrics.functional.classification.auroc import (
 from torcheval_tpu_torch.metrics.metric import Metric
 
 
-def _ring_insert(buf: torch.Tensor, batch: torch.Tensor, start: int) -> None:
-    """Write ``batch`` (``n < W`` columns) into ``buf`` at ring position
-    ``start``, in place: the columns up to the end of the ring, then the
-    rest from its front."""
-    w, n = buf.shape[1], batch.shape[1]
-    head = min(n, w - start)
-    buf[:, start : start + head] = batch[:, :head]
-    if head < n:
-        buf[:, : n - head] = batch[:, head:]
-
-
 class WindowedBinaryAUROC(RingWindowMixin, Metric[torch.Tensor]):
     """The windowed version of BinaryAUROC: computed from the input and
     target of the last ``max_num_samples`` samples
@@ -55,6 +45,10 @@ class WindowedBinaryAUROC(RingWindowMixin, Metric[torch.Tensor]):
 
     _window_states = ("inputs", "targets")
     _window_counters = ("total_samples",)
+    # update() is _validate(), _update_body() at the cursor, then
+    # _update_host(); _advance_start() is the graph's cursor move
+    # (Metric._graph_update, RingWindowMixin).
+    _graph_update = True
 
     def __init__(
         self,
@@ -88,25 +82,41 @@ class WindowedBinaryAUROC(RingWindowMixin, Metric[torch.Tensor]):
     def update(self, input, target) -> "WindowedBinaryAUROC":
         """Insert a batch of predictions/labels into the ring buffer
         (reference ``window/auroc.py:85-144``)."""
-        input, target = on_device(self.device, input, target)
+        self._split_update(*on_device(self.device, input, target))
+        return self
+
+    def _validate(self, input, target) -> None:
         _binary_auroc_update_input_check(input, target, self.num_tasks)
+
+    def _update_body(self, start: torch.Tensor, input, target) -> None:
         if input.dim() == 1:
             input = input.reshape(1, -1)
             target = target.reshape(1, -1)
-        n = input.shape[1]
-        w = self.max_num_samples
+        n, w = input.shape[1], self.inputs.shape[1]
         if n >= w:
             # Oversized batch: the window is exactly its last w samples.
             self.inputs.copy_(input[:, -w:])
             self.targets.copy_(target[:, -w:])
+            return
+        cols = torch.remainder(torch.arange(n, device=start.device) + start, w)
+        for ring, batch in ((self.inputs, input), (self.targets, target)):
+            ring.index_copy_(1, cols, batch.to(ring.dtype))
+
+    def _advance_start(self, start: torch.Tensor, input, target) -> None:
+        n, w = input.shape[-1], self.inputs.shape[1]
+        if n >= w:
+            start.zero_()
+        else:
+            start.add_(n).remainder_(w)
+
+    def _update_host(self, input, target) -> None:
+        n, w = input.shape[-1], self.max_num_samples
+        if n >= w:
             self.next_inserted = 0
             self._num_valid = w
         else:
-            _ring_insert(self.inputs, input, self.next_inserted)
-            _ring_insert(self.targets, target, self.next_inserted)
             self._window_advance(n)
         self.total_samples += n
-        return self
 
     def compute(self) -> torch.Tensor:
         """AUROC of the current window; an empty tensor before any update

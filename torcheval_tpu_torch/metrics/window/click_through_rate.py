@@ -13,7 +13,8 @@ import torch
 from torcheval_tpu_torch.metrics._buffer import WindowedLifetimeMixin
 from torcheval_tpu_torch.metrics._fuse import on_device
 from torcheval_tpu_torch.metrics.functional.aggregation.click_through_rate import (
-    _ctr_select_kernel,
+    _ctr_input_check,
+    _ctr_pick_kernel,
 )
 from torcheval_tpu_torch.metrics.functional.classification.binary_normalized_entropy import (
     _accum_dtype,
@@ -29,6 +30,9 @@ class WindowedClickThroughRate(
     _window_states = ("windowed_click_total", "windowed_weight_total")
     _window_counters = ("total_updates",)
     _lifetime_states = ("click_total", "weight_total")
+    # update() is _validate(), _update_body() at the cursor, then
+    # _update_host() (Metric._graph_update, RingWindowMixin).
+    _graph_update = True
 
     def __init__(
         self,
@@ -47,9 +51,16 @@ class WindowedClickThroughRate(
         (input,) = on_device(self.device, input)
         if not isinstance(weights, (float, int)):
             (weights,) = on_device(self.device, weights)
-        kernel, args = _ctr_select_kernel(input, weights, num_tasks=self.num_tasks)
-        self._update_windowed_pair(kernel, args)
+        self._split_update(input, weights)
         return self
+
+    def _validate(self, input, weights: Union[float, int, torch.Tensor] = 1.0) -> None:
+        _ctr_input_check(input, weights, num_tasks=self.num_tasks)
+
+    def _update_body(
+        self, start: torch.Tensor, input, weights: Union[float, int, torch.Tensor] = 1.0
+    ) -> None:
+        self._update_windowed_pair(start, *_ctr_pick_kernel(input, weights))
 
     def compute(self) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """``(lifetime, windowed)`` CTR when ``enable_lifetime`` else the

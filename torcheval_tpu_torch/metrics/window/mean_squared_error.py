@@ -93,7 +93,9 @@ class WindowedMeanSquaredError(
             kernel, args = _update_unweighted, (input, target)
         else:
             kernel, args = _update_weighted, (input, target, sample_weight)
-        self._update_windowed_pair(kernel, args, ("sum_squared_error", "sum_weight"))
+        self._update_windowed_pair(
+            self._window_start(), kernel, args, ("sum_squared_error", "sum_weight"))
+        self._update_host()
         return self
 
     def _finalize(self, sse: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

@@ -46,6 +46,9 @@ class WindowedBinaryNormalizedEntropy(
     )
     _window_counters = ("total_updates",)
     _lifetime_states = _LIFETIME_STATES
+    # update() is _validate(), _update_body() at the cursor, then
+    # _update_host() (Metric._graph_update, RingWindowMixin).
+    _graph_update = True
 
     def __init__(
         self,
@@ -64,22 +67,22 @@ class WindowedBinaryNormalizedEntropy(
         """Write this update's sufficient statistics into the next window
         column (reference ``window/normalized_entropy.py:146-179``)."""
         input, target, weight = on_device(self.device, input, target, weight)
+        self._split_update(input, target, weight=weight)
+        return self
+
+    def _validate(self, input, target, *, weight=None) -> None:
         _ne_input_check(input, target, self.from_logits, self.num_tasks, weight)
+
+    def _update_body(self, start: torch.Tensor, input, target, *, weight=None) -> None:
         if weight is not None:
             ce, npos, nex = _ne_update_kernel(input, target, weight, self.from_logits)
         else:
             ce, npos, nex = _ne_update_kernel_unweighted(input, target, self.from_logits)
-        col = self.next_inserted
-        self.windowed_total_entropy[:, col] = ce
-        self.windowed_num_examples[:, col] = nex
-        self.windowed_num_positive[:, col] = npos
+        self._write_window(start, ce, nex, npos)
         if self.enable_lifetime:
             self.total_entropy = self.total_entropy + ce
             self.num_examples = self.num_examples + nex
             self.num_positive = self.num_positive + npos
-        self._window_advance(1)
-        self.total_updates += 1
-        return self
 
     def compute(self) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """``(lifetime, windowed)`` NE when ``enable_lifetime`` else the

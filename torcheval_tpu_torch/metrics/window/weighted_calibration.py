@@ -16,7 +16,8 @@ from torcheval_tpu_torch.metrics.functional.classification.binary_normalized_ent
     _accum_dtype,
 )
 from torcheval_tpu_torch.metrics.functional.ranking.weighted_calibration import (
-    _weighted_calibration_select_kernel,
+    _wc_pick_kernel,
+    _weighted_calibration_input_check,
 )
 from torcheval_tpu_torch.metrics.metric import Metric
 
@@ -30,6 +31,9 @@ class WindowedWeightedCalibration(
     _window_states = ("windowed_weighted_input_sum", "windowed_weighted_target_sum")
     _window_counters = ("total_updates",)
     _lifetime_states = ("weighted_input_sum", "weighted_target_sum")
+    # update() is _validate(), _update_body() at the cursor, then
+    # _update_host() (Metric._graph_update, RingWindowMixin).
+    _graph_update = True
 
     def __init__(
         self,
@@ -45,12 +49,16 @@ class WindowedWeightedCalibration(
     def update(
         self, input, target, weight: Union[float, int, torch.Tensor] = 1.0
     ) -> "WindowedWeightedCalibration":
-        input, target = x64_off(*on_device(self.device, input, target))
-        kernel, args = _weighted_calibration_select_kernel(
-            input, target, weight, num_tasks=self.num_tasks
-        )
-        self._update_windowed_pair(kernel, args)
+        self._split_update(*on_device(self.device, input, target), weight)
         return self
+
+    def _validate(self, input, target, weight: Union[float, int, torch.Tensor] = 1.0) -> None:
+        _weighted_calibration_input_check(input, target, weight, num_tasks=self.num_tasks)
+
+    def _update_body(
+        self, start: torch.Tensor, input, target, weight: Union[float, int, torch.Tensor] = 1.0
+    ) -> None:
+        self._update_windowed_pair(start, *_wc_pick_kernel(*x64_off(input, target), weight))
 
     def compute(self) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """``(lifetime, windowed)`` calibration when ``enable_lifetime``
