@@ -20,6 +20,7 @@ bit through wraps, oversized batches, merges, resets and loads of a JAX
 
 import copy
 import pickle
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -29,7 +30,14 @@ from torcheval_tpu_torch import _stats
 from torcheval_tpu_torch import metrics as P
 from torcheval_tpu_torch.convert import state_from_jax
 from torcheval_tpu_torch.metrics._buffer import RingWindowMixin
-from torcheval_tpu_torch.metrics._graphs import GraphedUpdate
+from torcheval_tpu_torch.metrics._graphs import (
+    GraphedUpdate,
+    GraphPrograms,
+    Program,
+    clone_states,
+    install_states,
+    read_states,
+)
 from torcheval_tpu_torch.metrics.metric import Metric
 
 C = 7
@@ -388,6 +396,63 @@ def test_the_ring_members_are_decided_once_from_the_member_classes():
                           "ne": P.BinaryNormalizedEntropy(device="cpu")})._rings == ()
     members = dict(_monitor("cpu"), acc=P.BinaryAccuracy(device="cpu"))
     assert GraphedUpdate(members)._rings == ("auroc", "ne", "calibration")
+
+
+class _NoGraph:
+    def replay(self):
+        pass
+
+
+@pytest.mark.parametrize("held", ["views", "clone", "other"])
+def test_a_call_decides_once_what_the_members_hold_of_the_state_buffer(held, monkeypatch):
+    # The buffer's views keep the states' key and copy nothing in; its
+    # last clone keeps the key and copies one flat buffer a dtype; other
+    # tensors get a new signature and one multi-tensor copy of every
+    # state.  The replay sequence runs on the CPU around a graph that
+    # does nothing, so the members come out holding what they held.
+    cpu = torch.device("cpu")
+    members = {"acc": P.MulticlassAccuracy(device="cpu"),
+               "cm": P.MulticlassConfusionMatrix(C, device="cpu")}
+    x, y = _multiclass(61)
+    for m in members.values():
+        m.update(x, y)
+    want = {name: m.state_dict() for name, m in members.items()}
+    programs = GraphPrograms("collection_update", members)
+    first = read_states(members)
+    key = programs.states_key(first, cpu)
+    buffer = programs.buffer(key, first, cpu)
+    buffer.copy_in(first, None)
+    install_states(members, {"views": buffer.views, "clone": buffer.cloned(),
+                             "other": clone_states(first)}[held])
+    current = read_states(members)
+    got = programs.states_key(current, cpu)
+    assert got == key and (got is key) == (held != "other")
+
+    copies = []
+    foreach_copy, copy_ = torch._foreach_copy_, torch.Tensor.copy_
+
+    def counted_foreach(dst, src):
+        copies.append(("foreach", len(dst)))
+        return foreach_copy(dst, src)
+
+    def counted_copy(dst, src, *a, **kw):
+        copies.append(("copy", dst.dtype))
+        return copy_(dst, src, *a, **kw)
+
+    monkeypatch.setattr(torch, "_foreach_copy_", counted_foreach)
+    monkeypatch.setattr(torch.Tensor, "copy_", counted_copy)
+    program = Program(_NoGraph(), [torch.empty_like(x), torch.empty_like(y)], buffer, Counter(), None)
+    programs.replay(program, (x, y), {}, current)
+    monkeypatch.undo()
+    assert copies[0] == ("foreach", 2)  # the batch into the static inputs
+    assert copies[1:] == {"views": [], "clone": [("copy", dt) for dt in buffer.flats],
+                          "other": [("foreach", 3)]}[held]
+    assert len(buffer.flats) == 2
+    for name, m in members.items():
+        _assert_equal(m.state_dict(), want[name])
+    # No donation: the members hold a new clone, none of the tensors they held.
+    after = read_states(members)
+    assert all(after[n][s] is not v for n, per in current.items() for s, v in per.items())
 
 
 class _EagerGraphs(GraphedUpdate):

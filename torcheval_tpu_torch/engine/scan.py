@@ -17,26 +17,18 @@ or logits) run inside the graph; each step's result is bit-equal to a
 ``fused_update`` of the same padded batch, since it is the same body on
 the same tensors.
 
-A graph replays the addresses it captured, so the runner owns the states
-the graph reads and writes: every member state is a view of one flat
-buffer of its dtype (:class:`StateBuffer`), one set a runner, which
-every graph of the runner reads and writes.  Before a replay the members' states are
-copied in (one copy, skipped when the members hold the buffer's own
-views); the graph adds each step's counts in place and, at its end,
-copies in any state a member rebound; after the replay the members get
-the buffer's views (``donate``: the same tensors every block) or one
-clone of the buffer (no donation: new tensors every block, as in JAX).
-
-A capture runs the first step once eagerly on a side stream first, on
-scratch copies of the states (PyTorch's capture recipe), so every kernel
-is built, loaded and configured before the capture.  It captures in
-``"thread_local"`` mode, so the prefetch thread's pinned allocations and
-copies on its own stream stay legal.  The state buffer and this recipe
-are ``metrics/_graphs.py``'s, shared with ``MetricCollection.update``'s
-replay of its eligible members.  A failed capture or replay raises;
-it never falls back to the eager loop.  Launch counters: a capture
-records its launches (``_build.recording``) and each replay adds them
-(``_build.count_replay``).
+The runner's programs, their state buffer, capture and replay are a
+:class:`~torcheval_tpu_torch.metrics._graphs.GraphPrograms` over every
+member's states (``metrics/_graphs.py``), the owner
+``MetricCollection.update``'s replay uses too: every member state is a
+view of one flat buffer of its dtype, which every graph of the runner
+reads and writes.  The graph adds each step's counts in place; after the
+replay the members get the buffer's views (``donate``: the same tensors
+every block) or one clone of the buffer (no donation: new tensors every
+block, as in JAX).  A capture's eager warm-up runs the first step once,
+and the capture is in ``"thread_local"`` mode, so the prefetch thread's
+pinned allocations and copies on its own stream stay legal.  A failed
+capture or replay raises; it never falls back to the eager loop.
 
 On the CPU the same steps run eagerly, one by one: the plain version the
 tests hold against the JAX engine.  There the capture counter
@@ -52,23 +44,20 @@ rise of that block includes the capture's graph pool.
 
 from __future__ import annotations
 
-from collections import Counter
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from torcheval_tpu_torch._stats import bump_trace
-from torcheval_tpu_torch.metrics._graphs import StateBuffer, capture, pairs, states_signature
+from torcheval_tpu_torch.metrics._graphs import (
+    GraphPrograms, Program, States, install_states, pairs, read_states)
 from torcheval_tpu_torch.metrics.collection import MetricCollection, _call_signature
 from torcheval_tpu_torch.metrics.functional._host_checks import skip_value_checks
-from torcheval_tpu_torch.ops import _build, _mega_plan
-from torcheval_tpu_torch.parallel import _compile_cache
+from torcheval_tpu_torch.ops import _mega_plan
 from torcheval_tpu_torch.resilience import faults as _faults
 from torcheval_tpu_torch.telemetry import events as _telemetry
 from torcheval_tpu_torch.telemetry import health as _health
 from torcheval_tpu_torch.telemetry import perfscope as _perfscope
-
-States = Dict[str, Dict[str, torch.Tensor]]
 
 
 def _program_name(
@@ -130,23 +119,6 @@ def _run_steps(
     return _stack(per_step) if health else None
 
 
-class _Captured(NamedTuple):
-    """One captured block program and the static tensors it replays on."""
-
-    graph: Any  # torch.cuda.CUDAGraph
-    block: Tuple[torch.Tensor, ...]
-    mask: Optional[torch.Tensor]
-    states: StateBuffer
-    stats: Optional[Dict[str, Any]]
-    launches: Counter
-
-
-def _copy_block(dst, dst_mask, src, src_mask) -> None:
-    d = list(dst) + ([dst_mask] if dst_mask is not None else [])
-    s = list(src) + ([src_mask] if src_mask is not None else [])
-    torch._foreach_copy_(d, s)
-
-
 class ScanRunner:
     """Owns the captured block programs of one (collection, donate, health)
     triple and dispatches stacked blocks through them, with the
@@ -167,14 +139,8 @@ class ScanRunner:
         self.bounds: Tuple[Tuple[str, int], ...] = (
             _health.label_bounds(collection._metrics) if health else ()
         )
-        # Signature -> captured graph (on the card) or True (on the CPU).
-        # Bounded (TORCHEVAL_TPU_TORCH_COMPILE_CACHE_CAP); an evicted
-        # graph's memory pool goes with it.
-        self._programs = _compile_cache.LruCache(name="engine_scan")
-        # The static states every graph of this runner replays on, for
-        # the states' layout it was made for.
-        self._states: Optional[StateBuffer] = None
-        self._states_key: Optional[Tuple[Any, ...]] = None
+        # Signature -> captured program (on the card) or True (on the CPU).
+        self._programs = GraphPrograms("engine_scan", collection._all_members)
         self.replays = 0
         # Perfscope's program name of each block signature.
         self._perf_programs: Dict[Any, str] = {}
@@ -206,20 +172,17 @@ class ScanRunner:
         the step-stacked health figures when the runner was built with
         health (read them before the next dispatch), else ``None``."""
         col = self._collection
-        before = col._read_states()
-        states_key = (
-            self._states_key
-            if self._states is not None and self._states.holds(before)
-            else states_signature(before)
-        )
-        key = (_call_signature(stacked_args, {"mask": stacked_mask}), states_key)
+        before = read_state_arrays(col)
+        device = stacked_args[0].device
+        states_key = self._programs.states_key(before, device)
+        batch = {"mask": stacked_mask}
+        key = (_call_signature(stacked_args, batch), states_key)
         if _faults.ENABLED:
             # Chaos site "engine.scan": a mid-stream abort BETWEEN blocks
             # (before any state is read), the kill checkpoint/resume
             # recovers from.
             _faults.fire("engine.scan", signature=hash(key))
-        device = stacked_args[0].device
-        if device.type != col.device.type:
+        if states_key is None:
             raise ValueError(
                 f"the block is on {device} but the collection's states are on "
                 f"{col.device}."
@@ -233,17 +196,13 @@ class ScanRunner:
         if device.type == "cuda":
             if program is None:
                 col._check_fusable()
-                if states_key != self._states_key:
-                    self._states = StateBuffer(before, device)
-                    self._states_key = states_key
-                program = self._capture(stacked_args, stacked_mask, before, self._states)
-                self._programs.put(key, program)
-            stats = self._replay(program, stacked_args, stacked_mask)
+                program = self._capture(key, stacked_args, batch, before)
+            self._replay(program, stacked_args, batch, before)
             if pending is not None:
                 # The replay read and wrote the runner's buffer: those are
                 # the states a donated block keeps in place.
                 self._price(pending, program.states.views, stacked_args, stacked_mask)
-            return stats
+            return program.out
         if device.type != "cpu":
             raise ValueError(f"the engine runs on cuda or cpu, not {device}.")
         if program is None:
@@ -269,7 +228,7 @@ class ScanRunner:
         if not _perfscope.ENABLED:
             return
         _perfscope.profile_program(
-            pending, before, self._collection._read_states(),
+            pending, before, read_state_arrays(self._collection),
             batch_args=(stacked_args, stacked_mask), donate=self._donate,
         )
 
@@ -284,56 +243,40 @@ class ScanRunner:
         except BaseException:
             if _telemetry.ENABLED and self._donate:
                 _telemetry.record_donation("abort")
-            col._install_states(before)
+            install_states(col._all_members, before)
             raise
         if self._donate:
             # Donated: the results go into the states' own tensors.
-            dst, src = pairs(before, col._read_states())
+            dst, src = pairs(before, read_state_arrays(col))
             if dst:
                 torch._foreach_copy_(dst, src)
-            col._install_states(before)
+            install_states(col._all_members, before)
         self.replays += 1
         return stats
 
     # ---------------------------------------------------------------- card
-    def _capture(
-        self, stacked_args, stacked_mask, before: States, states: StateBuffer
-    ) -> _Captured:
+    def _capture(self, key, stacked_args, batch: Dict[str, Any], before: States) -> Program:
         col = self._collection
-        block = tuple(torch.empty_like(a) for a in stacked_args)
-        mask = None if stacked_mask is None else torch.empty_like(stacked_mask)
-        _copy_block(block, mask, stacked_args, stacked_mask)
-        name = _program_name(col, stacked_args, stacked_mask)
+        steps = stacked_args[0].shape[0]
+        name = _program_name(col, stacked_args, batch["mask"])
 
-        def warm():
-            _run_steps(col, block, mask, 1, True, self._health, self.bounds)
+        def warm(block, s_batch):
+            _run_steps(col, block, s_batch["mask"], 1, True, self._health, self.bounds)
 
-        def body():
+        def body(block, s_batch):
             bump_trace(name)
-            return _run_steps(
-                col, block, mask, stacked_args[0].shape[0], True, self._health, self.bounds)
+            return _run_steps(col, block, s_batch["mask"], steps, True, self._health, self.bounds)
 
-        graph, stats, launches = capture(
-            stacked_args[0].device, warm, body, col._read_states, col._install_states,
-            before, states)
-        return _Captured(graph, block, mask, states, stats, launches)
+        return self._programs.capture(key, key[1], before, stacked_args, batch, body, warm)
 
-    def _replay(self, program: _Captured, stacked_args, stacked_mask):
-        col = self._collection
-        current = col._read_states()
+    def _replay(self, program: Program, stacked_args, batch: Dict[str, Any], before: States) -> None:
         try:
-            _copy_block(program.block, program.mask, stacked_args, stacked_mask)
-            program.states.copy_in(current)
-            program.graph.replay()
+            self._programs.replay(program, stacked_args, batch, before, self._donate)
         except BaseException:
             if _telemetry.ENABLED and self._donate:
                 _telemetry.record_donation("abort")
-            col._install_states(current)
             raise
-        _build.count_replay(program.launches)
         self.replays += 1
-        col._install_states(program.states.views if self._donate else program.states.cloned())
-        return program.stats
 
 
 def resolve_donate(collection: MetricCollection, donate: Optional[bool]) -> bool:
@@ -352,7 +295,7 @@ def states_nbytes(collection: MetricCollection) -> int:
 
 def read_state_arrays(collection: MetricCollection) -> States:
     """The member states, for parity and debug inspection."""
-    return collection._read_states()
+    return read_states(collection._all_members)
 
 
 __all__ = ["ScanRunner", "read_state_arrays", "resolve_donate", "states_nbytes"]

@@ -1,18 +1,23 @@
-"""Captured CUDA graphs of update bodies: the static state buffer and the
-capture recipe that the engine (``engine/scan.py``) and
-:meth:`MetricCollection.update` share, and the collection's replay of its
+"""Captured CUDA graphs of update bodies: :class:`GraphPrograms`, the one
+owner of the port's captured programs, which both
+:meth:`MetricCollection.update` (:class:`GraphedUpdate`) and the engine
+(``engine/scan.py``) use, and the collection's replay of its
 graph-eligible members.
 
 A graph replays the addresses it captured, so its owner keeps the states
 the graph reads and writes: every member state is a view of one flat
-buffer of its dtype (:class:`StateBuffer`).  Before a replay the members'
-states are copied in (one copy, skipped when the members hold the buffer's
-own views); the graph ends by copying in every state a member rebound;
-after it the members get the buffer's views (donation) or one clone of the
-buffer (new tensors every call).
+buffer of its dtype (:class:`StateBuffer`), one buffer an owner, made
+anew where the states' layout changes.  Each call decides once what the
+members hold: the buffer's views, its last clone or other tensors.  That
+decides the states' part of the call's key (kept, or a new signature)
+and what a replay copies in (nothing, one copy a dtype, or one
+multi-tensor copy of every state).  The graph ends by copying in every
+state a member rebound; after it the members get the buffer's views
+(donation) or one clone of the buffer (new tensors every call).  If the
+replay raises, the members keep the states they held.
 
-:func:`capture` runs the body once eagerly on a side stream first, on
-scratch copies of the states (PyTorch's capture recipe), so every kernel is
+A capture runs the body once eagerly on a side stream first, on scratch
+copies of the states (PyTorch's capture recipe), so every kernel is
 built, loaded and configured before the capture, then captures it in
 ``"thread_local"`` mode.  Its launches go to the capture's own counter
 (``_build.recording``); each replay adds them (``_build.count_replay``).
@@ -45,7 +50,7 @@ from __future__ import annotations
 
 import math
 from collections import Counter
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -58,14 +63,6 @@ States = Dict[str, Dict[str, torch.Tensor]]
 
 # Byte alignment of each state's view in its flat state buffer.
 _ALIGN = 16
-
-
-def states_signature(states: States) -> Tuple[Any, ...]:
-    return tuple(
-        (name, s, tuple(v.shape), str(v.dtype), str(v.device))
-        for name, per in states.items()
-        for s, v in per.items()
-    )
 
 
 def pairs(dst: States, src: States) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
@@ -83,6 +80,22 @@ def pairs(dst: States, src: States) -> Tuple[List[torch.Tensor], List[torch.Tens
 
 def clone_states(states: States) -> States:
     return {name: {s: v.clone() for s, v in per.items()} for name, per in states.items()}
+
+
+def read_states(members: Mapping[str, Any]) -> States:
+    """Every state of each of ``members`` (``{name: Metric}``), by name."""
+    return {
+        name: {s: getattr(m, s) for s in m._state_name_to_default}
+        for name, m in members.items()
+    }
+
+
+def install_states(members: Mapping[str, Any], states: States) -> None:
+    """Bind each member of ``states`` to its tensors."""
+    for name, per in states.items():
+        m = members[name]
+        for s, v in per.items():
+            setattr(m, s, v)
 
 
 class StateBuffer:
@@ -118,23 +131,26 @@ class StateBuffer:
             v is views[name][s] for name, per in current.items() for s, v in per.items()
         )
 
-    def holds(self, current: States) -> bool:
-        """Whether ``current`` are this buffer's views or its last clone's
-        (then they have the buffer's layout)."""
-        return self._all_are(current, self.views) or self._all_are(current, self._clone_views)
-
-    def copy_in(self, current: States) -> None:
-        """Make the buffer hold ``current``: nothing to do when the members
-        hold its own views, one copy a dtype when they hold the last clone,
-        else one multi-tensor copy of every state."""
+    def held_in(self, current: States) -> Optional[Dict[torch.dtype, torch.Tensor]]:
+        """What ``current`` holds of this buffer: its own views (``{}``,
+        nothing to copy in), its last clone's (that clone's flat buffers,
+        one copy a dtype) or other tensors (``None``)."""
         if self._all_are(current, self.views):
-            return
+            return {}
         if self._all_are(current, self._clone_views):
-            for dtype, flat in self.flats.items():
-                flat.copy_(self._clone_flats[dtype])
+            return self._clone_flats
+        return None
+
+    def copy_in(self, current: States, held: Optional[Dict[torch.dtype, torch.Tensor]]) -> None:
+        """Make the buffer hold ``current``, of which it holds ``held``
+        (:meth:`held_in`): the flat buffers ``held`` names, else one
+        multi-tensor copy of every state."""
+        if held is None:
+            dst, src = pairs(self.views, current)
+            torch._foreach_copy_(dst, src)
             return
-        dst, src = pairs(self.views, current)
-        torch._foreach_copy_(dst, src)
+        for dtype, flat in held.items():
+            self.flats[dtype].copy_(flat)
 
     def write_back(self, current: States) -> None:
         """Copy into the buffer every state a member rebound (inside the
@@ -149,54 +165,17 @@ class StateBuffer:
         return self._clone_views
 
 
-def capture(
-    device: torch.device,
-    warm: Callable[[], Any],
-    body: Callable[[], Any],
-    read: Callable[[], States],
-    install: Callable[[States], None],
-    before: States,
-    states: StateBuffer,
-) -> Tuple[Any, Any, Counter]:
-    """Capture ``body()`` into a CUDA graph on ``states``: ``warm()`` runs
-    first on a side stream over scratch copies of ``before``, then the
-    capture runs ``body()`` with the members on the buffer's views and ends
-    by writing back every state they rebound.  The members get ``before``
-    back whatever happens.  Returns the graph, what ``body()`` returned and
-    the launches the capture recorded."""
-    graph = torch.cuda.CUDAGraph()
-    current = torch.cuda.current_stream(device)
-    try:
-        side = torch.cuda.Stream(device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            install(clone_states(before))
-            warm()
-        current.wait_stream(side)
-        install(states.views)
-        with _build.recording() as launches:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                out = body()
-                states.write_back(read())
-    finally:
-        # The members hold capture-time tensors of the graph's pool (or
-        # scratch); put the caller's states back.
-        install(before)
-    return graph, out, launches
-
-
-# ------------------------------------------------------ collection replay
-class _Program(NamedTuple):
-    """One captured update of the eligible members and its static tensors."""
+class Program(NamedTuple):
+    """One captured program and the static tensors it replays on."""
 
     graph: Any  # torch.cuda.CUDAGraph
+    # Static copies of the call's tensors, in :func:`_tensors` order.
     inputs: List[torch.Tensor]
     states: StateBuffer
     launches: Counter
-    # The ring members' write positions the graph reads and moves on (None:
-    # no ring), and the host cursors they hold (empty: unknown).
-    starts: Optional[torch.Tensor]
-    cursors: List[int]
+    # What the captured body returned: the engine's step-stacked health
+    # figures; the collection's ring starts and the host cursors they hold.
+    out: Any
 
 
 def _tensors(args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> List[torch.Tensor]:
@@ -207,6 +186,130 @@ def _tensors(args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> List[torch.Tensor
     return out
 
 
+class GraphPrograms:
+    """The captured programs of one owner over the states of ``members``
+    (``{name: Metric}``): a bounded cache of programs under ``name``
+    (``TORCHEVAL_TPU_TORCH_COMPILE_CACHE_CAP``; an evicted graph's memory
+    pool goes with it), the state buffer they read and write, and the
+    capture and replay sequence.  The owner's key is its own; its states'
+    part comes from :meth:`states_key`."""
+
+    def __init__(self, name: str, members: Mapping[str, Any]) -> None:
+        # Lazy: the bounded program cache lives in the execution layer.
+        from torcheval_tpu_torch.parallel._compile_cache import LruCache
+
+        self._members = members
+        self._cache = LruCache(name=name)
+        self._states: Optional[StateBuffer] = None
+        self._states_key: Optional[Tuple[Any, ...]] = None
+        # What the members held of the buffer at the last states_key call.
+        self._held: Optional[Dict[torch.dtype, torch.Tensor]] = None
+
+    def __len__(self) -> int:
+        return len(self._cache)
+
+    def get(self, key: Any) -> Any:
+        return self._cache.get(key)
+
+    def put(self, key: Any, value: Any) -> None:
+        self._cache.put(key, value)
+
+    def states_key(self, current: States, device: torch.device) -> Optional[Tuple[Any, ...]]:
+        """The layout key of the members' ``current`` states, or ``None``
+        where a state is not a tensor on ``device``.  Decides, for this
+        call's replay, what the members hold of the buffer: its views or
+        its last clone keep the buffer's key, other tensors are keyed by
+        their signature."""
+        self._held = None if self._states is None else self._states.held_in(current)
+        if self._held is not None:
+            return self._states_key
+        if not all(
+            isinstance(v, torch.Tensor) and v.device == device
+            for per in current.values() for v in per.values()
+        ):
+            return None
+        return tuple(
+            (name, s, tuple(v.shape), str(v.dtype), str(v.device))
+            for name, per in current.items() for s, v in per.items()
+        )
+
+    def buffer(self, states_key: Tuple[Any, ...], current: States, device: torch.device) -> StateBuffer:
+        """The state buffer of the layout ``states_key``, made from
+        ``current`` on ``device`` where the layout changed."""
+        if states_key != self._states_key:
+            self._states = StateBuffer(current, device)
+            self._states_key = states_key
+        return self._states
+
+    def capture(
+        self, key: Any, states_key: Tuple[Any, ...], current: States, args: Tuple[Any, ...],
+        kwargs: Dict[str, Any], body: Callable[..., Any], warm: Callable[..., Any],
+    ) -> Program:
+        """Capture and keep the program of ``key``: ``body`` and ``warm``
+        take the call's arguments with static copies of its tensors
+        (``empty_like``, filled from them).  ``warm`` runs first on a side
+        stream over scratch copies of ``current``, then the capture runs
+        ``body`` with the members on the buffer's views and ends by writing
+        back every state they rebound.  The members get ``current`` back
+        whatever happens."""
+        tensors = _tensors(args, kwargs)
+        device = tensors[0].device
+        states = self.buffer(states_key, current, device)
+
+        def static(v):
+            return torch.empty_like(v) if isinstance(v, torch.Tensor) else v
+
+        s_args = tuple(static(a) for a in args)
+        s_kwargs = {k: static(v) for k, v in kwargs.items()}
+        inputs = _tensors(s_args, s_kwargs)
+        torch._foreach_copy_(inputs, tensors)
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.current_stream(device)
+        try:
+            side = torch.cuda.Stream(device)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                install_states(self._members, clone_states(current))
+                warm(s_args, s_kwargs)
+            stream.wait_stream(side)
+            install_states(self._members, states.views)
+            with _build.recording() as launches:
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    out = body(s_args, s_kwargs)
+                    states.write_back(read_states(self._members))
+        finally:
+            # The members hold capture-time tensors of the graph's pool (or
+            # scratch); put the caller's states back.
+            install_states(self._members, current)
+        program = Program(graph, inputs, states, launches, out)
+        self._cache.put(key, program)
+        return program
+
+    def replay(
+        self, program: Program, args: Tuple[Any, ...], kwargs: Dict[str, Any], current: States,
+        donate: bool = False,
+    ) -> None:
+        """One replay of ``program`` on this call's tensors over the
+        members' ``current`` states (those of the last :meth:`states_key`
+        call); the members then hold the buffer's views (``donate``) or one
+        clone of it.  If anything raises, they hold ``current``."""
+        held = self._held if program.states is self._states else program.states.held_in(current)
+        # The decision may name the last clone's flats: let them go with
+        # the members' old views.
+        self._held = None
+        try:
+            torch._foreach_copy_(program.inputs, _tensors(args, kwargs))
+            program.states.copy_in(current, held)
+            program.graph.replay()
+        except BaseException:
+            install_states(self._members, current)
+            raise
+        _build.count_replay(program.launches)
+        install_states(
+            self._members, program.states.views if donate else program.states.cloned())
+
+
+# ------------------------------------------------------ collection replay
 def _leaf(v: Any, device: torch.device) -> Any:
     """One argument's part of the signature; ``False`` where no graph can
     take it: a tensor elsewhere than ``device`` or not contiguous (its
@@ -231,29 +334,15 @@ class GraphedUpdate:
     replays (capturing first where the signature is new)."""
 
     def __init__(self, members: Dict[str, Any]) -> None:
-        # Lazy: the bounded program cache lives in the execution layer.
-        from torcheval_tpu_torch.parallel._compile_cache import LruCache
-
         self._members = members
         self.name = "graph[" + ",".join(members) + "].update"
-        self._programs = LruCache(name="collection_update")
-        self._states: Optional[StateBuffer] = None
-        self._states_key: Optional[Tuple[Any, ...]] = None
+        self._programs = GraphPrograms("collection_update", members)
         # The ring-window members, in member order: each reads its start
         # from its entry of the program's ``starts``.
         self._rings = tuple(n for n, m in members.items() if isinstance(m, RingWindowMixin))
 
     def read(self) -> States:
-        return {
-            name: {s: getattr(m, s) for s in m._state_name_to_default}
-            for name, m in self._members.items()
-        }
-
-    def install(self, states: States) -> None:
-        for name, per in states.items():
-            m = self._members[name]
-            for s, v in per.items():
-                setattr(m, s, v)
+        return read_states(self._members)
 
     def key(
         self, args: Tuple[Any, ...], kwargs: Dict[str, Any], current: States
@@ -270,15 +359,9 @@ class GraphedUpdate:
         named = tuple((k, _leaf(kwargs[k], device)) for k in sorted(kwargs))
         if False in batch or any(v is False for _, v in named):
             return None
-        if self._states is not None and self._states.holds(current):
-            states_key = self._states_key
-        else:
-            if not all(
-                isinstance(v, torch.Tensor) and v.device == device
-                for per in current.values() for v in per.values()
-            ):
-                return None
-            states_key = states_signature(current)
+        states_key = self._programs.states_key(current, device)
+        if states_key is None:
+            return None
         return (batch, named, states_key, _mega_plan.route_token())
 
     def run(
@@ -292,65 +375,47 @@ class GraphedUpdate:
         graph of ``key`` (captured here first where it is new); the members
         then hold new state tensors, and the ring members' host bookkeeping
         follows."""
-        tensors = _tensors(args, kwargs)
         program = self._programs.get(key)
         how = "replay"
         if program is None:
-            states_key = key[2]
-            if states_key != self._states_key:
-                self._states = StateBuffer(current, tensors[0].device)
-                self._states_key = states_key
-            program = self._capture(args, kwargs, tensors, current, self._states)
-            self._programs.put(key, program)
+            program = self._capture(key, args, kwargs, current)
             how = "capture"
         if self._rings:
-            self._seed_starts(program)
-        torch._foreach_copy_(program.inputs, tensors)
-        program.states.copy_in(current)
-        program.graph.replay()
-        _build.count_replay(program.launches)
-        self.install(program.states.cloned())
+            self._seed_starts(*program.out)
+        self._programs.replay(program, args, kwargs, current)
         if self._rings:
-            self._ring_bookkeeping(program, args, kwargs)
+            self._ring_bookkeeping(program.out[1], args, kwargs)
         _stats.count_member_updates(how, len(self._members))
 
-    def _seed_starts(self, program: _Program) -> None:
-        """Copy the ring members' cursors into ``program.starts`` unless it
-        holds them already (the cursors its last replay left)."""
-        cursors = [self._members[n].next_inserted for n in self._rings]
-        if cursors != program.cursors:
+    def _seed_starts(self, starts: torch.Tensor, cursors: List[int]) -> None:
+        """Copy the ring members' cursors into a program's ``starts``
+        unless it holds them already (the ``cursors`` its last replay
+        left)."""
+        now = [self._members[n].next_inserted for n in self._rings]
+        if now != cursors:
             # A pinned tensor of the caching host allocator is not handed
             # out again before the copy from it has run.
-            program.starts.copy_(
-                torch.tensor(cursors, dtype=torch.int64, pin_memory=True), non_blocking=True)
-        program.cursors.clear()
+            starts.copy_(torch.tensor(now, dtype=torch.int64, pin_memory=True), non_blocking=True)
+        cursors.clear()
 
-    def _ring_bookkeeping(self, program: _Program, args, kwargs) -> None:
+    def _ring_bookkeeping(self, cursors: List[int], args, kwargs) -> None:
         """After a replay: each ring member's host bookkeeping, in member
-        order; the cursors it leaves are those the graph moved
-        ``program.starts`` to."""
+        order; the cursors it leaves are those the graph moved the
+        program's ``starts`` to."""
         for name in self._rings:
             self._members[name]._update_host(*args, **kwargs)
-        program.cursors.extend(self._members[n].next_inserted for n in self._rings)
+        cursors.extend(self._members[n].next_inserted for n in self._rings)
 
-    def _capture(self, args, kwargs, tensors, current: States, states: StateBuffer) -> _Program:
-        def static(v):
-            return torch.empty_like(v) if isinstance(v, torch.Tensor) else v
-
-        s_args = tuple(static(a) for a in args)
-        s_kwargs = {k: static(v) for k, v in kwargs.items()}
-        inputs = _tensors(s_args, s_kwargs)
-        torch._foreach_copy_(inputs, tensors)
-        device = tensors[0].device
+    def _capture(self, key, args, kwargs, current: States) -> Program:
         # Zeros until the call copies the cursors in: a column of every
         # ring, so the warm-up's writes stay inside the rings.
         starts = (
-            torch.zeros(len(self._rings), dtype=torch.int64, device=device)
+            torch.zeros(len(self._rings), dtype=torch.int64, device=_tensors(args, kwargs)[0].device)
             if self._rings else None
         )
         start_of = {name: starts[i] for i, name in enumerate(self._rings)}
 
-        def bodies():
+        def bodies(s_args, s_kwargs):
             with skip_value_checks():
                 for name, m in self._members.items():
                     if name in start_of:
@@ -358,11 +423,14 @@ class GraphedUpdate:
                         m._advance_start(start_of[name], *s_args, **s_kwargs)
                     else:
                         m._update_body(*s_args, **s_kwargs)
+            return starts, []
 
-        graph, _, launches = capture(
-            device, bodies, bodies, self.read, self.install, current, states)
+        program = self._programs.capture(key, key[2], current, args, kwargs, bodies, bodies)
         _stats.bump_trace("collection_update")
-        return _Program(graph, inputs, states, launches, starts, [])
+        return program
 
 
-__all__ = ["GraphedUpdate", "StateBuffer", "capture", "clone_states", "pairs", "states_signature"]
+__all__ = [
+    "GraphPrograms", "GraphedUpdate", "Program", "StateBuffer", "clone_states",
+    "install_states", "pairs", "read_states",
+]

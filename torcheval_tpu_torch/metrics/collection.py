@@ -56,7 +56,7 @@ import torch
 from torcheval_tpu_torch import _stats
 from torcheval_tpu_torch.metrics._bucket import DEFAULT_MIN_BUCKET, pad_to_bucket
 from torcheval_tpu_torch.metrics._buffer import RingWindowMixin
-from torcheval_tpu_torch.metrics._graphs import GraphedUpdate
+from torcheval_tpu_torch.metrics._graphs import GraphedUpdate, install_states, read_states
 from torcheval_tpu_torch.metrics.functional._host_checks import skip_value_checks
 from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.ops import _mega_plan, mega
@@ -251,16 +251,11 @@ class MetricCollection:
         return args, kwargs
 
     # -------------------------------------------------------------- lifecycle
-    def _update_members(
-        self, args: Tuple[Any, ...], kwargs: Dict[str, Any], fused: bool
-    ) -> List[mega.Fold]:
-        """The one update body of :meth:`update` and :meth:`fused_update`.
-        Global members see the base validity mask; slice clone ``k`` sees
-        ``mask * (slice_ids == k)``.  With ``fused``, the members the
-        collection kernel supports are counted in one pass and returned as
-        folds, not yet added (the caller adds them); the rest update here.
-        Without it, a call the collection's graphs can take runs
-        :meth:`_update_graphed` instead."""
+    def _split_slice_ids(
+        self, kwargs: Dict[str, Any]
+    ) -> Tuple[Dict[str, Any], Optional[torch.Tensor]]:
+        """``kwargs`` without ``slice_ids=``, and the slice ids, which a
+        sliced collection requires and an unsliced one refuses."""
         kwargs = dict(kwargs)
         slice_ids = kwargs.pop("slice_ids", None)
         if self._slices is None and slice_ids is not None:
@@ -273,45 +268,46 @@ class MetricCollection:
                 f"This MetricCollection has slices={self._slices}; every update "
                 f"must carry slice_ids= (per-row int vector in [0, {self._slices}))."
             )
-        folds: List[mega.Fold] = []
-        handled = frozenset()
-        if not fused and self._graphed and (
-            self._graphs is not None or self.device.type == "cuda"
-        ):
-            if self._graphs is None:
-                self._graphs = GraphedUpdate(self._graphed)
-            current = self._graphs.read()
-            key = self._graphs.key(args, kwargs, current)
-            if key is not None:
-                self._update_graphed(args, kwargs, key, current)
-                return folds
-        if fused:
-            plan = _mega_plan.plan_for(self._metrics, args, kwargs, self._slices)
-            if plan is not None:
-                folds = mega.run_plan(
-                    plan, self._metrics, self._slice_members, args,
-                    kwargs.get("mask"), slice_ids,
-                )
-                handled = plan.member_names
-        rest = [name for name in self._metrics if name not in handled]
+        return kwargs, slice_ids
+
+    def _update_each(
+        self, names: List[str], args: Tuple[Any, ...], kwargs: Dict[str, Any], slice_ids: Any
+    ) -> None:
+        """Each of the members ``names`` by its own update, in member
+        order.  Global members see the base validity mask; slice clone
+        ``k`` sees ``mask * (slice_ids == k)``."""
         # Each member's update is its span, named by its member name.
         spans = _telemetry.SPANS
-        for name in rest:
+        for name in names:
             if spans:
                 _telemetry.member_phase(self._metrics[name], name, "update", args, kwargs)
             else:
                 self._metrics[name].update(*args, **kwargs)
-        if self._slices is not None and rest:
+        if self._slices is not None and names:
             base_mask = kwargs.get("mask")
             for k in range(self._slices):
                 smask = (slice_ids == k).to(torch.int32)
                 if base_mask is not None:
                     smask = smask * base_mask
                 kwargs["mask"] = smask
-                for name in rest:
+                for name in names:
                     self._slice_members[f"{name}@{k}"].update(*args, **kwargs)
-        if not fused:
-            _stats.count_member_updates("eager", len(rest) * (1 + (self._slices or 0)))
+
+    def _fused_body(self, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> List[mega.Fold]:
+        """The update body of :meth:`fused_update`: the members the
+        collection kernel supports are counted in one pass and returned as
+        folds, not yet added (the caller adds them); the rest update here."""
+        kwargs, slice_ids = self._split_slice_ids(kwargs)
+        folds: List[mega.Fold] = []
+        rest = list(self._metrics)
+        plan = _mega_plan.plan_for(self._metrics, args, kwargs, self._slices)
+        if plan is not None:
+            folds = mega.run_plan(
+                plan, self._metrics, self._slice_members, args,
+                kwargs.get("mask"), slice_ids,
+            )
+            rest = [name for name in rest if name not in plan.member_names]
+        self._update_each(rest, args, kwargs, slice_ids)
         return folds
 
     def _update_graphed(
@@ -359,8 +355,21 @@ class MetricCollection:
         return self._update(args, kwargs)
 
     def _update(self, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> "MetricCollection":
+        """The update body of :meth:`update`: a call the collection's
+        graphs can take runs :meth:`_update_graphed`, any other updates
+        every member on its own path."""
         args, kwargs = self._prepare(args, kwargs)
-        self._update_members(args, kwargs, fused=False)
+        kwargs, slice_ids = self._split_slice_ids(kwargs)
+        if self._graphed and (self._graphs is not None or self.device.type == "cuda"):
+            if self._graphs is None:
+                self._graphs = GraphedUpdate(self._graphed)
+            current = self._graphs.read()
+            key = self._graphs.key(args, kwargs, current)
+            if key is not None:
+                self._update_graphed(args, kwargs, key, current)
+                return self
+        self._update_each(list(self._metrics), args, kwargs, slice_ids)
+        _stats.count_member_updates("eager", len(self._metrics) * (1 + (self._slices or 0)))
         return self
 
     def fused_update(self, *args: Any, **kwargs: Any) -> "MetricCollection":
@@ -388,7 +397,7 @@ class MetricCollection:
         before = self._read_states()
         try:
             with skip_value_checks():
-                folds = self._update_members(args, kwargs, fused=True)
+                folds = self._fused_body(args, kwargs)
             mega.apply_folds(folds, donate=bool(self._donate))
         except BaseException:
             self._install_states(before)
@@ -444,7 +453,7 @@ class MetricCollection:
         and already padded, so no ``_prepare``.  The caller runs it under
         ``skip_value_checks`` and owns abort safety; ``donate`` adds the
         collection kernel's counts in place."""
-        folds = self._update_members(args, kwargs, fused=True)
+        folds = self._fused_body(args, kwargs)
         mega.apply_folds(folds, donate=donate)
 
     def _check_fusable(self) -> None:
@@ -465,16 +474,10 @@ class MetricCollection:
                     )
 
     def _read_states(self) -> Dict[str, Dict[str, Any]]:
-        return {
-            name: {s: getattr(m, s) for s in m._state_name_to_default}
-            for name, m in self._all_members.items()
-        }
+        return read_states(self._all_members)
 
     def _install_states(self, states: Dict[str, Dict[str, Any]]) -> None:
-        for name, per_state in states.items():
-            m = self._all_members[name]
-            for s, v in per_state.items():
-                setattr(m, s, v)
+        install_states(self._all_members, states)
 
     def compute(self) -> Dict[str, Any]:
         if _telemetry.ANNOTATE:

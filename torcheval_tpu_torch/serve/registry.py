@@ -21,7 +21,7 @@ over a registry-owned **template** collection and cached in a bounded
 jits one apply over the template; PyTorch runs eagerly, so here a bundle
 holds the template and its health bounds and nothing compiled.  Its apply
 installs a group's states into the template, runs the template's fused
-update body (``MetricCollection._update_members(fused=True)`` and
+update body (``MetricCollection._fused_body`` and
 ``mega.apply_folds``) on the batch and returns the new states; every
 group of the signature runs the same template over its own states.  As in
 the JAX bundle, nothing is donated: the apply writes no state tensor of
@@ -141,7 +141,7 @@ class _ApplyBundle:
             _health.stats_for_update(args, kwargs, self.bounds) if self.health else None
         )
         with skip_value_checks():
-            folds = template._update_members(args, kwargs, fused=True)
+            folds = template._fused_body(args, kwargs)
         mega.apply_folds(folds, donate=False)
         return template._read_states(), screen
 
