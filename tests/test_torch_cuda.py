@@ -2522,6 +2522,51 @@ def test_collection_graph_checks_first_and_writes_nothing_on_a_bad_batch():
     assert all(torch.equal(after[k], v) for k, v in before.items())
 
 
+def test_collection_graph_reads_its_members_checks_back_once():
+    """The ImageNet suite on the card: top-5's, F1's and the matrix's range
+    checks of one target read back once a call, one stacked vector, where
+    the members' own updates read back three times; the states bit-equal;
+    a negative label raises the members' own message and writes nothing."""
+    from torcheval_tpu_torch import _stats
+    from torcheval_tpu_torch.metrics import MetricCollection
+
+    def reads(fn):
+        before = _stats.readback_counts()
+        fn()
+        after = _stats.readback_counts()
+        return {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+
+    dev = _cuda()
+    (_, members), = _suite("imagenet", dev)
+    (_, solo), = _suite("imagenet", dev)
+    col = MetricCollection(members)
+    for b in _suite_batches("imagenet", dev, (256, 80, 256, 256)):
+        _stats.reset_stacked_check_counts()
+        assert reads(lambda: col.update(b["x"], b["y"])) == {"collection_checks": 1}
+        assert _stats.stacked_check_counts() == {"requests": 3, "reads": 1}
+        assert reads(lambda: [m.update(b["x"], b["y"]) for m in solo.values()]) == {
+            "accuracy": 1, "f1_score": 1, "confusion_matrix": 1}
+    for name, m in solo.items():
+        for k, v in m.state_dict().items():
+            got = col[name].state_dict()[k]
+            if isinstance(v, list):
+                assert len(got) == len(v) and all(torch.equal(a, c) for a, c in zip(got, v))
+            else:
+                assert got.dtype == v.dtype and torch.equal(got, v), (name, k)
+    before = {k: v.clone() for k, v in col.state_dict().items() if not k.startswith("auroc")}
+    bad = b["y"].clone()
+    bad[11], bad[12] = -1, 999
+    with pytest.raises(ValueError) as on_graph:
+        col.update(b["x"], bad)
+    with pytest.raises(ValueError) as on_solo:
+        for m in solo.values():
+            m.update(b["x"], bad)
+    assert str(on_graph.value) == str(on_solo.value)
+    assert str(on_graph.value) == "target values should be in [0, 1000), got min -1 max 999."
+    after = col.state_dict()
+    assert all(torch.equal(after[k], v) for k, v in before.items())
+
+
 # ------------------------------------------------------------ token_nll.cu
 def _lm_batch(rng, n, seq, vocab, dtype, dev, pad_share=0.02):
     x = torch.from_numpy(rng.standard_normal((n, seq, vocab)).astype(np.float32))

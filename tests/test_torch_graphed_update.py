@@ -25,6 +25,8 @@ from collections import Counter
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from torcheval_tpu_torch import _stats
 from torcheval_tpu_torch import metrics as P
@@ -38,7 +40,9 @@ from torcheval_tpu_torch.metrics._graphs import (
     install_states,
     read_states,
 )
+from torcheval_tpu_torch.metrics.functional._host_checks import CheckQueue, value_check
 from torcheval_tpu_torch.metrics.metric import Metric
+from torcheval_tpu_torch.telemetry import events
 
 C = 7
 N = 96
@@ -561,3 +565,305 @@ def test_pickled_and_copied_collections_leave_their_graphs_behind():
     for other in (pickle.loads(pickle.dumps(col)), copy.deepcopy(col)):
         assert other._graphs is None and list(other._graphed) == list(col._graphed)
         _assert_equal(other.state_dict(), col.state_dict())
+
+
+# ------------------------------------------------- the queued value checks
+class _Ops(TorchDispatchMode):
+    """The aten operations run inside the block, by name, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func.overloadpacket))
+        return func(*args, **(kwargs or {}))
+
+
+def _checked(fn):
+    """``fn()``'s read backs by site, aminmax calls and stacked-check counts."""
+    _stats.reset_stacked_check_counts()
+    with _Ops() as ops:
+        reads = _readbacks(fn)
+    return reads, ops.ops.count("aten.aminmax"), _stats.stacked_check_counts()
+
+
+def test_the_graph_path_reads_the_eligible_members_checks_back_once():
+    # Top-5, F1 and the matrix each check the same target: one aminmax and
+    # one read back a call, where each member's own update makes its own.
+    eager = P.MetricCollection(_imagenet_like("cpu"))
+    graphed = _on_graph_path(P.MetricCollection(_imagenet_like("cpu")))
+    for seed in (71, 72, 73):
+        x, y = _multiclass(seed)
+        assert _checked(lambda: eager.update(x, y)) == (
+            {"accuracy": 1, "f1_score": 1, "confusion_matrix": 1}, 3, {})
+        assert _checked(lambda: graphed.update(x, y)) == (
+            {"collection_checks": 1}, 1, {"requests": 3, "reads": 1})
+    _assert_equal(graphed.state_dict(), eager.state_dict())
+    _stats.reset_stacked_check_counts()
+    assert _stats.stacked_check_counts() == {}
+
+
+def _labels_first(device):
+    return {
+        "cm": P.MulticlassConfusionMatrix(C, device=device),
+        "f1": P.MulticlassF1Score(num_classes=C, average="macro", device=device),
+        "acc": P.MulticlassAccuracy(average="macro", num_classes=C, device=device),
+    }
+
+
+def _f1_first(device):
+    return {
+        "f1": P.MulticlassF1Score(num_classes=C, average="macro", device=device),
+        "top5": P.MulticlassAccuracy(k=5, device=device),
+        "cm": P.MulticlassConfusionMatrix(C, device=device),
+    }
+
+
+def _binary_members(device):
+    return {
+        "acc": P.BinaryAccuracy(device=device),
+        "ne": P.BinaryNormalizedEntropy(device=device),
+        "bcm": P.BinaryConfusionMatrix(device=device),
+    }
+
+
+def _with(args, i, value, at=3):
+    args = tuple(a.clone() for a in args)
+    args[i][at] = value
+    return args
+
+
+# (id, members(device), good batch(seed), bad batch(seed)): the bad value
+# fails the first member that checks it.
+FIRST_TO_FAIL = [
+    ("top5_target_past_c", _imagenet_like, _multiclass, lambda s: _with(_multiclass(s), 1, C)),
+    ("negative_target", _imagenet_like, _multiclass, lambda s: _with(_multiclass(s), 1, -1)),
+    ("f1_target_past_c", _f1_first, _multiclass, lambda s: _with(_multiclass(s), 1, C + 2)),
+    ("cm_input_past_c", _labels_first, _labels, lambda s: _with(_labels(s), 0, C)),
+    ("ne_past_one", _binary_members, _binary, lambda s: (_binary(s)[0] + 1.0, _binary(s)[1])),
+    ("bcm_target_past_one", _binary_members, _binary, lambda s: _with(_binary(s), 1, 2)),
+]
+
+
+@pytest.mark.parametrize("case", FIRST_TO_FAIL, ids=[c[0] for c in FIRST_TO_FAIL])
+def test_the_first_failing_queued_check_raises_the_eager_message_and_writes_nothing(case):
+    _, members, good, bad = case
+    eager = P.MetricCollection(members("cpu"))
+    graphed = _on_graph_path(P.MetricCollection(members("cpu")))
+    for seed in (81, 82):
+        eager.update(*good(seed))
+        assert _checked(lambda: graphed.update(*good(seed)))[2]["reads"] == 1
+    before = graphed.state_dict()
+    args = bad(83)
+    with pytest.raises(ValueError) as on_graph:
+        graphed.update(*args)
+    with pytest.raises(ValueError) as on_eager:
+        eager.update(*args)
+    assert str(on_graph.value) == str(on_eager.value)
+    assert on_graph.value.__suppress_context__ or on_graph.value.__context__ is None
+    _assert_equal(graphed.state_dict(), before)
+
+
+@pytest.mark.parametrize("later_fails", [False, True])
+def test_an_earlier_members_value_check_beats_a_later_members_shape_check(later_fails):
+    # F1 built for C + 1 classes refuses (N, C) logits by their shape; top-5,
+    # ahead of it, queues its range check first.
+    def members():
+        return {"top5": P.MulticlassAccuracy(k=5, device="cpu"),
+                "f1": P.MulticlassF1Score(num_classes=C + 1, average="macro", device="cpu")}
+
+    graphed = _on_graph_path(P.MetricCollection(members()))
+    eager = P.MetricCollection(members())
+    x, y = _multiclass(91)
+    if not later_fails:
+        y = _with((y,), 0, C)[0]
+    _stats.reset_stacked_check_counts()
+    with pytest.raises(ValueError) as on_graph:
+        graphed.update(x, y)
+    with pytest.raises(ValueError) as on_eager:
+        eager.update(x, y)
+    assert str(on_graph.value) == str(on_eager.value)
+    assert str(on_graph.value).startswith("input should have shape" if later_fails else "target")
+    assert _stats.stacked_check_counts() == {"requests": 1, "reads": 1}
+    assert int(graphed["top5"].num_total) == 0
+
+
+def test_an_ineligible_member_runs_after_the_pending_checks_are_judged():
+    # AUROC between top-5 and F1: top-5's check is read at its own site
+    # before AUROC's update, F1's alone before the replay; a bad batch
+    # raises top-5's message before AUROC appends anything.
+    def members():
+        return {"top5": P.MulticlassAccuracy(k=5, device="cpu"),
+                "auroc": P.MulticlassAUROC(num_classes=C, device="cpu"),
+                "f1": P.MulticlassF1Score(num_classes=C, average="macro", device="cpu")}
+
+    graphed = _on_graph_path(P.MetricCollection(members()))
+    eager = P.MetricCollection(members())
+    pending_at_auroc = []
+    auroc_update = type(graphed["auroc"]).update
+
+    def update(m, *args, **kwargs):
+        pending_at_auroc.append(_stats.stacked_check_counts().get("reads", 0))
+        return auroc_update(m, *args, **kwargs)
+
+    graphed["auroc"].update = update.__get__(graphed["auroc"])
+    x, y = _multiclass(101)
+    eager.update(x, y)
+    reads, _, counts = _checked(lambda: graphed.update(x, y))
+    assert reads == {"accuracy": 1, "f1_score": 1}
+    assert counts == {"requests": 2, "reads": 2} and pending_at_auroc == [1]
+    _assert_equal(graphed.state_dict(), eager.state_dict())
+    with pytest.raises(ValueError) as on_graph:
+        graphed.update(*_with((x, y), 1, C))
+    with pytest.raises(ValueError) as on_eager:
+        eager.update(*_with((x, y), 1, C))
+    assert str(on_graph.value) == str(on_eager.value)
+    assert len(graphed["auroc"].inputs) == 1 and len(pending_at_auroc) == 1
+
+
+def _criteo_epoch(device):
+    return {"auroc": P.BinaryAUROC(device=device), "ne": P.BinaryNormalizedEntropy(device=device),
+            "accuracy": P.BinaryAccuracy(device=device)}
+
+
+# criteo's collections at test sizes: one member that reads values each.
+ONE_READER = [
+    ("criteo_epoch", _criteo_epoch, lambda s: _binary(s)),
+    ("criteo_epoch_ctr", lambda d: {"ctr": P.ClickThroughRate(device=d)},
+     lambda s: (_binary(s)[1],)),
+    ("criteo_window", _monitor, lambda s: _binary(s, 32)),
+    ("criteo_window_ctr",
+     lambda d: {"ctr": P.WindowedClickThroughRate(max_num_updates=3, device=d)},
+     lambda s: (_binary(s, 32)[1].float(),)),
+]
+
+
+@pytest.mark.parametrize("case", ONE_READER, ids=[c[0] for c in ONE_READER])
+def test_a_collection_with_one_reading_member_reads_and_runs_as_before(case):
+    # Against the collection's graph path before the queue: each eligible
+    # member's checks where it stands, every other member's update, then
+    # the bodies; the same operations in the same order, the same reads.
+    _, members, batch = case
+    graphed = _on_graph_path(P.MetricCollection(members("cpu")))
+    before = _on_graph_path(P.MetricCollection(members("cpu")))
+
+    def unqueued(args):
+        for name, m in before.items():
+            (m._validate if name in before._graphed else m.update)(*args)
+        before._graphs.run(("cpu",), args, {}, before._graphs.read())
+
+    for seed in (111, 112, 113):
+        args = batch(seed)
+        _stats.reset_stacked_check_counts()
+        with _Ops() as queued_ops:
+            queued_reads = _readbacks(lambda: graphed.update(*args))
+        assert _stats.stacked_check_counts() == {"requests": 1, "reads": 1}
+        with _Ops() as ops:
+            reads = _readbacks(lambda: unqueued(args))
+        assert queued_reads == reads and len(reads) == 1 and "collection_checks" not in reads
+        assert queued_ops.ops == ops.ops
+    _assert_equal(graphed.state_dict(), before.state_dict())
+
+
+def test_stacked_reads_give_each_check_the_values_it_reads_alone():
+    # Mixed dtypes, a flag, one tensor read by two checks and a view of the
+    # same memory: the values and dtypes each check would read alone, one
+    # aminmax a distinct tensor.
+    ints = torch.tensor([4, -2, 9, 3])
+    same = ints.view(2, 2).view(4)
+    wide = torch.tensor([0.25, 1.5], dtype=torch.float64)
+    halves = torch.tensor([0.5, -0.75], dtype=torch.float16)
+    requests = [((ints,), None), ((same, halves), None), ((), torch.tensor(True)),
+                ((wide, ints), None), ((), torch.tensor(False))]
+    alone, stacked = [], []
+    for tensors, flag in requests:
+        value_check("alone", alone.append, *tensors, flag=flag)
+    queue = CheckQueue()
+    with queue.scope("m"):
+        for tensors, flag in requests:
+            value_check("queued", stacked.append, *tensors, flag=flag)
+    assert stacked == [] and queue.members == ["m"]
+    _stats.reset_stacked_check_counts()
+    with _Ops() as ops:
+        reads = _readbacks(queue.flush)
+    assert reads == {"collection_checks": 1} and queue.pending == []
+    assert _stats.stacked_check_counts() == {"requests": 5, "reads": 1}
+    assert ops.ops.count("aten.aminmax") == 3 and ops.ops.count("aten.stack") == 1
+    assert len(stacked) == len(alone)
+    for got, want in zip(stacked, alone):
+        assert type(got) is type(want)
+        if isinstance(want, bool):
+            assert got is want
+        else:
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+_PROBS = torch.tensor([0.25, 0.5, 0.75, 0.125])
+_CLICKS = torch.tensor([0, 1, 1, 0])
+
+# Every converted site alone: (site, metric(device), good args, bad args,
+# the message the bad batch raises).
+SITES = [
+    ("accuracy", lambda d: P.MulticlassAccuracy(k=2, device=d), lambda: _multiclass(121),
+     lambda: _with(_multiclass(121), 1, C), "target values should be in [0, 7), got min 0 max 7."),
+    ("f1_score", lambda d: P.MulticlassF1Score(num_classes=C, average="macro", device=d),
+     lambda: _labels(122), lambda: _with(_labels(122), 0, -3),
+     "input values should be in [0, 7), got min -3 max 6."),
+    ("precision", lambda d: P.MulticlassPrecision(num_classes=C, average="macro", device=d),
+     lambda: _labels(123), lambda: _with(_labels(123), 1, C + 5),
+     "target values should be in [0, 7), got min 0 max 12."),
+    ("recall", lambda d: P.MulticlassRecall(num_classes=C, average=None, device=d),
+     lambda: _labels(124), lambda: _with(_labels(124), 1, -1),
+     "target values should be in [0, 7), got min -1 max 6."),
+    ("confusion_matrix", lambda d: P.MulticlassConfusionMatrix(C, device=d),
+     lambda: _labels(125), lambda: _with(_labels(125), 0, C),
+     "Got `input` prediction class which is too large for the number of classes, "
+     "num_classes: 7 must be strictly greater than max class predicted: 7."),
+    ("confusion_matrix", lambda d: P.MulticlassConfusionMatrix(C, device=d),
+     lambda: _labels(126), lambda: _with(_labels(126), 1, -2),
+     "Got negative `target` class -2."),
+    ("binary_confusion_matrix", lambda d: P.BinaryConfusionMatrix(device=d),
+     lambda: _binary(127), lambda: _with(_binary(127), 1, 3),
+     "Got `target` class which is larger than the number of classes, num_classes: 2 must "
+     "be strictly greater than max target: 3."),
+    ("normalized_entropy", lambda d: P.BinaryNormalizedEntropy(device=d),
+     lambda: _binary(128), lambda: (_PROBS * torch.tensor([1.0, -2.0, 1.0, 1.0]), _CLICKS),
+     "`from_logits`=False, `input` should be probability in range [0., 1.], but got "
+     "`input` ranging from -1.0 to 0.75. Please set `from_logits = True` "
+     "or convert `input` into valid probability value."),
+    ("normalized_entropy",
+     lambda d: P.WindowedBinaryNormalizedEntropy(max_num_updates=3, device=d),
+     lambda: _binary(128), lambda: (_PROBS * 3.0, _CLICKS),
+     "`from_logits`=False, `input` should be probability in range [0., 1.], but got "
+     "`input` ranging from 0.375 to 2.25. Please set `from_logits = True` "
+     "or convert `input` into valid probability value."),
+    ("click_through_rate", lambda d: P.ClickThroughRate(device=d),
+     lambda: (_binary(129)[1],), lambda: (_binary(129)[1] * 2,),
+     "`input` should be a binary tensor of 0/1 click events."),
+    ("click_through_rate", lambda d: P.WindowedClickThroughRate(max_num_updates=3, device=d),
+     lambda: (_binary(130)[1].float(),), lambda: (_binary(130)[1].float() - 0.5,),
+     "`input` should be a binary tensor of 0/1 click events."),
+]
+
+
+@pytest.mark.parametrize("case", SITES, ids=[f"{c[0]}-{i}" for i, c in enumerate(SITES)])
+def test_each_check_alone_reads_back_once_at_its_own_site(case):
+    site, make, good, bad, message = case
+    m = make("cpu")
+    _stats.reset_stacked_check_counts()
+    events.annotate(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            reads = _readbacks(lambda: m.update(*good()))
+    finally:
+        events.annotate(False)
+    assert reads == {site: 1} and _stats.stacked_check_counts() == {}
+    ranges = [e.name for e in prof.events() if e.name.startswith("torcheval_tpu_torch.")]
+    assert ranges.count(f"torcheval_tpu_torch.readback.{site}") == 1
+    assert ranges.count(f"torcheval_tpu_torch.check.{site}") == 1
+    want = _states(m)
+    with pytest.raises(ValueError) as raised:
+        m.update(*bad())
+    assert str(raised.value) == message
+    _assert_equal(_states(m), want)

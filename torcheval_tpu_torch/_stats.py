@@ -24,6 +24,11 @@ device work ran: ``"replay"`` (one replay of the collection's captured
 graph, ``metrics/_graphs.py``), ``"capture"`` (the call that captured it)
 or ``"eager"`` (the member's own update, slice clones included).
 
+The stacked-check counter, in the same style: :func:`count_stacked_checks`
+counts each flush of a collection's queued value checks
+(``metrics/functional/_host_checks.py::CheckQueue``): ``"requests"``,
+the checks it answered, and ``"reads"``, its read backs (one a flush).
+
 The capture counter's mutation is lock-guarded (captures may run in
 several threads), and ``bump_trace`` is also the ``retrace`` hook of the telemetry bus: one
 branch on the bus's module flag, taken only at capture time.
@@ -39,6 +44,7 @@ from torcheval_tpu_torch.telemetry import events as _telemetry
 _trace_counts: Dict[str, int] = {}
 _readback_counts: Dict[str, int] = {}
 _member_update_counts: Dict[str, int] = {}
+_stacked_check_counts: Dict[str, int] = {}
 _lock = threading.Lock()
 
 
@@ -110,3 +116,22 @@ def member_update_counts() -> Dict[str, int]:
 def reset_member_update_counts() -> None:
     """Zero the member-update counter (test/benchmark hook)."""
     _member_update_counts.clear()
+
+
+def count_stacked_checks(requests: int) -> None:
+    """Count one read back of a collection's queued value checks that
+    answered ``requests`` of them."""
+    _stacked_check_counts["requests"] = _stacked_check_counts.get("requests", 0) + requests
+    _stacked_check_counts["reads"] = _stacked_check_counts.get("reads", 0) + 1
+
+
+def stacked_check_counts() -> Dict[str, int]:
+    """The queued value checks answered (``"requests"``) and the read backs
+    that answered them (``"reads"``), since process start (or the last
+    reset); a copy."""
+    return dict(_stacked_check_counts)
+
+
+def reset_stacked_check_counts() -> None:
+    """Zero the stacked-check counter (test/benchmark hook)."""
+    _stacked_check_counts.clear()

@@ -26,12 +26,16 @@ and the compilation-cache bypass around donated programs.
 each step of an engine block runs.
 
 On a GPU, :meth:`MetricCollection.update` of an unsliced collection
-runs the value checks of its graph-eligible members (``Metric._graph_update``)
-eagerly, in member order, then their device work as one replay of a
+runs the checks of its graph-eligible members (``Metric._graph_update``)
+eagerly, in member order, their value checks queued and read back
+together (one read back for all that are pending, ``_host_checks.CheckQueue``),
+then their device work as one replay of a
 captured CUDA graph a call signature (``metrics/_graphs.py``), ring windows
 at their cursors, then the ring windows' host bookkeeping; every other
-member updates on its own path, in member order.  A batch that fails a
-check writes no eligible member's state and moves no ring cursor.  On the
+member updates on its own path, in member order, after the pending checks
+are judged.  A batch that fails a check raises the message the member's
+own update raises, writes no eligible member's state and moves no ring
+cursor.  On the
 CPU, in a sliced collection, or for a call no graph can take, every member
 updates on its own path.  ``_stats.member_update_counts()`` counts the member updates by
 how their device work ran.
@@ -40,8 +44,9 @@ With the profiler ranges on (``telemetry.events.annotate``),
 :meth:`~MetricCollection.update` and :meth:`~MetricCollection.compute`
 are ``MetricCollection.update`` / ``.compute`` ranges, and each member's
 call inside is its own, named ``<Class>[<member>].<phase>``; an eligible
-member's range holds its checks, and the replay is one range,
-``graph[<member>,...].update``.
+member's range holds its checks, the read back of the queued value checks
+is one range, ``checks[<member>,...].update``, and the replay is one
+range, ``graph[<member>,...].update``.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ from torcheval_tpu_torch import _stats
 from torcheval_tpu_torch.metrics._bucket import DEFAULT_MIN_BUCKET, pad_to_bucket
 from torcheval_tpu_torch.metrics._buffer import RingWindowMixin
 from torcheval_tpu_torch.metrics._graphs import GraphedUpdate, install_states, read_states
-from torcheval_tpu_torch.metrics.functional._host_checks import skip_value_checks
+from torcheval_tpu_torch.metrics.functional._host_checks import CheckQueue, skip_value_checks
 from torcheval_tpu_torch.metrics.metric import Metric
 from torcheval_tpu_torch.ops import _mega_plan, mega
 from torcheval_tpu_torch.telemetry import events as _telemetry
@@ -320,18 +325,34 @@ class MetricCollection:
         """:meth:`update`'s members on a GPU: each member in member order,
         an eligible one by its checks alone, any other by its own update;
         then the eligible members' device work as one replay, and the ring
-        members' host bookkeeping (:meth:`GraphedUpdate.run`)."""
+        members' host bookkeeping (:meth:`GraphedUpdate.run`).  The
+        eligible members' value checks are queued and read back together
+        (:class:`CheckQueue`) before the next ineligible member's update,
+        before the replay, or when a later member's check raises, where
+        an earlier member's failing value check raises first."""
         spans = _telemetry.SPANS
+        checks = CheckQueue()
         for name, m in self._metrics.items():
             if name not in self._graphed:
+                checks.flush()
                 if spans:
                     _telemetry.member_phase(m, name, "update", args, kwargs)
                 else:
                     m.update(*args, **kwargs)
-            elif spans:
-                _telemetry.timed_phase(m, "update", type(m)._validate, args, kwargs, name)
-            else:
-                m._validate(*args, **kwargs)
+                continue
+            try:
+                with checks.scope(name):
+                    if spans:
+                        _telemetry.timed_phase(m, "update", type(m)._validate, args, kwargs, name)
+                    else:
+                        m._validate(*args, **kwargs)
+            except Exception:
+                try:
+                    checks.flush()
+                except ValueError as earlier:
+                    raise earlier from None
+                raise
+        checks.flush()
         eager = len(self._metrics) - len(self._graphed)
         if eager:
             _stats.count_member_updates("eager", eager)

@@ -9,12 +9,21 @@ Each read back is counted by the ``site`` its caller names
 (``_stats.readback``), and runs in a ``readback.<site>`` profiler range
 with the telemetry ranges on; :func:`check_index_ranges` runs in a
 ``check.<site>`` range.
+
+Every value check goes through :func:`value_check`: the device values it
+needs (the minimum and maximum of tensors, or one flag), its site, and a
+judge that takes their host values and raises the check's ``ValueError``
+or returns.  Alone, the check reads back at once.  Inside a
+:class:`CheckQueue` (``MetricCollection.update``'s graph path) it is
+queued, and the queue answers every pending check with one read back:
+one ``aminmax`` a tensor however many checks read it, one stacked vector,
+judged in the order queued.
 """
 
 from contextlib import contextmanager
 from contextvars import ContextVar
-from functools import reduce
-from typing import Optional, Sequence, Tuple
+from functools import partial, reduce
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -115,9 +124,150 @@ def bounds(*tensors: torch.Tensor, site: str) -> np.ndarray:
     Exact for integer class indices below 2^24.  Callers skip empty
     tensors themselves (their min does not exist).  ``site`` names the
     read back."""
-    dtype = reduce(torch.promote_types, (t.dtype for t in tensors), torch.float32)
+    dtype = _promoted(tensors)
     stacked = torch.stack([m.to(dtype) for t in tensors for m in torch.aminmax(t)])
     return _stats.readback(site, _numpy, stacked)
+
+
+def _promoted(tensors: Sequence[torch.Tensor]) -> torch.dtype:
+    return reduce(torch.promote_types, (t.dtype for t in tensors), torch.float32)
+
+
+class _Request(NamedTuple):
+    """One value check: what it reads (the extrema of ``tensors``, or the
+    0-d ``flag``), where, and the judge of the host values."""
+
+    site: str
+    judge: Callable[[Any], None]
+    tensors: Tuple[torch.Tensor, ...]
+    flag: Optional[torch.Tensor]
+
+
+def _read_alone(request: _Request) -> Any:
+    """The host values of one check, read at its own site: :func:`bounds`
+    of its tensors, or ``bool`` of its flag."""
+    if request.flag is not None:
+        return _stats.readback(request.site, bool, request.flag)
+    return bounds(*request.tensors, site=request.site)
+
+
+_QUEUE: ContextVar[Optional["CheckQueue"]] = ContextVar(
+    "torcheval_tpu_torch_check_queue", default=None
+)
+
+
+def value_check(
+    site: str,
+    judge: Callable[[Any], None],
+    *tensors: torch.Tensor,
+    flag: Optional[torch.Tensor] = None,
+) -> None:
+    """Run one value check: ``judge`` gets the host values of ``[min0,
+    max0, min1, max1, ...]`` of the non-empty ``tensors`` (as
+    :func:`bounds` gives them) or, with ``flag=``, ``bool`` of that 0-d
+    tensor, and raises the check's ``ValueError`` or returns.  Outside a
+    :class:`CheckQueue` it reads back at once, counted at ``site``;
+    inside one it is queued, and judged when the queue is flushed."""
+    request = _Request(site, judge, tensors, flag)
+    queue = _QUEUE.get()
+    if queue is None:
+        judge(_read_alone(request))
+    else:
+        queue.pending.append(request)
+
+
+class CheckQueue:
+    """The value checks of several members' validations, read back
+    together.  ``with queue.scope(member):`` around one member's
+    validation queues its :func:`value_check` calls; :meth:`flush` reads
+    every pending check with one read back and judges them in the order
+    queued, so the first to fail raises, as it would have alone."""
+
+    def __init__(self) -> None:
+        self.pending: List[_Request] = []
+        # The members whose checks are pending, in order.
+        self.members: List[str] = []
+        self._member = ""
+        self._queued = 0
+        self._token: Any = None
+
+    def scope(self, member: str) -> "CheckQueue":
+        self._member = member
+        return self
+
+    def __enter__(self) -> "CheckQueue":
+        self._queued = len(self.pending)
+        self._token = _QUEUE.set(self)
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        _QUEUE.reset(self._token)
+        if len(self.pending) > self._queued:
+            self.members.append(self._member)
+
+    def flush(self) -> None:
+        """Read back every pending check and judge each in turn; the queue
+        is empty after, whether a judge raised or not.  One pending check
+        reads as it would alone; more read one stacked vector at the site
+        ``collection_checks``.  With the profiler ranges on, the flush is
+        the range ``checks[<member>,...].update`` holding
+        ``check.collection_checks``.  Nothing pending: nothing runs."""
+        if not self.pending:
+            return
+        if _telemetry.ANNOTATE:
+            with _telemetry.span(f"checks[{','.join(self.members)}].update"):
+                with _telemetry.span("check.collection_checks"):
+                    return self._flush()
+        self._flush()
+
+    def _flush(self) -> None:
+        requests, self.pending, self.members = self.pending, [], []
+        _stats.count_stacked_checks(len(requests))
+        if len(requests) == 1:
+            values = [_read_alone(requests[0])]
+        else:
+            values = _read_stacked(requests)
+        for request, value in zip(requests, values):
+            request.judge(value)
+
+
+_NUMPY = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _read_stacked(requests: Sequence[_Request]) -> List[Any]:
+    """The host values of each of ``requests`` from one read back: one
+    ``aminmax`` for each tensor read (tensors on the same memory with the
+    same shape, strides and dtype are one), each extremum cast to its
+    check's dtype as :func:`bounds` casts it, every flag, stacked in the
+    widest of their dtypes (a widening cast, so exact)."""
+    parts: List[torch.Tensor] = []
+    extrema: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
+    at: Dict[Any, int] = {}  # (tensor, dtype) -> index of its minimum in parts
+    reads: List[Tuple[List[int], Optional[torch.dtype]]] = []
+    for request in requests:
+        if request.flag is not None:
+            reads.append(([len(parts)], None))
+            parts.append(request.flag)
+            continue
+        dtype = _promoted(request.tensors)
+        index: List[int] = []
+        for t in request.tensors:
+            same = (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device)
+            i = at.get((same, dtype))
+            if i is None:
+                if same not in extrema:
+                    extrema[same] = torch.aminmax(t)
+                i = at[(same, dtype)] = len(parts)
+                parts.extend(m.to(dtype) for m in extrema[same])
+            index += [i, i + 1]
+        reads.append((index, dtype))
+    wide = _promoted(parts)
+    stacked = torch.stack([p if p.dtype == wide else p.to(wide) for p in parts])
+    host = _stats.readback("collection_checks", _numpy, stacked)
+    return [
+        bool(host[index[0]]) if dtype is None else host[index].astype(_NUMPY[dtype])
+        for index, dtype in reads
+    ]
 
 
 def check_index_ranges(
@@ -139,10 +289,13 @@ def _index_ranges(
     pairs: Sequence[Tuple[torch.Tensor, str]], upper: int, site: str
 ) -> None:
     pairs = [(v, n) for v, n in pairs if v.numel()]
-    if not pairs:
-        return
-    vals = bounds(*(v for v, _ in pairs), site=site)
-    for i, (_, name) in enumerate(pairs):
+    if pairs:
+        names = [n for _, n in pairs]
+        value_check(site, partial(_judge_index_ranges, names, upper), *(v for v, _ in pairs))
+
+
+def _judge_index_ranges(names: Sequence[str], upper: int, vals: np.ndarray) -> None:
+    for i, name in enumerate(names):
         lo, hi = vals[2 * i], vals[2 * i + 1]
         if lo < 0 or hi >= upper:
             raise ValueError(

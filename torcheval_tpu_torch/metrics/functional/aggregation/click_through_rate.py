@@ -8,9 +8,9 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
-from torcheval_tpu_torch import _stats
 from torcheval_tpu_torch.metrics.functional._host_checks import (
     place_inputs,
+    value_check,
     value_checks_enabled,
 )
 from torcheval_tpu_torch.telemetry import events as _telemetry
@@ -107,6 +107,9 @@ def _ctr_input_check(
 
 
 def _check_binary(input: torch.Tensor) -> None:
-    binary = torch.all((input == 0) | (input == 1))
-    if not _stats.readback("click_through_rate", bool, binary):
+    value_check("click_through_rate", _judge_binary, flag=torch.all((input == 0) | (input == 1)))
+
+
+def _judge_binary(binary: bool) -> None:
+    if not binary:
         raise ValueError("`input` should be a binary tensor of 0/1 click events.")

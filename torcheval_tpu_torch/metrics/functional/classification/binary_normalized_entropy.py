@@ -11,11 +11,12 @@ at evaluation-scale workloads."""
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from torcheval_tpu_torch.metrics.functional._host_checks import (
-    bounds,
     place_inputs,
+    value_check,
     value_checks_enabled,
 )
 from torcheval_tpu_torch.telemetry import events as _telemetry
@@ -145,8 +146,11 @@ def _ne_input_check(
 
 
 def _check_probabilities(input: torch.Tensor) -> None:
-    lo, hi = bounds(input, site="normalized_entropy")
-    input_min, input_max = float(lo), float(hi)
+    value_check("normalized_entropy", _judge_probabilities, input)
+
+
+def _judge_probabilities(vals: np.ndarray) -> None:
+    input_min, input_max = float(vals[0]), float(vals[1])
     if input_max > 1.0 or input_min < 0.0:
         raise ValueError(
             f"`from_logits`=False, `input` should be probability "

@@ -22,13 +22,15 @@ dropped; the TPU-timed bounds that were re-derived are listed in
 ``PERF.md``.
 """
 
-from typing import Optional
+from functools import partial
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from torcheval_tpu_torch.metrics.functional._host_checks import (
-    bounds,
     place_inputs,
+    value_check,
     value_checks_enabled,
 )
 from torcheval_tpu_torch.metrics.functional._scatter import at_add
@@ -263,7 +265,11 @@ def _binary_confusion_matrix_validate(input: torch.Tensor, target: torch.Tensor)
 
 
 def _check_binary_target(target: torch.Tensor) -> None:
-    t_min, t_max = bounds(target, site="binary_confusion_matrix")
+    value_check("binary_confusion_matrix", _judge_binary_target, target)
+
+
+def _judge_binary_target(vals: np.ndarray) -> None:
+    t_min, t_max = vals
     if t_min < 0 or t_max >= 2:
         raise ValueError(
             "Got `target` class which is larger than the number of classes, "
@@ -360,8 +366,16 @@ def _confusion_matrix_update_input_check(
 def _check_class_ranges(input: torch.Tensor, target: torch.Tensor, num_classes: int) -> None:
     to_check = [("input", input)] if input.dim() == 1 else []
     to_check.append(("target", target))
-    vals = bounds(*(v for _, v in to_check), site="confusion_matrix")
-    for i, (name, _) in enumerate(to_check):
+    names = [name for name, _ in to_check]
+    value_check(
+        "confusion_matrix",
+        partial(_judge_class_ranges, names, num_classes),
+        *(v for _, v in to_check),
+    )
+
+
+def _judge_class_ranges(names: List[str], num_classes: int, vals: np.ndarray) -> None:
+    for i, name in enumerate(names):
         lo, hi = vals[2 * i], vals[2 * i + 1]
         if name == "input":
             if hi >= num_classes:
